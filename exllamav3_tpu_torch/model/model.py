@@ -1,0 +1,131 @@
+"""Model: module list, loading and the step functions
+(counterpart of exllamav3_tpu/model/model.py).
+
+`forward` is the generator's step over the paged cache and `forward_simple`
+the cacheless full forward. PyTorch runs eagerly, so there is no per-shape
+compile cache.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..modules.module import ForwardCtx, Module
+from ..util.device import resolve_device
+
+
+class _Root(Module):
+    def __init__(self, config, modules):
+        super().__init__(config, key="")
+        self.modules = modules
+
+
+_EXL3_SIDE_SUFFIXES = (".suh", ".svh", ".su", ".sv", ".mcg", ".mul1")
+
+
+def estimate_int8_bytes(config) -> int:
+    """Weight bytes if every EXL3 linear loads as int8 (1 byte per weight),
+    from the safetensors headers alone; dense tensors count as bf16."""
+    total = 0
+    for key in config.stc.keys():
+        s = config.stc.get_shape(key)
+        if key.endswith(".trellis"):
+            total += s[0] * s[1] * 256
+        elif not key.endswith(_EXL3_SIDE_SUFFIXES):
+            total += int(np.prod(s, dtype=np.int64)) * 2
+    return total
+
+
+def device_hbm_bytes(device: torch.device) -> int | None:
+    """Total memory of a CUDA device, None for the CPU."""
+    if device.type != "cuda":
+        return None
+    return int(torch.cuda.mem_get_info(device)[1])
+
+
+def select_linear_mode(config, hbm_bytes: int | None, reserve_frac: float = 0.20) -> str:
+    """linear_mode="auto": int8 whenever the weights fit with `reserve_frac`
+    of device memory left for the cache and activations (unknown capacity
+    assumes they fit). The JAX package's lower rungs (int6, int4, fused) are
+    not ported yet, so a model too large for int8 raises; "reconstruct"
+    stays an explicit mode only."""
+    if hbm_bytes is None:
+        return "int8"
+    need = estimate_int8_bytes(config)
+    if need <= hbm_bytes * (1.0 - reserve_frac):
+        return "int8"
+    raise NotImplementedError(
+        f"linear_mode='auto': int8 weights need {need} bytes, more than "
+        f"{1.0 - reserve_frac:.0%} of the device's {hbm_bytes}; the int6, int4 "
+        "and fused tiers that would fit are not ported yet")
+
+
+def _as_tensor(a, device, dtype=torch.int32) -> torch.Tensor | None:
+    if a is None:
+        return None
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype)
+    return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+class Model:
+    def __init__(self, config, device="cuda"):
+        self.config = config
+        self.device = resolve_device(device)
+        self.modules: list[Module] = []
+        self.params: dict | None = None
+
+    @property
+    def root(self) -> Module:
+        return _Root(self.config, self.modules)
+
+    @staticmethod
+    def from_config(config, component: str = "text", device="cuda") -> "Model":
+        return config.model_classes[component](config, device=device)
+
+    # -- loading -------------------------------------------------------------
+
+    def load(self, progress_cb=None) -> dict:
+        ip = self.config.infer_params
+        if ip.linear_mode == "auto":
+            ip.linear_mode = select_linear_mode(self.config, device_hbm_bytes(self.device))
+        params: dict = {}
+        n = len(self.modules)
+        with torch.no_grad():
+            for i, m in enumerate(self.modules):
+                m.load(params, self.device)
+                if progress_cb:
+                    progress_cb(i + 1, n)
+        self.params = params
+        return params
+
+    # -- forward --------------------------------------------------------------
+
+    def forward_modules(self, x, params: dict, ctx: ForwardCtx):
+        for m in self.modules:
+            x = m.forward(x, params, ctx)
+        return x
+
+    @torch.no_grad()
+    def forward(self, ids, cache, positions, cache_seqlens, block_tables) -> torch.Tensor:
+        """Paged step: ids (B, S) at absolute `positions` (B, S), with
+        `cache_seqlens` (B,) tokens already cached and `block_tables`
+        (B, max_pages). Writes this chunk's keys/values into `cache` (a Cache)
+        and returns the logits (B, S, vocab) f32."""
+        dev = self.device
+        ctx = ForwardCtx(
+            positions=_as_tensor(positions, dev),
+            attn_mode="paged",
+            cache=cache.state,
+            block_tables=_as_tensor(block_tables, dev),
+            cache_seqlens=_as_tensor(cache_seqlens, dev),
+        )
+        return self.forward_modules(_as_tensor(ids, dev, torch.long), self.params, ctx)
+
+    @torch.no_grad()
+    def forward_simple(self, ids) -> torch.Tensor:
+        """Cacheless full forward: ids (B, S) -> logits (B, S, vocab) f32."""
+        ids = _as_tensor(ids, self.device, torch.long)
+        B, S = ids.shape
+        positions = torch.arange(S, dtype=torch.int32, device=self.device)[None].expand(B, S)
+        return self.forward_modules(ids, self.params, ForwardCtx(positions=positions))

@@ -1,0 +1,29 @@
+"""RMSNorm (counterpart of exllamav3_tpu/modules/norms.py; the gated and
+layer norms wait)."""
+from __future__ import annotations
+
+import torch
+
+from .module import ForwardCtx, Module
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * weight.to(torch.float32)
+    return y.to(x.dtype)
+
+
+class RMSNorm(Module):
+    def __init__(self, config, key: str, rms_norm_eps: float = 1e-6, out_dtype=None):
+        super().__init__(config, key)
+        self.eps = rms_norm_eps
+        self.out_dtype = out_dtype
+
+    def load(self, params: dict, device: torch.device) -> None:
+        w = self.config.stc.get_tensor(self.key + ".weight")
+        params[self.key] = {"weight": w.to(torch.float32).to(device)}
+
+    def forward(self, x, params: dict, ctx: ForwardCtx):
+        y = rms_norm(x, params[self.key]["weight"], self.eps)
+        return y if self.out_dtype is None else y.to(self.out_dtype)

@@ -1,0 +1,80 @@
+"""The PyTorch port stands alone: it imports neither jax nor the JAX package,
+and its entry points never fall back to the CPU on their own."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "exllamav3_tpu_torch")
+
+
+def _port_files():
+    for dirpath, _, names in os.walk(PKG):
+        for n in names:
+            if n.endswith(".py"):
+                yield os.path.join(dirpath, n)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "exllamav3_tpu")
+
+
+def test_no_jax_imports_in_port_sources():
+    files = list(_port_files())
+    assert len(files) > 20
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            elif isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "import_module":
+                names = [a.value for a in node.args if isinstance(a, ast.Constant)]
+            for name in names:
+                assert not _forbidden(name), f"{os.path.relpath(path, ROOT)} imports {name}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import exllamav3_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'exllamav3_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_entry_points_refuse_without_cuda(tmp_path, monkeypatch):
+    """Without CUDA an entry point called without device="cpu" raises; it
+    runs on the CPU only when asked to."""
+    from exllamav3_tpu_torch.conversion.synth import tiny_llama_cfg, write_tiny_llama_exl3
+    from exllamav3_tpu_torch.model import Config, Model
+    from exllamav3_tpu_torch.util.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    d = write_tiny_llama_exl3(str(tmp_path / "m"), tiny_llama_cfg(num_layers=1), seed=2)
+    config = Config.from_directory(d)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Model.from_config(config)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    model = Model.from_config(config, device="cpu")
+    model.load()
+    assert model.forward_simple([[1, 2, 3]]).shape == (1, 3, 512)
