@@ -1,22 +1,41 @@
 """Smoke run of the PyTorch/CUDA port (exllamav3_tpu_torch) on one GPU.
 
     python3 chip_smoke.py                    # every phase
-    python3 chip_smoke.py --phases build,kernels
+    python3 chip_smoke.py --phases build,exl3_gemm,paged_attention_quant
+    python3 chip_smoke.py --phases build,serve_capacity
 
 Phases:
   build     build the CUDA kernels from exllamav3_tpu_torch/csrc/ (timed)
   kernels   each kernel against its plain PyTorch version at the shapes of
-            the Llama-3.1-8B main path: errors, kernel / plain / library
-            times and the bound (bytes over 3.35 TB/s or operations over
-            989 TFLOP/s, whichever is larger)
+            the Llama-3.1-8B main paths: errors, kernel / plain / library
+            times and the bound (bytes over 3.35 TB/s, or tensor-core
+            operations over their peak rate, whichever is larger). In place
+            of `kernels`, one check's name runs that check alone:
+            int8_matmul, fused_mlp, paged_attention, exl3_gemm (all K and
+            codebooks; also an estimate of the decode's dispatch time from the
+            compiled kernel's instructions, kept apart from the bound) and
+            paged_attention_quant (merged and per-head storage, with and
+            without the compander)
   parity    a 2-layer checkpoint at full 8B width: forward_simple and paged
             prefill + decode steps on the GPU (kernels) against the CPU
-            (plain versions) over the same ids and weights
+            (plain versions) over the same ids and weights, for the int8 path
+            and for the capacity path (`fused` linears, (4, 4) cache)
   serve     a 32-layer synthetic checkpoint at Llama-3.1-8B geometry loaded
-            with linear_mode="auto" and served by the continuous-batching
-            generator: 8 greedy requests, 512-1536 token prompts sharing a
-            512-token prefix, 128 new tokens each; the kernels' launch counts
-            over this run must all be above 0
+            with linear_mode="auto" (int8 on an 80 GB card) over a bf16 cache
+            and served by the continuous-batching generator: 8 greedy
+            requests, 512-1536 token prompts sharing a 512-token prefix, 128
+            new tokens each
+  serve_capacity
+            the same checkpoint and requests with linear_mode="fused" (every
+            linear decodes its trellis in the GEMM kernel) over a quantized
+            cache, k_bits = v_bits = 4, then one request on 4 layers with a
+            (5, 3) cache, whose odd widths use the per-head storage. The
+            served token is held against a forward of the same weights and
+            cache widths through the plain PyTorch versions only
+
+Each serve phase sets every kernel's launch count to 0 before its run and
+reads it after: the kernels of its path must all have launched and the
+others not at all.
 
 The second-to-last line is the kernel table as JSON and the last line is
 {"ok": true, "device": {...}}. Any failed phase raises and exits non-zero
@@ -25,9 +44,11 @@ without that line. Needs CUDA; writes its checkpoints under build/chip_smoke/.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -48,12 +69,27 @@ LLAMA8B = dict(vocab_size=32768, hidden_size=4096, intermediate_size=14336,
 TOL_INT8 = 1e-4   # both sides: exact bf16 products, f32 sums in another order
 TOL_MLP = 2e-3    # f32 order can flip a bf16 rounding of the activation
 TOL_ATTN = 2e-4   # q and P enter the MMAs as hi + lo bf16 pairs (~2^-16 relative)
+TOL_EXL3 = 1e-4   # both sides: the same bf16 weights and activations, f32 sums in another order
+TOL_ATTN_Q = 3e-4  # as TOL_ATTN; K/V are exact hi + lo pairs, the rotation sums in another order
+# logits over a quantized cache, kernels against plain versions, relative to
+# the logits' range: the two sides store different codes where a key or value
+# sits on a grid edge (a step of a 4-bit grid is 1/8 of its group's range)
+# and its last bf16 bit differs
+TOL_QUANT_PATH = 6e-2
+
+# An SM dispatches one warp instruction a clock from each of its four schedulers
+LANES_PER_SM_CLOCK = 4 * 32
 
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "int8_matmul": ("exllamav3_tpu_torch/csrc/int8_matmul.cu", "exllamav3_tpu/ops/q_matmul.py:44"),
     "fused_mlp": ("exllamav3_tpu_torch/csrc/fused_mlp.cu", "exllamav3_tpu/ops/fused_mlp.py:47"),
     "paged_attention": ("exllamav3_tpu_torch/csrc/paged_attention.cu",
                         "exllamav3_tpu/ops/flash_attention.py:253"),
+    "exl3_gemm": ("exllamav3_tpu_torch/csrc/exl3_gemm.cu", "exllamav3_tpu/ops/exl3_gemm.py:153"),
+    "paged_attention_quant_merged": ("exllamav3_tpu_torch/csrc/paged_attention_quant.cu",
+                                     "exllamav3_tpu/ops/flash_attention.py:419"),
+    "paged_attention_quant_per_head": ("exllamav3_tpu_torch/csrc/paged_attention_quant.cu",
+                                       "exllamav3_tpu/ops/flash_attention.py:253"),
 }
 
 
@@ -62,7 +98,10 @@ def log(*a):
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    """The larger of bytes over the memory rate and tensor-core operations
+    over their peak rate."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = flops / BF16_FLOP_PER_S * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -109,12 +148,12 @@ class KernelTable:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None})
 
-    def add(self, name, err, ms, plain_ms, bnd, library_ms, shape, main):
+    def add(self, name, err, ms, plain_ms, bnd, library_ms, shape, main, **extra):
         row = self.row(name)
         row["max_abs_err"] = max(row.get("max_abs_err", 0.0), err)
-        if main:
+        if main and ms is not None:
             row.update(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
-                       library_ms=library_ms, shape=shape)
+                       library_ms=library_ms, shape=shape, **extra)
 
     def set_launches(self, counts):
         for name, n in counts.items():
@@ -280,9 +319,232 @@ def check_attention(table, dev):
     torch.cuda.empty_cache()
 
 
+SASS_LINE = re.compile(r"^\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)[^;]*;")
+SASS_MEMORY = {"LDS", "LDSM", "LDG", "LD", "LDC", "STS", "STG", "ST"}
+SASS_CONTROL = {"BRA", "BRX", "JMP", "CALL", "RET", "EXIT", "BSSY", "BSYNC", "BAR", "WARPSYNC",
+                "NOP", "DEPBAR"}
+
+
+def decode_dispatch_estimate(K: int = 4, cb: int = 0):
+    """(thread instructions per decoded weight, thread instructions the card
+    dispatches a second), read from this build and this card, or None where the
+    toolkit has no cuobjdump or the loop is not found.
+
+    Disassembles the built library, takes exl3_gemm_kernel<K, cb>, and in it
+    the shortest backward-branch span that holds a tensor-core instruction:
+    the loop over the 16-row tiles of a staged step, in which each lane
+    decodes 8 weights. Counted are the span's instructions other than
+    tensor-core, memory and control ones (a static count: all eight row
+    blocks' address arithmetic is in it, of which a decode step runs one).
+    The rate is SMs x 4 schedulers x 32 lanes x the card's highest SM clock."""
+    import exllamav3_tpu_torch.ops.build as kbuild
+
+    tool = os.path.join(os.path.dirname(kbuild.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        log("exl3_gemm decode estimate: no cuobjdump beside nvcc; not measured")
+        return None
+    sass = subprocess.run([tool, "-sass", str(kbuild.build())], capture_output=True, text=True,
+                          check=True).stdout
+    want = f"exl3_gemm_kernelILi{K}ELi{cb}EE"
+    instrs, inside = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = want in line
+        elif inside:
+            mt = SASS_LINE.match(line)
+            if mt:
+                instrs.append((int(mt.group(1), 16), mt.group(2), line.strip()))
+    spans = []
+    for addr, op, text in instrs:
+        target = re.search(r"\b0x([0-9a-f]+)\s*;", text)
+        if op == "BRA" and target and int(target.group(1), 16) <= addr:
+            body = [i for i in instrs if int(target.group(1), 16) <= i[0] <= addr]
+            if any(i[1] == "HMMA" for i in body):
+                spans.append(body)
+    if not spans:
+        log(f"exl3_gemm decode estimate: no loop with HMMA found in {want}; not measured")
+        return None
+    body = min(spans, key=len)
+    with open(os.path.join(WORK, f"exl3_gemm_K{K}_cb{cb}_loop.sass"), "w") as f:
+        f.write("\n".join(i[2] for i in body) + "\n")
+    hist: dict = {}
+    for _, op, _ in body:
+        hist[op] = hist.get(op, 0) + 1
+    alu = sum(n for op, n in hist.items()
+              if op != "HMMA" and op not in SASS_MEMORY and op not in SASS_CONTROL)
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                               check=True).stdout.split()[0])
+    rate = torch.cuda.get_device_properties(0).multi_processor_count * LANES_PER_SM_CLOCK * mhz * 1e6
+    log(f"exl3_gemm decode estimate: K={K} cb={cb} tile loop holds {len(body)} instructions for "
+        f"8 weights a lane, {alu} of them neither tensor-core, memory nor control "
+        f"({alu / 8:.3f} a weight); dispatch rate {rate:.4e} thread instructions/s "
+        f"(max SM clock {mhz:.0f} MHz); " + json.dumps(dict(sorted(hist.items()))))
+    return alu / 8, rate
+
+
+def check_exl3_gemm(table, dev):
+    from exllamav3_tpu_torch.ops.exl3_gemm import exl3_gemm_kernel, exl3_gemm_plain
+
+    est = decode_dispatch_estimate()
+
+    shapes = [(4096, 4096, "q/o_proj"), (4096, 1024, "k/v_proj"), (4096, 14336, "gate/up"),
+              (14336, 4096, "down"), (4096, 32768, "lm_head")]
+    cases = [(8, 4096, 4096, K, cb, f"K={K} cb={cb}") for K in range(1, 9) for cb in range(3)
+             if (K, cb) != (4, 0)]
+    cases += [(m, k, n, 4, 0, what) for m in (1, 8, 128) for k, n, what in shapes]
+    cases += [(2048, 4096, 4096, 4, 0, "q/o_proj prefill"),
+              (2048, 4096, 14336, 4, 0, "gate/up prefill")]
+    g = torch.Generator(device=dev).manual_seed(7)
+    for m, k, n, K, cb, what in cases:
+        def make(i, m=m, k=k, n=n, K=K):
+            xh = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+            w = torch.randint(-2**31, 2**31, (k // 16, K, n // 2), generator=g, device=dev,
+                              dtype=torch.int64).to(torch.int32)
+            return xh, w
+        nb = m * k * 2 + k * n * K // 8 + m * n * 4
+        timed = K == 4 and cb == 0
+        nxt = rotating(make, nb) if timed else (lambda made=make(0): made)
+        xh, w = nxt()
+        ref = exl3_gemm_plain(xh, w, K, cb)
+        got = exl3_gemm_kernel(xh, w, K, cb)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"exl3_gemm m={m} {what}: non-finite output")
+        err = float((got - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        if not rel <= TOL_EXL3:
+            raise AssertionError(f"exl3_gemm m={m} {what} ({k}x{n}): rel err {rel} > {TOL_EXL3}")
+        if not timed:
+            log(f"exl3_gemm m={m} {what} ({k}x{n}): max_abs_err={err:.3e} rel={rel:.2e}")
+            table.add("exl3_gemm", err, None, None, None, None, "", main=False)
+            continue
+        calls = 5 if m == 2048 else 20
+        ms = time_ms(lambda: exl3_gemm_kernel(*nxt(), K, cb), calls)
+        plain = time_ms(lambda: exl3_gemm_plain(*nxt(), K, cb), 2)
+        # yardstick: cuBLAS bf16 GEMM on the decoded weight (2 bytes a weight)
+        from exllamav3_tpu_torch.ops.exl3_gemm import words_to_trellis
+        from exllamav3_tpu_torch.quant.reconstruct import reconstruct_inner
+        wd = reconstruct_inner(words_to_trellis(w), K, cb, dtype=torch.bfloat16)
+        nxt_lib = rotating(lambda i: (xh, wd.clone()), m * k * 2 + k * n * 2 + m * n * 2)
+        lib = time_ms(lambda: torch.matmul(*nxt_lib()), calls)
+        bnd = bound_ms(nb, 2.0 * m * k * n)
+        # not a bound: the time to dispatch the decode's instructions, once per
+        # weight and 128-row block, were nothing else in the way
+        t_dec = (None if est is None
+                 else k * n * math.ceil(m / 128) * est[0] / est[1] * 1e3)
+        log(f"exl3_gemm m={m} {what} ({k}x{n}) K={K}: max_abs_err={err:.3e} rel={rel:.2e} "
+            f"kernel_ms={ms:.4f} plain_ms(reconstruct + matmul)={plain:.4f} "
+            f"library_ms(torch.matmul bf16 on the decoded weight)={lib:.4f} "
+            f"bound_ms={bnd[0]:.4f} ({bnd[1]}) decode_est_ms="
+            + ("not measured" if t_dec is None else f"{t_dec:.4f}"))
+        table.add("exl3_gemm", err, ms, plain, bnd, lib, f"m={m} k={k} n={n} K={K}",
+                  main=(m == 8 and what == "q/o_proj"), decode_est_ms=t_dec)
+        del xh, w, ref, got, nxt, nxt_lib, wd
+        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
+
+
+def _quant_attn_work(qpos, total, Hq, Hk, D, window, k_bits, v_bits):
+    """As _attn_work, with each visible key costing its packed words and its
+    two rows of bf16 scales."""
+    B, S = qpos.shape
+    nb, flops = _attn_work(qpos, total, Hq, Hk, D, window)
+    keys = (nb - B * S * Hq * D * 8) // (Hk * D * 4)
+    per_key = Hk * (D * (k_bits + v_bits) // 8 + 2 * (D // 32) * 2)
+    return B * S * Hq * D * 8 + keys * per_key, flops
+
+
+def check_attention_quant(table, dev):
+    from exllamav3_tpu_torch.constants import PAGE_SIZE
+    from exllamav3_tpu_torch.ops.flash_attention import (paged_attention_quant_kernel,
+                                                          paged_attention_quant_plain)
+    from exllamav3_tpu_torch.ops.kv_quant import (dequantize_kv_stored, merged_layout,
+                                                   quantize_kv_stored)
+
+    Hq, Hk, D = 32, 8, 128
+    rng = np.random.default_rng(8)
+    ctx = np.linspace(300, 2048, 8).astype(np.int32)
+    decode = (ctx[:, None] - 1, ctx)
+    prefill = ((512 + np.arange(2048, dtype=np.int32))[None], np.array([2560], np.int32))
+    cases = []
+    for bits in [(4, 4), (8, 8), (2, 2), (5, 3), (6, 6), (3, 7)]:
+        for a in (0.0, 0.65):
+            cases.append((f"decode B=8 ctx 300-2048 bits={bits} compand_a={a}", *decode, bits, a,
+                          {}, a == 0.0 and bits in ((4, 4), (5, 3))))
+    for bits in [(4, 4), (5, 3)]:
+        cases.append((f"prefill S=2048 on 512 cached bits={bits}", *prefill, bits, 0.0, {}, False))
+    cases.append(("decode + sliding window 512 bits=(4, 4)", *decode, (4, 4), 0.0,
+                  {"sliding_window": 512}, False))
+    cases.append(("decode + softcap 30 bits=(4, 4)", *decode, (4, 4), 0.0,
+                  {"logit_softcap": 30.0}, False))
+    cases.append(("decode + sinks bits=(5, 3)", *decode, (5, 3), 0.65, {"sinks": True}, False))
+    for name, qpos, total, (kb, vb), a, kw, main in cases:
+        B, S = qpos.shape
+        mp = int(math.ceil(total.max() / PAGE_SIZE)) + 1
+        P = B * mp + 1
+        perm = rng.permutation(np.arange(1, P))[: B * mp].reshape(B, mp).astype(np.int32)
+        perm[:, -1] = 0  # the scratch column
+        g = torch.Generator(device=dev).manual_seed(9)
+        q = torch.randn((B, S, Hq, D), generator=g, device=dev)
+        merged = merged_layout(kb, vb)
+        state = {}
+        for nm, bits in (("k", kb), ("v", vb)):
+            x = torch.randn((P, PAGE_SIZE, Hk, D), generator=g, device=dev)
+            state[nm + "_q"], state[nm + "_s"] = quantize_kv_stored(x, bits, merged, a)
+            del x
+        bt = torch.as_tensor(perm, device=dev)
+        qp = torch.as_tensor(qpos, device=dev)
+        tl = torch.as_tensor(total, device=dev)
+        args = dict(scale=D ** -0.5, sliding_window=kw.get("sliding_window", 0),
+                    logit_softcap=kw.get("logit_softcap", 0.0),
+                    sinks=(torch.randn(Hq, generator=g, device=dev) if kw.get("sinks") else None))
+        ref = paged_attention_quant_plain(q, state, bt, qp, tl, kb, vb, a, **args)
+        got = paged_attention_quant_kernel(q, state, bt, qp, tl, kb, vb, a, **args)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"paged_attention_quant {name}: non-finite output")
+        err = float((got - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        storage = "merged" if merged else "per_head"
+        row = f"paged_attention_quant_{storage}"
+        if not rel <= TOL_ATTN_Q:
+            raise AssertionError(f"paged_attention_quant {name}: rel err {rel} > {TOL_ATTN_Q}")
+        timed = main or name.startswith("prefill")
+        if not timed:
+            log(f"paged_attention_quant {name} ({storage} storage): max_abs_err={err:.3e} "
+                f"rel={rel:.2e}")
+            table.add(row, err, None, None, None, None, "", main=False)
+            continue
+        ms = time_ms(lambda: paged_attention_quant_kernel(q, state, bt, qp, tl, kb, vb, a,
+                                                          **args), 10)
+        plain = time_ms(lambda: paged_attention_quant_plain(q, state, bt, qp, tl, kb, vb, a,
+                                                            **args), 2)
+        # yardstick: SDPA over pre-gathered, pre-dequantized contiguous bf16 K/V
+        T = mp * PAGE_SIZE
+        kc, vc = (dequantize_kv_stored(state[nm + "_q"][bt.long()], state[nm + "_s"][bt.long()],
+                                       bits, Hk, merged, torch.bfloat16, a)
+                  .reshape(B, T, Hk, D).transpose(1, 2).contiguous()
+                  for nm, bits in (("k", kb), ("v", vb)))
+        kpos = torch.arange(T, device=dev)
+        mask = (kpos[None, None, :] <= qp[:, :, None]) & (kpos[None, None, :] < tl[:, None, None])
+        qt = q.to(torch.bfloat16).transpose(1, 2)
+        lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kc, vc, attn_mask=mask[:, None], scale=D ** -0.5, enable_gqa=True), 10)
+        bnd = bound_ms(*_quant_attn_work(qpos, total, Hq, Hk, D, args["sliding_window"], kb, vb))
+        log(f"paged_attention_quant {name} ({storage} storage): max_abs_err={err:.3e} "
+            f"rel={rel:.2e} kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms(sdpa on "
+            f"dequantized bf16)={lib:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]})")
+        table.add(row, err, ms, plain, bnd, lib,
+                  f"{name}: B={B} S={S} Hq={Hq} Hk={Hk} D={D}", main=main)
+        del q, state, ref, got, kc, vc
+        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
+
+
 # -- phase: parity ----------------------------------------------------------------
 
-def _compare(tag, a, b):
+def _compare(tag, a, b, rel_tol=2e-2):
     a, b = a.float().cpu(), b.float().cpu()
     err = float((a - b).abs().max())
     rel = err / float(b.abs().max())
@@ -301,41 +563,48 @@ def _compare(tag, a, b):
     # bf16 roundings of the activations flip between the two sides, so a
     # near-tie can swap the top two: one position is held to the top 5, and
     # top-1 agreement is asked of 32 or more positions
-    if not (finite and rel <= 2e-2 and int(rank.max()) < 5 and (len(agree) < 32 or top1 >= 0.9)):
+    if not (finite and rel <= rel_tol and int(rank.max()) < 5 and (len(agree) < 32 or top1 >= 0.9)):
         raise AssertionError(f"parity {tag}: rel {rel}, top-1 agreement {top1}, "
                              f"worst rank {int(rank.max())}, finite {finite}")
 
 
 def phase_parity():
-    from exllamav3_tpu_torch.conversion.synth import tiny_llama_cfg, write_tiny_llama_exl3
+    """GPU (kernels) against CPU (plain versions) on the 2-layer full-width
+    checkpoint: the int8 path over a bf16 cache, then `fused` linears over
+    the bf16 cache and over a (4, 4) quantized cache, the capacity path (fewer
+    calls: its CPU side decodes every trellis anew in each forward)."""
     from exllamav3_tpu_torch.model import Cache, CacheSpec, Config, InferParams, Model
     from exllamav3_tpu_torch.util.params import params_to
 
-    d = os.path.join(WORK, "llama8b_2layers")
-    if not os.path.exists(os.path.join(d, "config.json")):
-        write_tiny_llama_exl3(d, tiny_llama_cfg(num_layers=2, **LLAMA8B), K=4, seed=1)
-    cfg = Config.from_directory(d, infer_params=InferParams(linear_mode="auto"))
-    gpu = Model.from_config(cfg, device="cuda")
-    gpu.load()
-    cpu = Model.from_config(cfg, device="cpu")
-    cpu.params = params_to(gpu.params, "cpu")
-    log(f"parity: linear_mode={cfg.infer_params.linear_mode}")
-
+    d = _checkpoint(2)
     ids = np.random.default_rng(5).integers(0, LLAMA8B["vocab_size"], size=(1, 400))
-    _compare("forward_simple S=96", gpu.forward_simple(ids[:, :96]), cpu.forward_simple(ids[:, :96]))
-    caches = [Cache(m, CacheSpec(num_pages=4)) for m in (gpu, cpu)]
-    bt = np.array([[1, 2, 0]], np.int32)
-    S = 300
-    outs = [m.forward(ids[:, :S], c, np.arange(S, dtype=np.int32)[None], np.array([0], np.int32), bt)
-            for m, c in zip((gpu, cpu), caches)]
-    _compare(f"paged prefill S={S}", outs[0], outs[1])
-    for step in range(4):
-        p = S + step
-        outs = [m.forward(ids[:, p: p + 1], c, np.array([[p]], np.int32), np.array([p], np.int32), bt)
-                for m, c in zip((gpu, cpu), caches)]
-        _compare(f"paged decode pos={p}", outs[0], outs[1])
-    del gpu, cpu, caches
-    torch.cuda.empty_cache()
+    # the logits are held to 2% of their range over the bf16 cache
+    for mode, spec_kw, simple, steps, rel_tol in (
+            ("auto", {}, True, 4, 2e-2), ("fused", {}, False, 0, 2e-2),
+            ("fused", dict(k_bits=4, v_bits=4), False, 1, TOL_QUANT_PATH)):
+        cfg = Config.from_directory(d, infer_params=InferParams(linear_mode=mode))
+        gpu = Model.from_config(cfg, device="cuda")
+        gpu.load()
+        cpu = Model.from_config(cfg, device="cpu")
+        cpu.params = params_to(gpu.params, "cpu")
+        tag = f"{cfg.infer_params.linear_mode} cache={spec_kw or 'bf16'}"
+        log(f"parity: linear_mode={cfg.infer_params.linear_mode}, cache {spec_kw or 'bf16'}")
+        if simple:
+            _compare(f"{tag} forward_simple S=96", gpu.forward_simple(ids[:, :96]),
+                     cpu.forward_simple(ids[:, :96]))
+        caches = [Cache(m, CacheSpec(num_pages=4, **spec_kw)) for m in (gpu, cpu)]
+        bt = np.array([[1, 2, 0]], np.int32)
+        S = 300
+        outs = [m.forward(ids[:, :S], c, np.arange(S, dtype=np.int32)[None],
+                          np.array([0], np.int32), bt) for m, c in zip((gpu, cpu), caches)]
+        _compare(f"{tag} paged prefill S={S}", outs[0], outs[1], rel_tol)
+        for step in range(steps):
+            p = S + step
+            outs = [m.forward(ids[:, p: p + 1], c, np.array([[p]], np.int32),
+                              np.array([p], np.int32), bt) for m, c in zip((gpu, cpu), caches)]
+            _compare(f"{tag} paged decode pos={p}", outs[0], outs[1], rel_tol)
+        del gpu, cpu, caches
+        torch.cuda.empty_cache()
 
 
 # -- phase: serve ------------------------------------------------------------------
@@ -381,48 +650,116 @@ def profile_decode(gen, steps: int) -> list:
     return results
 
 
-def phase_serve():
-    from exllamav3_tpu_torch.conversion.synth import tiny_llama_cfg, write_tiny_llama_exl3
-    from exllamav3_tpu_torch.generator import Generator, GreedySampler, Job
-    from exllamav3_tpu_torch.model import Cache, CacheSpec, Config, InferParams, Model
-    from exllamav3_tpu_torch.ops.flash_attention import paged_attention_kernel
+def _wrappers() -> dict:
+    """The kernels' wrappers by name; each counts its launches."""
+    from exllamav3_tpu_torch.ops.exl3_gemm import exl3_gemm_kernel
+    from exllamav3_tpu_torch.ops.flash_attention import (paged_attention_kernel,
+                                                          paged_attention_quant_kernel)
     from exllamav3_tpu_torch.ops.fused_mlp import fused_mlp_int8_kernel
     from exllamav3_tpu_torch.ops.q_matmul import int8_matmul_kernel
 
-    d = os.path.join(WORK, "llama8b_32layers")
+    return {"int8_matmul": int8_matmul_kernel, "fused_mlp": fused_mlp_int8_kernel,
+            "paged_attention": paged_attention_kernel, "exl3_gemm": exl3_gemm_kernel,
+            "paged_attention_quant": paged_attention_quant_kernel}
+
+
+def _reset_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def _read_counts() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+@contextlib.contextmanager
+def plain_ops():
+    """Inside, the capacity path's two dispatches run their plain PyTorch
+    versions on the card's tensors, so a forward computes the same function
+    through no hand-written kernel."""
+    import exllamav3_tpu_torch.modules.attn as attn_mod
+    import exllamav3_tpu_torch.modules.linear as linear_mod
+    from exllamav3_tpu_torch.ops.exl3_gemm import exl3_matmul_plain
+    from exllamav3_tpu_torch.ops.flash_attention import paged_attention_quant_plain
+
+    def attn_plain(q, layer_state, bt, qp, tl, k_bits=0, v_bits=0, compand_a=0.0, **kw):
+        return paged_attention_quant_plain(q, layer_state, bt, qp, tl, k_bits, v_bits,
+                                           compand_a, **kw)
+
+    saved = linear_mod.exl3_matmul, attn_mod.paged_attention
+    linear_mod.exl3_matmul, attn_mod.paged_attention = exl3_matmul_plain, attn_plain
+    try:
+        yield
+    finally:
+        linear_mod.exl3_matmul, attn_mod.paged_attention = saved
+
+
+def _shift(a, b) -> tuple[float, float]:
+    """max |a - b| over the range of b: at the last position, over all."""
+    rng = float(b.max() - b.min())
+    return float((a[-1] - b[-1]).abs().max()) / rng, float((a - b).abs().max()) / rng
+
+
+def _checkpoint(layers: int) -> str:
+    from exllamav3_tpu_torch.conversion.synth import tiny_llama_cfg, write_tiny_llama_exl3
+
+    d = os.path.join(WORK, f"llama8b_{layers}layers")
     t0 = time.time()
     if not os.path.exists(os.path.join(d, "config.json")):
-        write_tiny_llama_exl3(d, tiny_llama_cfg(num_layers=32, **LLAMA8B), K=4, seed=0)
-    log(f"serve: checkpoint ready in {time.time() - t0:.1f} s ({d})")
-    cfg = Config.from_directory(d, infer_params=InferParams(linear_mode="auto"))
-    model = Model.from_config(cfg, device="cuda")
-    t0 = time.time()
-    model.load()
-    torch.cuda.synchronize()
-    log(f"serve: linear_mode resolved to {cfg.infer_params.linear_mode}, load {time.time() - t0:.1f} s, "
-        f"device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    if cfg.infer_params.linear_mode != "int8":
-        raise AssertionError("serve: auto mode did not resolve to int8")
+        write_tiny_llama_exl3(d, tiny_llama_cfg(num_layers=layers, **LLAMA8B), K=4,
+                              seed=1 if layers == 2 else 0)
+    log(f"checkpoint: {layers} layers at 8B width ready in {time.time() - t0:.1f} s ({d})")
+    return d
 
-    cache = Cache(model, CacheSpec(num_pages=72))
-    gen = Generator(model, cache, max_batch_size=8, max_chunk_size=2048, seed=0)
+
+def _serve_prompts():
     rng = np.random.default_rng(6)
     V = LLAMA8B["vocab_size"]
     prefix = rng.integers(0, V, 512)
     # the longest request arrives first, so its prefill registers the shared pages
     lengths = np.linspace(1536, 512, 8).astype(int)
-    prompts = [np.concatenate([prefix, rng.integers(0, V, n - 512)]) for n in lengths]
+    return [np.concatenate([prefix, rng.integers(0, V, n - 512)]) for n in lengths]
+
+
+def _serve(tag: str, layers: int, linear_mode: str, spec_kw: dict, expect_mode: str,
+           prompts: list, trace: bool = True) -> dict:
+    """Load the `layers`-deep 8B-width checkpoint in `linear_mode`, serve
+    `prompts` (128 greedy tokens each; the first arrives alone, the rest once
+    it decodes) over a paged cache made with `spec_kw`, and check the
+    outcome. Returns the kernels' launch counts over the measured run."""
+    from exllamav3_tpu_torch.generator import Generator, GreedySampler, Job
+    from exllamav3_tpu_torch.model import Cache, CacheSpec, Config, InferParams, Model
+
+    V = LLAMA8B["vocab_size"]
+    cfg = Config.from_directory(_checkpoint(layers),
+                                infer_params=InferParams(linear_mode=linear_mode))
+    model = Model.from_config(cfg, device="cuda")
+    base = torch.cuda.memory_allocated()
+    t0 = time.time()
+    model.load()
+    torch.cuda.synchronize()
+    log(f"{tag}: {layers} layers, linear_mode resolved to {cfg.infer_params.linear_mode}, "
+        f"load {time.time() - t0:.1f} s, weights' device memory "
+        f"{(torch.cuda.memory_allocated() - base) / 2**30:.2f} GiB")
+    if cfg.infer_params.linear_mode != expect_mode:
+        raise AssertionError(f"{tag}: linear mode did not resolve to {expect_mode}")
+
+    base = torch.cuda.memory_allocated()
+    cache = Cache(model, CacheSpec(num_pages=72, **spec_kw))
+    log(f"{tag}: cache {spec_kw or 'bf16'}: "
+        f"{(torch.cuda.memory_allocated() - base) / (72 * 256):.0f} bytes per token")
+    gen = Generator(model, cache, max_batch_size=8, max_chunk_size=2048, seed=0)
     jobs = [Job(p, max_new_tokens=128, sampler=GreedySampler()) for p in prompts]
 
-    for fn in (int8_matmul_kernel, fused_mlp_int8_kernel, paged_attention_kernel):
-        fn.launches = 0
+    _reset_counts()
     finished = {}
     decode_tokens, decode_s = 0, 0.0
     torch.cuda.synchronize()
     t_start = time.time()
     gen.enqueue(jobs[0])  # the first request arrives alone; the rest find its prefix cached
     while gen.num_remaining_jobs():
-        if jobs[0].status == "running" and jobs[1].status == "queued" and jobs[1] not in gen.pending:
+        if (len(jobs) > 1 and jobs[0].status == "running" and jobs[1].status == "queued"
+                and jobs[1] not in gen.pending):
             gen.enqueue(jobs[1:])
         ti = time.time()
         prefilling = any(j.status == "prefill" for j in gen.active) or bool(gen.pending)
@@ -436,70 +773,148 @@ def phase_serve():
                 finished[r["identifier"]] = r
     torch.cuda.synchronize()
     wall = time.time() - t_start
-    counts = {"int8_matmul": int8_matmul_kernel.launches,
-              "fused_mlp": fused_mlp_int8_kernel.launches,
-              "paged_attention": paged_attention_kernel.launches}
+    counts = _read_counts()
 
     total_new = 0
     for j in jobs:
         r = finished.get(j.identifier)
         if r is None or len(r["new_tokens"]) != 128 or r["eos_reason"] != "max_new_tokens":
-            raise AssertionError(f"serve: request {j.identifier} did not finish with 128 tokens")
+            raise AssertionError(f"{tag}: request {j.identifier} did not finish with 128 tokens")
         if not all(0 <= t < V for t in r["new_tokens"]):
-            raise AssertionError("serve: token id out of range")
+            raise AssertionError(f"{tag}: token id out of range")
         total_new += len(r["new_tokens"])
-        log(f"serve: request prompt={r['prompt_tokens']} cached_tokens={r['cached_tokens']} "
+        log(f"{tag}: request prompt={r['prompt_tokens']} cached_tokens={r['cached_tokens']} "
             f"ttft_s={r['ttft_s']:.4f} prefill_s={r['prefill_s']:.4f} "
             f"generate_tok_s={r['generate_tok_s']:.2f}")
     reused = sum(finished[j.identifier]["cached_tokens"] for j in jobs)
     # cross-path check: the first generated token of request 0 lies in the
-    # top 5 of the cacheless forward (dense attention, no cache) at the end of its prompt
-    ref = model.forward_simple(prompts[0][None])[0, -1]
-    top5 = set(torch.topk(ref, 5).indices.tolist())
+    # top 5 of a reference forward at the end of its prompt. Over the bf16
+    # cache that is the cacheless forward (dense attention, no cache). A
+    # quantized cache computes another function, so there the reference is
+    # the whole prompt as one chunk through a fresh cache of the same widths
+    # with every linear and the attention in their plain PyTorch versions:
+    # no generator, no prefix reuse, and no kernel of the served path. The
+    # distance of that reference from the cacheless forward (what the cache's
+    # widths do to the logits) and the kernels' distance from it are printed
     first = finished[jobs[0].identifier]["new_tokens"][0]
-    log(f"serve: {len(finished)} requests finished, {total_new} tokens in {wall:.3f} s "
+    if spec_kw:
+        n = len(prompts[0])
+        pages = -(-n // 256)
+        one_chunk = (np.arange(n, dtype=np.int32)[None], np.array([0], np.int32),
+                     np.array([list(range(1, pages + 1)) + [0]], np.int32))
+        spec = CacheSpec(num_pages=pages + 1, **spec_kw)
+        kern = model.forward(prompts[0][None], Cache(model, spec), *one_chunk)[0]
+        before = _read_counts()
+        with plain_ops():
+            ref_all = model.forward(prompts[0][None], Cache(model, spec), *one_chunk)[0]
+            simple = model.forward_simple(prompts[0][None])[0]
+        if _read_counts() != before:
+            raise AssertionError(f"{tag}: the plain reference launched a kernel")
+        rank_simple = int((simple[-1] > simple[-1, first]).sum())
+        q_last, q_all = _shift(ref_all, simple)
+        k_last, k_all = _shift(kern, ref_all)
+        agree = float((kern.argmax(-1) == ref_all.argmax(-1)).float().mean())
+        log(f"{tag}: plain reference over the {spec_kw} cache against the plain cacheless "
+            f"forward, {n} positions: logits differ by {q_last:.4f} of their range at the last "
+            f"position and {q_all:.4f} at the worst; request 0's first token has rank "
+            f"{rank_simple} in the cacheless forward (not required)")
+        log(f"{tag}: kernels against the plain reference, same cache widths: {k_last:.4f} of "
+            f"the range at the last position, {k_all:.4f} at the worst, top-1 agreement "
+            f"{agree:.4f}")
+        ref = ref_all[-1]
+        if not (torch.isfinite(kern).all() and k_last <= TOL_QUANT_PATH):
+            raise AssertionError(f"{tag}: the kernels' logits at the last position are "
+                                 f"{k_last} of the range from the plain reference")
+        del kern, ref_all, simple
+    else:
+        ref = model.forward_simple(prompts[0][None])[0, -1]
+    top5 = set(torch.topk(ref, 5).indices.tolist())
+    log(f"{tag}: {len(finished)} requests finished, {total_new} tokens in {wall:.3f} s "
         f"({total_new / wall:.2f} tok/s overall), decode-only iterations "
         f"{decode_tokens} tokens in {decode_s:.3f} s "
         f"({decode_tokens / max(decode_s, 1e-9):.2f} tok/s), prefix tokens reused {reused}, "
-        f"first token of request 0 in forward_simple top-5: {first in top5}")
-    log(f"serve: kernel launches {json.dumps(counts)}")
+        f"first token of request 0 in the reference's top-5: {first in top5}")
+    log(f"{tag}: kernel launches {json.dumps(counts)}")
 
     # launches of one batch-1 decode step (a 512-token context, fresh cache)
-    c1 = Cache(model, CacheSpec(num_pages=4))
+    c1 = Cache(model, CacheSpec(num_pages=4, **spec_kw))
     model.forward(prompts[-1][None, :511], c1, np.arange(511, dtype=np.int32)[None],
                   np.array([0], np.int32), np.array([[1, 2, 0]], np.int32))
-    kernels = (int8_matmul_kernel, fused_mlp_int8_kernel, paged_attention_kernel)
-    for fn in kernels:
-        fn.launches = 0
+    _reset_counts()
     model.forward(prompts[-1][None, 511:512], c1, np.array([[511]], np.int32),
                   np.array([511], np.int32), np.array([[1, 2, 0]], np.int32))
-    log("serve: launches per batch-1 decode step "
-        + json.dumps({fn.__name__: fn.launches for fn in kernels}))
+    log(f"{tag}: launches per batch-1 decode step " + json.dumps(_read_counts()))
     del c1
-    # a traced window of batch-8 decode steps over the same prompts
-    # (prefixes now cached), after and apart from the measured run
-    gen.enqueue([Job(p, max_new_tokens=16, sampler=GreedySampler()) for p in prompts])
-    while gen.pending or any(j.status == "prefill" for j in gen.active):
-        gen.iterate()
-    profile_decode(gen, 4)
-    while gen.num_remaining_jobs():
-        gen.iterate()
+    if trace:
+        # a traced window of decode steps over the same prompts (prefixes
+        # now cached), after and apart from the measured run
+        gen.enqueue([Job(p, max_new_tokens=16, sampler=GreedySampler()) for p in prompts])
+        while gen.pending or any(j.status == "prefill" for j in gen.active):
+            gen.iterate()
+        profile_decode(gen, 4)
+        while gen.num_remaining_jobs():
+            gen.iterate()
     if first not in top5:
-        raise AssertionError("serve: generator's first token disagrees with forward_simple")
-    if reused <= 0:
-        raise AssertionError("serve: no prefix pages were reused")
-    if min(counts.values()) <= 0:
-        raise AssertionError(f"serve: a kernel of the main path never launched: {counts}")
+        raise AssertionError(f"{tag}: generator's first token disagrees with the reference forward")
+    if len(jobs) > 1 and reused <= 0:
+        raise AssertionError(f"{tag}: no prefix pages were reused")
     del model, cache, gen
     torch.cuda.empty_cache()
     return counts
 
 
+def _require_launches(tag: str, counts: dict, used: tuple, unused: tuple):
+    if min(counts[n] for n in used) <= 0:
+        raise AssertionError(f"{tag}: a kernel of this path never launched: {counts}")
+    if any(counts[n] for n in unused):
+        raise AssertionError(f"{tag}: a kernel of another path launched: {counts}")
+
+
+def phase_serve() -> dict:
+    """The int8 path: linear_mode="auto" on an 80 GB card, bf16 cache."""
+    counts = _serve("serve", 32, "auto", {}, "int8", _serve_prompts())
+    used = ("int8_matmul", "fused_mlp", "paged_attention")
+    _require_launches("serve", counts, used, ("exl3_gemm", "paged_attention_quant"))
+    return {n: counts[n] for n in used}
+
+
+def phase_serve_capacity() -> dict:
+    """The capacity path: trellis linears and a quantized cache. 32 layers
+    with a (4, 4) cache (merged storage), then one request on 4 layers with a
+    (5, 3) cache so that the per-head storage runs on a served path too. The
+    cache's widths fix its storage, so each run's count of the quantized
+    attention kernel belongs to that storage's row of the table."""
+    from exllamav3_tpu_torch.ops.kv_quant import merged_layout
+
+    used = ("exl3_gemm", "paged_attention_quant")
+    unused = ("int8_matmul", "fused_mlp", "paged_attention")
+    counts = _serve("serve_capacity", 32, "fused", dict(k_bits=4, v_bits=4), "fused",
+                    _serve_prompts())
+    _require_launches("serve_capacity", counts, used, unused)
+    odd = _serve("serve_capacity (5, 3)", 4, "fused", dict(k_bits=5, v_bits=3), "fused",
+                 _serve_prompts()[:1], trace=False)
+    _require_launches("serve_capacity (5, 3)", odd, used, unused)
+    if not merged_layout(4, 4) or merged_layout(5, 3):
+        raise AssertionError("serve_capacity: the two runs did not use the two storages")
+    return {"exl3_gemm": counts["exl3_gemm"],
+            "paged_attention_quant_merged": counts["paged_attention_quant"],
+            "paged_attention_quant_per_head": odd["paged_attention_quant"]}
+
+
+CHECKS = {"int8_matmul": check_int8, "fused_mlp": check_fused_mlp,
+          "paged_attention": check_attention, "exl3_gemm": check_exl3_gemm,
+          "paged_attention_quant": check_attention_quant}
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="build,kernels,parity,serve")
+    ap.add_argument("--phases", default="build,kernels,parity,serve,serve_capacity",
+                    help="`kernels` runs every kernel check; a check's name runs that one")
     args = ap.parse_args()
     phases = args.phases.split(",")
+    known = {"build", "kernels", "parity", "serve", "serve_capacity", *CHECKS}
+    if set(phases) - known:
+        ap.error(f"unknown phases {sorted(set(phases) - known)}")
 
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available")
@@ -511,6 +926,7 @@ def main():
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     dev = torch.device("cuda")
+    os.makedirs(WORK, exist_ok=True)
     t_all = time.time()
 
     t0 = time.time()
@@ -523,12 +939,12 @@ def main():
     log(f"phase build: {time.time() - t0:.1f} s")
 
     table = KernelTable()
-    if "kernels" in phases:
+    checks = [name for name in CHECKS if "kernels" in phases or name in phases]
+    if checks:
         t0 = time.time()
-        check_int8(table, dev)
-        check_fused_mlp(table, dev)
-        check_attention(table, dev)
-        log(f"phase kernels: {time.time() - t0:.1f} s")
+        for name in checks:
+            CHECKS[name](table, dev)
+        log(f"phase kernels ({', '.join(checks)}): {time.time() - t0:.1f} s")
     if "parity" in phases:
         t0 = time.time()
         phase_parity()
@@ -537,7 +953,12 @@ def main():
         t0 = time.time()
         table.set_launches(phase_serve())
         log(f"phase serve: {time.time() - t0:.1f} s")
+    if "serve_capacity" in phases:
+        t0 = time.time()
+        table.set_launches(phase_serve_capacity())
+        log(f"phase serve_capacity: {time.time() - t0:.1f} s")
     log(f"total: {time.time() - t_all:.1f} s")
+    log(smi)  # once more, so that the end of a cut log still names the card
     print(json.dumps({"kernels": list(table.rows.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -19,6 +19,10 @@ import numpy as np
 from ..loader.safetensors import f32_to_bf16_u16, save_file
 
 
+# codebook name -> (marker tensor suffix, the codebook's multiplier)
+CODEBOOK_MARKERS = {"3inst": None, "mcg": ("mcg", 0xCBAC1FED), "mul1": ("mul1", 0x83DCD12D)}
+
+
 def _atomic_checkpoint(write_fn):
     """Write into a temporary sibling directory, then move the files into
     place with config.json last: "config.json exists" marks a complete
@@ -82,8 +86,15 @@ def synth_exl3_linear(rng, in_features, out_features, K=4, out_std=0.02):
 
 @_atomic_checkpoint
 def write_tiny_llama_exl3(directory: str, cfg: dict | None = None, K: int = 4,
-                          seed: int = 0, quant_lm_head: bool = True):
-    """Write a synthetic EXL3-quantized Llama-style checkpoint."""
+                          seed: int = 0, quant_lm_head: bool = True,
+                          codebook: str = "3inst"):
+    """Write a synthetic EXL3-quantized Llama-style checkpoint. `codebook`
+    ("3inst", "mcg" or "mul1") adds the marker tensor (`<key>.mcg` /
+    `<key>.mul1`, the codebook's multiplier as a scalar int32, as the JAX
+    package's quantizer writes it) that tells a loader
+    which codebook decodes the linear; the other tensors do not change."""
+    if codebook not in CODEBOOK_MARKERS:
+        raise ValueError(f"unknown codebook {codebook!r}")
     os.makedirs(directory, exist_ok=True)
     cfg = cfg or tiny_llama_cfg()
     with open(os.path.join(directory, "config.json"), "w") as f:
@@ -107,6 +118,9 @@ def write_tiny_llama_exl3(directory: str, cfg: dict | None = None, K: int = 4,
     def add_exl3(key, k_in, n_out, out_std):
         for sk, t in synth_exl3_linear(rng, k_in, n_out, K, out_std).items():
             tensors[f"{key}.{sk}"] = t
+        if CODEBOOK_MARKERS[codebook] is not None:
+            suffix, mult = CODEBOOK_MARKERS[codebook]
+            tensors[f"{key}.{suffix}"] = np.array(mult, dtype=np.uint32).view(np.int32)
 
     add_bf16("model.embed_tokens.weight",
              rng.standard_normal((vocab, h)).astype(np.float32) * 0.02)

@@ -9,7 +9,10 @@ row in the per-slot token counts that feed the repetition penalties.
 
 PyTorch runs eagerly, so the JAX package's shape buckets (which only limit
 recompiles) are gone: a step runs exactly the rows and tokens it has. Each
-block table carries one extra column pointing at scratch page 0.
+block table carries one extra column pointing at scratch page 0. The cache
+may be quantized (CacheSpec.k_bits / v_bits / compand_a): `Model.forward`
+reads the widths from the cache's spec at every step, and prefix reuse works
+on page numbers, whatever arrays a layer's state holds.
 
 Not ported yet: speculative decoding (draft, n-gram, MTP, DFlash), filters,
 CFG, token healing, banned and stop strings, requeue, the CPU page cache,

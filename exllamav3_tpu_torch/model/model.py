@@ -20,17 +20,24 @@ class _Root(Module):
         self.modules = modules
 
 
+# serving bytes per EXL3 weight for each runtime mode, group and channel
+# scales included (the JAX package's table)
+_MODE_BYTES_PER_WEIGHT = {"int8": 1.0, "int6": 0.8125, "int4": 0.5625}
 _EXL3_SIDE_SUFFIXES = (".suh", ".svh", ".su", ".sv", ".mcg", ".mul1")
 
 
-def estimate_int8_bytes(config) -> int:
-    """Weight bytes if every EXL3 linear loads as int8 (1 byte per weight),
-    from the safetensors headers alone; dense tensors count as bf16."""
+def estimate_linear_mode_bytes(config, mode: str) -> int:
+    """Weight bytes if every EXL3 linear loads in `mode`, from the safetensors
+    headers alone; "fused" keeps the packed trellis as it is; dense tensors
+    count as bf16 whatever the mode."""
     total = 0
     for key in config.stc.keys():
         s = config.stc.get_shape(key)
         if key.endswith(".trellis"):
-            total += s[0] * s[1] * 256
+            if mode == "fused":
+                total += s[0] * s[1] * s[2] * 2
+            else:
+                total += int(s[0] * s[1] * 256 * _MODE_BYTES_PER_WEIGHT[mode])
         elif not key.endswith(_EXL3_SIDE_SUFFIXES):
             total += int(np.prod(s, dtype=np.int64)) * 2
     return total
@@ -44,20 +51,19 @@ def device_hbm_bytes(device: torch.device) -> int | None:
 
 
 def select_linear_mode(config, hbm_bytes: int | None, reserve_frac: float = 0.20) -> str:
-    """linear_mode="auto": int8 whenever the weights fit with `reserve_frac`
-    of device memory left for the cache and activations (unknown capacity
-    assumes they fit). The JAX package's lower rungs (int6, int4, fused) are
-    not ported yet, so a model too large for int8 raises; "reconstruct"
-    stays an explicit mode only."""
+    """linear_mode="auto", the JAX package's footprint ladder: int8 whenever
+    the weights fit with `reserve_frac` of device memory left for the cache
+    and activations, else int6, int4, and at last "fused", the capacity mode
+    (unknown capacity assumes int8 fits). The int6 and int4 linears are not
+    ported yet: Linear raises at load for them rather than take another
+    rung. "reconstruct" stays an explicit mode only."""
     if hbm_bytes is None:
         return "int8"
-    need = estimate_int8_bytes(config)
-    if need <= hbm_bytes * (1.0 - reserve_frac):
-        return "int8"
-    raise NotImplementedError(
-        f"linear_mode='auto': int8 weights need {need} bytes, more than "
-        f"{1.0 - reserve_frac:.0%} of the device's {hbm_bytes}; the int6, int4 "
-        "and fused tiers that would fit are not ported yet")
+    budget = hbm_bytes * (1.0 - reserve_frac)
+    for mode in ("int8", "int6", "int4"):
+        if estimate_linear_mode_bytes(config, mode) <= budget:
+            return mode
+    return "fused"
 
 
 def _as_tensor(a, device, dtype=torch.int32) -> torch.Tensor | None:
@@ -117,6 +123,9 @@ class Model:
             positions=_as_tensor(positions, dev),
             attn_mode="paged",
             cache=cache.state,
+            k_bits=cache.spec.k_bits,
+            v_bits=cache.spec.v_bits,
+            compand_a=cache.spec.compand_a,
             block_tables=_as_tensor(block_tables, dev),
             cache_seqlens=_as_tensor(cache_seqlens, dev),
         )

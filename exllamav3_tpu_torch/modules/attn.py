@@ -2,10 +2,11 @@
 (counterpart of exllamav3_tpu/modules/attn.py).
 
 Covers GQA with RoPE at the default 1/sqrt(head_dim) scale, cacheless
-(`attend_dense`, plain torch as in the JAX package) and over the paged bf16
-cache through the paged attention kernel (ops/flash_attention.py). The linear-cache layout, the SWA ring, quantized
-KV, sequence parallelism, MRoPE, output gates and the module-level sliding
-window, softcap and sinks (the kernel takes them) are not ported yet. The
+(`attend_dense`, plain torch as in the JAX package) and over the paged cache,
+bf16 or quantized, through the paged attention kernels
+(ops/flash_attention.py). The linear-cache layout, the SWA ring, sequence
+parallelism, MRoPE, output gates and the module-level sliding window,
+softcap and sinks (the kernels take them) are not ported yet. The
 paged path hands q to the kernel in f32, as the JAX package's Pallas path
 does; the cacheless path rounds it to bf16, as the JAX package's does.
 """
@@ -18,9 +19,9 @@ import torch
 from .linear import Linear
 from .module import ForwardCtx, Module
 from .multilinear import fused_forward, is_fused, try_fuse
-from ..model.cache import paged_cache_update
+from ..model.cache import page_index, paged_cache_update
 from ..ops.attention import attend_dense
-from ..ops.flash_attention import paged_attention
+from ..ops.flash_attention import paged_attention_any as paged_attention
 from ..util.rope import Rope, RopeSettings, RopeStyle
 
 
@@ -58,6 +59,10 @@ class Attention(Module):
         from ..model.cache import cache_base_shape, cache_dtype
 
         shape = cache_base_shape(spec, self.num_kv_heads, self.head_dim)
+        if spec.k_bits:
+            from ..ops.kv_quant import quant_cache_shapes
+
+            return quant_cache_shapes(shape, spec.k_bits, spec.v_bits, device=device)
         dt = cache_dtype(spec)
         return {"k": torch.zeros(shape, dtype=dt, device=device),
                 "v": torch.zeros(shape, dtype=dt, device=device)}
@@ -91,10 +96,15 @@ class Attention(Module):
                              k_positions=ctx.positions, scale=self.sm_scale)
         elif ctx.attn_mode == "paged":
             layer = ctx.cache[self.key]
-            paged_cache_update(layer, k, v, ctx.positions, ctx.block_tables)
+            if ctx.page_index is None:
+                ctx.page_index = page_index(ctx.positions, ctx.block_tables)
+                ctx.total_lens = total_lens(ctx.positions, ctx.cache_seqlens, S)
+            paged_cache_update(layer, k, v, ctx.positions, ctx.block_tables,
+                               ctx.k_bits, ctx.v_bits, ctx.compand_a, index=ctx.page_index)
             o = paged_attention(
-                q.float(), layer["k"], layer["v"], ctx.block_tables, ctx.positions,
-                total_lens(ctx.positions, ctx.cache_seqlens, S), scale=self.sm_scale)
+                q.float(), layer, ctx.block_tables, ctx.positions, ctx.total_lens,
+                k_bits=ctx.k_bits, v_bits=ctx.v_bits, compand_a=ctx.compand_a,
+                scale=self.sm_scale)
         else:
             raise NotImplementedError(f"attention over a {ctx.attn_mode!r} cache is not ported yet")
 

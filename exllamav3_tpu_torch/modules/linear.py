@@ -5,18 +5,23 @@ Runtime representations of an EXL3 tensor ("linear_mode"):
   * "reconstruct": keep the packed trellis, decode the weight on every call;
   * "bf16": decode once at load into a bf16 weight (original basis);
   * "int8": decode once at load and requantize per output channel to int8;
-    the matmul runs through the hand-written int8 kernel (ops/q_matmul.py).
-The `fused`, int4, int-B and `.sq` modes are not ported yet.
+    the matmul runs through the hand-written int8 kernel (ops/q_matmul.py);
+  * "fused": keep the packed trellis as stream words and decode it inside the
+    matmul kernel on every call (ops/exl3_gemm.py): the capacity mode, K/8
+    bytes a weight.
+The int4, int-B and `.sq` modes are not ported yet and raise at load.
 
 Parameter layouts (the JAX package's own keys): {"trellis","suh","svh"},
-{"weight"} (bf16, (in, out)), {"weight_q" (in, out) int8, "scale" (out,) f32},
-each with an optional f32 "bias".
+{"words","suh","svh"} (int32 (k/16, K, n/2)), {"weight"} (bf16, (in, out)),
+{"weight_q" (in, out) int8, "scale" (out,) f32}, each with an optional f32
+"bias".
 """
 from __future__ import annotations
 
 import torch
 
 from .module import ForwardCtx, Module
+from ..ops.exl3_gemm import exl3_matmul, trellis_to_words, words_to_trellis
 from ..ops.q_matmul import int8_matmul
 from ..quant.reconstruct import codebook_id, exl3_matmul_ref, reconstruct_full
 
@@ -95,6 +100,8 @@ class Linear(Module):
             mode = "int8"
         if mode == "reconstruct":
             p = {"trellis": trellis, "suh": suh, "svh": svh}
+        elif mode == "fused":
+            p = {"words": trellis_to_words(trellis), "suh": suh, "svh": svh}
         elif mode == "bf16":
             p = {"weight": reconstruct_full(trellis, suh, svh, K, self.cb, dtype=torch.bfloat16)}
         elif mode == "int8":
@@ -127,7 +134,10 @@ class Linear(Module):
         p = params[self.key]
         bias = p.get("bias")
         out_dtype = self.out_dtype or x.dtype
-        if "trellis" in p:
+        if "words" in p:
+            y = exl3_matmul(x, p["words"], p["suh"], p["svh"], p["words"].shape[1], self.cb,
+                            bias=bias, out_dtype=torch.float32)
+        elif "trellis" in p:
             y = exl3_matmul_ref(x, p["trellis"], p["suh"], p["svh"],
                                 p["trellis"].shape[-1] // 16, self.cb,
                                 bias=bias, out_dtype=torch.float32)
@@ -138,6 +148,17 @@ class Linear(Module):
             if bias is not None:
                 y = y + bias
         return y.to(out_dtype)
+
+    def get_weight_f32(self, params: dict) -> torch.Tensor:
+        """Dense (in, out) f32 weight in the original basis."""
+        p = params[self.key]
+        if "words" in p or "trellis" in p:
+            trellis = words_to_trellis(p["words"]) if "words" in p else p["trellis"]
+            return reconstruct_full(trellis, p["suh"], p["svh"], trellis.shape[-1] // 16,
+                                    self.cb, dtype=torch.float32)
+        if "weight_q" in p:
+            return p["weight_q"].to(torch.float32) * p["scale"][None, :]
+        return p["weight"].to(torch.float32)
 
 
 def _unpack_signs(packed_i16: torch.Tensor) -> torch.Tensor:

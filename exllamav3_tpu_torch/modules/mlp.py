@@ -2,7 +2,9 @@
 
 Decode batches (T <= 16 rows) with fused int8 gate_up and int8 down go
 through the fused MLP kernel (ops/fused_mlp.py); everything else runs the
-gate_up product, the activation and the down product separately. The other
+gate_up product, the activation and the down product separately: in the
+`fused` linear mode nothing fuses (a trellis `words` group is no int8
+weight), so gate, up and down run as three trellis linears. The other
 activations, clamps and the non-gated MLP wait.
 """
 from __future__ import annotations

@@ -3,8 +3,10 @@
 
 At load the materialized weights of sibling projections (q/k/v, gate/up)
 concatenate along the output dim under the parent module's key:
-`<name>_w` (bf16 kind) or `<name>_q` + `<name>_scale` (int8 kind). The int4,
-int-B and `.sq` kinds are not ported yet.
+`<name>_w` (bf16 kind) or `<name>_q` + `<name>_scale` (int8 kind). Packed
+trellis groups (`trellis` or `words`) do not fuse, as in the JAX package:
+their projections stay separate linears. The int4, int-B and `.sq` kinds are
+not ported yet.
 """
 from __future__ import annotations
 

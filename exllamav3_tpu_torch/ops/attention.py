@@ -44,15 +44,29 @@ def attend_dense(q, k, v, q_positions, k_positions, k_valid=None, scale: float =
 
 def attend_paged(q, k_pages, v_pages, block_tables, q_positions, total_lens,
                  scale: float = 1.0, sliding_window: int = 0,
-                 logit_softcap: float = 0.0, sinks=None):
+                 logit_softcap: float = 0.0, sinks=None, quant_state: dict | None = None,
+                 k_bits: int = 0, v_bits: int = 0, compand_a: float = 0.0,
+                 quant_dtype=torch.bfloat16):
     """Gather each sequence's pages, then dense attention. k_pages
     (P, PAGE_SIZE, Hk, D); block_tables (B, MP); keys at or past the row's
-    total length are masked."""
+    total length are masked. With `quant_state` ({k_q, k_s, v_q, v_s}) the
+    gathered pages are dequantized to `quant_dtype` first and k_pages /
+    v_pages are ignored."""
     B, MP = block_tables.shape
     bt = block_tables.long()
-    k = k_pages[bt]  # (B, MP, PAGE_SIZE, Hk, D)
-    v = v_pages[bt]
-    T = MP * k_pages.shape[1]
+    if quant_state is not None:
+        from .kv_quant import dequantize_kv_stored, state_heads
+
+        merged = quant_state["k_q"].dim() == 3
+        hk = state_heads(quant_state, q.shape[-1])
+        k = dequantize_kv_stored(quant_state["k_q"][bt], quant_state["k_s"][bt], k_bits, hk,
+                                 merged, quant_dtype, compand_a)
+        v = dequantize_kv_stored(quant_state["v_q"][bt], quant_state["v_s"][bt], v_bits, hk,
+                                 merged, quant_dtype, compand_a)
+    else:
+        k = k_pages[bt]  # (B, MP, PAGE_SIZE, Hk, D)
+        v = v_pages[bt]
+    T = MP * k.shape[2]
     k = k.reshape(B, T, *k.shape[3:])
     v = v.reshape(B, T, *v.shape[3:])
     k_pos = torch.arange(T, dtype=torch.int32, device=q.device)[None].expand(B, T)

@@ -21,7 +21,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "exllamav3_tpu_torch"
-SOURCES = ("int8_matmul.cu", "fused_mlp.cu", "paged_attention.cu")
+SOURCES = ("int8_matmul.cu", "fused_mlp.cu", "paged_attention.cu", "exl3_gemm.cu",
+           "paged_attention_quant.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -35,6 +36,9 @@ SIGNATURES = {
     "exl3_fused_mlp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "exl3_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _F, _I, _F, _P],
+    "exl3_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "exl3_paged_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _I, _I, _I, _F, _F, _F, _I, _F, _P],
 }
 
 _LIB = None

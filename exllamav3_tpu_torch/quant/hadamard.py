@@ -27,9 +27,15 @@ def hadamard_np(n: int) -> np.ndarray:
     return h
 
 
-def hadamard_scaled(n: int, device=None) -> torch.Tensor:
-    """H_n / sqrt(n) as float32 on `device`."""
+@lru_cache(maxsize=64)
+def _hadamard_scaled(n: int, device: str) -> torch.Tensor:
     return torch.from_numpy(hadamard_np(n) / math.sqrt(n)).to(device)
+
+
+def hadamard_scaled(n: int, device=None) -> torch.Tensor:
+    """H_n / sqrt(n) as float32 on `device`; one copy per size and device is
+    kept, so a call on the card costs no host-to-device copy after the first."""
+    return _hadamard_scaled(n, str(torch.device(device or "cpu")))
 
 
 def had_right(x: torch.Tensor, scale_pre=None, scale_post=None, block: int = 128) -> torch.Tensor:

@@ -30,6 +30,10 @@ def _forbidden(module: str) -> bool:
 def test_no_jax_imports_in_port_sources():
     files = list(_port_files())
     assert len(files) > 20
+    scanned = {os.path.relpath(f, ROOT) for f in files}
+    assert {"exllamav3_tpu_torch/ops/exl3_gemm.py", "exllamav3_tpu_torch/ops/kv_quant.py",
+            "exllamav3_tpu_torch/ops/flash_attention.py", "exllamav3_tpu_torch/model/cache.py",
+            "exllamav3_tpu_torch/util/params.py", "chip_smoke.py"} <= scanned
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -78,3 +82,26 @@ def test_entry_points_refuse_without_cuda(tmp_path, monkeypatch):
     model = Model.from_config(config, device="cpu")
     model.load()
     assert model.forward_simple([[1, 2, 3]]).shape == (1, 3, 512)
+
+
+def test_capacity_configuration_follows_the_model_device(tmp_path, monkeypatch):
+    """`fused` linears and a quantized cache land on the model's device: the
+    card by default (refused without CUDA), the CPU only when asked."""
+    from exllamav3_tpu_torch.conversion.synth import tiny_llama_cfg, write_tiny_llama_exl3
+    from exllamav3_tpu_torch.generator import Generator
+    from exllamav3_tpu_torch.model import Cache, CacheSpec, Config, InferParams, Model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    d = write_tiny_llama_exl3(str(tmp_path / "m"), tiny_llama_cfg(num_layers=1), seed=2)
+    config = Config.from_directory(d, infer_params=InferParams(linear_mode="fused"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Model.from_config(config)
+    model = Model.from_config(config, device="cpu")
+    model.load()
+    cache = Cache(model, CacheSpec(num_pages=3, k_bits=4, v_bits=4))
+    layer = cache.state[cache.layer_keys[0]]
+    assert set(layer) == {"k_q", "k_s", "v_q", "v_s"}
+    assert all(t.device.type == "cpu" for t in layer.values())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Cache(model, CacheSpec(num_pages=3, k_bits=4, v_bits=4), device="cuda")
+    assert Generator(model, cache).device.type == "cpu"

@@ -21,7 +21,7 @@ from exllamav3_tpu.model import InferParams as JInferParams
 from exllamav3_tpu.model import Model as JModel
 from exllamav3_tpu_torch.conversion.synth import write_tiny_llama_exl3
 from exllamav3_tpu_torch.model import Cache, CacheSpec, Config, InferParams, Model
-from exllamav3_tpu_torch.model.model import estimate_int8_bytes, select_linear_mode
+from exllamav3_tpu_torch.model.model import estimate_linear_mode_bytes, select_linear_mode
 from exllamav3_tpu_torch.util.params import params_from_jax
 
 
@@ -89,14 +89,19 @@ def test_forward_simple_int8_carried(int8_pair, rows):
 
 
 def test_auto_mode_raises_below_int8(ckpt):
-    """"auto" resolves to int8 when the weights fit and raises, rather than
-    taking the per-call reconstruct path, when they do not."""
+    """"auto" resolves to int8 when the weights fit. Below that it walks the
+    JAX package's ladder (int6, int4, then fused) and never takes the
+    per-call reconstruct path; a rung whose linears are not ported raises at
+    load."""
     cfg = Config.from_directory(ckpt)
-    need = estimate_int8_bytes(cfg)
+    need = estimate_linear_mode_bytes(cfg, "int8")
     assert select_linear_mode(cfg, None) == "int8"
     assert select_linear_mode(cfg, 2 * need) == "int8"
-    with pytest.raises(NotImplementedError, match="not ported"):
-        select_linear_mode(cfg, need)
+    assert select_linear_mode(cfg, need) in ("int6", "int4")
+    assert select_linear_mode(cfg, need // 100) == "fused"
+    cfg.infer_params.linear_mode = select_linear_mode(cfg, need)
+    with pytest.raises(ValueError, match="not ported"):
+        Model.from_config(cfg, device="cpu").load()
 
 
 def test_int8_requant_matches_jax(ckpt, int8_pair):
