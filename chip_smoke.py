@@ -3,6 +3,7 @@
     python3 chip_smoke.py                    # every phase
     python3 chip_smoke.py --phases build,exl3_gemm,paged_attention_quant
     python3 chip_smoke.py --phases build,serve_capacity
+    python3 chip_smoke.py --phases build,int4_matmul_a8,intb_matmul_a8,serve_packed
 
 Phases:
   build     build the CUDA kernels from exllamav3_tpu_torch/csrc/ (timed)
@@ -15,11 +16,14 @@ Phases:
             codebooks; also an estimate of the decode's dispatch time from the
             compiled kernel's instructions, kept apart from the bound) and
             paged_attention_quant (merged and per-head storage, with and
-            without the compander)
+            without the compander), int4_matmul, int4_matmul_a8, intb_matmul
+            and intb_matmul_a8 (the packed-integer linears: also m = 128 and
+            the Llama-3.1-70B shapes at m = 8; int-B at B = 3, 4, 5, 6)
   parity    a 2-layer checkpoint at full 8B width: forward_simple and paged
             prefill + decode steps on the GPU (kernels) against the CPU
             (plain versions) over the same ids and weights, for the int8 path
-            and for the capacity path (`fused` linears, (4, 4) cache)
+            for the capacity path (`fused` linears, (4, 4) cache) and for the
+            packed tiers int4 and int6 (a8 kernels)
   serve     a 32-layer synthetic checkpoint at Llama-3.1-8B geometry loaded
             with linear_mode="auto" (int8 on an 80 GB card) over a bf16 cache
             and served by the continuous-batching generator: 8 greedy
@@ -32,6 +36,14 @@ Phases:
             (5, 3) cache, whose odd widths use the per-head storage. The
             served token is held against a forward of the same weights and
             cache widths through the plain PyTorch versions only
+  serve_packed
+            the same checkpoint and requests with linear_mode="int4" (grouped
+            4-bit codes, the int8-activation kernel) over the bf16 cache; then
+            one request on 4 layers each for int6 (a8), int4 with
+            EXL3TPU_INT4_A8=0 and int6 with EXL3TPU_INTB_A8=0, so that each of
+            the four packed kernels serves a run of its own; then the ladder:
+            linear_mode="auto" on a device just large enough for int8, int6,
+            int4 and none of them loads and runs on every rung
 
 Each serve phase sets every kernel's launch count to 0 before its run and
 reads it after: the kernels of its path must all have launched and the
@@ -58,7 +70,9 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core rate
+INT8_OP_PER_S = 1979e12     # dense int8 tensor-core rate
 L2_BYTES = 50 << 20
+SPIN_CYCLES = 35_000_000    # ~20 ms at the H100's clock
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 
@@ -70,12 +84,18 @@ TOL_INT8 = 1e-4   # both sides: exact bf16 products, f32 sums in another order
 TOL_MLP = 2e-3    # f32 order can flip a bf16 rounding of the activation
 TOL_ATTN = 2e-4   # q and P enter the MMAs as hi + lo bf16 pairs (~2^-16 relative)
 TOL_EXL3 = 1e-4   # both sides: the same bf16 weights and activations, f32 sums in another order
+TOL_PACKED = 1e-4  # both sides: the same bf16 or int8 operands, f32 sums in another order
 TOL_ATTN_Q = 3e-4  # as TOL_ATTN; K/V are exact hi + lo pairs, the rotation sums in another order
 # logits over a quantized cache, kernels against plain versions, relative to
 # the logits' range: the two sides store different codes where a key or value
 # sits on a grid edge (a step of a 4-bit grid is 1/8 of its group's range)
 # and its last bf16 bit differs
 TOL_QUANT_PATH = 6e-2
+# logits of the a8 packed tiers, GPU against CPU: the row quantizer turns an
+# activation whose last bf16 bit differs between the two devices into another
+# int8 code (a step of 1/127 of the row's largest value). On the card alone,
+# kernels against plain versions, upstream is identical and 2e-2 holds
+TOL_A8_PATH = 6e-2
 
 # An SM dispatches one warp instruction a clock from each of its four schedulers
 LANES_PER_SM_CLOCK = 4 * 32
@@ -90,6 +110,12 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                                      "exllamav3_tpu/ops/flash_attention.py:419"),
     "paged_attention_quant_per_head": ("exllamav3_tpu_torch/csrc/paged_attention_quant.cu",
                                        "exllamav3_tpu/ops/flash_attention.py:253"),
+    "int4_matmul": ("exllamav3_tpu_torch/csrc/int4_matmul.cu", "exllamav3_tpu/ops/q_matmul.py:217"),
+    "int4_matmul_a8": ("exllamav3_tpu_torch/csrc/int4_matmul.cu",
+                       "exllamav3_tpu/ops/q_matmul.py:315"),
+    "intb_matmul": ("exllamav3_tpu_torch/csrc/intb_matmul.cu", "exllamav3_tpu/ops/q_matmul.py:571"),
+    "intb_matmul_a8": ("exllamav3_tpu_torch/csrc/intb_matmul.cu",
+                       "exllamav3_tpu/ops/q_matmul.py:687"),
 }
 
 
@@ -97,20 +123,23 @@ def log(*a):
     print(*a, flush=True)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOP_PER_S) -> tuple[float, str]:
     """The larger of bytes over the memory rate and tensor-core operations
-    over their peak rate."""
+    over their peak rate (bf16 unless the MMAs are int8)."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    tf = flops / BF16_FLOP_PER_S * 1e3
+    tf = flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
 def time_ms(fn, calls: int) -> float:
-    """Mean device time of fn() over `calls` launches (CUDA events)."""
+    """Mean device time of fn() over `calls` launches (CUDA events). The
+    launches queue up behind a ~20 ms spin on the device, so that a short
+    kernel reads its time on the card and not the host's launch rate."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     t0.record()
     for _ in range(calls):
         fn()
@@ -445,6 +474,80 @@ def check_exl3_gemm(table, dev):
     torch.cuda.empty_cache()
 
 
+PACKED = ("int4_matmul", "int4_matmul_a8", "intb_matmul", "intb_matmul_a8")
+SHAPES_8B = [(4096, 6144, "qkv"), (4096, 4096, "o_proj"), (4096, 28672, "gate_up"),
+             (14336, 4096, "down"), (4096, 32768, "lm_head")]
+SHAPES_70B = [(8192, 10240, "70B qkv"), (8192, 8192, "70B o_proj"), (8192, 57344, "70B gate_up"),
+              (28672, 8192, "70B down")]
+
+
+def check_packed(table, dev, name: str):
+    """One of the four packed-integer kernels against its plain version on the
+    card: the 8B shapes at m = 1, 8, 128, 2048 and the 70B shapes at m = 8;
+    int-B at B = 3, 4, 5, 6. Timed: the int4 kernels everywhere, the int-B
+    kernels at B = 6 (the ladder's rung); the other widths are held to the
+    tolerance only. x is bf16, as the model's activations are."""
+    import exllamav3_tpu_torch.ops.q_matmul as qm
+
+    a8 = name.endswith("_a8")
+    kernel, plain = getattr(qm, name + "_kernel"), getattr(qm, name + "_plain")
+    g = torch.Generator(device=dev).manual_seed(11)
+    cases = [(m, *shape) for m in (1, 8, 128, 2048) for shape in SHAPES_8B]
+    cases += [(8, *shape) for shape in SHAPES_70B]
+    for bits in ((None,) if name.startswith("int4") else (6, 3, 4, 5)):
+        extra = () if bits is None else (bits,)
+        for m, k, n, what in cases:
+            if bits is None:
+                prows, srows, dt, lo, hi = k // 2, k // 32, torch.int8, -128, 128
+            else:
+                W, prows, k_pad = qm.intb_geometry(k, bits)
+                srows, dt, lo, hi = k_pad // 32, torch.int32, -2**31, 2**31
+
+            def make(i, m=m, k=k, n=n, prows=prows, srows=srows, dt=dt, lo=lo, hi=hi):
+                x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+                w = torch.randint(lo, hi, (prows, n), generator=g, device=dev,
+                                  dtype=torch.int64).to(dt)
+                s = ((torch.rand((srows, n), generator=g, device=dev) + 0.5) * 0.01).to(torch.bfloat16)
+                return x, w, s
+            nb = m * k * 2 + prows * n * (1 if bits is None else 4) + srows * n * 2 + m * n * 4
+            timed = bits in (None, 6)
+            nxt = rotating(make, nb) if timed else (lambda made=make(0): made)
+            x, w, s = nxt()
+            ref = plain(x, w, s, *extra)
+            got = kernel(x, w, s, *extra)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{name} m={m} {what}: non-finite output")
+            err = float((got - ref).abs().max())
+            rel = err / float(ref.abs().max())
+            tag = f"{name}{'' if bits is None else f' B={bits}'} m={m} {what} ({k}x{n})"
+            if not rel <= TOL_PACKED:
+                raise AssertionError(f"{tag}: rel err {rel} > {TOL_PACKED}")
+            if not timed:
+                log(f"{tag}: max_abs_err={err:.3e} rel={rel:.2e}")
+                table.add(name, err, None, None, None, None, "", main=False)
+                del x, w, s, ref, got, nxt
+                continue
+            calls = 5 if m == 2048 else 20
+            ms = time_ms(lambda: kernel(*nxt(), *extra), calls)
+            plain_t = time_ms(lambda: plain(*nxt(), *extra), 2)
+            # yardstick: cuBLAS bf16 GEMM on the dequantized weight (2 bytes a weight)
+            wd = (qm.int4_unpack(w, s) if bits is None
+                  else qm.intb_unpack(w, s, bits, k)).to(torch.bfloat16)
+            nxt_lib = rotating(lambda i: (x, wd.clone()), m * k * 2 + k * n * 2 + m * n * 2)
+            lib = time_ms(lambda: torch.matmul(*nxt_lib()), calls)
+            bnd = bound_ms(nb, 2.0 * m * k * n, INT8_OP_PER_S if a8 else BF16_FLOP_PER_S)
+            log(f"{tag}: max_abs_err={err:.3e} rel={rel:.2e} kernel_ms={ms:.4f} "
+                f"plain_ms={plain_t:.4f} library_ms(torch.matmul bf16 on the decoded weight)="
+                f"{lib:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]})")
+            table.add(name, err, ms, plain_t, bnd, lib,
+                      f"m={m} k={k} n={n}" + ("" if bits is None else f" B={bits}"),
+                      main=(m == 8 and what == "qkv"))
+            del x, w, s, ref, got, nxt, nxt_lib, wd
+            torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
+
+
 def _quant_attn_work(qpos, total, Hq, Hk, D, window, k_bits, v_bits):
     """As _attn_work, with each visible key costing its packed words and its
     two rows of bf16 scales."""
@@ -572,7 +675,8 @@ def phase_parity():
     """GPU (kernels) against CPU (plain versions) on the 2-layer full-width
     checkpoint: the int8 path over a bf16 cache, then `fused` linears over
     the bf16 cache and over a (4, 4) quantized cache, the capacity path (fewer
-    calls: its CPU side decodes every trellis anew in each forward)."""
+    calls: its CPU side decodes every trellis anew in each forward), then the
+    packed tiers int4 and int6 through their a8 kernels."""
     from exllamav3_tpu_torch.model import Cache, CacheSpec, Config, InferParams, Model
     from exllamav3_tpu_torch.util.params import params_to
 
@@ -581,7 +685,8 @@ def phase_parity():
     # the logits are held to 2% of their range over the bf16 cache
     for mode, spec_kw, simple, steps, rel_tol in (
             ("auto", {}, True, 4, 2e-2), ("fused", {}, False, 0, 2e-2),
-            ("fused", dict(k_bits=4, v_bits=4), False, 1, TOL_QUANT_PATH)):
+            ("fused", dict(k_bits=4, v_bits=4), False, 1, TOL_QUANT_PATH),
+            ("int4", {}, True, 2, TOL_A8_PATH), ("int6", {}, True, 2, TOL_A8_PATH)):
         cfg = Config.from_directory(d, infer_params=InferParams(linear_mode=mode))
         gpu = Model.from_config(cfg, device="cuda")
         gpu.load()
@@ -590,8 +695,16 @@ def phase_parity():
         tag = f"{cfg.infer_params.linear_mode} cache={spec_kw or 'bf16'}"
         log(f"parity: linear_mode={cfg.infer_params.linear_mode}, cache {spec_kw or 'bf16'}")
         if simple:
-            _compare(f"{tag} forward_simple S=96", gpu.forward_simple(ids[:, :96]),
-                     cpu.forward_simple(ids[:, :96]))
+            got = gpu.forward_simple(ids[:, :96])
+            _compare(f"{tag} forward_simple S=96", got, cpu.forward_simple(ids[:, :96]), rel_tol)
+            if mode in ("int4", "int6"):
+                before = _read_counts()
+                with plain_packed_linears():
+                    ref = gpu.forward_simple(ids[:, :96])
+                if _read_counts() != before:
+                    raise AssertionError(f"parity {tag}: the plain reference launched a kernel")
+                _compare(f"{tag} forward_simple S=96, kernels against plain versions on the card",
+                         got, ref)
         caches = [Cache(m, CacheSpec(num_pages=4, **spec_kw)) for m in (gpu, cpu)]
         bt = np.array([[1, 2, 0]], np.int32)
         S = 300
@@ -656,11 +769,12 @@ def _wrappers() -> dict:
     from exllamav3_tpu_torch.ops.flash_attention import (paged_attention_kernel,
                                                           paged_attention_quant_kernel)
     from exllamav3_tpu_torch.ops.fused_mlp import fused_mlp_int8_kernel
-    from exllamav3_tpu_torch.ops.q_matmul import int8_matmul_kernel
+    import exllamav3_tpu_torch.ops.q_matmul as qm
 
-    return {"int8_matmul": int8_matmul_kernel, "fused_mlp": fused_mlp_int8_kernel,
+    return {"int8_matmul": qm.int8_matmul_kernel, "fused_mlp": fused_mlp_int8_kernel,
             "paged_attention": paged_attention_kernel, "exl3_gemm": exl3_gemm_kernel,
-            "paged_attention_quant": paged_attention_quant_kernel}
+            "paged_attention_quant": paged_attention_quant_kernel,
+            **{name: getattr(qm, name + "_kernel") for name in PACKED}}
 
 
 def _reset_counts():
@@ -692,6 +806,35 @@ def plain_ops():
         yield
     finally:
         linear_mod.exl3_matmul, attn_mod.paged_attention = saved
+
+
+@contextlib.contextmanager
+def plain_packed_linears():
+    """Inside, the packed linears' dispatchers run their plain PyTorch
+    versions on the card's tensors (the a8 or the bf16 product, as the
+    variables say), so a forward goes through none of the four kernels."""
+    import exllamav3_tpu_torch.modules.linear as linear_mod
+    import exllamav3_tpu_torch.modules.multilinear as multi_mod
+    import exllamav3_tpu_torch.ops.q_matmul as qm
+    from exllamav3_tpu_torch.util.env import env_bool
+
+    def int4_plain(x, packed, scales, bias=None):
+        fn = qm.int4_matmul_a8_plain if env_bool("EXL3TPU_INT4_A8", True) else qm.int4_matmul_plain
+        return qm._over_rows(x, packed.shape[1], bias, lambda x2: fn(x2, packed, scales))
+
+    def intb_plain(x, packed, scales, bits=None, bias=None):
+        bits = bits or qm.intb_bits_from_shapes(packed.shape[0], scales.shape[0])
+        fn = qm.intb_matmul_a8_plain if env_bool("EXL3TPU_INTB_A8", True) else qm.intb_matmul_plain
+        return qm._over_rows(x, packed.shape[1], bias, lambda x2: fn(x2, packed, scales, bits))
+
+    saved = [(mod, mod.int4_matmul, mod.intb_matmul) for mod in (linear_mod, multi_mod)]
+    for mod in (linear_mod, multi_mod):
+        mod.int4_matmul, mod.intb_matmul = int4_plain, intb_plain
+    try:
+        yield
+    finally:
+        for mod, f4, fb in saved:
+            mod.int4_matmul, mod.intb_matmul = f4, fb
 
 
 def _shift(a, b) -> tuple[float, float]:
@@ -729,6 +872,7 @@ def _serve(tag: str, layers: int, linear_mode: str, spec_kw: dict, expect_mode: 
     outcome. Returns the kernels' launch counts over the measured run."""
     from exllamav3_tpu_torch.generator import Generator, GreedySampler, Job
     from exllamav3_tpu_torch.model import Cache, CacheSpec, Config, InferParams, Model
+    from exllamav3_tpu_torch.model.model import estimate_linear_mode_bytes
 
     V = LLAMA8B["vocab_size"]
     cfg = Config.from_directory(_checkpoint(layers),
@@ -741,6 +885,9 @@ def _serve(tag: str, layers: int, linear_mode: str, spec_kw: dict, expect_mode: 
     log(f"{tag}: {layers} layers, linear_mode resolved to {cfg.infer_params.linear_mode}, "
         f"load {time.time() - t0:.1f} s, weights' device memory "
         f"{(torch.cuda.memory_allocated() - base) / 2**30:.2f} GiB")
+    if expect_mode in ("int8", "int6", "int4", "fused"):
+        log(f"{tag}: the ladder's estimate for {expect_mode}: "
+            f"{estimate_linear_mode_bytes(cfg, expect_mode) / 2**30:.2f} GiB")
     if cfg.infer_params.linear_mode != expect_mode:
         raise AssertionError(f"{tag}: linear mode did not resolve to {expect_mode}")
 
@@ -874,7 +1021,7 @@ def phase_serve() -> dict:
     """The int8 path: linear_mode="auto" on an 80 GB card, bf16 cache."""
     counts = _serve("serve", 32, "auto", {}, "int8", _serve_prompts())
     used = ("int8_matmul", "fused_mlp", "paged_attention")
-    _require_launches("serve", counts, used, ("exl3_gemm", "paged_attention_quant"))
+    _require_launches("serve", counts, used, ("exl3_gemm", "paged_attention_quant", *PACKED))
     return {n: counts[n] for n in used}
 
 
@@ -887,7 +1034,7 @@ def phase_serve_capacity() -> dict:
     from exllamav3_tpu_torch.ops.kv_quant import merged_layout
 
     used = ("exl3_gemm", "paged_attention_quant")
-    unused = ("int8_matmul", "fused_mlp", "paged_attention")
+    unused = ("int8_matmul", "fused_mlp", "paged_attention", *PACKED)
     counts = _serve("serve_capacity", 32, "fused", dict(k_bits=4, v_bits=4), "fused",
                     _serve_prompts())
     _require_launches("serve_capacity", counts, used, unused)
@@ -901,18 +1048,90 @@ def phase_serve_capacity() -> dict:
             "paged_attention_quant_per_head": odd["paged_attention_quant"]}
 
 
+@contextlib.contextmanager
+def environ(**values):
+    """Set environment variables inside, restore them after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_serve_packed() -> dict:
+    """The packed-integer tiers. 32 layers in int4 through the a8 kernel over
+    the bf16 cache; one request on 4 layers for each of the other three packed
+    kernels; then linear_mode="auto" on every rung of the ladder."""
+    import exllamav3_tpu_torch.model.model as pmodel
+    from exllamav3_tpu_torch.model import Config, InferParams, Model
+
+    others = ("int8_matmul", "fused_mlp", "exl3_gemm", "paged_attention_quant")
+    launches = {}
+    runs = [("serve_packed int4", 32, "int4", "int4_matmul_a8", {}, _serve_prompts(), True),
+            ("serve_packed int6", 4, "int6", "intb_matmul_a8", {}, _serve_prompts()[:1], False),
+            ("serve_packed int4 EXL3TPU_INT4_A8=0", 4, "int4", "int4_matmul",
+             {"EXL3TPU_INT4_A8": "0"}, _serve_prompts()[:1], False),
+            ("serve_packed int6 EXL3TPU_INTB_A8=0", 4, "int6", "intb_matmul",
+             {"EXL3TPU_INTB_A8": "0"}, _serve_prompts()[:1], False)]
+    for tag, layers, mode, kernel, env, prompts, trace in runs:
+        with environ(**env):
+            counts = _serve(tag, layers, mode, {}, mode, prompts, trace=trace)
+        _require_launches(tag, counts, (kernel, "paged_attention"),
+                          others + tuple(n for n in PACKED if n != kernel))
+        launches[kernel] = counts[kernel]
+
+    # the ladder: a device just large enough for each rung, and one too small
+    # for int4, which takes `fused`
+    d = _checkpoint(2)
+    cfg = Config.from_directory(d)
+    need = {m: pmodel.estimate_linear_mode_bytes(cfg, m) for m in ("int8", "int6", "int4", "fused")}
+    real_hbm = pmodel.device_hbm_bytes
+    ids = np.random.default_rng(12).integers(0, LLAMA8B["vocab_size"], size=(1, 8))
+    for rung in ("int8", "int6", "int4", "fused"):
+        hbm = math.ceil(need[rung] / 0.8) + 1 if rung != "fused" else int(need["int4"] / 0.8) - 1
+        picked = pmodel.select_linear_mode(cfg, hbm)
+        auto = Config.from_directory(d, infer_params=InferParams(linear_mode="auto"))
+        model = Model.from_config(auto, device="cuda")
+        base = torch.cuda.memory_allocated()
+        pmodel.device_hbm_bytes = lambda device, hbm=hbm: hbm
+        try:
+            model.load()
+        finally:
+            pmodel.device_hbm_bytes = real_hbm
+        logits = model.forward_simple(ids)
+        torch.cuda.synchronize()
+        log(f"serve_packed ladder: device memory {hbm} bytes -> select_linear_mode {picked}, "
+            f"auto loaded as {auto.infer_params.linear_mode}; estimate "
+            f"{need[rung] / 2**30:.3f} GiB, measured "
+            f"{(torch.cuda.memory_allocated() - base) / 2**30:.3f} GiB on 2 layers")
+        if not (picked == rung and auto.infer_params.linear_mode == rung
+                and torch.isfinite(logits).all()):
+            raise AssertionError(f"serve_packed ladder: rung {rung} resolved to {picked} / "
+                                 f"{auto.infer_params.linear_mode}")
+        del model, logits
+        torch.cuda.empty_cache()
+    return launches
+
+
 CHECKS = {"int8_matmul": check_int8, "fused_mlp": check_fused_mlp,
           "paged_attention": check_attention, "exl3_gemm": check_exl3_gemm,
-          "paged_attention_quant": check_attention_quant}
+          "paged_attention_quant": check_attention_quant,
+          **{name: (lambda table, dev, name=name: check_packed(table, dev, name))
+             for name in PACKED}}
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="build,kernels,parity,serve,serve_capacity",
+    ap.add_argument("--phases", default="build,kernels,parity,serve,serve_capacity,serve_packed",
                     help="`kernels` runs every kernel check; a check's name runs that one")
     args = ap.parse_args()
     phases = args.phases.split(",")
-    known = {"build", "kernels", "parity", "serve", "serve_capacity", *CHECKS}
+    known = {"build", "kernels", "parity", "serve", "serve_capacity", "serve_packed", *CHECKS}
     if set(phases) - known:
         ap.error(f"unknown phases {sorted(set(phases) - known)}")
 
@@ -957,6 +1176,10 @@ def main():
         t0 = time.time()
         table.set_launches(phase_serve_capacity())
         log(f"phase serve_capacity: {time.time() - t0:.1f} s")
+    if "serve_packed" in phases:
+        t0 = time.time()
+        table.set_launches(phase_serve_packed())
+        log(f"phase serve_packed: {time.time() - t0:.1f} s")
     log(f"total: {time.time() - t_all:.1f} s")
     log(smi)  # once more, so that the end of a cut log still names the card
     print(json.dumps({"kernels": list(table.rows.values())}))

@@ -21,7 +21,8 @@ no_default = _NoDefault()
 class InferParams:
     """Runtime tunables."""
 
-    # EXL3 linear runtime representation: "auto" | "int8" | "bf16" | "reconstruct" | "fused"
+    # EXL3 linear runtime representation: "auto" | "int8" | "int6" | "int5" | "int4" | "int3"
+    # | "bf16" | "reconstruct" | "fused"
     linear_mode: str = "auto"
     # fuse q/k/v and gate/up into single matmuls at load
     fuse_projections: bool = True

@@ -54,9 +54,8 @@ def select_linear_mode(config, hbm_bytes: int | None, reserve_frac: float = 0.20
     """linear_mode="auto", the JAX package's footprint ladder: int8 whenever
     the weights fit with `reserve_frac` of device memory left for the cache
     and activations, else int6, int4, and at last "fused", the capacity mode
-    (unknown capacity assumes int8 fits). The int6 and int4 linears are not
-    ported yet: Linear raises at load for them rather than take another
-    rung. "reconstruct" stays an explicit mode only."""
+    (unknown capacity assumes int8 fits). "reconstruct" and the other packed
+    widths (int3, int5) stay explicit modes only."""
     if hbm_bytes is None:
         return "int8"
     budget = hbm_bytes * (1.0 - reserve_frac)

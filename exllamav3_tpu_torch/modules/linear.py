@@ -6,15 +6,27 @@ Runtime representations of an EXL3 tensor ("linear_mode"):
   * "bf16": decode once at load into a bf16 weight (original basis);
   * "int8": decode once at load and requantize per output channel to int8;
     the matmul runs through the hand-written int8 kernel (ops/q_matmul.py);
+  * "int4": decode once at load and requantize to grouped int4, two codes a
+    byte and one bf16 scale per 32 rows (0.5625 bytes a weight); layers whose
+    in_features are no multiple of 64 load as int8;
+  * "int3" / "int5" / "int6": the same with B-bit codes packed into int32
+    words (ops/q_matmul.py); layers with in_features below EXL3TPU_INTB_MIN_K
+    (default 512) load as int8. Where the checkpoint carries conversion-time
+    serving tensors (`.sq` / `.sq_scale`, int-B codes of the weight rotated by
+    one 128-block Hadamard) at the asked width, modes int3 to int6 take those
+    instead of requantizing (EXL3TPU_SQ=0 ignores them);
   * "fused": keep the packed trellis as stream words and decode it inside the
     matmul kernel on every call (ops/exl3_gemm.py): the capacity mode, K/8
     bytes a weight.
-The int4, int-B and `.sq` modes are not ported yet and raise at load.
+The requants run on the load device and free the f32 weight before the next
+linear loads.
 
 Parameter layouts (the JAX package's own keys): {"trellis","suh","svh"},
 {"words","suh","svh"} (int32 (k/16, K, n/2)), {"weight"} (bf16, (in, out)),
-{"weight_q" (in, out) int8, "scale" (out,) f32}, each with an optional f32
-"bias".
+{"weight_q" (in, out) int8, "scale" (out,) f32}, {"weight_q4" (in/2, out)
+int8, "scale4" (in/32, out) bf16}, {"weight_qb" (kp, out) int32, "scale_qb"
+bf16}, {"weight_sq", "scale_sq"} (as weight_qb, rotated basis), each with an
+optional f32 "bias".
 """
 from __future__ import annotations
 
@@ -22,8 +34,11 @@ import torch
 
 from .module import ForwardCtx, Module
 from ..ops.exl3_gemm import exl3_matmul, trellis_to_words, words_to_trellis
-from ..ops.q_matmul import int8_matmul
+from ..ops.q_matmul import (INT4_GROUP, int4_matmul, int4_pack, int4_unpack, int8_matmul,
+                            intb_bits_from_shapes, intb_matmul, intb_pack, intb_unpack)
+from ..quant.hadamard import had_left, had_right
 from ..quant.reconstruct import codebook_id, exl3_matmul_ref, reconstruct_full
+from ..util.env import env_bool, env_int
 
 _EXL3_GROUP = [["suh", "su"], ["svh", "sv"], "trellis"]
 
@@ -56,6 +71,7 @@ class Linear(Module):
         self.alt_key = alt_key
         self.out_dtype = out_dtype
         self.cb = 0
+        self.qbits = None  # width of the int-B codes, once loaded in such a mode
         stc = config.stc
         for k in self._keys():
             if stc is not None and stc.has_tensor_group(k, _EXL3_GROUP):
@@ -104,16 +120,45 @@ class Linear(Module):
             p = {"words": trellis_to_words(trellis), "suh": suh, "svh": svh}
         elif mode == "bf16":
             p = {"weight": reconstruct_full(trellis, suh, svh, K, self.cb, dtype=torch.bfloat16)}
-        elif mode == "int8":
-            w = reconstruct_full(trellis, suh, svh, K, self.cb, dtype=torch.float32)
-            q, scale = int8_requant(w)
-            del w
-            p = {"weight_q": q, "scale": scale}
+        elif mode in ("int8", "int4", "int3", "int5", "int6"):
+            p = self._load_sq(key, mode, device) if mode != "int8" else None
+            if p is None:
+                p = self._requant(reconstruct_full(trellis, suh, svh, K, self.cb,
+                                                   dtype=torch.float32), mode)
         else:
-            raise ValueError(f"linear_mode {mode!r} is not ported yet")
+            raise ValueError(f"unknown linear_mode {mode!r}")
         if bias is not None:
             p["bias"] = bias.to(device=device, dtype=torch.float32)
         params[self.key] = p
+
+    def _load_sq(self, key: str, mode: str, device: torch.device) -> dict | None:
+        """The checkpoint's serving tensors, when present at the width `mode`
+        asks for and not switched off."""
+        stc = self.config.stc
+        if not (env_bool("EXL3TPU_SQ", True) and stc.has_tensor(key + ".sq")):
+            return None
+        sq = stc.get_tensor(key + ".sq")
+        sqs = stc.get_tensor(key + ".sq_scale")
+        bits = intb_bits_from_shapes(sq.shape[0], sqs.shape[0])
+        if bits != int(mode[3:]):
+            return None
+        self.qbits = bits
+        return {"weight_sq": sq.to(device).contiguous(),
+                "scale_sq": sqs.to(device=device, dtype=torch.bfloat16).contiguous()}
+
+    def _requant(self, w: torch.Tensor, mode: str) -> dict:
+        """Decoded f32 weight -> the packed tensors of `mode`, with the JAX
+        package's rules for the layers a packed layout does not take."""
+        k = w.shape[0]
+        if mode == "int4" and k % (2 * INT4_GROUP) == 0:
+            packed, scale = int4_pack(w)
+            return {"weight_q4": packed, "scale4": scale}
+        if mode in ("int3", "int5", "int6") and k >= env_int("EXL3TPU_INTB_MIN_K", 512):
+            self.qbits = int(mode[3:])
+            packed, scale = intb_pack(w, self.qbits)
+            return {"weight_qb": packed, "scale_qb": scale}
+        q, scale = int8_requant(w)
+        return {"weight_q": q, "scale": scale}
 
     def _load_dense(self, params: dict, key: str, device: torch.device) -> None:
         stc = self.config.stc
@@ -141,6 +186,15 @@ class Linear(Module):
             y = exl3_matmul_ref(x, p["trellis"], p["suh"], p["svh"],
                                 p["trellis"].shape[-1] // 16, self.cb,
                                 bias=bias, out_dtype=torch.float32)
+        elif "weight_q4" in p:
+            y = int4_matmul(x, p["weight_q4"], p["scale4"], bias=bias)
+        elif "weight_qb" in p:
+            y = intb_matmul(x, p["weight_qb"], p["scale_qb"], bits=self.qbits, bias=bias)
+        elif "weight_sq" in p:
+            # the codes hold the weight rotated by one 128-block Hadamard:
+            # rotate x the same way, no transform on the output
+            y = intb_matmul(had_right(x), p["weight_sq"], p["scale_sq"], bits=self.qbits,
+                            bias=bias)
         elif "weight_q" in p:
             y = int8_matmul(x, p["weight_q"], p["scale"], bias=bias)
         else:
@@ -156,6 +210,15 @@ class Linear(Module):
             trellis = words_to_trellis(p["words"]) if "words" in p else p["trellis"]
             return reconstruct_full(trellis, p["suh"], p["svh"], trellis.shape[-1] // 16,
                                     self.cb, dtype=torch.float32)
+        if "weight_q4" in p:
+            return int4_unpack(p["weight_q4"], p["scale4"])
+        for name, scale_name in (("weight_qb", "scale_qb"), ("weight_sq", "scale_sq")):
+            if name in p:
+                bits = self.qbits or intb_bits_from_shapes(p[name].shape[0],
+                                                           p[scale_name].shape[0])
+                w = intb_unpack(p[name], p[scale_name], bits, self.in_features)
+                # H128 is symmetric and orthonormal: rotating again undoes it
+                return had_left(w) if name == "weight_sq" else w
         if "weight_q" in p:
             return p["weight_q"].to(torch.float32) * p["scale"][None, :]
         return p["weight"].to(torch.float32)

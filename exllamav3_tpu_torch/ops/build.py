@@ -22,7 +22,8 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "exllamav3_tpu_torch"
 SOURCES = ("int8_matmul.cu", "fused_mlp.cu", "paged_attention.cu", "exl3_gemm.cu",
-           "paged_attention_quant.cu")
+           "paged_attention_quant.cu", "int4_matmul.cu", "intb_matmul.cu")
+HEADERS = ("packed_matmul.cuh",)  # included by sources; part of the digest
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -39,6 +40,10 @@ SIGNATURES = {
     "exl3_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "exl3_paged_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _I, _I, _I, _I, _F, _F, _F, _I, _F, _P],
+    "exl3_int4_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "exl3_int4_matmul_a8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "exl3_intb_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "exl3_intb_matmul_a8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _LIB = None
@@ -57,7 +62,7 @@ def nvcc_path() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     return h.hexdigest()[:16]

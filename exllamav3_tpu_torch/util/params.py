@@ -3,8 +3,9 @@
 `params_from_jax` installs the JAX package's `Model.params` pytree, given as
 numpy arrays (e.g. `jax.tree.map(np.asarray, jmodel.params)`), into a port
 model on its device. The two packages use the same keys and layouts, so both
-then run on identical weights, int8 codes and `fused` trellis words (int32)
-included. `cache_state_from_jax` does the same for a cache state, bf16
+then run on identical weights: int8 codes, `fused` trellis words, the packed
+int4 bytes and int-B words (`weight_q4`, `weight_qb`, `weight_sq` and their
+fused `*_q4`, `*_qb`, `*_sq` entries) bit for bit, their scales as bf16. `cache_state_from_jax` does the same for a cache state, bf16
 ({"k", "v"}) or quantized ({"k_q", "v_q"} int32 words, {"k_s", "v_s"} bf16
 scales). This module needs no JAX: it only reads numpy arrays.
 """
@@ -23,10 +24,19 @@ def _np_to_torch(a: np.ndarray) -> torch.Tensor:
 
 def params_from_jax(model, params_np: dict) -> dict:
     """{module key: {name: numpy array}} -> the model's torch params."""
+    from ..ops.q_matmul import intb_bits_from_shapes
+
     model.params = {
         key: {name: _np_to_torch(arr).to(model.device) for name, arr in group.items()}
         for key, group in params_np.items()
     }
+    # a Linear that holds int-B codes knows their width, as after its own load
+    for mod in model.root.walk():
+        group = model.params.get(mod.key, {})
+        for name, scale_name in (("weight_qb", "scale_qb"), ("weight_sq", "scale_sq")):
+            if name in group:
+                mod.qbits = intb_bits_from_shapes(group[name].shape[0],
+                                                  group[scale_name].shape[0])
     return model.params
 
 

@@ -216,9 +216,32 @@ def test_auto_resolves_to_fused_and_serves(ckpt, monkeypatch):
 
 
 @pytest.mark.parametrize("mode", ["int6", "int4"])
-def test_unported_rungs_raise_at_load(ckpt, mode):
-    """int6 and int4 are rungs of the ladder whose linears are not ported:
-    loading raises; it does not quietly take another rung."""
-    cfg = Config.from_directory(ckpt, infer_params=InferParams(linear_mode=mode))
-    with pytest.raises(ValueError, match="not ported yet"):
-        Model.from_config(cfg, device="cpu").load()
+def test_unported_rungs_raise_at_load(ckpt, mode, monkeypatch):
+    """int6 and int4, the ladder's middle rungs, load their packed tensors and
+    serve a paged step; "auto" on a device that just fits the rung takes it
+    (the test's name dates from when these rungs raised at load)."""
+    import exllamav3_tpu_torch.model.model as pmodel
+
+    monkeypatch.setenv("EXL3TPU_INTB_MIN_K", "256")
+    cfg = Config.from_directory(ckpt, infer_params=InferParams(linear_mode="auto"))
+    fits = int(estimate_linear_mode_bytes(cfg, mode) / 0.8) + 1
+    assert select_linear_mode(cfg, fits) == mode
+    monkeypatch.setattr(pmodel, "device_hbm_bytes", lambda device: fits)
+    m = Model.from_config(cfg, device="cpu")
+    m.load()
+    assert cfg.infer_params.linear_mode == mode
+    down = m.params["model.layers.0.mlp.down_proj"]
+    fused = m.params["model.layers.0.self_attn"]
+    if mode == "int4":
+        assert down["weight_q4"].dtype == torch.int8 and "qkv_q4" in fused
+    else:
+        assert down["weight_qb"].dtype == torch.int32 and "qkv_qb" in fused
+        assert m.modules[1].mlp.down.qbits == 6
+    cache = Cache(m, CacheSpec(num_pages=3), device="cpu")
+    ids = np.arange(1, 9, dtype=np.int32)[None]
+    logits = m.forward(ids, cache, np.arange(8, dtype=np.int32)[None], np.array([0], np.int32),
+                       np.array([[1, 0]], np.int32))
+    assert logits.shape == (1, 8, 512) and torch.isfinite(logits).all()
+    simple = m.forward_simple(ids)
+    # the paged step and the cacheless forward agree on the same weights
+    assert (logits.argmax(-1) == simple.argmax(-1)).float().mean() >= 0.75

@@ -33,7 +33,9 @@ def test_no_jax_imports_in_port_sources():
     scanned = {os.path.relpath(f, ROOT) for f in files}
     assert {"exllamav3_tpu_torch/ops/exl3_gemm.py", "exllamav3_tpu_torch/ops/kv_quant.py",
             "exllamav3_tpu_torch/ops/flash_attention.py", "exllamav3_tpu_torch/model/cache.py",
-            "exllamav3_tpu_torch/util/params.py", "chip_smoke.py"} <= scanned
+            "exllamav3_tpu_torch/util/params.py", "exllamav3_tpu_torch/ops/q_matmul.py",
+            "exllamav3_tpu_torch/util/env.py", "exllamav3_tpu_torch/modules/multilinear.py",
+            "chip_smoke.py"} <= scanned
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -57,6 +59,32 @@ def test_importing_the_port_loads_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'exllamav3_tpu')]\n"
         "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_packed_modules_import_without_triton_or_a_built_library():
+    """The packed-integer ops and the environment readers import on a machine
+    with no compiler: nothing builds or loads a kernel library at import, and
+    neither triton nor jax comes in."""
+    code = (
+        "import sys\n"
+        "import exllamav3_tpu_torch.util.env as env\n"
+        "import exllamav3_tpu_torch.ops.q_matmul as qm\n"
+        "import exllamav3_tpu_torch.ops.build as build\n"
+        "assert build._LIB is None and not build.BUILD_LOG\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'exllamav3_tpu', 'triton')]\n"
+        "assert not bad, bad\n"
+        "assert {'int4_matmul.cu', 'intb_matmul.cu'} <= set(build.SOURCES)\n"
+        "assert all(hasattr(qm, n + '_kernel') and hasattr(qm, n + '_plain') for n in "
+        "('int4_matmul', 'int4_matmul_a8', 'intb_matmul', 'intb_matmul_a8'))\n"
+        "assert sorted(n for n in dir(env) if n.startswith('env_')) == "
+        "['env_bool', 'env_int', 'env_str']\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -88,20 +88,30 @@ def test_forward_simple_int8_carried(int8_pair, rows):
     assert (got.argmax(-1) == ref.argmax(-1)).mean() > 0.95
 
 
-def test_auto_mode_raises_below_int8(ckpt):
+def test_auto_mode_raises_below_int8(ckpt, monkeypatch):
     """"auto" resolves to int8 when the weights fit. Below that it walks the
     JAX package's ladder (int6, int4, then fused) and never takes the
-    per-call reconstruct path; a rung whose linears are not ported raises at
-    load."""
+    per-call reconstruct path. Every rung loads and serves a step (the test's
+    name dates from when the packed rungs raised at load)."""
+    import exllamav3_tpu_torch.model.model as pmodel
+
     cfg = Config.from_directory(ckpt)
     need = estimate_linear_mode_bytes(cfg, "int8")
     assert select_linear_mode(cfg, None) == "int8"
     assert select_linear_mode(cfg, 2 * need) == "int8"
     assert select_linear_mode(cfg, need) in ("int6", "int4")
     assert select_linear_mode(cfg, need // 100) == "fused"
-    cfg.infer_params.linear_mode = select_linear_mode(cfg, need)
-    with pytest.raises(ValueError, match="not ported"):
-        Model.from_config(cfg, device="cpu").load()
+    monkeypatch.setenv("EXL3TPU_INTB_MIN_K", "256")
+    rung = select_linear_mode(cfg, need)
+    monkeypatch.setattr(pmodel, "device_hbm_bytes", lambda device: need)
+    auto = Config.from_directory(ckpt, infer_params=InferParams(linear_mode="auto"))
+    m = Model.from_config(auto, device="cpu")
+    m.load()
+    assert auto.infer_params.linear_mode == rung
+    packed = "weight_qb" if rung == "int6" else "weight_q4"
+    assert packed in m.params["model.layers.0.mlp.down_proj"]
+    logits = m.forward_simple(IDS[:1, :5])
+    assert logits.shape == (1, 5, 512) and torch.isfinite(logits).all()
 
 
 def test_int8_requant_matches_jax(ckpt, int8_pair):
