@@ -4,6 +4,7 @@
     python3 chip_smoke.py --phases build,exl3_gemm,paged_attention_quant
     python3 chip_smoke.py --phases build,serve_capacity
     python3 chip_smoke.py --phases build,int4_matmul_a8,intb_matmul_a8,serve_packed
+    python3 chip_smoke.py --phases build,moe_gemm,serve_moe
 
 Phases:
   build     build the CUDA kernels from exllamav3_tpu_torch/csrc/ (timed)
@@ -18,12 +19,19 @@ Phases:
             paged_attention_quant (merged and per-head storage, with and
             without the compander), int4_matmul, int4_matmul_a8, intb_matmul
             and intb_matmul_a8 (the packed-integer linears: also m = 128 and
-            the Llama-3.1-70B shapes at m = 8; int-B at B = 3, 4, 5, 6)
+            the Llama-3.1-70B shapes at m = 8; int-B at B = 3, 4, 5, 6),
+            moe_gemm (the selected-expert MLP at the Qwen3-30B-A3B,
+            Qwen3-235B-A22B and Mixtral-8x7B expert shapes). int8_matmul also
+            runs the Qwen3-30B-A3B attention and head shapes, paged_attention
+            also GQA group 8 (32 q / 4 kv heads)
   parity    a 2-layer checkpoint at full 8B width: forward_simple and paged
             prefill + decode steps on the GPU (kernels) against the CPU
             (plain versions) over the same ids and weights, for the int8 path
             for the capacity path (`fused` linears, (4, 4) cache) and for the
-            packed tiers int4 and int6 (a8 kernels)
+            packed tiers int4 and int6 (a8 kernels); then a 2-layer Qwen3-MoE
+            checkpoint at full Qwen3-30B-A3B width (int8), the GPU given the
+            CPU's routing, with the share of (token, layer) expert sets the
+            GPU's own router picks alike
   serve     a 32-layer synthetic checkpoint at Llama-3.1-8B geometry loaded
             with linear_mode="auto" (int8 on an 80 GB card) over a bf16 cache
             and served by the continuous-batching generator: 8 greedy
@@ -44,6 +52,11 @@ Phases:
             the four packed kernels serves a run of its own; then the ladder:
             linear_mode="auto" on a device just large enough for int8, int6,
             int4 and none of them loads and runs on every rung
+  serve_moe a 48-layer synthetic Qwen3-MoE checkpoint at Qwen3-30B-A3B geometry
+            (128 experts, top 8, vocab 151936) loaded with linear_mode="auto"
+            (int8 on an 80 GB card; the experts serve as bf16 stacks) over a
+            bf16 cache, the same traffic: prefill chunks through the grouped
+            experts, decode steps through the selected-expert kernel
 
 Each serve phase sets every kernel's launch count to 0 before its run and
 reads it after: the kernels of its path must all have launched and the
@@ -51,12 +64,14 @@ others not at all.
 
 The second-to-last line is the kernel table as JSON and the last line is
 {"ok": true, "device": {...}}. Any failed phase raises and exits non-zero
-without that line. Needs CUDA; writes its checkpoints under build/chip_smoke/.
+without that line. Needs CUDA; writes its checkpoints under build/chip_smoke/
+(the 48-layer MoE one is ~15 GB, one shard a layer).
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
@@ -78,6 +93,10 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 
 LLAMA8B = dict(vocab_size=32768, hidden_size=4096, intermediate_size=14336,
                num_q_heads=32, num_kv_heads=8, head_dim=128)
+# Qwen/Qwen3-30B-A3B config.json (every layer MoE, no shared expert)
+QWEN3_30B = dict(vocab_size=151936, hidden_size=2048, intermediate_size=6144,
+                 moe_intermediate_size=768, num_q_heads=32, num_kv_heads=4, head_dim=128,
+                 num_experts=128, num_experts_per_tok=8, rms_norm_eps=1e-6, rope_theta=1e6)
 
 # tolerances, each relative to the largest magnitude of the plain result
 TOL_INT8 = 1e-4   # both sides: exact bf16 products, f32 sums in another order
@@ -86,6 +105,12 @@ TOL_ATTN = 2e-4   # q and P enter the MMAs as hi + lo bf16 pairs (~2^-16 relativ
 TOL_EXL3 = 1e-4   # both sides: the same bf16 weights and activations, f32 sums in another order
 TOL_PACKED = 1e-4  # both sides: the same bf16 or int8 operands, f32 sums in another order
 TOL_ATTN_Q = 3e-4  # as TOL_ATTN; K/V are exact hi + lo pairs, the rotation sums in another order
+# the selected-expert MLP, relative to the range of the plain result: the same
+# bf16 products, f32 sums in another order, which now and then flip the bf16
+# rounding of one activation (one flip moves an output by 2^-8 of that
+# activation's term: up to 1.13e-4 of the largest magnitude at Qwen3-235B-A22B
+# shapes on an H100 80GB HBM3 at 700 W)
+TOL_MOE = 1e-4
 # logits over a quantized cache, kernels against plain versions, relative to
 # the logits' range: the two sides store different codes where a key or value
 # sits on a grid edge (a step of a 4-bit grid is 1/8 of its group's range)
@@ -96,6 +121,13 @@ TOL_QUANT_PATH = 6e-2
 # int8 code (a step of 1/127 of the row's largest value). On the card alone,
 # kernels against plain versions, upstream is identical and 2e-2 holds
 TOL_A8_PATH = 6e-2
+# logits of the MoE path, GPU against CPU, relative to the logits' largest
+# magnitude, with the GPU given the CPU's routing at every layer (a router
+# logit whose last bf16 bit differs between the devices would otherwise pick
+# another expert for a token). The same sources of difference as the dense
+# int8 path, held to the same limit
+TOL_MOE_PATH = 2e-2
+MIN_EXPERT_AGREEMENT = 0.9   # share of (token, layer) expert sets alike on both devices
 
 # An SM dispatches one warp instruction a clock from each of its four schedulers
 LANES_PER_SM_CLOCK = 4 * 32
@@ -116,6 +148,7 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "intb_matmul": ("exllamav3_tpu_torch/csrc/intb_matmul.cu", "exllamav3_tpu/ops/q_matmul.py:571"),
     "intb_matmul_a8": ("exllamav3_tpu_torch/csrc/intb_matmul.cu",
                        "exllamav3_tpu/ops/q_matmul.py:687"),
+    "moe_gemm": ("exllamav3_tpu_torch/csrc/moe_gemm.cu", "exllamav3_tpu/ops/moe_gemm.py:48"),
 }
 
 
@@ -185,8 +218,12 @@ class KernelTable:
                        library_ms=library_ms, shape=shape, **extra)
 
     def set_launches(self, counts):
+        """A kernel that several serve phases run keeps the count of the
+        first, the path it was ported for (the log prints every phase's)."""
         for name, n in counts.items():
-            self.row(name)["launches"] = n
+            row = self.row(name)
+            if row["launches"] is None:
+                row["launches"] = n
 
 
 # -- phase: kernels -------------------------------------------------------------
@@ -196,9 +233,12 @@ def check_int8(table, dev):
 
     shapes = [(4096, 6144, "qkv"), (4096, 4096, "o_proj"), (4096, 28672, "gate_up"),
               (14336, 4096, "down"), (4096, 32768, "lm_head")]
+    # Qwen3-30B-A3B's int8 linears: qkv, o_proj and the 151936-row head
+    q3 = [(2048, 5120, "Qwen3-30B-A3B qkv"), (4096, 2048, "Qwen3-30B-A3B o_proj"),
+          (2048, 151936, "Qwen3-30B-A3B lm_head")]
     g = torch.Generator(device=dev).manual_seed(1)
     for m in (1, 8, 2048):
-        for k, n, what in shapes:
+        for k, n, what in shapes + (q3 if m < 2048 else q3[:2]):
             def make(i, k=k, n=n, m=m):
                 x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
                 w = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
@@ -284,11 +324,17 @@ def check_attention(table, dev):
     from exllamav3_tpu_torch.ops.flash_attention import (paged_attention_kernel,
                                                           paged_attention_plain)
 
-    Hq, Hk, D = 32, 8, 128
+    Hq, D = 32, 128
     rng = np.random.default_rng(3)
     cases = []
     ctx = np.linspace(300, 2048, 8).astype(np.int32)
     cases.append(("decode B=8 ctx 300-2048", ctx[:, None] - 1, ctx, {}, True))
+    # Qwen3-30B-A3B: 32 q / 4 kv heads, a GQA group of 8
+    cases.append(("decode B=8 ctx 300-2048, group 8", ctx[:, None] - 1, ctx, {"kv_heads": 4},
+                  False))
+    cases.append(("prefill S=2048 on 512 cached, group 8",
+                  (512 + np.arange(2048, dtype=np.int32))[None], np.array([2560], np.int32),
+                  {"kv_heads": 4}, False))
     cases.append(("prefill S=2048 on 512 cached", (512 + np.arange(2048, dtype=np.int32))[None],
                   np.array([2560], np.int32), {}, False))
     cases.append(("decode + sliding window 512", ctx[:, None] - 1, ctx,
@@ -301,6 +347,7 @@ def check_attention(table, dev):
                   {"sliding_window": 128, "logit_softcap": 20.0, "sinks": True}, False))
     for name, qpos, total, kw, main in cases:
         B, S = qpos.shape
+        Hk = kw.pop("kv_heads", 8)
         mp = int(math.ceil(total.max() / PAGE_SIZE)) + 1
         P = B * mp + 1
         perm = rng.permutation(np.arange(1, P))[: B * mp].reshape(B, mp).astype(np.int32)
@@ -548,6 +595,105 @@ def check_packed(table, dev, name: str):
     torch.cuda.empty_cache()
 
 
+# (name, h, i, E, k, token counts) from the published configs
+MOE_SHAPES = [("Qwen3-30B-A3B", 2048, 768, 128, 8, (1, 8, 15)),
+              ("Qwen3-235B-A22B", 4096, 1536, 128, 8, (8,)),
+              ("Mixtral-8x7B", 4096, 14336, 8, 2, (1, 8))]
+
+
+def _moe_routing(rng, T, E, k, dev):
+    """Seeded routing that puts several tokens on the same experts: each
+    token draws k distinct experts with weights skewed toward a few, as a
+    trained router's load is; routing weights positive, summing to 1."""
+    p = rng.pareto(1.0, E) + 0.05
+    p /= p.sum()
+    topi = np.stack([rng.choice(E, k, replace=False, p=p) for _ in range(T)]).astype(np.int32)
+    topv = rng.random((T, k)).astype(np.float32) + 0.1
+    topv /= topv.sum(-1, keepdims=True)
+    return torch.as_tensor(topi, device=dev), torch.as_tensor(topv, device=dev)
+
+
+def moe_library(x, groups, topv, wg, wu, wd):
+    """The same routed function from PyTorch products, as the grouped path
+    computes it: for each distinct routed expert, its tokens times its three
+    bf16 weights (cuBLAS), the activation rounded to bf16, the weighted rows
+    added into the output. `groups` is [(expert, token rows, slot rows)],
+    made on the host beforehand."""
+    out = torch.zeros((x.shape[0], x.shape[1]), dtype=torch.float32, device=x.device)
+    flat_v = topv.reshape(-1)
+    for e, rows, slots in groups:
+        xe = x[rows]
+        a = (torch.nn.functional.silu(torch.matmul(xe, wg[e]).float())
+             * torch.matmul(xe, wu[e]).float()).to(torch.bfloat16)
+        out.index_add_(0, rows, torch.matmul(a, wd[e]).float() * flat_v[slots, None])
+    return out
+
+
+def check_moe_gemm(table, dev):
+    from exllamav3_tpu_torch.ops.moe_gemm import (selected_expert_mlp_kernel,
+                                                  selected_expert_mlp_plain)
+
+    rng = np.random.default_rng(13)
+    g = torch.Generator(device=dev).manual_seed(13)
+    for name, h, inter, E, k, Ts in MOE_SHAPES:
+        wg = (torch.randn((E, h, inter), generator=g, device=dev) / math.sqrt(h)).to(torch.bfloat16)
+        wu = (torch.randn((E, h, inter), generator=g, device=dev) / math.sqrt(h)).to(torch.bfloat16)
+        wd = (torch.randn((E, inter, h), generator=g, device=dev) / math.sqrt(inter)).to(torch.bfloat16)
+        for T in Ts:
+            # several routings in turn, so that timed calls read other experts
+            # than the call before, as consecutive layers do
+            sets = []
+            for _ in range(8):
+                x = torch.randn((T, h), generator=g, device=dev).to(torch.bfloat16)
+                topi, topv = _moe_routing(rng, T, E, k, dev)
+                ti = topi.cpu().numpy()
+                groups = [(int(e), torch.as_tensor(np.nonzero(ti == e)[0], device=dev),
+                           torch.as_tensor(np.flatnonzero(ti == e), device=dev))
+                          for e in np.unique(ti)]
+                sets.append((x, topi, topv, groups, len(groups)))
+            x, topi, topv, groups, distinct = sets[0]
+            ref = selected_expert_mlp_plain(x, topi, topv, wg, wu, wd)
+            got = selected_expert_mlp_kernel(x, topi, topv, wg, wu, wd)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"moe_gemm {name} T={T}: non-finite output")
+            err = float((got - ref).abs().max())
+            rel = err / float(ref.abs().max())
+            rel_range = err / float(ref.max() - ref.min())
+            lib_err = float((moe_library(x, groups, topv, wg, wu, wd) - ref).abs().max())
+            state = {"i": 0}
+
+            def nxt():
+                state["i"] += 1
+                return sets[state["i"] % len(sets)]
+            ms = time_ms(lambda: selected_expert_mlp_kernel(*nxt()[:3], wg, wu, wd), 20)
+            plain = time_ms(lambda: selected_expert_mlp_plain(*nxt()[:3], wg, wu, wd), 2)
+
+            def lib_call():
+                xs, _, tv, grp, _ = nxt()
+                return moe_library(xs, grp, tv, wg, wu, wd)
+            lib = time_ms(lib_call, 5)
+            # the distinct experts each routing reads, averaged over the timed sets
+            n_dist = float(np.mean([s[4] for s in sets]))
+            nb = n_dist * 3 * h * inter * 2 + T * h * 2 + T * k * 8 + T * h * 4
+            bnd = bound_ms(nb, 6.0 * T * k * h * inter)
+            log(f"moe_gemm {name} T={T} (h={h} i={inter} E={E} k={k}, {distinct} distinct experts "
+                f"in the checked routing, {n_dist:.2f} on average): max_abs_err={err:.3e} "
+                f"rel={rel:.2e}, {rel_range:.2e} of the range (library vs plain {lib_err:.3e}) "
+                f"kernel_ms={ms:.4f} "
+                f"plain_ms={plain:.4f} library_ms(torch.matmul per distinct expert)={lib:.4f} "
+                f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
+            if not rel_range <= TOL_MOE:
+                raise AssertionError(f"moe_gemm {name} T={T}: err {rel_range} of the range "
+                                     f"> {TOL_MOE}")
+            table.add("moe_gemm", err, ms, plain, bnd, lib,
+                      f"{name} T={T} h={h} i={inter} E={E} k={k}, {n_dist:.2f} distinct experts",
+                      main=(name == "Qwen3-30B-A3B" and T == 8))
+            del sets, x, topi, topv, groups, ref, got
+        del wg, wu, wd
+        torch.cuda.empty_cache()
+
+
 def _quant_attn_work(qpos, total, Hq, Hk, D, window, k_bits, v_bits):
     """As _attn_work, with each visible key costing its packed words and its
     two rows of bf16 scales."""
@@ -717,7 +863,92 @@ def phase_parity():
                               np.array([p], np.int32), bt) for m, c in zip((gpu, cpu), caches)]
             _compare(f"{tag} paged decode pos={p}", outs[0], outs[1], rel_tol)
         del gpu, cpu, caches
+        gc.collect()
         torch.cuda.empty_cache()
+    parity_moe()
+
+
+@contextlib.contextmanager
+def record_routing(forced: list | None = None):
+    """Inside, every BlockSparseMLP.route call appends its (T, E) routing
+    weights, on the host, to the yielded list. With `forced`, a list of such
+    weights from an earlier run, each call then returns the next of them, on
+    its own device, in place of its own."""
+    from exllamav3_tpu_torch.modules.block_sparse_mlp import BlockSparseMLP
+
+    weights, orig = [], BlockSparseMLP.route
+    given = iter(forced or [])
+
+    def route(self, logits, e_bias=None):
+        w = orig(self, logits, e_bias)
+        weights.append(w.cpu())
+        return w if forced is None else next(given).to(w.device)
+    BlockSparseMLP.route = route
+    try:
+        yield weights
+    finally:
+        BlockSparseMLP.route = orig
+
+
+def parity_moe():
+    """The MoE path on a 2-layer Qwen3-MoE checkpoint at Qwen3-30B-A3B width
+    (int8 attention and head, bf16 expert stacks): forward_simple (grouped
+    experts), a paged prefill (grouped) and decode steps (the selected-expert
+    kernel on the GPU, its plain version on the CPU). The router's bf16
+    logits can differ in a last bit between the devices and so pick another
+    expert for a token, and the logits of such a token differ by far more
+    than the compute does: so the CPU runs first, the GPU then takes the
+    CPU's routing weights at every layer, and every position is held to the
+    limit. The share of (token, layer) expert sets that the GPU's own router
+    picks alike is printed, and held for 32 pairs or more."""
+    from exllamav3_tpu_torch.model import Cache, CacheSpec, Config, InferParams, Model
+    from exllamav3_tpu_torch.util.params import params_to
+
+    d = _moe_checkpoint(2)
+    cfg = Config.from_directory(d, infer_params=InferParams(linear_mode="auto"))
+    gpu = Model.from_config(cfg, device="cuda")
+    gpu.load()
+    cpu = Model.from_config(cfg, device="cpu")
+    cpu.params = params_to(gpu.params, "cpu")
+    V = QWEN3_30B["vocab_size"]
+    ids = np.random.default_rng(14).integers(0, V, size=(1, 400))
+    tag = f"Qwen3-MoE {cfg.infer_params.linear_mode}"
+    log(f"parity: {tag}, 2 layers at Qwen3-30B-A3B width, bf16 cache, the GPU on the CPU's routing")
+
+    def both(what, fn):
+        """fn on the CPU, then on the GPU with the CPU's routing; the GPU's own
+        expert sets compared with the CPU's, the logits held at every position"""
+        with record_routing() as ref_w:
+            ref = fn(cpu)
+        with record_routing(forced=ref_w) as own_w:
+            got = fn(gpu)
+        alike = torch.stack([((a > 0) == (b > 0)).all(dim=-1) for a, b in zip(own_w, ref_w)])
+        agree = float(alike.float().mean())
+        n = alike.numel()
+        log(f"parity {tag} {what}: the GPU's own expert sets agree with the CPU's for "
+            f"{agree:.4f} of {n} (token, layer) pairs")
+        if n >= 32 and agree < MIN_EXPERT_AGREEMENT:
+            raise AssertionError(f"parity {tag} {what}: expert sets agree for only {agree:.4f}")
+        _compare(f"{tag} {what}", got, ref, TOL_MOE_PATH)
+
+    both("forward_simple S=96", lambda m: m.forward_simple(ids[:, :96]))
+    caches = {m: Cache(m, CacheSpec(num_pages=4)) for m in (gpu, cpu)}
+    bt = np.array([[1, 2, 0]], np.int32)
+    S = 300
+    both(f"paged prefill S={S}", lambda m: m.forward(ids[:, :S], caches[m],
+                                                     np.arange(S, dtype=np.int32)[None],
+                                                     np.array([0], np.int32), bt))
+    before = _read_counts()["moe_gemm"]
+    for p in range(S, S + 4):
+        both(f"paged decode pos={p}", lambda m: m.forward(ids[:, p: p + 1], caches[m],
+                                                          np.array([[p]], np.int32),
+                                                          np.array([p], np.int32), bt))
+    if _read_counts()["moe_gemm"] - before != 4 * 2:
+        raise AssertionError(f"parity {tag}: the decode steps did not run the selected-expert "
+                             "kernel once a layer")
+    del gpu, cpu, caches
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # -- phase: serve ------------------------------------------------------------------
@@ -769,12 +1000,14 @@ def _wrappers() -> dict:
     from exllamav3_tpu_torch.ops.flash_attention import (paged_attention_kernel,
                                                           paged_attention_quant_kernel)
     from exllamav3_tpu_torch.ops.fused_mlp import fused_mlp_int8_kernel
+    from exllamav3_tpu_torch.ops.moe_gemm import selected_expert_mlp_kernel
     import exllamav3_tpu_torch.ops.q_matmul as qm
 
     return {"int8_matmul": qm.int8_matmul_kernel, "fused_mlp": fused_mlp_int8_kernel,
             "paged_attention": paged_attention_kernel, "exl3_gemm": exl3_gemm_kernel,
             "paged_attention_quant": paged_attention_quant_kernel,
-            **{name: getattr(qm, name + "_kernel") for name in PACKED}}
+            **{name: getattr(qm, name + "_kernel") for name in PACKED},
+            "moe_gemm": selected_expert_mlp_kernel}
 
 
 def _reset_counts():
@@ -855,36 +1088,36 @@ def _checkpoint(layers: int) -> str:
     return d
 
 
-def _serve_prompts():
+def _serve_prompts(V: int = LLAMA8B["vocab_size"]):
     rng = np.random.default_rng(6)
-    V = LLAMA8B["vocab_size"]
     prefix = rng.integers(0, V, 512)
     # the longest request arrives first, so its prefill registers the shared pages
     lengths = np.linspace(1536, 512, 8).astype(int)
     return [np.concatenate([prefix, rng.integers(0, V, n - 512)]) for n in lengths]
 
 
-def _serve(tag: str, layers: int, linear_mode: str, spec_kw: dict, expect_mode: str,
+def _serve(tag: str, ckpt: str, linear_mode: str, spec_kw: dict, expect_mode: str,
            prompts: list, trace: bool = True) -> dict:
-    """Load the `layers`-deep 8B-width checkpoint in `linear_mode`, serve
-    `prompts` (128 greedy tokens each; the first arrives alone, the rest once
-    it decodes) over a paged cache made with `spec_kw`, and check the
-    outcome. Returns the kernels' launch counts over the measured run."""
+    """Load the checkpoint `ckpt` in `linear_mode`, serve `prompts` (128
+    greedy tokens each; the first arrives alone, the rest once it decodes)
+    over a paged cache made with `spec_kw`, and check the outcome. Returns
+    the kernels' launch counts over the measured run."""
     from exllamav3_tpu_torch.generator import Generator, GreedySampler, Job
     from exllamav3_tpu_torch.model import Cache, CacheSpec, Config, InferParams, Model
     from exllamav3_tpu_torch.model.model import estimate_linear_mode_bytes
 
-    V = LLAMA8B["vocab_size"]
-    cfg = Config.from_directory(_checkpoint(layers),
-                                infer_params=InferParams(linear_mode=linear_mode))
+    cfg = Config.from_directory(ckpt, infer_params=InferParams(linear_mode=linear_mode))
+    V = cfg.vocab_size
     model = Model.from_config(cfg, device="cuda")
     base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     model.load()
     torch.cuda.synchronize()
-    log(f"{tag}: {layers} layers, linear_mode resolved to {cfg.infer_params.linear_mode}, "
-        f"load {time.time() - t0:.1f} s, weights' device memory "
-        f"{(torch.cuda.memory_allocated() - base) / 2**30:.2f} GiB")
+    log(f"{tag}: {cfg.num_hidden_layers} layers, linear_mode resolved to "
+        f"{cfg.infer_params.linear_mode}, load {time.time() - t0:.1f} s, weights' device memory "
+        f"{(torch.cuda.memory_allocated() - base) / 2**30:.2f} GiB, peak during load "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if expect_mode in ("int8", "int6", "int4", "fused"):
         log(f"{tag}: the ladder's estimate for {expect_mode}: "
             f"{estimate_linear_mode_bytes(cfg, expect_mode) / 2**30:.2f} GiB")
@@ -1006,6 +1239,7 @@ def _serve(tag: str, layers: int, linear_mode: str, spec_kw: dict, expect_mode: 
     if len(jobs) > 1 and reused <= 0:
         raise AssertionError(f"{tag}: no prefix pages were reused")
     del model, cache, gen
+    gc.collect()  # a model's modules refer to each other: free its tensors now
     torch.cuda.empty_cache()
     return counts
 
@@ -1019,9 +1253,10 @@ def _require_launches(tag: str, counts: dict, used: tuple, unused: tuple):
 
 def phase_serve() -> dict:
     """The int8 path: linear_mode="auto" on an 80 GB card, bf16 cache."""
-    counts = _serve("serve", 32, "auto", {}, "int8", _serve_prompts())
+    counts = _serve("serve", _checkpoint(32), "auto", {}, "int8", _serve_prompts())
     used = ("int8_matmul", "fused_mlp", "paged_attention")
-    _require_launches("serve", counts, used, ("exl3_gemm", "paged_attention_quant", *PACKED))
+    _require_launches("serve", counts, used,
+                      ("exl3_gemm", "paged_attention_quant", "moe_gemm", *PACKED))
     return {n: counts[n] for n in used}
 
 
@@ -1034,12 +1269,12 @@ def phase_serve_capacity() -> dict:
     from exllamav3_tpu_torch.ops.kv_quant import merged_layout
 
     used = ("exl3_gemm", "paged_attention_quant")
-    unused = ("int8_matmul", "fused_mlp", "paged_attention", *PACKED)
-    counts = _serve("serve_capacity", 32, "fused", dict(k_bits=4, v_bits=4), "fused",
+    unused = ("int8_matmul", "fused_mlp", "paged_attention", "moe_gemm", *PACKED)
+    counts = _serve("serve_capacity", _checkpoint(32), "fused", dict(k_bits=4, v_bits=4), "fused",
                     _serve_prompts())
     _require_launches("serve_capacity", counts, used, unused)
-    odd = _serve("serve_capacity (5, 3)", 4, "fused", dict(k_bits=5, v_bits=3), "fused",
-                 _serve_prompts()[:1], trace=False)
+    odd = _serve("serve_capacity (5, 3)", _checkpoint(4), "fused", dict(k_bits=5, v_bits=3),
+                 "fused", _serve_prompts()[:1], trace=False)
     _require_launches("serve_capacity (5, 3)", odd, used, unused)
     if not merged_layout(4, 4) or merged_layout(5, 3):
         raise AssertionError("serve_capacity: the two runs did not use the two storages")
@@ -1070,7 +1305,7 @@ def phase_serve_packed() -> dict:
     import exllamav3_tpu_torch.model.model as pmodel
     from exllamav3_tpu_torch.model import Config, InferParams, Model
 
-    others = ("int8_matmul", "fused_mlp", "exl3_gemm", "paged_attention_quant")
+    others = ("int8_matmul", "fused_mlp", "exl3_gemm", "paged_attention_quant", "moe_gemm")
     launches = {}
     runs = [("serve_packed int4", 32, "int4", "int4_matmul_a8", {}, _serve_prompts(), True),
             ("serve_packed int6", 4, "int6", "intb_matmul_a8", {}, _serve_prompts()[:1], False),
@@ -1080,7 +1315,7 @@ def phase_serve_packed() -> dict:
              {"EXL3TPU_INTB_A8": "0"}, _serve_prompts()[:1], False)]
     for tag, layers, mode, kernel, env, prompts, trace in runs:
         with environ(**env):
-            counts = _serve(tag, layers, mode, {}, mode, prompts, trace=trace)
+            counts = _serve(tag, _checkpoint(layers), mode, {}, mode, prompts, trace=trace)
         _require_launches(tag, counts, (kernel, "paged_attention"),
                           others + tuple(n for n in PACKED if n != kernel))
         launches[kernel] = counts[kernel]
@@ -1114,24 +1349,58 @@ def phase_serve_packed() -> dict:
             raise AssertionError(f"serve_packed ladder: rung {rung} resolved to {picked} / "
                                  f"{auto.infer_params.linear_mode}")
         del model, logits
+        gc.collect()
         torch.cuda.empty_cache()
     return launches
+
+
+def _moe_checkpoint(layers: int) -> str:
+    """A synthetic Qwen3-MoE EXL3 checkpoint at Qwen3-30B-A3B width, K=4,
+    one shard a layer, written once per machine."""
+    from exllamav3_tpu_torch.conversion.synth import tiny_moe_cfg, write_tiny_moe_exl3
+
+    d = os.path.join(WORK, f"qwen3_30b_a3b_{layers}layers")
+    t0 = time.time()
+    if not os.path.exists(os.path.join(d, "config.json")):
+        write_tiny_moe_exl3(d, tiny_moe_cfg(num_layers=layers, **QWEN3_30B), K=4,
+                            seed=3 if layers == 2 else 2)
+    size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    log(f"checkpoint: {layers} layers at Qwen3-30B-A3B width ready in {time.time() - t0:.1f} s, "
+        f"{size / 2**30:.2f} GiB on disk ({d})")
+    return d
+
+
+def phase_serve_moe() -> dict:
+    """The MoE path: Qwen3-MoE at Qwen3-30B-A3B width, linear_mode="auto"
+    (int8 attention and head, bf16 expert stacks), bf16 cache."""
+    used = ("int8_matmul", "paged_attention", "moe_gemm")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"serve_moe: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before the load")
+    counts = _serve("serve_moe", _moe_checkpoint(48), "auto", {}, "int8",
+                    _serve_prompts(QWEN3_30B["vocab_size"]))
+    _require_launches("serve_moe", counts, used,
+                      ("fused_mlp", "exl3_gemm", "paged_attention_quant", *PACKED))
+    return {n: counts[n] for n in used}
 
 
 CHECKS = {"int8_matmul": check_int8, "fused_mlp": check_fused_mlp,
           "paged_attention": check_attention, "exl3_gemm": check_exl3_gemm,
           "paged_attention_quant": check_attention_quant,
           **{name: (lambda table, dev, name=name: check_packed(table, dev, name))
-             for name in PACKED}}
+             for name in PACKED},
+          "moe_gemm": check_moe_gemm}
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="build,kernels,parity,serve,serve_capacity,serve_packed",
+    ap.add_argument("--phases",
+                    default="build,kernels,parity,serve,serve_capacity,serve_packed,serve_moe",
                     help="`kernels` runs every kernel check; a check's name runs that one")
     args = ap.parse_args()
     phases = args.phases.split(",")
-    known = {"build", "kernels", "parity", "serve", "serve_capacity", "serve_packed", *CHECKS}
+    known = {"build", "kernels", "parity", "serve", "serve_capacity", "serve_packed", "serve_moe",
+             *CHECKS}
     if set(phases) - known:
         ap.error(f"unknown phases {sorted(set(phases) - known)}")
 
@@ -1180,6 +1449,10 @@ def main():
         t0 = time.time()
         table.set_launches(phase_serve_packed())
         log(f"phase serve_packed: {time.time() - t0:.1f} s")
+    if "serve_moe" in phases:
+        t0 = time.time()
+        table.set_launches(phase_serve_moe())
+        log(f"phase serve_moe: {time.time() - t0:.1f} s")
     log(f"total: {time.time() - t_all:.1f} s")
     log(smi)  # once more, so that the end of a cut log still names the card
     print(json.dumps({"kernels": list(table.rows.values())}))

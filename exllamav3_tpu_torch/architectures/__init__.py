@@ -6,7 +6,8 @@ from functools import lru_cache
 
 @lru_cache
 def get_architectures() -> dict:
-    from . import llama
+    from . import llama, moe
 
     return {cls.arch_string: {"config_class": cls}
-            for cls in (llama.LlamaConfig, llama.MistralConfig, llama.Qwen2Config)}
+            for cls in (llama.LlamaConfig, llama.MistralConfig, llama.Qwen2Config,
+                        llama.Qwen3Config, moe.MixtralConfig, moe.Qwen3MoeConfig)}

@@ -1,6 +1,8 @@
 """Llama-family architecture (counterpart of exllamav3_tpu/architectures/llama.py).
-Covers LlamaForCausalLM and the Mistral and Qwen2 subclasses, which need
-nothing beyond it; Qwen3's QK norms wait."""
+Covers LlamaForCausalLM and the Mistral, Qwen2 and Qwen3 subclasses; Qwen3
+adds per-head q/k RMSNorms. `LlamaModel.make_mlp` builds each block's MLP,
+so that the MoE models (architectures/moe.py) swap in their block-sparse
+MLP."""
 from __future__ import annotations
 
 import torch
@@ -30,6 +32,8 @@ class LlamaConfig(Config):
 
 
 class LlamaModel(Model):
+    use_qk_norm = False
+
     def __init__(self, config: LlamaConfig, key_prefix: str = "model",
                  head_key: str = "lm_head", **kwargs):
         super().__init__(config, **kwargs)
@@ -37,6 +41,12 @@ class LlamaModel(Model):
                                    config.vocab_size, config.hidden_size)]
         for idx in range(config.num_hidden_layers):
             lk = f"{key_prefix}.layers.{idx}"
+            q_norm = k_norm = None
+            if self.use_qk_norm:
+                q_norm = RMSNorm(config, f"{lk}.self_attn.q_norm", config.rms_norm_eps,
+                                 dim=config.head_dim)
+                k_norm = RMSNorm(config, f"{lk}.self_attn.k_norm", config.rms_norm_eps,
+                                 dim=config.head_dim)
             self.modules += [
                 TransformerBlock(
                     config, lk, idx,
@@ -49,16 +59,12 @@ class LlamaModel(Model):
                         num_kv_heads=config.num_kv_heads,
                         rope_settings=config.rope_settings,
                         out_dtype=torch.float32,
+                        q_norm=q_norm,
+                        k_norm=k_norm,
                     ),
                     mlp_norm=RMSNorm(config, f"{lk}.post_attention_layernorm",
                                      config.rms_norm_eps),
-                    mlp=GatedMLP(
-                        config, f"{lk}.mlp",
-                        hidden_size=config.hidden_size,
-                        intermediate_size=config.intermediate_size,
-                        activation=config.hidden_act,
-                        out_dtype=torch.float32,
-                    ),
+                    mlp=self.make_mlp(config, lk),
                 )
             ]
         head_alt_key = None
@@ -70,6 +76,11 @@ class LlamaModel(Model):
             Linear(config, head_key, config.hidden_size, config.vocab_size,
                    alt_key=head_alt_key, out_dtype=torch.float32),
         ]
+
+    def make_mlp(self, config, lk: str):
+        return GatedMLP(config, f"{lk}.mlp", hidden_size=config.hidden_size,
+                        intermediate_size=config.intermediate_size,
+                        activation=config.hidden_act, out_dtype=torch.float32)
 
 
 class MistralConfig(LlamaConfig):
@@ -87,3 +98,14 @@ class Qwen2Config(LlamaConfig):
 
     def __init__(self, directory: str, **kwargs):
         super().__init__(directory, derived_model={"text": LlamaModel}, **kwargs)
+
+
+class Qwen3Config(LlamaConfig):
+    arch_string = "Qwen3ForCausalLM"
+
+    def __init__(self, directory: str, **kwargs):
+        super().__init__(directory, derived_model={"text": Qwen3Model}, **kwargs)
+
+
+class Qwen3Model(LlamaModel):
+    use_qk_norm = True

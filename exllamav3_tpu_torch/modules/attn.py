@@ -1,7 +1,8 @@
 """Attention: QKV projections, RoPE, paged KV cache update, masked attention
 (counterpart of exllamav3_tpu/modules/attn.py).
 
-Covers GQA with RoPE at the default 1/sqrt(head_dim) scale, cacheless
+Covers GQA with RoPE at the default 1/sqrt(head_dim) scale and optional
+per-head q/k RMSNorms (Qwen3: after the projections, before RoPE), cacheless
 (`attend_dense`, plain torch as in the JAX package) and over the paged cache,
 bf16 or quantized, through the paged attention kernels
 (ops/flash_attention.py). The linear-cache layout, the SWA ring, sequence
@@ -40,7 +41,8 @@ class Attention(Module):
 
     def __init__(self, config, key: str, layer_idx: int, hidden_size: int,
                  head_dim: int, num_q_heads: int, num_kv_heads: int,
-                 rope_settings: RopeSettings | None, out_dtype=None):
+                 rope_settings: RopeSettings | None, out_dtype=None,
+                 q_norm: Module | None = None, k_norm: Module | None = None):
         super().__init__(config, key)
         self.layer_idx = layer_idx
         self.head_dim = head_dim
@@ -53,7 +55,10 @@ class Attention(Module):
         self.k_proj = Linear(config, f"{key}.k_proj", hidden_size, num_kv_heads * head_dim)
         self.v_proj = Linear(config, f"{key}.v_proj", hidden_size, num_kv_heads * head_dim)
         self.o_proj = Linear(config, f"{key}.o_proj", num_q_heads * head_dim, hidden_size)
-        self.modules = [self.q_proj, self.k_proj, self.v_proj, self.o_proj]
+        self.q_norm = q_norm
+        self.k_norm = k_norm
+        self.modules = [m for m in (self.q_proj, self.k_proj, self.v_proj, self.o_proj,
+                                    q_norm, k_norm) if m is not None]
 
     def new_cache_layer(self, spec, device) -> dict:
         from ..model.cache import cache_base_shape, cache_dtype
@@ -85,6 +90,11 @@ class Attention(Module):
             q = self.q_proj.forward(x, params, ctx).reshape(B, S, nq, hd)
             k = self.k_proj.forward(x, params, ctx).reshape(B, S, nkv, hd)
             v = self.v_proj.forward(x, params, ctx).reshape(B, S, nkv, hd)
+
+        if self.q_norm is not None:
+            q = self.q_norm.forward(q, params, ctx)
+        if self.k_norm is not None:
+            k = self.k_norm.forward(k, params, ctx)
 
         if self.rope is not None and self.rope.style != RopeStyle.NONE:
             sin, cos = self.rope.sin_cos(ctx.positions)

@@ -22,7 +22,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "exllamav3_tpu_torch"
 SOURCES = ("int8_matmul.cu", "fused_mlp.cu", "paged_attention.cu", "exl3_gemm.cu",
-           "paged_attention_quant.cu", "int4_matmul.cu", "intb_matmul.cu")
+           "paged_attention_quant.cu", "int4_matmul.cu", "intb_matmul.cu", "moe_gemm.cu")
 HEADERS = ("packed_matmul.cuh",)  # included by sources; part of the digest
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -44,6 +44,7 @@ SIGNATURES = {
     "exl3_int4_matmul_a8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "exl3_intb_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "exl3_intb_matmul_a8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "exl3_moe_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _LIB = None

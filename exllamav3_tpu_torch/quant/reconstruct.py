@@ -23,15 +23,26 @@ def codebook_id(mcg: bool = False, mul1: bool = False) -> int:
     return CB_3INST
 
 
+# codes decoded at a time: the unpack and the decode hold several int64 copies
+# of them, which a 151936-row head would otherwise take by the gigabyte
+_DECODE_CODES = 1 << 23
+
+
 def reconstruct_inner(trellis: torch.Tensor, K: int, cb: int = CB_3INST,
                       dtype=torch.float32) -> torch.Tensor:
-    """trellis (tiles_k, tiles_n, 16K) int16 -> W_inner (k, n) `dtype`."""
+    """trellis (tiles_k, tiles_n, 16K) int16 -> W_inner (k, n) `dtype`,
+    decoded a band of tile rows at a time."""
     tk, tn, pw = trellis.shape
     assert pw == 16 * K
-    codes = unpack_trellis(trellis, K)                  # (tk, tn, 256) seq order
-    vals = decode(codes, cb, dtype=dtype)
-    tiles = vals[..., tile_perm_inverse().to(trellis.device)].reshape(tk, tn, 16, 16)
-    return tiles.permute(0, 2, 1, 3).reshape(tk * 16, tn * 16)
+    perm = tile_perm_inverse().to(trellis.device)
+    out = torch.empty((tk * 16, tn * 16), dtype=dtype, device=trellis.device)
+    step = max(1, _DECODE_CODES // (tn * 256))
+    for r0 in range(0, tk, step):
+        codes = unpack_trellis(trellis[r0:r0 + step], K)   # (rows, tn, 256) seq order
+        vals = decode(codes, cb, dtype=dtype)
+        tiles = vals[..., perm].reshape(-1, tn, 16, 16)
+        out[r0 * 16:(r0 + step) * 16] = tiles.permute(0, 2, 1, 3).reshape(-1, tn * 16)
+    return out
 
 
 def reconstruct_full(trellis: torch.Tensor, suh: torch.Tensor, svh: torch.Tensor,

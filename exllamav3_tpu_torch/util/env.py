@@ -8,6 +8,7 @@ The port reads the JAX package's variable names where a switch carries over:
                       smaller layers load as int8
   EXL3TPU_SQ          1 (default) prefer a checkpoint's `.sq` serving tensors at
                       the asked width over the load-time requant, 0 ignores them
+  EXL3_TPU_MOE        MoE decode body (`moe_backend`)
 """
 from __future__ import annotations
 
@@ -28,3 +29,16 @@ def env_bool(name: str, default: bool = False) -> bool:
     if v is None:
         return default
     return v.strip().lower() not in ("", "0", "false", "no", "off")
+
+
+def moe_backend() -> str:
+    """The MoE decode body, from EXL3_TPU_MOE: "selected" (the selected-expert
+    kernel for CUDA tensors, its plain version for CPU tensors) or "dense"
+    (every expert, plain PyTorch). "auto", the default, is "selected" on both
+    devices, so that card and CPU compute one function; the JAX package takes
+    "dense" on its CPU. "interpret" names a Pallas mode the port has not."""
+    mode = env_str("EXL3_TPU_MOE", "auto")
+    if mode == "interpret":
+        raise ValueError("EXL3_TPU_MOE=interpret has no meaning in the port: "
+                         "use selected, dense or auto")
+    return "dense" if mode == "dense" else "selected"

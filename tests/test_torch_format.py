@@ -101,3 +101,15 @@ def test_loader_reads_dtypes(tmp_path):
     assert got.dtype == torch.bfloat16
     expect = (tensors["bf16"].astype(np.uint32) << 16).view(np.float32)
     assert np.array_equal(got.float().numpy(), expect)
+
+
+def test_reconstruct_inner_in_bands(monkeypatch):
+    """The decode runs a band of tile rows at a time to bound its int64
+    temporaries; any band height gives the whole-tensor decode bit for bit."""
+    import exllamav3_tpu_torch.quant.reconstruct as rec
+
+    t = torch.from_numpy(np.random.default_rng(4).integers(-32768, 32768, (40, 6, 48))
+                         .astype(np.int16))
+    whole = rec.reconstruct_inner(t, 3, 1)
+    monkeypatch.setattr(rec, "_DECODE_CODES", 3 * 6 * 256)  # bands of 3 rows, the last one short
+    assert torch.equal(rec.reconstruct_inner(t, 3, 1), whole)

@@ -35,7 +35,8 @@ def test_no_jax_imports_in_port_sources():
             "exllamav3_tpu_torch/ops/flash_attention.py", "exllamav3_tpu_torch/model/cache.py",
             "exllamav3_tpu_torch/util/params.py", "exllamav3_tpu_torch/ops/q_matmul.py",
             "exllamav3_tpu_torch/util/env.py", "exllamav3_tpu_torch/modules/multilinear.py",
-            "chip_smoke.py"} <= scanned
+            "exllamav3_tpu_torch/ops/moe_gemm.py", "exllamav3_tpu_torch/modules/block_sparse_mlp.py",
+            "exllamav3_tpu_torch/architectures/moe.py", "chip_smoke.py"} <= scanned
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -75,16 +76,18 @@ def test_packed_modules_import_without_triton_or_a_built_library():
         "import sys\n"
         "import exllamav3_tpu_torch.util.env as env\n"
         "import exllamav3_tpu_torch.ops.q_matmul as qm\n"
+        "import exllamav3_tpu_torch.ops.moe_gemm as moe\n"
         "import exllamav3_tpu_torch.ops.build as build\n"
         "assert build._LIB is None and not build.BUILD_LOG\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'exllamav3_tpu', 'triton')]\n"
         "assert not bad, bad\n"
-        "assert {'int4_matmul.cu', 'intb_matmul.cu'} <= set(build.SOURCES)\n"
+        "assert {'int4_matmul.cu', 'intb_matmul.cu', 'moe_gemm.cu'} <= set(build.SOURCES)\n"
+        "assert hasattr(moe, 'selected_expert_mlp_kernel') and hasattr(moe, 'selected_expert_mlp_plain')\n"
         "assert all(hasattr(qm, n + '_kernel') and hasattr(qm, n + '_plain') for n in "
         "('int4_matmul', 'int4_matmul_a8', 'intb_matmul', 'intb_matmul_a8'))\n"
         "assert sorted(n for n in dir(env) if n.startswith('env_')) == "
-        "['env_bool', 'env_int', 'env_str']\n"
+        "['env_bool', 'env_int', 'env_str'] and callable(env.moe_backend)\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
