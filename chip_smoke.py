@@ -5,6 +5,8 @@
     python3 chip_smoke.py --phases build,serve_capacity
     python3 chip_smoke.py --phases build,int4_matmul_a8,intb_matmul_a8,serve_packed
     python3 chip_smoke.py --phases build,moe_gemm,serve_moe
+    python3 chip_smoke.py --phases build,linear_attention,linear_attention_quant
+    python3 chip_smoke.py --phases build,serve_spec
 
 Phases:
   build     build the CUDA kernels from exllamav3_tpu_torch/csrc/ (timed)
@@ -21,7 +23,12 @@ Phases:
             and intb_matmul_a8 (the packed-integer linears: also m = 128 and
             the Llama-3.1-70B shapes at m = 8; int-B at B = 3, 4, 5, 6),
             moe_gemm (the selected-expert MLP at the Qwen3-30B-A3B,
-            Qwen3-235B-A22B and Mixtral-8x7B expert shapes). int8_matmul also
+            Qwen3-235B-A22B and Mixtral-8x7B expert shapes), linear_attention
+            (the linear layout over a bf16 cache: Llama-3.2-1B draft decode,
+            8B decode at batch 1 and 8, a 2048-token prefill, named cache
+            rows, window / softcap / sinks, a last tile cut at T = 2056) and
+            linear_attention_quant ((4, 4) merged and (5, 3) per-head storage
+            at T = 2056, compander, features, prefill). int8_matmul also
             runs the Qwen3-30B-A3B attention and head shapes, paged_attention
             also GQA group 8 (32 q / 4 kv heads)
   parity    a 2-layer checkpoint at full 8B width: forward_simple and paged
@@ -52,11 +59,27 @@ Phases:
             the four packed kernels serves a run of its own; then the ladder:
             linear_mode="auto" on a device just large enough for int8, int6,
             int4 and none of them loads and runs on every rung
-  serve_moe a 48-layer synthetic Qwen3-MoE checkpoint at Qwen3-30B-A3B geometry
-            (128 experts, top 8, vocab 151936) loaded with linear_mode="auto"
-            (int8 on an 80 GB card; the experts serve as bf16 stacks) over a
-            bf16 cache, the same traffic: prefill chunks through the grouped
-            experts, decode steps through the selected-expert kernel
+  serve_moe a synthetic Qwen3-MoE checkpoint at Qwen3-30B-A3B width, 24 of its
+            48 layers (128 experts, top 8, vocab 151936) loaded with
+            linear_mode="auto" (int8 on an 80 GB card; the experts serve as
+            bf16 stacks) over a bf16 cache, the same traffic: prefill chunks
+            through the grouped experts, decode steps through the
+            selected-expert kernel
+  linear_decode
+            bench.py's measurements through Model.forward over a linear
+            cache: the 32-layer 8B-geometry checkpoint in int8 over a bf16
+            cache, decode at batch 1 and 8 after a 512-token prefill and one
+            2048-token prefill; then `fused` over a (4, 4) linear cache (32
+            layers) and over (5, 3) (4 layers). The first decode step is held
+            to the same step over a paged cache and to the serve phases'
+            references
+  serve_spec
+            greedy speculative decoding on the 32-layer 8B-geometry target
+            (int8, bf16 paged cache), the serve phases' traffic: plain
+            decoding, then (a) a 16-layer Llama-3.2-1B-geometry draft and (b)
+            the target drafting for itself, 4 tokens a job over the draft's
+            linear cache. Each request's tokens equal plain decoding's up to a
+            first parting at a near-tie; (b) accepts at least 0.8 of its drafts
 
 Each serve phase sets every kernel's launch count to 0 before its run and
 reads it after: the kernels of its path must all have launched and the
@@ -65,7 +88,7 @@ others not at all.
 The second-to-last line is the kernel table as JSON and the last line is
 {"ok": true, "device": {...}}. Any failed phase raises and exits non-zero
 without that line. Needs CUDA; writes its checkpoints under build/chip_smoke/
-(the 48-layer MoE one is ~15 GB, one shard a layer).
+(the 24-layer MoE one is ~7.5 GB, one shard a layer).
 """
 from __future__ import annotations
 
@@ -128,6 +151,9 @@ TOL_A8_PATH = 6e-2
 # int8 path, held to the same limit
 TOL_MOE_PATH = 2e-2
 MIN_EXPERT_AGREEMENT = 0.9   # share of (token, layer) expert sets alike on both devices
+# depth of the MoE serve: 24 of Qwen3-30B-A3B's 48 layers, so that the whole
+# script stays within half its time limit with the linear-cache phases
+MOE_SERVE_LAYERS = 24
 
 # An SM dispatches one warp instruction a clock from each of its four schedulers
 LANES_PER_SM_CLOCK = 4 * 32
@@ -149,6 +175,12 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "intb_matmul_a8": ("exllamav3_tpu_torch/csrc/intb_matmul.cu",
                        "exllamav3_tpu/ops/q_matmul.py:687"),
     "moe_gemm": ("exllamav3_tpu_torch/csrc/moe_gemm.cu", "exllamav3_tpu/ops/moe_gemm.py:48"),
+    "linear_attention": ("exllamav3_tpu_torch/csrc/linear_attention.cu",
+                         "exllamav3_tpu/ops/flash_attention.py:253"),
+    "linear_attention_quant_merged": ("exllamav3_tpu_torch/csrc/linear_attention_quant.cu",
+                                      "exllamav3_tpu/ops/flash_attention.py:419"),
+    "linear_attention_quant_per_head": ("exllamav3_tpu_torch/csrc/linear_attention_quant.cu",
+                                        "exllamav3_tpu/ops/flash_attention.py:253"),
 }
 
 
@@ -791,6 +823,160 @@ def check_attention_quant(table, dev):
     torch.cuda.empty_cache()
 
 
+def _sdpa_linear(q, k, v, qp, tl, rows, D):
+    """A callable timing SDPA over the live slice of each sequence's cache row
+    (bf16, the same mask), the yardstick of the linear kernels."""
+    B = q.shape[0]
+    live = int(tl.max())
+    idx = torch.arange(B, device=q.device) if rows is None else rows.long()
+    kc = k[idx, :live].transpose(1, 2).contiguous()
+    vc = v[idx, :live].transpose(1, 2).contiguous()
+    kpos = torch.arange(live, device=q.device)
+    mask = (kpos[None, None, :] <= qp[:, :, None]) & (kpos[None, None, :] < tl[:, None, None])
+    qt = q.to(torch.bfloat16).transpose(1, 2)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kc, vc, attn_mask=mask[:, None], scale=D ** -0.5, enable_gqa=True)
+
+
+# the linear layout's shapes: (name, geometry (Hq, Hk, D), cache rows N, slots T,
+# q positions, total lengths, cache rows of the sequences, extras, main)
+_CTX = np.linspace(300, 2048, 8).astype(np.int32)
+_CTX_T = np.linspace(300, 2056, 8).astype(np.int32)  # the last reaches T = 2056
+_PREFILL = ((512 + np.arange(2048, dtype=np.int32))[None], np.array([2560], np.int32))
+
+
+def check_linear_attention(table, dev):
+    from exllamav3_tpu_torch.ops.flash_attention import (linear_attention_kernel,
+                                                          linear_attention_plain)
+
+    g1b, g8b = (32, 8, 64), (32, 8, 128)
+    rows8 = np.array([5, 0, 7, 2, 9, 4, 1, 6], np.int32)
+    cases = [
+        ("Llama-3.2-1B draft decode B=8 ctx 300-2048", g1b, 8, 2056, _CTX[:, None] - 1, _CTX,
+         None, {}, True),
+        ("Llama-3.2-1B draft decode B=8, rows of a 10-row cache, ctx 300-2056 (tail tile)", g1b,
+         10, 2056, _CTX_T[:, None] - 1, _CTX_T, rows8, {}, False),
+        ("Llama-3.1-8B decode B=1 ctx 2048", g8b, 1, 2056, np.array([[2047]], np.int32),
+         np.array([2048], np.int32), None, {}, False),
+        ("Llama-3.1-8B decode B=8 ctx 300-2056 (tail tile)", g8b, 8, 2056, _CTX_T[:, None] - 1,
+         _CTX_T, None, {}, False),
+        ("Llama-3.1-8B prefill S=2048 on 512 cached", g8b, 1, 2560, *_PREFILL, None, {}, False),
+        ("Llama-3.2-1B verify-shaped S=5 B=8 ctx 300-2056", g1b, 8, 2056,
+         _CTX_T[:, None] - 5 + np.arange(5, dtype=np.int32)[None], _CTX_T, None, {}, False),
+        ("Llama-3.1-8B decode + window 512 + softcap 30 + sinks, T=2056", g8b, 8, 2056,
+         _CTX_T[:, None] - 1, _CTX_T, None,
+         {"sliding_window": 512, "logit_softcap": 30.0, "sinks": True}, False),
+        ("Llama-3.1-8B prefill S=256 + window 128 + softcap + sinks, padded tail, T=904", g8b, 1,
+         904, np.concatenate([700 + np.arange(200), np.full(56, 4096)]).astype(np.int32)[None],
+         np.array([900], np.int32), None,
+         {"sliding_window": 128, "logit_softcap": 20.0, "sinks": True}, False),
+    ]
+    for name, (Hq, Hk, D), N, T, qpos, total, rows, kw, main in cases:
+        B, S = qpos.shape
+        g = torch.Generator(device=dev).manual_seed(15)
+        q = torch.randn((B, S, Hq, D), generator=g, device=dev)
+        k = torch.randn((N, T, Hk, D), generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn((N, T, Hk, D), generator=g, device=dev).to(torch.bfloat16)
+        qp = torch.as_tensor(qpos, device=dev)
+        tl = torch.as_tensor(total, device=dev)
+        rw = None if rows is None else torch.as_tensor(rows, device=dev)
+        args = dict(rows=rw, scale=D ** -0.5, sliding_window=kw.get("sliding_window", 0),
+                    logit_softcap=kw.get("logit_softcap", 0.0),
+                    sinks=(torch.randn(Hq, generator=g, device=dev) if kw.get("sinks") else None))
+        ref = linear_attention_plain(q, k, v, qp, tl, **args)
+        got = linear_attention_kernel(q, k, v, qp, tl, **args)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"linear_attention {name}: non-finite output")
+        err = float((got - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        if not rel <= TOL_ATTN:
+            raise AssertionError(f"linear_attention {name}: rel err {rel} > {TOL_ATTN}")
+        ms = time_ms(lambda: linear_attention_kernel(q, k, v, qp, tl, **args), 10)
+        plain = time_ms(lambda: linear_attention_plain(q, k, v, qp, tl, **args), 2)
+        lib = None if kw else time_ms(_sdpa_linear(q, k, v, qp, tl, rw, D), 10)
+        bnd = bound_ms(*_attn_work(qpos, total, Hq, Hk, D, args["sliding_window"]))
+        log(f"linear_attention {name} (Hq={Hq} Hk={Hk} D={D} N={N} T={T}): max_abs_err={err:.3e} "
+            f"rel={rel:.2e} kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms(sdpa on the live "
+            f"slice)={lib if lib is None else f'{lib:.4f}'} bound_ms={bnd[0]:.4f} ({bnd[1]})")
+        table.add("linear_attention", err, ms, plain, bnd, lib,
+                  f"{name}: B={B} S={S} Hq={Hq} Hk={Hk} D={D} T={T}", main=main)
+        del q, k, v, ref, got
+    torch.cuda.empty_cache()
+
+
+def check_linear_attention_quant(table, dev):
+    from exllamav3_tpu_torch.ops.flash_attention import (linear_attention_quant_kernel,
+                                                          linear_attention_quant_plain)
+    from exllamav3_tpu_torch.ops.kv_quant import (merged_layout, quant_cache_fetch,
+                                                   quantize_kv_stored)
+
+    Hq, Hk, D, T = 32, 8, 128, 2056
+    decode = (_CTX_T[:, None] - 1, _CTX_T)
+    rows8 = np.array([5, 0, 7, 2, 9, 4, 1, 6], np.int32)
+    cases = [(f"decode B=8 ctx 300-2056 T={T} bits={bits}", 8, T, *decode, None, bits, 0.0, {},
+              True) for bits in ((4, 4), (5, 3))]
+    cases += [("decode B=8 ctx 300-2056, rows of a 10-row cache, bits=(4, 4) compand_a=0.65", 10,
+               T, *decode, rows8, (4, 4), 0.65, {}, False),
+              ("decode B=8 ctx 300-2056, bits=(3, 7) + window 512 + softcap 30 + sinks", 8, T,
+               *decode, None, (3, 7), 0.65,
+               {"sliding_window": 512, "logit_softcap": 30.0, "sinks": True}, False),
+              ("verify-shaped S=5 B=8 bits=(5, 3)", 8, T,
+               _CTX_T[:, None] - 5 + np.arange(5, dtype=np.int32)[None], _CTX_T, None, (5, 3),
+               0.0, {}, False)]
+    cases += [(f"prefill S=2048 on 512 cached bits={bits}", 1, 2560, *_PREFILL, None, bits, 0.0,
+               {}, False) for bits in ((4, 4), (5, 3))]
+    for name, N, T_, qpos, total, rows, (kb, vb), a, kw, main in cases:
+        B, S = qpos.shape
+        g = torch.Generator(device=dev).manual_seed(16)
+        q = torch.randn((B, S, Hq, D), generator=g, device=dev)
+        merged = merged_layout(kb, vb)
+        state = {}
+        for nm, bits in (("k", kb), ("v", vb)):
+            x = torch.randn((N, T_, Hk, D), generator=g, device=dev)
+            state[nm + "_q"], state[nm + "_s"] = quantize_kv_stored(x, bits, merged, a)
+            del x
+        qp = torch.as_tensor(qpos, device=dev)
+        tl = torch.as_tensor(total, device=dev)
+        rw = None if rows is None else torch.as_tensor(rows, device=dev)
+        args = dict(rows=rw, scale=D ** -0.5, sliding_window=kw.get("sliding_window", 0),
+                    logit_softcap=kw.get("logit_softcap", 0.0),
+                    sinks=(torch.randn(Hq, generator=g, device=dev) if kw.get("sinks") else None))
+        ref = linear_attention_quant_plain(q, state, qp, tl, kb, vb, a, **args)
+        got = linear_attention_quant_kernel(q, state, qp, tl, kb, vb, a, **args)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"linear_attention_quant {name}: non-finite output")
+        err = float((got - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        storage = "merged" if merged else "per_head"
+        row = f"linear_attention_quant_{storage}"
+        if not rel <= TOL_ATTN_Q:
+            raise AssertionError(f"linear_attention_quant {name}: rel err {rel} > {TOL_ATTN_Q}")
+        timed = main or name.startswith("prefill")
+        if not timed:
+            log(f"linear_attention_quant {name} ({storage} storage): max_abs_err={err:.3e} "
+                f"rel={rel:.2e}")
+            table.add(row, err, None, None, None, None, "", main=False)
+            del q, state, ref, got
+            continue
+        ms = time_ms(lambda: linear_attention_quant_kernel(q, state, qp, tl, kb, vb, a, **args), 10)
+        plain = time_ms(lambda: linear_attention_quant_plain(q, state, qp, tl, kb, vb, a, **args),
+                        2)
+        # yardstick: SDPA over the dequantized bf16 cache's live slice
+        kd, vd = quant_cache_fetch(state, kb, vb, torch.bfloat16, a, hk=Hk)
+        lib = time_ms(_sdpa_linear(q, kd, vd, qp, tl, rw, D), 10)
+        bnd = bound_ms(*_quant_attn_work(qpos, total, Hq, Hk, D, args["sliding_window"], kb, vb))
+        log(f"linear_attention_quant {name} ({storage} storage): max_abs_err={err:.3e} "
+            f"rel={rel:.2e} kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms(sdpa on the "
+            f"dequantized bf16 live slice)={lib:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]})")
+        table.add(row, err, ms, plain, bnd, lib,
+                  f"{name}: B={B} S={S} Hq={Hq} Hk={Hk} D={D} T={T_}", main=main)
+        del q, state, ref, got, kd, vd
+        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
+
+
 # -- phase: parity ----------------------------------------------------------------
 
 def _compare(tag, a, b, rel_tol=2e-2):
@@ -953,25 +1139,24 @@ def parity_moe():
 
 # -- phase: serve ------------------------------------------------------------------
 
-def profile_decode(gen, steps: int) -> list:
-    """Trace `steps` decode iterations with torch.profiler and print the
-    device's busy share of the window, kernels per step and the kernels that
-    take the most device time. Returns the iterations' result events."""
+def profile_decode(step, steps: int, what: str) -> None:
+    """Trace `steps` calls of step() (a generator iteration or a model step)
+    with torch.profiler and print the device's busy share of the window,
+    kernels per step and the kernels that take the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    results = []
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            results += gen.iterate()
+            step()
         torch.cuda.synchronize()
     events = prof.events()
     dev = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
                  if e.device_type == DeviceType.CUDA)
     if not dev:
         log("profile: the trace holds no device events; device busy share not measured")
-        return results
+        return
     t0 = min(e.time_range.start for e in events)
     t1 = max(e.time_range.end for e in events)
     busy, cur_s, cur_e = 0.0, None, None
@@ -985,19 +1170,20 @@ def profile_decode(gen, steps: int) -> list:
             cur_e = max(cur_e, e0)
     busy += cur_e - cur_s
     window = t1 - t0
-    log(f"profile: {steps} decode steps (batch {len(gen.active)}), window {window / 1e3:.3f} ms, "
+    log(f"profile: {steps} {what}, window {window / 1e3:.3f} ms, "
         f"device busy {busy / 1e3:.3f} ms ({busy / window:.4f} of the window, idle "
         f"{1 - busy / window:.4f}), {len(dev) / steps:.1f} device ops per step")
     total = sum(by_name.values())
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"profile:   {t / total:.4f} of device time  {t / steps / 1e3:.4f} ms/step  {name[:90]}")
-    return results
 
 
 def _wrappers() -> dict:
     """The kernels' wrappers by name; each counts its launches."""
     from exllamav3_tpu_torch.ops.exl3_gemm import exl3_gemm_kernel
-    from exllamav3_tpu_torch.ops.flash_attention import (paged_attention_kernel,
+    from exllamav3_tpu_torch.ops.flash_attention import (linear_attention_kernel,
+                                                          linear_attention_quant_kernel,
+                                                          paged_attention_kernel,
                                                           paged_attention_quant_kernel)
     from exllamav3_tpu_torch.ops.fused_mlp import fused_mlp_int8_kernel
     from exllamav3_tpu_torch.ops.moe_gemm import selected_expert_mlp_kernel
@@ -1007,7 +1193,9 @@ def _wrappers() -> dict:
             "paged_attention": paged_attention_kernel, "exl3_gemm": exl3_gemm_kernel,
             "paged_attention_quant": paged_attention_quant_kernel,
             **{name: getattr(qm, name + "_kernel") for name in PACKED},
-            "moe_gemm": selected_expert_mlp_kernel}
+            "moe_gemm": selected_expert_mlp_kernel,
+            "linear_attention": linear_attention_kernel,
+            "linear_attention_quant": linear_attention_quant_kernel}
 
 
 def _reset_counts():
@@ -1020,25 +1208,44 @@ def _read_counts() -> dict:
 
 
 @contextlib.contextmanager
+def uncounted():
+    """Launches inside (a reference's) do not count: every kernel's count is
+    put back after."""
+    saved = _read_counts()
+    try:
+        yield
+    finally:
+        for name, fn in _wrappers().items():
+            fn.launches = saved[name]
+
+
+@contextlib.contextmanager
 def plain_ops():
-    """Inside, the capacity path's two dispatches run their plain PyTorch
+    """Inside, the capacity path's dispatches (trellis linears, quantized
+    attention over the paged and the linear cache) run their plain PyTorch
     versions on the card's tensors, so a forward computes the same function
     through no hand-written kernel."""
     import exllamav3_tpu_torch.modules.attn as attn_mod
     import exllamav3_tpu_torch.modules.linear as linear_mod
     from exllamav3_tpu_torch.ops.exl3_gemm import exl3_matmul_plain
-    from exllamav3_tpu_torch.ops.flash_attention import paged_attention_quant_plain
+    from exllamav3_tpu_torch.ops.flash_attention import (linear_attention_quant_plain,
+                                                          paged_attention_quant_plain)
 
     def attn_plain(q, layer_state, bt, qp, tl, k_bits=0, v_bits=0, compand_a=0.0, **kw):
         return paged_attention_quant_plain(q, layer_state, bt, qp, tl, k_bits, v_bits,
                                            compand_a, **kw)
 
-    saved = linear_mod.exl3_matmul, attn_mod.paged_attention
+    def linear_plain(q, layer_state, qp, tl, k_bits=0, v_bits=0, compand_a=0.0, **kw):
+        return linear_attention_quant_plain(q, layer_state, qp, tl, k_bits, v_bits, compand_a,
+                                            **kw)
+
+    saved = linear_mod.exl3_matmul, attn_mod.paged_attention, attn_mod.linear_attention
     linear_mod.exl3_matmul, attn_mod.paged_attention = exl3_matmul_plain, attn_plain
+    attn_mod.linear_attention = linear_plain
     try:
         yield
     finally:
-        linear_mod.exl3_matmul, attn_mod.paged_attention = saved
+        linear_mod.exl3_matmul, attn_mod.paged_attention, attn_mod.linear_attention = saved
 
 
 @contextlib.contextmanager
@@ -1096,6 +1303,53 @@ def _serve_prompts(V: int = LLAMA8B["vocab_size"]):
     return [np.concatenate([prefix, rng.integers(0, V, n - 512)]) for n in lengths]
 
 
+def _drive(tag: str, gen, prompts: list, V: int, new_tokens: int = 128):
+    """Serve `prompts` through `gen`, `new_tokens` greedy tokens each: the
+    first request arrives alone, the rest once it decodes (and find its
+    prefix cached). Every kernel's count is set to 0 before and read after.
+    Checks that each request finished with its tokens in range and prints
+    its TTFT. Returns (jobs, finished events by id, decode-only tokens and
+    seconds, wall seconds, launch counts)."""
+    from exllamav3_tpu_torch.generator import GreedySampler, Job
+
+    jobs = [Job(p, max_new_tokens=new_tokens, sampler=GreedySampler()) for p in prompts]
+    _reset_counts()
+    finished = {}
+    decode_tokens, decode_s = 0, 0.0
+    torch.cuda.synchronize()
+    t_start = time.time()
+    gen.enqueue(jobs[0])
+    while gen.num_remaining_jobs():
+        if (len(jobs) > 1 and jobs[0].status == "running" and jobs[1].status == "queued"
+                and jobs[1] not in gen.pending):
+            gen.enqueue(jobs[1:])
+        ti = time.time()
+        prefilling = any(j.status == "prefill" for j in gen.active) or bool(gen.pending)
+        res = gen.iterate()
+        n_tok = sum(1 for r in res if r["stage"] == "streaming")
+        if not prefilling:
+            decode_tokens += n_tok
+            decode_s += time.time() - ti
+        for r in res:
+            if r["stage"] == "finished":
+                finished[r["identifier"]] = r
+    torch.cuda.synchronize()
+    wall = time.time() - t_start
+    counts = _read_counts()
+    for j in jobs:
+        r = finished.get(j.identifier)
+        if (r is None or len(r["new_tokens"]) != new_tokens
+                or r["eos_reason"] != "max_new_tokens"):
+            raise AssertionError(f"{tag}: request {j.identifier} did not finish with "
+                                 f"{new_tokens} tokens")
+        if not all(0 <= t < V for t in r["new_tokens"]):
+            raise AssertionError(f"{tag}: token id out of range")
+        log(f"{tag}: request prompt={r['prompt_tokens']} cached_tokens={r['cached_tokens']} "
+            f"ttft_s={r['ttft_s']:.4f} prefill_s={r['prefill_s']:.4f} "
+            f"generate_tok_s={r['generate_tok_s']:.2f}")
+    return jobs, finished, decode_tokens, decode_s, wall, counts
+
+
 def _serve(tag: str, ckpt: str, linear_mode: str, spec_kw: dict, expect_mode: str,
            prompts: list, trace: bool = True) -> dict:
     """Load the checkpoint `ckpt` in `linear_mode`, serve `prompts` (128
@@ -1129,43 +1383,8 @@ def _serve(tag: str, ckpt: str, linear_mode: str, spec_kw: dict, expect_mode: st
     log(f"{tag}: cache {spec_kw or 'bf16'}: "
         f"{(torch.cuda.memory_allocated() - base) / (72 * 256):.0f} bytes per token")
     gen = Generator(model, cache, max_batch_size=8, max_chunk_size=2048, seed=0)
-    jobs = [Job(p, max_new_tokens=128, sampler=GreedySampler()) for p in prompts]
-
-    _reset_counts()
-    finished = {}
-    decode_tokens, decode_s = 0, 0.0
-    torch.cuda.synchronize()
-    t_start = time.time()
-    gen.enqueue(jobs[0])  # the first request arrives alone; the rest find its prefix cached
-    while gen.num_remaining_jobs():
-        if (len(jobs) > 1 and jobs[0].status == "running" and jobs[1].status == "queued"
-                and jobs[1] not in gen.pending):
-            gen.enqueue(jobs[1:])
-        ti = time.time()
-        prefilling = any(j.status == "prefill" for j in gen.active) or bool(gen.pending)
-        res = gen.iterate()
-        n_tok = sum(1 for r in res if r["stage"] == "streaming")
-        if not prefilling:
-            decode_tokens += n_tok
-            decode_s += time.time() - ti
-        for r in res:
-            if r["stage"] == "finished":
-                finished[r["identifier"]] = r
-    torch.cuda.synchronize()
-    wall = time.time() - t_start
-    counts = _read_counts()
-
-    total_new = 0
-    for j in jobs:
-        r = finished.get(j.identifier)
-        if r is None or len(r["new_tokens"]) != 128 or r["eos_reason"] != "max_new_tokens":
-            raise AssertionError(f"{tag}: request {j.identifier} did not finish with 128 tokens")
-        if not all(0 <= t < V for t in r["new_tokens"]):
-            raise AssertionError(f"{tag}: token id out of range")
-        total_new += len(r["new_tokens"])
-        log(f"{tag}: request prompt={r['prompt_tokens']} cached_tokens={r['cached_tokens']} "
-            f"ttft_s={r['ttft_s']:.4f} prefill_s={r['prefill_s']:.4f} "
-            f"generate_tok_s={r['generate_tok_s']:.2f}")
+    jobs, finished, decode_tokens, decode_s, wall, counts = _drive(tag, gen, prompts, V)
+    total_new = 128 * len(jobs)
     reused = sum(finished[j.identifier]["cached_tokens"] for j in jobs)
     # cross-path check: the first generated token of request 0 lies in the
     # top 5 of a reference forward at the end of its prompt. Over the bf16
@@ -1231,7 +1450,7 @@ def _serve(tag: str, ckpt: str, linear_mode: str, spec_kw: dict, expect_mode: st
         gen.enqueue([Job(p, max_new_tokens=16, sampler=GreedySampler()) for p in prompts])
         while gen.pending or any(j.status == "prefill" for j in gen.active):
             gen.iterate()
-        profile_decode(gen, 4)
+        profile_decode(gen.iterate, 4, f"decode steps (batch {len(gen.active)})")
         while gen.num_remaining_jobs():
             gen.iterate()
     if first not in top5:
@@ -1244,10 +1463,11 @@ def _serve(tag: str, ckpt: str, linear_mode: str, spec_kw: dict, expect_mode: st
     return counts
 
 
-def _require_launches(tag: str, counts: dict, used: tuple, unused: tuple):
+def _require_launches(tag: str, counts: dict, used: tuple):
+    """Every kernel in `used` launched in the run, and no other kernel."""
     if min(counts[n] for n in used) <= 0:
         raise AssertionError(f"{tag}: a kernel of this path never launched: {counts}")
-    if any(counts[n] for n in unused):
+    if any(n for name, n in counts.items() if name not in used):
         raise AssertionError(f"{tag}: a kernel of another path launched: {counts}")
 
 
@@ -1255,8 +1475,7 @@ def phase_serve() -> dict:
     """The int8 path: linear_mode="auto" on an 80 GB card, bf16 cache."""
     counts = _serve("serve", _checkpoint(32), "auto", {}, "int8", _serve_prompts())
     used = ("int8_matmul", "fused_mlp", "paged_attention")
-    _require_launches("serve", counts, used,
-                      ("exl3_gemm", "paged_attention_quant", "moe_gemm", *PACKED))
+    _require_launches("serve", counts, used)
     return {n: counts[n] for n in used}
 
 
@@ -1269,13 +1488,12 @@ def phase_serve_capacity() -> dict:
     from exllamav3_tpu_torch.ops.kv_quant import merged_layout
 
     used = ("exl3_gemm", "paged_attention_quant")
-    unused = ("int8_matmul", "fused_mlp", "paged_attention", "moe_gemm", *PACKED)
     counts = _serve("serve_capacity", _checkpoint(32), "fused", dict(k_bits=4, v_bits=4), "fused",
                     _serve_prompts())
-    _require_launches("serve_capacity", counts, used, unused)
+    _require_launches("serve_capacity", counts, used)
     odd = _serve("serve_capacity (5, 3)", _checkpoint(4), "fused", dict(k_bits=5, v_bits=3),
                  "fused", _serve_prompts()[:1], trace=False)
-    _require_launches("serve_capacity (5, 3)", odd, used, unused)
+    _require_launches("serve_capacity (5, 3)", odd, used)
     if not merged_layout(4, 4) or merged_layout(5, 3):
         raise AssertionError("serve_capacity: the two runs did not use the two storages")
     return {"exl3_gemm": counts["exl3_gemm"],
@@ -1305,7 +1523,6 @@ def phase_serve_packed() -> dict:
     import exllamav3_tpu_torch.model.model as pmodel
     from exllamav3_tpu_torch.model import Config, InferParams, Model
 
-    others = ("int8_matmul", "fused_mlp", "exl3_gemm", "paged_attention_quant", "moe_gemm")
     launches = {}
     runs = [("serve_packed int4", 32, "int4", "int4_matmul_a8", {}, _serve_prompts(), True),
             ("serve_packed int6", 4, "int6", "intb_matmul_a8", {}, _serve_prompts()[:1], False),
@@ -1316,8 +1533,7 @@ def phase_serve_packed() -> dict:
     for tag, layers, mode, kernel, env, prompts, trace in runs:
         with environ(**env):
             counts = _serve(tag, _checkpoint(layers), mode, {}, mode, prompts, trace=trace)
-        _require_launches(tag, counts, (kernel, "paged_attention"),
-                          others + tuple(n for n in PACKED if n != kernel))
+        _require_launches(tag, counts, (kernel, "paged_attention"))
         launches[kernel] = counts[kernel]
 
     # the ladder: a device just large enough for each rung, and one too small
@@ -1377,11 +1593,315 @@ def phase_serve_moe() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"serve_moe: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before the load")
-    counts = _serve("serve_moe", _moe_checkpoint(48), "auto", {}, "int8",
+    counts = _serve("serve_moe", _moe_checkpoint(MOE_SERVE_LAYERS), "auto", {}, "int8",
                     _serve_prompts(QWEN3_30B["vocab_size"]))
-    _require_launches("serve_moe", counts, used,
-                      ("fused_mlp", "exl3_gemm", "paged_attention_quant", *PACKED))
+    _require_launches("serve_moe", counts, used)
     return {n: counts[n] for n in used}
+
+
+# -- phases: linear_decode, serve_spec ---------------------------------------------
+
+# meta-llama/Llama-3.2-1B config.json; the vocabulary cut to the target's 32768,
+# since a draft must share its target's vocabulary
+LLAMA1B = dict(vocab_size=32768, hidden_size=2048, intermediate_size=8192, num_q_heads=32,
+               num_kv_heads=8, head_dim=64, num_layers=16, tie_word_embeddings=True,
+               rope_scaling={"factor": 32.0, "high_freq_factor": 4.0, "low_freq_factor": 1.0,
+                             "original_max_position_embeddings": 8192, "rope_type": "llama3"},
+               extra={"rope_theta": 500000.0, "max_position_embeddings": 131072})
+GAP_LIMIT = 2e-2  # a speculative token may part from plain decoding only at a near-tie
+
+
+def _load(tag: str, ckpt: str, linear_mode: str, expect_mode: str):
+    """A model of `ckpt` loaded on the card in `linear_mode`."""
+    from exllamav3_tpu_torch.model import Config, InferParams, Model
+
+    cfg = Config.from_directory(ckpt, infer_params=InferParams(linear_mode=linear_mode))
+    model = Model.from_config(cfg, device="cuda")
+    base = torch.cuda.memory_allocated()
+    t0 = time.time()
+    model.load()
+    torch.cuda.synchronize()
+    log(f"{tag}: {cfg.num_hidden_layers} layers, linear_mode {cfg.infer_params.linear_mode}, "
+        f"load {time.time() - t0:.1f} s, {(torch.cuda.memory_allocated() - base) / 2**30:.2f} GiB")
+    if cfg.infer_params.linear_mode != expect_mode:
+        raise AssertionError(f"{tag}: linear mode did not resolve to {expect_mode}")
+    return model
+
+
+def _free():
+    gc.collect()  # a model's modules refer to each other: free its tensors now
+    torch.cuda.empty_cache()
+
+
+def _linear_decode(tag: str, model, B: int, spec_kw: dict, S: int = 512, steps: int = 32):
+    """bench.py's decode measurement through Model.forward over a linear
+    cache: a prefill of S random tokens a row, then 4 + `steps` greedy steps
+    that feed their argmax back on the device; the host clock over the last
+    `steps`, synchronised. The first decode step's logits are held to the
+    same prefill and step over a paged cache (the same arithmetic), and to
+    the serve phases' references: over a bf16 cache the step's token lies in
+    the top 5 of the cacheless forward_simple; over a quantized one the
+    logits lie within TOL_QUANT_PATH of the same S + 1 tokens as one chunk
+    through a fresh linear cache of the same widths with every dispatch in
+    its plain version. Returns tok/s."""
+    from exllamav3_tpu_torch.model import Cache, CacheSpec
+
+    V = model.config.vocab_size
+    warm = 4
+    T = -(-(S + warm + steps) // 64) * 64
+    cache = Cache(model, CacheSpec(layout="linear", batch_size=B, max_len=T, **spec_kw))
+    ids = np.random.default_rng(17 + B).integers(0, V, (B, S))
+    logits = model.forward(ids, cache, np.tile(np.arange(S, dtype=np.int32), (B, 1)),
+                           np.zeros(B, np.int32))
+    tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+    t = torch.full((B,), S, dtype=torch.int32, device=model.device)
+    for i in range(warm + steps):
+        if i == warm:
+            torch.cuda.synchronize()
+            t0 = time.time()
+        lg = model.forward(tok, cache, t[:, None], t)
+        if i == 0:
+            first_tok, first = tok.cpu().numpy(), lg[:, -1].clone()
+        tok = lg[:, -1].argmax(dim=-1, keepdim=True)
+        t = t + 1
+    torch.cuda.synchronize()
+    rate = B * steps / (time.time() - t0)
+    full = np.concatenate([ids, first_tok], axis=1)
+    with uncounted():
+        # the same prefill and step over a paged cache of the same widths: the
+        # same tile loop walks the same keys, so the logits should not move
+        pages = -(-(S + 1) // 256)
+        pcache = Cache(model, CacheSpec(num_pages=B * pages + 1, **spec_kw))
+        bt = np.concatenate([np.arange(1, B * pages + 1, dtype=np.int32).reshape(B, pages),
+                             np.zeros((B, 1), np.int32)], axis=1)
+        model.forward(ids, pcache, np.tile(np.arange(S, dtype=np.int32), (B, 1)),
+                      np.zeros(B, np.int32), bt)
+        paged = model.forward(first_tok, pcache, np.full((B, 1), S, np.int32),
+                              np.full(B, S, np.int32), bt)[:, -1]
+        rel = float((first - paged).abs().max() / paged.abs().max())
+        log(f"parity {tag} B={B}: first decode step, linear against paged cache: "
+            f"max_abs_err={float((first - paged).abs().max()):.4e} rel={rel:.3e}")
+        if not (torch.isfinite(first).all() and rel <= TOL_ATTN):
+            raise AssertionError(f"{tag}: linear and paged decode logits differ by {rel}")
+        del pcache
+        if not spec_kw:
+            # the serve phases' cross-path check: the step's token in the top 5
+            # of the cacheless forward (bf16 dense attention, three-dot MLP)
+            ref = model.forward_simple(full)[:, -1]
+            rank = (ref > ref.gather(-1, first.argmax(-1, keepdim=True))).sum(-1)
+            log(f"parity {tag} B={B}: against forward_simple: rel "
+                f"{float((first - ref).abs().max() / ref.abs().max()):.3e}, worst rank of the "
+                f"step's token {int(rank.max())}")
+            if int(rank.max()) >= 5:
+                raise AssertionError(f"{tag}: the decode step's token is not in the top 5 of "
+                                     "forward_simple")
+        else:
+            with plain_ops():
+                ref = model.forward(full, Cache(model, CacheSpec(layout="linear", batch_size=B,
+                                                                 max_len=T, **spec_kw)),
+                                    np.tile(np.arange(S + 1, dtype=np.int32), (B, 1)),
+                                    np.zeros(B, np.int32))[:, -1]
+            shift = float(((first - ref).abs().amax(-1) / (ref.amax(-1) - ref.amin(-1))).max())
+            log(f"parity {tag} B={B}: first decode step against the plain one-chunk forward "
+                f"over the same widths: {shift:.4e} of the logits' range at the worst row")
+            if not shift <= TOL_QUANT_PATH:
+                raise AssertionError(f"{tag}: decode logits {shift} of the range from the plain "
+                                     f"reference > {TOL_QUANT_PATH}")
+    log(f"{tag}: decode batch {B} after a {S}-token prefill over a ({B}, {T}) linear "
+        f"{spec_kw or 'bf16'} cache: {rate:.2f} tok/s")
+    del cache
+    return rate
+
+
+def phase_linear_decode() -> dict:
+    """bench.py's measurements through the port's Model.forward over a linear
+    cache: the Llama-3.1-8B-geometry checkpoint in int8 over a bf16 cache,
+    greedy decode at batch 1 and 8 after a 512-token prefill and one
+    2048-token prefill; then the capacity model (`fused`) over a (4, 4)
+    linear cache at full depth, and over (5, 3) on 4 layers."""
+    from exllamav3_tpu_torch.model import Cache, CacheSpec
+
+    model = _load("linear_decode int8", _checkpoint(32), "auto", "int8")
+    _reset_counts()
+    for B in (1, 8):
+        _linear_decode("linear_decode int8", model, B, {})
+    Sp = 2048
+    cache = Cache(model, CacheSpec(layout="linear", batch_size=1, max_len=Sp))
+    ids = np.random.default_rng(18).integers(0, LLAMA8B["vocab_size"], (1, Sp))
+    pos = np.arange(Sp, dtype=np.int32)[None]
+    best = float("inf")
+    for r in range(4):  # the first call warms up
+        torch.cuda.synchronize()
+        t0 = time.time()
+        model.forward(ids, cache, pos, np.zeros(1, np.int32))
+        torch.cuda.synchronize()
+        if r:
+            best = min(best, time.time() - t0)
+    log(f"linear_decode int8: prefill {Sp} tokens in {best * 1e3:.2f} ms (best of 3): "
+        f"{Sp / best:.2f} tok/s")
+    counts = _read_counts()
+    log(f"linear_decode int8: kernel launches {json.dumps(counts)}")
+    _require_launches("linear_decode int8", counts, ("int8_matmul", "fused_mlp",
+                                                     "linear_attention"))
+    c1 = Cache(model, CacheSpec(layout="linear", batch_size=1, max_len=64))
+    model.forward(ids[:, :8], c1, pos[:, :8], np.zeros(1, np.int32))
+    _reset_counts()
+    one = torch.full((1, 1), 8, dtype=torch.int32, device=model.device)
+    profile_decode(lambda: model.forward(ids[:, 8:9], c1, one, one[0]), 1,
+                   "linear-cache decode step (batch 1)")
+    log("linear_decode int8: launches per batch-1 decode step " + json.dumps(_read_counts()))
+    del model, cache, c1
+    _free()
+
+    launches = {}
+    for layers, bits in ((32, (4, 4)), (4, (5, 3))):
+        tag = f"linear_decode fused {bits}"
+        spec_kw = dict(k_bits=bits[0], v_bits=bits[1])
+        model = _load(tag, _checkpoint(layers), "fused", "fused")
+        _reset_counts()
+        _linear_decode(tag, model, 8, spec_kw)
+        counts = _read_counts()
+        log(f"{tag}: kernel launches {json.dumps(counts)}")
+        _require_launches(tag, counts, ("exl3_gemm", "linear_attention_quant"))
+        storage = "merged" if bits == (4, 4) else "per_head"
+        launches[f"linear_attention_quant_{storage}"] = counts["linear_attention_quant"]
+        del model
+        _free()
+    return launches
+
+
+def _draft_checkpoint() -> str:
+    from exllamav3_tpu_torch.conversion.synth import tiny_llama_cfg, write_tiny_llama_exl3
+
+    d = os.path.join(WORK, "llama1b_16layers")
+    t0 = time.time()
+    if not os.path.exists(os.path.join(d, "config.json")):
+        write_tiny_llama_exl3(d, tiny_llama_cfg(**LLAMA1B), K=4, seed=4)
+    log(f"checkpoint: Llama-3.2-1B geometry, 16 layers, tied head, ready in "
+        f"{time.time() - t0:.1f} s ({d})")
+    return d
+
+
+@contextlib.contextmanager
+def record_gaps():
+    """Inside, each plain decode step records, for every job it samples a
+    token for, the gap between the two largest logits it samples from over
+    their range, by job identifier, one entry per token in output order."""
+    import exllamav3_tpu_torch.generator.generator as gen_mod
+
+    gaps: dict = {}
+    rows: list = []
+    sample, receive = gen_mod.batch_sample, gen_mod.Generator._receive_token
+
+    def sample_gaps(logits, *a, **kw):
+        top2 = torch.topk(logits, 2, dim=-1).values
+        rows.extend(((top2[:, 0] - top2[:, 1]) / (logits.amax(-1) - logits.amin(-1))).tolist())
+        return sample(logits, *a, **kw)
+
+    def receive_gap(self, job, tok, results):
+        gaps.setdefault(job.identifier, []).append(rows.pop(0))
+        return receive(self, job, tok, results)
+    gen_mod.batch_sample, gen_mod.Generator._receive_token = sample_gaps, receive_gap
+    try:
+        yield gaps
+    finally:
+        gen_mod.batch_sample, gen_mod.Generator._receive_token = sample, receive
+
+
+def _spec_run(tag: str, target, draft, prompts: list, plain: list, gaps: list,
+              new_tokens: int = 128) -> dict:
+    """Serve `prompts` on `target` with `draft` drafting 4 tokens a job, and
+    hold each request's tokens to plain decoding's: equal up to the first
+    divergence, which must sit at a near-tie of the plain run (top-2 gap under
+    GAP_LIMIT of the logits' range). Returns the launch counts and the
+    acceptance rate."""
+    from exllamav3_tpu_torch.generator import Generator, GreedySampler, Job
+    from exllamav3_tpu_torch.model import Cache, CacheSpec
+
+    gen = Generator(target, Cache(target, CacheSpec(num_pages=72)), max_batch_size=8,
+                    max_chunk_size=2048, seed=0, draft_model=draft, num_draft_tokens=4)
+    jobs, finished, dec_tok, dec_s, wall, counts = _drive(tag, gen, prompts, LLAMA8B["vocab_size"],
+                                                          new_tokens)
+    rate = gen.num_accepted / max(gen.num_drafted, 1)
+    # a traced window of speculative iterations over the same prompts
+    # (prefixes cached, draft rows caught up), after and apart from the run
+    gen.enqueue([Job(p, max_new_tokens=32, sampler=GreedySampler()) for p in prompts])
+    while gen.pending or any(j.status == "prefill" for j in gen.active):
+        gen.iterate()
+    gen.iterate()
+    profile_decode(gen.iterate, 4, f"speculative iterations (batch {len(gen.active)})")
+    while gen.num_remaining_jobs():
+        gen.iterate()
+    ttft = [finished[j.identifier]["ttft_s"] for j in jobs]
+    log(f"{tag}: {len(jobs)} requests, {len(jobs) * new_tokens} tokens in {wall:.3f} s "
+        f"({len(jobs) * new_tokens / wall:.2f} tok/s overall), decode-only iterations "
+        f"{dec_tok} tokens in {dec_s:.3f} s ({dec_tok / max(dec_s, 1e-9):.2f} tok/s); drafted "
+        f"{gen.num_drafted}, accepted {gen.num_accepted} (acceptance {rate:.4f}); TTFT first "
+        f"request {ttft[0]:.4f} s, others {min(ttft[1:]):.4f}-{max(ttft[1:]):.4f} s")
+    log(f"{tag}: kernel launches {json.dumps(counts)}")
+    for i, j in enumerate(jobs):
+        got = finished[j.identifier]["new_tokens"]
+        same = next((n for n, (a, b) in enumerate(zip(got, plain[i])) if a != b), len(got))
+        gap = gaps[i][same] if same < len(got) else None
+        log(f"{tag}: request {i}: agrees with plain decoding for {same} of {len(got)} tokens"
+            + ("" if gap is None else f", then parts where the plain run's top-2 gap is "
+               f"{gap:.4e} of the logits' range"))
+        if gap is not None and not gap < GAP_LIMIT:
+            raise AssertionError(f"{tag}: request {i} parts from plain decoding at token {same}, "
+                                 f"where the top-2 gap is {gap} of the range")
+    del gen
+    _free()
+    return counts, rate
+
+
+def phase_serve_spec() -> dict:
+    """Greedy speculative decoding on the Llama-3.1-8B-geometry target
+    (linear_mode="auto": int8 on an 80 GB card, bf16 paged cache), the
+    serve phases' traffic: plain decoding first, then (a) a Llama-3.2-1B-
+    geometry draft and (b) the target drafting for itself (the same Model),
+    k = 4, the draft over its own linear cache."""
+    from exllamav3_tpu_torch.generator import Generator
+    from exllamav3_tpu_torch.model import Cache, CacheSpec
+
+    target = _load("serve_spec target", _checkpoint(32), "auto", "int8")
+    draft = _load("serve_spec draft", _draft_checkpoint(), "auto", "int8")
+    head = draft.params["lm_head"].get("weight")
+    embed = draft.params["model.embed_tokens"]["weight"]
+    if head is None or not torch.equal(head.t(), embed):
+        raise AssertionError("serve_spec: the draft's tied head is not its embedding")
+    prompts = _serve_prompts()
+    gen = Generator(target, Cache(target, CacheSpec(num_pages=72)), max_batch_size=8,
+                    max_chunk_size=2048, seed=0)
+    with record_gaps() as gaps:
+        jobs, finished, dec_tok, dec_s, wall, counts = _drive("serve_spec plain", gen, prompts,
+                                                              LLAMA8B["vocab_size"])
+    plain = [finished[j.identifier]["new_tokens"] for j in jobs]
+    gap_rows = [gaps[j.identifier] for j in jobs]
+    log(f"serve_spec plain: {len(jobs) * 128} tokens in {wall:.3f} s "
+        f"({len(jobs) * 128 / wall:.2f} tok/s overall), decode-only iterations {dec_tok} tokens "
+        f"in {dec_s:.3f} s ({dec_tok / max(dec_s, 1e-9):.2f} tok/s; each step also takes the "
+        f"top-2 gap of its logits)")
+    _require_launches("serve_spec plain", counts, ("int8_matmul", "fused_mlp", "paged_attention"))
+    del gen
+    _free()
+    used = ("int8_matmul", "fused_mlp", "paged_attention", "linear_attention")
+    counts_a, _ = _spec_run("serve_spec (a) 1B draft", target, draft, prompts, plain, gap_rows)
+    _require_launches("serve_spec (a) 1B draft", counts_a, used)
+    counts_b, rate_b = _spec_run("serve_spec (b) self-draft", target, target, prompts, plain,
+                                 gap_rows)
+    _require_launches("serve_spec (b) self-draft", counts_b, used)
+    if rate_b < 0.8:
+        raise AssertionError(f"serve_spec (b): self-draft acceptance {rate_b} < 0.8")
+    # launches of one draft step of each draft (batch 1)
+    for tag, m in (("1B draft", draft), ("self-draft", target)):
+        c = Cache(m, CacheSpec(layout="linear", batch_size=1, max_len=64))
+        one = torch.zeros((1, 1), dtype=torch.int32, device=m.device)
+        _reset_counts()
+        m.forward(one.long(), c, one, one[0])
+        log(f"serve_spec: launches per {tag} step " + json.dumps(_read_counts()))
+    del target, draft
+    _free()
+    return {"linear_attention": counts_a["linear_attention"]}
 
 
 CHECKS = {"int8_matmul": check_int8, "fused_mlp": check_fused_mlp,
@@ -1389,18 +1909,20 @@ CHECKS = {"int8_matmul": check_int8, "fused_mlp": check_fused_mlp,
           "paged_attention_quant": check_attention_quant,
           **{name: (lambda table, dev, name=name: check_packed(table, dev, name))
              for name in PACKED},
-          "moe_gemm": check_moe_gemm}
+          "moe_gemm": check_moe_gemm, "linear_attention": check_linear_attention,
+          "linear_attention_quant": check_linear_attention_quant}
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="build,kernels,parity,serve,serve_capacity,serve_packed,serve_moe",
+                    default="build,kernels,parity,serve,serve_capacity,serve_packed,serve_moe,"
+                            "linear_decode,serve_spec",
                     help="`kernels` runs every kernel check; a check's name runs that one")
     args = ap.parse_args()
     phases = args.phases.split(",")
     known = {"build", "kernels", "parity", "serve", "serve_capacity", "serve_packed", "serve_moe",
-             *CHECKS}
+             "linear_decode", "serve_spec", *CHECKS}
     if set(phases) - known:
         ap.error(f"unknown phases {sorted(set(phases) - known)}")
 
@@ -1453,6 +1975,14 @@ def main():
         t0 = time.time()
         table.set_launches(phase_serve_moe())
         log(f"phase serve_moe: {time.time() - t0:.1f} s")
+    if "linear_decode" in phases:
+        t0 = time.time()
+        table.set_launches(phase_linear_decode())
+        log(f"phase linear_decode: {time.time() - t0:.1f} s")
+    if "serve_spec" in phases:
+        t0 = time.time()
+        table.set_launches(phase_serve_spec())
+        log(f"phase serve_spec: {time.time() - t0:.1f} s")
     log(f"total: {time.time() - t_all:.1f} s")
     log(smi)  # once more, so that the end of a cut log still names the card
     print(json.dumps({"kernels": list(table.rows.values())}))

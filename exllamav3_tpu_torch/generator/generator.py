@@ -14,10 +14,25 @@ may be quantized (CacheSpec.k_bits / v_bits / compand_a): `Model.forward`
 reads the widths from the cache's spec at every step, and prefix reuse works
 on page numbers, whatever arrays a layer's state holds.
 
-Not ported yet: speculative decoding (draft, n-gram, MTP, DFlash), filters,
-CFG, token healing, banned and stop strings, requeue, the CPU page cache,
-defragmentation, decode bursts, recurrent state, sequence parallelism,
-multihost and the tokenizer: this generator takes and returns token ids.
+Greedy speculative decoding: with a draft model (its own linear cache, one
+row per job slot) or the n-gram drafter (ngram.py), an iteration in which
+every running job is greedy drafts up to num_draft_tokens tokens a job and
+verifies them all in one (B, k+1) forward over the paged cache; the output
+equals plain greedy decoding wherever the verify's taller forward rounds as a
+decode step does (with int8 linears the decode step's MLP is the fused
+kernel and the verify's the three-dot path, as in the JAX package, so a
+near-tie can part them). Two differences from the JAX package, neither
+of which changes a verified token: a draft step writes only the draft-cache
+rows of the jobs it drafts for (JAX's steps run every row of the draft cache
+and overwrite position 0 of the others), and the running jobs' draft steps
+are batched into one (n_jobs, 1) step per drafted token, looped on the host
+(JAX scans k steps on the device, one job at a time).
+
+Not ported yet: MTP and DFlash drafting, filters (and with them the filtered
+half of the speculative verify), CFG, token healing, banned and stop
+strings, requeue, the CPU page cache, defragmentation, decode bursts,
+recurrent state, sequence parallelism, multihost and the tokenizer: this
+generator takes and returns token ids.
 """
 from __future__ import annotations
 
@@ -27,16 +42,24 @@ import numpy as np
 import torch
 
 from ..constants import PAGE_SIZE
+from ..model.cache import Cache, CacheSpec
 from .batch_sampler import BatchSamplerParams, batch_sample
 from .job import Job
+from .ngram import SuffixAutomaton
 from .pagetable import PageTable, _page_hash
+
+DRAFT_CHUNK = 128  # tokens a draft-cache catch-up forward takes at most
 
 
 class Generator:
     def __init__(self, model, cache, max_batch_size: int = 32, max_chunk_size: int = 2048,
-                 seed: int = 0):
+                 seed: int = 0, draft_model=None, draft_cache=None, num_draft_tokens: int = 4,
+                 use_ngram_draft: bool = False):
         if cache.spec.layout != "paged":
             raise ValueError("Generator requires a paged cache")
+        if draft_model is not None and any(draft_model.caps.get(c)
+                                           for c in ("dflash_draft", "mtp_draft")):
+            raise NotImplementedError("DFlash and MTP drafting are not ported yet")
         self.model = model
         self.cache = cache
         self.device = model.device
@@ -52,6 +75,22 @@ class Generator:
                                         dtype=torch.int32, device=self.device)
         self.rng = torch.Generator(device=self.device)
         self.rng.manual_seed(seed)
+        # speculative decoding: the draft model's linear cache holds one row
+        # per job slot, as long as the JAX package makes it
+        self.draft_model = draft_model
+        self.num_draft_tokens = num_draft_tokens
+        self.use_ngram_draft = use_ngram_draft
+        self.num_drafted = 0
+        self.num_accepted = 0
+        if draft_model is not None and draft_cache is None:
+            draft_cache = Cache(draft_model, CacheSpec(
+                layout="linear", batch_size=max_batch_size,
+                max_len=cache.spec.num_pages * PAGE_SIZE // 4))
+        if draft_cache is not None and (draft_cache.spec.layout != "linear"
+                                        or draft_cache.spec.batch_size < max_batch_size):
+            raise ValueError("the draft cache must be linear, with a row per job slot")
+        self.draft_cache = draft_cache
+        self._draft_done: dict = {}  # job identifier -> tokens in its draft-cache row
 
     # -- public API ------------------------------------------------------
 
@@ -97,7 +136,11 @@ class Generator:
             budget -= self._prefill_job(job, results, budget)
         running = [j for j in self.active if j.status == "running"]
         if running:
-            self._decode_batch(running, results)
+            if ((self.draft_model is not None or self.use_ngram_draft)
+                    and all(j.sampler.greedy for j in running)):
+                self._decode_batch_sd(running, results)
+            else:
+                self._decode_batch(running, results)
         return results
 
     def _admit_jobs(self, results: list):
@@ -186,9 +229,11 @@ class Generator:
 
     # -- decode --------------------------------------------------------------------
 
-    def _decode_batch(self, jobs: list, results: list):
-        for job in list(jobs):  # grow pages for jobs crossing a page boundary
-            while job.pages_needed() > len(job.pages):
+    def _grow_pages(self, jobs: list, positions: int, results: list):
+        """Pages for `positions` more positions than each job holds tokens;
+        a job that finds none finishes with cache_overflow and leaves `jobs`."""
+        for job in list(jobs):
+            while (job.seq_len + positions + PAGE_SIZE - 1) // PAGE_SIZE > len(job.pages):
                 newp = self.pagetable.extend_sequence()
                 if newp is None:
                     self._finish_job(job, "cache_overflow", results)
@@ -196,6 +241,9 @@ class Generator:
                     break
                 job.pages.append(newp)
                 job.page_hashes.append(None)
+
+    def _decode_batch(self, jobs: list, results: list):
+        self._grow_pages(jobs, 0, results)
         if not jobs:
             return
         B = len(jobs)
@@ -212,6 +260,113 @@ class Generator:
                                      accumulate=True)
         for job, tok in zip(jobs, toks.tolist()):
             self._receive_token(job, tok, results)
+
+    # -- speculative decoding -------------------------------------------------------
+
+    def _decode_batch_sd(self, jobs: list, results: list):
+        """Greedy speculative decode: draft up to k tokens a job, verify them
+        all in one (B, k+1) forward, keep the longest agreeing run and the
+        target's next token."""
+        k = self.num_draft_tokens
+        self._grow_pages(jobs, k + 1, results)  # positions up to seq_len + k
+        if not jobs:
+            return
+        drafts = self._draft_tokens(jobs, k)
+        self.num_drafted += sum(len(d) for d in drafts)
+        B, S = len(jobs), k + 1
+        ids = np.zeros((B, S), np.int64)
+        pos = np.zeros((B, S), np.int32)
+        seqlens = np.array([j.seq_len - 1 for j in jobs], np.int32)
+        for i, job in enumerate(jobs):
+            last = job.new_tokens[-1] if job.new_tokens else job.input_ids[-1]
+            ids[i, : 1 + len(drafts[i])] = [int(last)] + drafts[i]
+            pos[i] = np.arange(seqlens[i], seqlens[i] + S)
+        logits = self.model.forward(ids, self.cache, pos, seqlens,
+                                    self._block_tables([j.pages for j in jobs]))
+        out = logits.argmax(dim=-1).cpu().numpy()
+        for i, job in enumerate(jobs):
+            d = drafts[i]
+            accepted = 0
+            while accepted < len(d) and out[i, accepted] == d[accepted]:
+                accepted += 1
+            self.num_accepted += accepted
+            job.accepted_draft_tokens += accepted
+            job.rejected_draft_tokens += len(d) - accepted
+            # the accepted drafts and one token of the target's own, in order
+            for tok in out[i, : accepted + 1].tolist():
+                if job.status != "running":
+                    break
+                self._receive_token(job, tok, results)
+
+    def _draft_tokens(self, jobs: list, k: int) -> list:
+        """Up to k draft tokens for each job: the n-gram drafter's when it
+        finds an earlier occurrence of the job's suffix, else the draft
+        model's, else none."""
+        drafts: list = [[] for _ in jobs]
+        if self.use_ngram_draft:
+            for i, job in enumerate(jobs):
+                if job.sam is None:
+                    job.sam, job.sam_fed = SuffixAutomaton(), 0
+                ids = job.all_ids()
+                while job.sam_fed < job.seq_len:
+                    job.sam.extend(int(ids[job.sam_fed]))
+                    job.sam_fed += 1
+                drafts[i] = job.sam.draft(k)
+        if self.draft_model is not None:
+            need = [i for i, d in enumerate(drafts) if not d]
+            for i, d in zip(need, self._draft_with_model([jobs[i] for i in need], k)):
+                drafts[i] = d
+        return drafts
+
+    def _draft_with_model(self, jobs: list, k: int) -> list:
+        """Greedy-decode k tokens a job from the draft model over its linear
+        cache, whose row of a job is the job's slot. First the row catches up
+        on the job's tokens not yet in it (all but the last), in chunks of up
+        to DRAFT_CHUNK tokens, the jobs that need a chunk of one length in one
+        forward; then k steps of all the jobs together, each feeding back its
+        argmax on the device. Positions key the cache, so a rejected draft
+        needs no rewind. A job whose context would outgrow its row gets no
+        draft tokens."""
+        if not jobs:
+            return []
+        dm, cache = self.draft_model, self.draft_cache
+        room = cache.spec.max_len
+        drafts: list = [[] for _ in jobs]
+        live = [i for i, j in enumerate(jobs) if j.seq_len - 1 + k <= room]
+        while True:  # catch up
+            by_len: dict = {}
+            for i in live:
+                job = jobs[i]
+                done = self._draft_done.get(job.identifier, 0)
+                if done < job.seq_len - 1:
+                    by_len.setdefault(min(DRAFT_CHUNK, job.seq_len - 1 - done), []).append(i)
+            if not by_len:
+                break
+            for n, group in by_len.items():
+                starts = [self._draft_done.get(jobs[i].identifier, 0) for i in group]
+                ids = np.stack([jobs[i].all_ids()[a: a + n] for i, a in zip(group, starts)])
+                pos = np.stack([np.arange(a, a + n, dtype=np.int32) for a in starts])
+                dm.forward(ids, cache, pos, np.array(starts, np.int32),
+                           cache_rows=np.array([self.job_slots[jobs[i]] for i in group], np.int32))
+                for i, a in zip(group, starts):
+                    self._draft_done[jobs[i].identifier] = a + n
+        if not live:
+            return drafts
+        dev = dm.device
+        rows = torch.tensor([self.job_slots[jobs[i]] for i in live], dtype=torch.int32, device=dev)
+        tok = torch.tensor([[int(jobs[i].all_ids()[-1])] for i in live], device=dev)
+        t = torch.tensor([jobs[i].seq_len - 1 for i in live], dtype=torch.int32, device=dev)
+        steps = []
+        for _ in range(k):
+            logits = dm.forward(tok, cache, t[:, None], t, cache_rows=rows)
+            tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+            steps.append(tok)
+            t = t + 1
+        out = torch.cat(steps, dim=1).cpu().tolist()
+        for i, d in zip(live, out):
+            drafts[i] = d
+            self._draft_done[jobs[i].identifier] = jobs[i].seq_len - 1
+        return drafts
 
     def _receive_token(self, job: Job, tok: int, results: list):
         now = time.time()
@@ -248,6 +403,7 @@ class Generator:
         slot = self.job_slots.pop(job, None)
         if slot is not None:
             self.free_slots.append(slot)
+        self._draft_done.pop(job.identifier, None)
         if results is not None:
             results.append({"identifier": job.identifier, "stage": "finished", "job": job,
                             "eos_reason": reason, "new_tokens": list(job.new_tokens),

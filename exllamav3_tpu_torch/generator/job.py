@@ -45,6 +45,13 @@ class Job:
         self.time_prefill_end = 0.0
         self.time_first_token = 0.0
         self.time_last_token = 0.0
+        # speculative decoding: draft tokens accepted and rejected by the
+        # verify step; the n-gram drafter's automaton and the count of the
+        # job's tokens it holds
+        self.accepted_draft_tokens = 0
+        self.rejected_draft_tokens = 0
+        self.sam = None
+        self.sam_fed = 0
 
     def metrics(self) -> dict:
         """Per-job serving metrics attached to the finished event."""
@@ -60,6 +67,8 @@ class Job:
             "ttft_s": max(self.time_first_token - self.time_enqueued, 0.0),
             "generate_s": t_gen,
             "generate_tok_s": (n / t_gen) if t_gen > 0 else 0.0,
+            "accepted_draft_tokens": self.accepted_draft_tokens,
+            "rejected_draft_tokens": self.rejected_draft_tokens,
         }
 
     @property

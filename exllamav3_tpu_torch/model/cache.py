@@ -1,11 +1,19 @@
-"""Paged KV cache, bf16 or quantized (counterpart of exllamav3_tpu/model/cache.py).
+"""KV cache, paged or linear, bf16 or quantized (counterpart of
+exllamav3_tpu/model/cache.py).
 
-Layout per attention layer: k, v (num_pages, PAGE_SIZE, kv_heads, head_dim)
-with per-sequence block tables; with k_bits / v_bits set, packed int32 words
-k_q, v_q and bf16 group scales k_s, v_s instead (ops/kv_quant.py). The JAX
-package threads the cache through its jitted step as a functional pytree;
-here the tensors are updated in place, which keeps one copy of the cache in
-device memory. The linear layout is not ported yet.
+Two layouts per attention layer:
+  * paged: k, v (num_pages, PAGE_SIZE, kv_heads, head_dim) with
+    per-sequence block tables; the continuous-batching generator's cache.
+  * linear: k, v (batch_size, max_len, kv_heads, head_dim), slot == token
+    position; a step writes and reads row b of the cache for its sequence b,
+    or the rows it names (a draft model's cache, one row per job slot).
+With k_bits / v_bits set, packed int32 words k_q, v_q and bf16 group scales
+k_s, v_s replace k and v in either layout (ops/kv_quant.py). The JAX package
+threads the cache through its jitted step as a functional pytree; here the
+tensors are updated in place, which keeps one copy of the cache in device
+memory. The layout defaults to "paged" (JAX: "linear"), which every caller
+of the port's first slices relies on. Recurrent slots and the SWA ring are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -19,8 +27,10 @@ from ..util.device import resolve_device
 
 @dataclass
 class CacheSpec:
-    layout: str = "paged"
-    num_pages: int = 0
+    layout: str = "paged"  # "paged" | "linear"
+    batch_size: int = 1    # linear layout: rows
+    max_len: int = 4096    # linear layout: slots per row
+    num_pages: int = 0     # paged layout
     kv_dtype: str = "bfloat16"
     k_bits: int = 0  # 0 = unquantized; 2..8 = quantized cache
     v_bits: int = 0
@@ -28,9 +38,12 @@ class CacheSpec:
 
 
 def cache_base_shape(spec: CacheSpec, heads: int, dim: int) -> tuple:
-    if spec.layout != "paged":
-        raise NotImplementedError(f"cache layout {spec.layout!r} is not ported yet")
-    return (spec.num_pages, PAGE_SIZE, heads, dim)
+    """(N, T, heads, dim) for the spec's layout."""
+    if spec.layout == "linear":
+        return (spec.batch_size, spec.max_len, heads, dim)
+    if spec.layout == "paged":
+        return (spec.num_pages, PAGE_SIZE, heads, dim)
+    raise ValueError(f"unknown cache layout {spec.layout!r}")
 
 
 def cache_dtype(spec: CacheSpec):
@@ -51,6 +64,9 @@ class Cache:
     def new_state(self) -> dict:
         return {m.key: m.new_cache_layer(self.spec, self.device) for m in self.users}
 
+    def reset(self):
+        self.state = self.new_state()
+
 
 def page_index(positions, block_tables) -> tuple:
     """((B, S) page, (B, S) slot in the page) of each token position, through
@@ -69,16 +85,10 @@ def paged_cache_update(layer_state: dict, k_new, v_new, positions, block_tables,
     Returns the layer state."""
     pages, in_page = index if index is not None else page_index(positions, block_tables)
     if k_bits:
-        from ..ops.kv_quant import quantize_kv_stored
+        from ..ops.kv_quant import quantize_kv_pair
 
         merged = layer_state["k_q"].dim() == 3
-        if k_bits == v_bits:  # one pass over both
-            q, s = quantize_kv_stored(torch.cat([k_new, v_new], dim=0), k_bits, merged, compand_a)
-            B = k_new.shape[0]
-            kq, vq, ks, vs = q[:B], q[B:], s[:B], s[B:]
-        else:
-            kq, ks = quantize_kv_stored(k_new, k_bits, merged, compand_a)
-            vq, vs = quantize_kv_stored(v_new, v_bits, merged, compand_a)
+        kq, ks, vq, vs = quantize_kv_pair(k_new, v_new, k_bits, v_bits, merged, compand_a)
         layer_state["k_q"][pages, in_page] = kq
         layer_state["k_s"][pages, in_page] = ks
         layer_state["v_q"][pages, in_page] = vq
@@ -86,4 +96,23 @@ def paged_cache_update(layer_state: dict, k_new, v_new, positions, block_tables,
         return layer_state
     layer_state["k"][pages, in_page] = k_new.to(layer_state["k"].dtype)
     layer_state["v"][pages, in_page] = v_new.to(layer_state["v"].dtype)
+    return layer_state
+
+
+def linear_cache_update(layer_state: dict, k_new, v_new, positions, k_bits: int = 0,
+                        v_bits: int = 0, compand_a: float = 0.0, rows=None) -> dict:
+    """Write (B, S, Hk, D) keys/values at [row, position] of a linear cache, in
+    place, quantized first when k_bits is set: row b, or rows[b] when given
+    (a (B,) index), so that a step touches only its own sequences' rows.
+    Returns the layer state."""
+    if k_bits:
+        from ..ops.kv_quant import quant_cache_update
+
+        return quant_cache_update(layer_state, k_new, v_new, positions, k_bits, v_bits,
+                                  compand_a, rows=rows)
+    r = (torch.arange(k_new.shape[0], device=positions.device) if rows is None
+         else rows.long())[:, None]
+    pos = positions.long()
+    layer_state["k"][r, pos] = k_new.to(layer_state["k"].dtype)
+    layer_state["v"][r, pos] = v_new.to(layer_state["v"].dtype)
     return layer_state

@@ -1,9 +1,10 @@
 """Model: module list, loading and the step functions
 (counterpart of exllamav3_tpu/model/model.py).
 
-`forward` is the generator's step over the paged cache and `forward_simple`
-the cacheless full forward. PyTorch runs eagerly, so there is no per-shape
-compile cache.
+`forward` is the step over a cache of either layout (the JAX package's
+step_fn: "paged" through block tables, "dense" over a linear cache) and
+`forward_simple` the cacheless full forward. PyTorch runs eagerly, so there
+is no per-shape compile cache.
 """
 from __future__ import annotations
 
@@ -79,6 +80,7 @@ class Model:
         self.device = resolve_device(device)
         self.modules: list[Module] = []
         self.params: dict | None = None
+        self.caps: dict = {}  # capabilities an architecture declares (JAX: dflash_draft, mtp_draft)
 
     @property
     def root(self) -> Module:
@@ -112,21 +114,30 @@ class Model:
         return x
 
     @torch.no_grad()
-    def forward(self, ids, cache, positions, cache_seqlens, block_tables) -> torch.Tensor:
-        """Paged step: ids (B, S) at absolute `positions` (B, S), with
-        `cache_seqlens` (B,) tokens already cached and `block_tables`
-        (B, max_pages). Writes this chunk's keys/values into `cache` (a Cache)
-        and returns the logits (B, S, vocab) f32."""
+    def forward(self, ids, cache, positions, cache_seqlens, block_tables=None,
+                cache_rows=None) -> torch.Tensor:
+        """One step over `cache` (a Cache): ids (B, S) at absolute `positions`
+        (B, S), with `cache_seqlens` (B,) tokens already cached. The layout
+        follows the cache's spec: a paged cache needs `block_tables`
+        (B, max_pages); a linear one takes none, and writes and reads row b
+        for sequence b, or row cache_rows[b] when given. Writes this chunk's
+        keys/values into the cache and returns the logits (B, S, vocab) f32."""
         dev = self.device
+        linear = cache.spec.layout == "linear"
+        if linear and block_tables is not None:
+            raise ValueError("a linear cache takes no block tables")
+        if not linear and (block_tables is None or cache_rows is not None):
+            raise ValueError("a paged cache needs block tables and takes no cache rows")
         ctx = ForwardCtx(
             positions=_as_tensor(positions, dev),
-            attn_mode="paged",
+            attn_mode="linear" if linear else "paged",
             cache=cache.state,
             k_bits=cache.spec.k_bits,
             v_bits=cache.spec.v_bits,
             compand_a=cache.spec.compand_a,
             block_tables=_as_tensor(block_tables, dev),
             cache_seqlens=_as_tensor(cache_seqlens, dev),
+            cache_rows=_as_tensor(cache_rows, dev),
         )
         return self.forward_modules(_as_tensor(ids, dev, torch.long), self.params, ctx)
 

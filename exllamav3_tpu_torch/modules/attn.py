@@ -3,13 +3,15 @@
 
 Covers GQA with RoPE at the default 1/sqrt(head_dim) scale and optional
 per-head q/k RMSNorms (Qwen3: after the projections, before RoPE), cacheless
-(`attend_dense`, plain torch as in the JAX package) and over the paged cache,
-bf16 or quantized, through the paged attention kernels
-(ops/flash_attention.py). The linear-cache layout, the SWA ring, sequence
-parallelism, MRoPE, output gates and the module-level sliding window,
-softcap and sinks (the kernels take them) are not ported yet. The
-paged path hands q to the kernel in f32, as the JAX package's Pallas path
-does; the cacheless path rounds it to bf16, as the JAX package's does.
+(`attend_dense`, plain torch as in the JAX package) and over the paged or the
+linear cache, bf16 or quantized, through the attention kernels
+(ops/flash_attention.py). The SWA ring, sequence parallelism, MRoPE, output
+gates and the module-level sliding window, softcap and sinks (the kernels
+take them) are not ported yet. Both cached paths hand q to the kernel in f32,
+as the JAX package's Pallas path does; the cacheless path rounds it to bf16,
+as the JAX package's does. The JAX package takes its dense linear branch
+when T % 8 != 0 (its kernel's tiling); the port's kernel needs T % 8 == 0 as
+well and raises otherwise.
 """
 from __future__ import annotations
 
@@ -20,8 +22,9 @@ import torch
 from .linear import Linear
 from .module import ForwardCtx, Module
 from .multilinear import fused_forward, is_fused, try_fuse
-from ..model.cache import page_index, paged_cache_update
+from ..model.cache import linear_cache_update, page_index, paged_cache_update
 from ..ops.attention import attend_dense
+from ..ops.flash_attention import linear_attention_any as linear_attention
 from ..ops.flash_attention import paged_attention_any as paged_attention
 from ..util.rope import Rope, RopeSettings, RopeStyle
 
@@ -104,19 +107,22 @@ class Attention(Module):
         if ctx.cache is None:
             o = attend_dense(q.to(dt), k.to(dt), v.to(dt), q_positions=ctx.positions,
                              k_positions=ctx.positions, scale=self.sm_scale)
-        elif ctx.attn_mode == "paged":
-            layer = ctx.cache[self.key]
-            if ctx.page_index is None:
-                ctx.page_index = page_index(ctx.positions, ctx.block_tables)
-                ctx.total_lens = total_lens(ctx.positions, ctx.cache_seqlens, S)
-            paged_cache_update(layer, k, v, ctx.positions, ctx.block_tables,
-                               ctx.k_bits, ctx.v_bits, ctx.compand_a, index=ctx.page_index)
-            o = paged_attention(
-                q.float(), layer, ctx.block_tables, ctx.positions, ctx.total_lens,
-                k_bits=ctx.k_bits, v_bits=ctx.v_bits, compand_a=ctx.compand_a,
-                scale=self.sm_scale)
         else:
-            raise NotImplementedError(f"attention over a {ctx.attn_mode!r} cache is not ported yet")
+            layer = ctx.cache[self.key]
+            if ctx.total_lens is None:
+                ctx.total_lens = total_lens(ctx.positions, ctx.cache_seqlens, S)
+            quant = dict(k_bits=ctx.k_bits, v_bits=ctx.v_bits, compand_a=ctx.compand_a)
+            if ctx.attn_mode == "paged":
+                if ctx.page_index is None:
+                    ctx.page_index = page_index(ctx.positions, ctx.block_tables)
+                paged_cache_update(layer, k, v, ctx.positions, ctx.block_tables, **quant,
+                                   index=ctx.page_index)
+                o = paged_attention(q.float(), layer, ctx.block_tables, ctx.positions,
+                                    ctx.total_lens, **quant, scale=self.sm_scale)
+            else:  # linear
+                linear_cache_update(layer, k, v, ctx.positions, **quant, rows=ctx.cache_rows)
+                o = linear_attention(q.float(), layer, ctx.positions, ctx.total_lens, **quant,
+                                     rows=ctx.cache_rows, scale=self.sm_scale)
 
         o = o.reshape(B, S, nq * hd).to(dt)
         y = self.o_proj.forward(o, params, ctx)

@@ -21,15 +21,16 @@ class ForwardCtx:
     """Per-call context threaded through module forwards."""
 
     positions: torch.Tensor | None = None      # (B, S) int32 token positions
-    attn_mode: str = "dense"                   # "dense" (cacheless) | "paged"
+    attn_mode: str = "dense"                   # "dense" (cacheless) | "paged" | "linear"
     cache: Any = None                          # {layer key: {"k", "v"} | {"k_q", "k_s", "v_q", "v_s"}}
     block_tables: torch.Tensor | None = None   # (B, max_pages) int32
     cache_seqlens: torch.Tensor | None = None  # (B,) int32 tokens already cached
+    cache_rows: torch.Tensor | None = None     # linear layout: (B,) int32 cache row of each sequence
     k_bits: int = 0                            # quantized cache widths (0 = bf16 cache)
     v_bits: int = 0
     compand_a: float = 0.0                     # cubic compander of the quantized cache (0 = off)
-    # what every attention layer of a paged step would compute anew: filled
-    # by the first one. (pages, slots) of the positions, and (B,) total lengths
+    # what every attention layer of a step would compute anew: filled by the
+    # first one. (pages, slots) of the positions (paged), and (B,) total lengths
     page_index: tuple | None = None
     total_lens: torch.Tensor | None = None
 

@@ -1,27 +1,32 @@
-"""Paged attention over the bf16 and the quantized KV cache
-(counterpart of exllamav3_tpu/ops/flash_attention.py::flash_attention with
-block_tables).
+"""Attention over the paged and the linear KV cache, bf16 or quantized
+(counterpart of exllamav3_tpu/ops/flash_attention.py::flash_attention, with
+block_tables for the paged layout and without for the linear one).
 
-csrc/paged_attention.cu serves the bf16 cache and
-csrc/paged_attention_quant.cu the quantized one (packed 2..8-bit words with
-bf16 group scales, merged-head or per-head storage, unpacked in the kernel).
-Each serves decode, prefill chunks and padded rows: causal by absolute
-position against total_lens, GQA, optional sliding window, logit softcap and
-per-head sinks. A row that sees no valid key gives 0. On a CPU tensor a
-wrapper runs its plain version, built on ops/attention.py::attend_paged.
-`paged_attention_any` picks by the layer state's keys. The JAX package
+Four CUDA entries share one tile loop (csrc/attention_tiles.cuh):
+csrc/paged_attention.cu and csrc/linear_attention.cu serve the bf16 cache,
+csrc/paged_attention_quant.cu and csrc/linear_attention_quant.cu the
+quantized one (packed 2..8-bit words with bf16 group scales, merged-head or
+per-head storage, unpacked in the kernel). Each serves decode, prefill chunks
+and padded rows: causal by absolute position against total_lens, GQA,
+optional sliding window, logit softcap and per-head sinks. A row that sees no
+valid key gives 0. The linear layout holds one row of T slots per sequence
+(slot == position, T a multiple of 8); a step may name the cache row of each
+of its sequences. On a CPU tensor a wrapper runs its plain version, built on
+ops/attention.py. `paged_attention_any` and `linear_attention_any` pick the
+storage by the layer state's keys (modules/attn.py picks the layout by the
+cache's). The JAX package
 dequantizes a whole merged pool for tall chunks (a TPU tile-occupancy
-matter); the port's kernel takes any S. The linear layout, MLA and ring
-variants are not ported yet.
+matter); the port's kernels take any S. The MLA and ring variants are not
+ported yet.
 """
 from __future__ import annotations
 
 import torch
 
 from ..constants import PAGE_SIZE
-from .attention import attend_paged
+from .attention import attend_dense, attend_paged
 from .build import check_aligned, check_launch, library
-from .kv_quant import rotate_groups, state_heads
+from .kv_quant import quant_cache_fetch, rotate_groups, state_heads
 
 Q_ROWS = 64  # query rows (tokens x group heads) per block in the kernel
 
@@ -184,3 +189,163 @@ def paged_attention_any(q, layer_state: dict, block_tables, q_positions, total_l
                   compand_a, **kw)
     return paged_attention(q, layer_state["k"], layer_state["v"], block_tables, q_positions,
                            total_lens, **kw)
+
+
+# -- linear cache -----------------------------------------------------------------
+
+def linear_attention_plain(q, k, v, q_positions, total_lens, rows=None, scale: float = 1.0,
+                           sliding_window: int = 0, logit_softcap: float = 0.0,
+                           sinks=None) -> torch.Tensor:
+    """(B, S, Hq, D) f32 over a linear cache k, v (N, T, Hk, D): dense
+    attention over the keys at positions 0..T-1 of each sequence's row (row b,
+    or rows[b]), keys at or past total_lens masked, as the JAX package's dense
+    linear branch computes it (modules/attn.py, attend_dense over
+    k_positions = arange(T)); rows that see no key set to 0."""
+    B, T = q.shape[0], k.shape[1]
+    k, v = (k[:B], v[:B]) if rows is None else (k[rows.long()], v[rows.long()])
+    k_pos = torch.arange(T, dtype=torch.int32, device=q.device)[None].expand(B, T)
+    o = attend_dense(q, k, v, q_positions, k_pos, k_valid=k_pos < total_lens[:, None],
+                     scale=scale, sliding_window=sliding_window, logit_softcap=logit_softcap,
+                     sinks=sinks)
+    valid = has_valid_key(q_positions, torch.clamp(total_lens, max=T), sliding_window)
+    return o * valid[:, :, None, None].to(o.dtype)
+
+
+def _linear_rows(rows, B: int, N: int, device) -> int | None:
+    """The kernels' row pointer: None (rows 0..B-1, which must exist) or a
+    contiguous (B,) int32 CUDA tensor's address."""
+    if rows is None:
+        if B > N:
+            raise ValueError(f"{B} sequences over a linear cache of {N} rows need `rows`")
+        return None
+    if (rows.shape != (B,) or rows.dtype != torch.int32 or rows.device != device
+            or not rows.is_contiguous()):
+        raise ValueError("rows must be a contiguous (B,) int32 tensor on the device of q")
+    return rows.data_ptr()
+
+
+def linear_attention_kernel(q, k, v, q_positions, total_lens, rows=None, scale: float = 1.0,
+                            sliding_window: int = 0, logit_softcap: float = 0.0,
+                            sinks=None) -> torch.Tensor:
+    """Launch csrc/linear_attention.cu. q (B, S, Hq, D) f32; k, v (N, T, Hk, D)
+    bf16 with T % 8 == 0; rows (B,) int32 or None (rows 0..B-1); q_positions
+    (B, S) and total_lens (B,) int32; sinks (Hq,) f32 or None; D in
+    {64, 128} and 64 % (Hq / Hk) == 0."""
+    B, S, Hq, D = q.shape
+    N, T, Hk, Dk = k.shape
+    ints = (q_positions, total_lens)
+    tensors = (q, k, v) + ints + ((sinks,) if sinks is not None else ())
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError("linear_attention_kernel: all tensors must be on one CUDA device")
+    if (q.dtype != torch.float32 or k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16
+            or any(t.dtype != torch.int32 for t in ints)
+            or (sinks is not None and sinks.dtype != torch.float32)):
+        raise TypeError("linear_attention_kernel: expected f32 q, bf16 k/v, int32 positions "
+                        "and lengths, f32 sinks")
+    if (Dk != D or v.shape != k.shape or D not in (64, 128) or T % 8 or Hq % Hk
+            or Q_ROWS % (Hq // Hk) or q_positions.shape != (B, S) or total_lens.shape != (B,)
+            or (sinks is not None and sinks.shape != (Hq,))):
+        raise ValueError(f"linear_attention_kernel: unsupported shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("linear_attention_kernel: tensors must be contiguous")
+    check_aligned("linear_attention_kernel", q, k, v)
+    rows_ptr = _linear_rows(rows, B, N, q.device)
+    out = torch.empty((B, S, Hq, D), dtype=torch.float32, device=q.device)
+    err = library().exl3_linear_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rows_ptr, q_positions.data_ptr(),
+        total_lens.data_ptr(), sinks.data_ptr() if sinks is not None else None, out.data_ptr(),
+        B, S, Hq, Hk, D, N, T, float(scale), int(sliding_window), float(logit_softcap),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch("exl3_linear_attention", err)
+    linear_attention_kernel.launches += 1
+    return out
+
+
+linear_attention_kernel.launches = 0
+
+
+def linear_attention_quant_plain(q, layer_state: dict, q_positions, total_lens, k_bits: int,
+                                 v_bits: int, compand_a: float = 0.0, rows=None, **kw):
+    """(B, S, Hq, D) f32: the named rows of the quantized linear cache
+    dequantized to f32 (as the kernel holds them), then the plain linear
+    attention."""
+    pick = slice(0, q.shape[0]) if rows is None else rows.long()
+    layer_state = {n: t[pick] for n, t in layer_state.items()}
+    k, v = quant_cache_fetch(layer_state, k_bits, v_bits, torch.float32, compand_a,
+                             hk=state_heads(layer_state, q.shape[-1]))
+    return linear_attention_plain(q, k, v, q_positions, total_lens, **kw)
+
+
+def linear_attention_quant_kernel(q, layer_state: dict, q_positions, total_lens, k_bits: int,
+                                  v_bits: int, compand_a: float = 0.0, rows=None,
+                                  scale: float = 1.0, sliding_window: int = 0,
+                                  logit_softcap: float = 0.0, sinks=None) -> torch.Tensor:
+    """Launch csrc/linear_attention_quant.cu. q (B, S, Hq, D) f32; layer_state
+    {k_q, v_q int32 words, k_s, v_s bf16 scales}, merged (N, T, Hk*w) or
+    per-head (N, T, Hk, w), T % 8 == 0; rows (B,) int32 or None; q_positions
+    (B, S) and total_lens (B,) int32; sinks (Hq,) f32 or None; k_bits, v_bits
+    in 2..8; D in {64, 128} and 64 % (Hq / Hk) == 0. q is rotated per
+    32-channel group before the launch and the output rotated back after it."""
+    B, S, Hq, D = q.shape
+    kq, ks, vq, vs = (layer_state[n] for n in ("k_q", "k_s", "v_q", "v_s"))
+    ints = (q_positions, total_lens)
+    tensors = (q, kq, ks, vq, vs) + ints + ((sinks,) if sinks is not None else ())
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError("linear_attention_quant_kernel: all tensors must be on one CUDA device")
+    if (q.dtype != torch.float32 or kq.dtype != torch.int32 or vq.dtype != torch.int32
+            or ks.dtype != torch.bfloat16 or vs.dtype != torch.bfloat16
+            or any(t.dtype != torch.int32 for t in ints)
+            or (sinks is not None and sinks.dtype != torch.float32)):
+        raise TypeError("linear_attention_quant_kernel: expected f32 q, int32 words, bf16 "
+                        "scales, int32 positions and lengths, f32 sinks")
+    if D not in (64, 128) or not (2 <= k_bits <= 8 and 2 <= v_bits <= 8):
+        raise ValueError(f"linear_attention_quant_kernel: unsupported D {D} or bits "
+                         f"({k_bits}, {v_bits})")
+    Hk = state_heads(layer_state, D)
+    N, T = kq.shape[:2]
+    g = D // 32
+    want = {"k_q": Hk * D * k_bits // 32, "k_s": Hk * g, "v_q": Hk * D * v_bits // 32,
+            "v_s": Hk * g}
+    if (T % 8 or Hk < 1 or Hq % Hk or Q_ROWS % (Hq // Hk)
+            or any(layer_state[n].shape[:2] != (N, T) or layer_state[n][0, 0].numel() != w
+                   for n, w in want.items())
+            or q_positions.shape != (B, S) or total_lens.shape != (B,)
+            or (sinks is not None and sinks.shape != (Hq,))):
+        raise ValueError(f"linear_attention_quant_kernel: unsupported shapes q {tuple(q.shape)}, "
+                         f"k_q {tuple(kq.shape)}, v_q {tuple(vq.shape)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("linear_attention_quant_kernel: tensors must be contiguous")
+    rows_ptr = _linear_rows(rows, B, N, q.device)
+    qr = rotate_groups(q)
+    check_aligned("linear_attention_quant_kernel", qr, kq, vq)
+    out = torch.empty((B, S, Hq, D), dtype=torch.float32, device=q.device)
+    err = library().exl3_linear_attention_quant(
+        qr.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(), rows_ptr,
+        q_positions.data_ptr(), total_lens.data_ptr(),
+        sinks.data_ptr() if sinks is not None else None, out.data_ptr(),
+        B, S, Hq, Hk, D, N, T, int(k_bits), int(v_bits), float(compand_a),
+        float(1.0 - compand_a), float(scale), int(sliding_window), float(logit_softcap),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch("exl3_linear_attention_quant", err)
+    linear_attention_quant_kernel.launches += 1
+    return rotate_groups(out)
+
+
+linear_attention_quant_kernel.launches = 0
+
+
+def linear_attention_any(q, layer_state: dict, q_positions, total_lens, k_bits: int = 0,
+                         v_bits: int = 0, compand_a: float = 0.0, rows=None, **kw):
+    """(B, S, Hq, D) f32 over a linear cache. Dispatch by the layer state's
+    keys: {"k", "v"} is the bf16 cache, {"k_q", "k_s", "v_q", "v_s"} the
+    quantized one; `rows` ((B,) int32 or None) names the cache row of each
+    sequence. CUDA tensors go through the kernel, CPU tensors through the
+    plain version."""
+    cpu = q.device.type == "cpu"
+    if "k_q" in layer_state:
+        fn = linear_attention_quant_plain if cpu else linear_attention_quant_kernel
+        return fn(q, layer_state, q_positions, total_lens, k_bits, v_bits, compand_a,
+                  rows=rows, **kw)
+    fn = linear_attention_plain if cpu else linear_attention_kernel
+    return fn(q, layer_state["k"], layer_state["v"], q_positions, total_lens, rows=rows, **kw)

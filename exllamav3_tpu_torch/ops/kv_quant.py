@@ -238,6 +238,32 @@ def quantize_kv_stored(x: torch.Tensor, bits: int, merged: bool, compand_a: floa
     return quantize_kv(x, bits, compand_a)
 
 
+def quantize_kv_pair(k, v, k_bits: int, v_bits: int, merged: bool, compand_a: float = 0.0):
+    """(k words, k scales, v words, v scales) of (B, S, Hk, D) keys and
+    values in the stored layout; one pass over both when the widths agree."""
+    if k_bits == v_bits:
+        q, s = quantize_kv_stored(torch.cat([k, v], dim=0), k_bits, merged, compand_a)
+        B = k.shape[0]
+        return q[:B], s[:B], q[B:], s[B:]
+    return (*quantize_kv_stored(k, k_bits, merged, compand_a),
+            *quantize_kv_stored(v, v_bits, merged, compand_a))
+
+
+def quant_cache_update(layer_state: dict, k_new, v_new, positions, k_bits: int, v_bits: int,
+                       compand_a: float = 0.0, rows=None) -> dict:
+    """Write quantized (B, S, Hk, D) keys/values at [row, position] of a linear
+    cache, in place: row b, or rows[b] when given. The stored words and scales
+    are the JAX package's quant_cache_update's. Returns the layer state."""
+    merged = layer_state["k_q"].dim() == 3
+    kq, ks, vq, vs = quantize_kv_pair(k_new, v_new, k_bits, v_bits, merged, compand_a)
+    r = (torch.arange(k_new.shape[0], device=positions.device) if rows is None
+         else rows.long())[:, None]
+    pos = positions.long()
+    for name, val in (("k_q", kq), ("k_s", ks), ("v_q", vq), ("v_s", vs)):
+        layer_state[name][r, pos] = val
+    return layer_state
+
+
 def dequantize_kv_stored(words, scale, bits: int, hk: int, merged: bool,
                          dtype=torch.bfloat16, compand_a: float = 0.0):
     """Dequantize from the stored layout -> (..., Hk, D)."""

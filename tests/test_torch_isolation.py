@@ -5,6 +5,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -36,7 +37,9 @@ def test_no_jax_imports_in_port_sources():
             "exllamav3_tpu_torch/util/params.py", "exllamav3_tpu_torch/ops/q_matmul.py",
             "exllamav3_tpu_torch/util/env.py", "exllamav3_tpu_torch/modules/multilinear.py",
             "exllamav3_tpu_torch/ops/moe_gemm.py", "exllamav3_tpu_torch/modules/block_sparse_mlp.py",
-            "exllamav3_tpu_torch/architectures/moe.py", "chip_smoke.py"} <= scanned
+            "exllamav3_tpu_torch/architectures/moe.py", "exllamav3_tpu_torch/generator/ngram.py",
+            "exllamav3_tpu_torch/generator/generator.py", "exllamav3_tpu_torch/modules/attn.py",
+            "chip_smoke.py"} <= scanned
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -136,3 +139,60 @@ def test_capacity_configuration_follows_the_model_device(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Cache(model, CacheSpec(num_pages=3, k_bits=4, v_bits=4), device="cuda")
     assert Generator(model, cache).device.type == "cpu"
+
+
+def test_speculative_modules_import_without_a_built_library():
+    """The linear attention wrappers, the suffix automaton and the speculative
+    generator import on a machine with no compiler: nothing builds or loads a
+    kernel library, and neither triton nor jax comes in."""
+    code = (
+        "import sys\n"
+        "import exllamav3_tpu_torch.generator.ngram as ngram\n"
+        "import exllamav3_tpu_torch.generator.generator as gen\n"
+        "import exllamav3_tpu_torch.ops.flash_attention as fa\n"
+        "import exllamav3_tpu_torch.ops.build as build\n"
+        "assert build._LIB is None and not build.BUILD_LOG\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'exllamav3_tpu', 'triton')]\n"
+        "assert not bad, bad\n"
+        "assert {'linear_attention.cu', 'linear_attention_quant.cu'} <= set(build.SOURCES)\n"
+        "assert 'attention_tiles.cuh' in build.HEADERS\n"
+        "assert all(hasattr(fa, 'linear_attention' + s + '_' + r) for s in ('', '_quant') "
+        "for r in ('kernel', 'plain'))\n"
+        "assert callable(ngram.SuffixAutomaton) and callable(gen.Generator._decode_batch_sd)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_linear_cache_and_draft_follow_the_model_device(tmp_path, monkeypatch):
+    """A linear cache and the draft model's cache land on the model's device:
+    the card by default (refused without CUDA), the CPU only when asked; the
+    linear kernels refuse CPU tensors rather than run their plain versions."""
+    from exllamav3_tpu_torch.conversion.synth import tiny_llama_cfg, write_tiny_llama_exl3
+    from exllamav3_tpu_torch.generator import Generator
+    from exllamav3_tpu_torch.model import Cache, CacheSpec, Config, Model
+    from exllamav3_tpu_torch.ops.flash_attention import linear_attention_kernel
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    d = write_tiny_llama_exl3(str(tmp_path / "m"), tiny_llama_cfg(num_layers=1), seed=2)
+    model = Model.from_config(Config.from_directory(d), device="cpu")
+    model.load()
+    spec = CacheSpec(layout="linear", batch_size=2, max_len=32, k_bits=4, v_bits=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Cache(model, spec, device="cuda")
+    cache = Cache(model, spec)
+    layer = cache.state[cache.layer_keys[0]]
+    assert all(t.device.type == "cpu" and t.shape[:2] == (2, 32) for t in layer.values())
+    gen = Generator(model, Cache(model, CacheSpec(num_pages=4)), max_batch_size=2,
+                    draft_model=model)
+    assert gen.draft_cache.device.type == "cpu"
+    assert len(gen.generate(np.arange(3, 9), max_new_tokens=4)) == 4 and gen.num_drafted > 0
+    x = torch.zeros((1, 1, 4, 64))
+    kv = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
+    pos = torch.zeros((1, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        linear_attention_kernel(x, kv, kv, pos, torch.ones(1, dtype=torch.int32))
