@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases build,moe_gemm,serve_moe
     python3 chip_smoke.py --phases build,linear_attention,linear_attention_quant
     python3 chip_smoke.py --phases build,serve_spec
+    python3 chip_smoke.py --phases build,latent_attention,latent_attention_quant,parity_mla,serve_mla
 
 Phases:
   build     build the CUDA kernels from exllamav3_tpu_torch/csrc/ (timed)
@@ -28,9 +29,15 @@ Phases:
             8B decode at batch 1 and 8, a 2048-token prefill, named cache
             rows, window / softcap / sinks, a last tile cut at T = 2056) and
             linear_attention_quant ((4, 4) merged and (5, 3) per-head storage
-            at T = 2056, compander, features, prefill). int8_matmul also
-            runs the Qwen3-30B-A3B attention and head shapes, paged_attention
-            also GQA group 8 (32 q / 4 kv heads)
+            at T = 2056, compander, features, prefill), latent_attention and
+            latent_attention_quant (absorbed MLA over the latent cache at
+            DeepSeek-V2-Lite's 16 heads and DeepSeek-V2/V3's 128: decode,
+            verify, prefill, paged and linear at T = 2056 and 2052; (4),
+            (3) and (4) with the compander). int8_matmul also runs the
+            Qwen3-30B-A3B attention and head shapes and DeepSeek-V2-Lite's
+            576- and 10944-wide ones, fused_mlp the shared experts' width,
+            moe_gemm DeepSeek-V2-Lite's experts, the four attention checks
+            GQA groups 5, 6 and 7 (and 8), the linear ones at T = 2052
   parity    a 2-layer checkpoint at full 8B width: forward_simple and paged
             prefill + decode steps on the GPU (kernels) against the CPU
             (plain versions) over the same ids and weights, for the int8 path
@@ -39,6 +46,10 @@ Phases:
             checkpoint at full Qwen3-30B-A3B width (int8), the GPU given the
             CPU's routing, with the share of (token, layer) expert sets the
             GPU's own router picks alike
+  parity_mla
+            a 2-layer DeepSeek-V2-Lite checkpoint at full width (the dense
+            layer and one MoE layer with shared experts), the GPU against the
+            CPU on the CPU's routing over a bf16 and a (4)-bit latent cache
   serve     a 32-layer synthetic checkpoint at Llama-3.1-8B geometry loaded
             with linear_mode="auto" (int8 on an 80 GB card) over a bf16 cache
             and served by the continuous-batching generator: 8 greedy
@@ -80,6 +91,11 @@ Phases:
             the target drafting for itself, 4 tokens a job over the draft's
             linear cache. Each request's tokens equal plain decoding's up to a
             first parting at a near-tie; (b) accepts at least 0.8 of its drafts
+  serve_mla a synthetic DeepSeek-V2-Lite checkpoint at full width and all 27
+            layers (MLA, 64 experts top 6 with 2 shared, one dense layer,
+            vocab 102400) loaded with linear_mode="auto" (int8; bf16 expert
+            stacks) over a bf16 paged latent cache, the same traffic; then one
+            request over a (4)-bit latent cache
 
 Each serve phase sets every kernel's launch count to 0 before its run and
 reads it after: the kernels of its path must all have launched and the
@@ -88,7 +104,8 @@ others not at all.
 The second-to-last line is the kernel table as JSON and the last line is
 {"ok": true, "device": {...}}. Any failed phase raises and exits non-zero
 without that line. Needs CUDA; writes its checkpoints under build/chip_smoke/
-(the 24-layer MoE one is ~7.5 GB, one shard a layer).
+(the 24-layer MoE one is ~7.5 GB and the 27-layer DeepSeek-V2-Lite one ~8 GB,
+one shard a layer).
 """
 from __future__ import annotations
 
@@ -99,6 +116,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -120,6 +138,12 @@ LLAMA8B = dict(vocab_size=32768, hidden_size=4096, intermediate_size=14336,
 QWEN3_30B = dict(vocab_size=151936, hidden_size=2048, intermediate_size=6144,
                  moe_intermediate_size=768, num_q_heads=32, num_kv_heads=4, head_dim=128,
                  num_experts=128, num_experts_per_tok=8, rms_norm_eps=1e-6, rope_theta=1e6)
+
+# deepseek-ai/DeepSeek-V2-Lite config.json: MLA (16 heads, kv_lora_rank 512, rope 64),
+# 64 routed experts of width 1408, top 6, 2 shared, a dense first layer of width
+# 10944, full vocabulary 102400 (conversion/synth.py::deepseek_v2_lite_cfg)
+V2_LITE = dict(vocab_size=102400, hidden_size=2048, num_q_heads=16, kv_lora_rank=512,
+               qk_rope_head_dim=64, num_layers=27)
 
 # tolerances, each relative to the largest magnitude of the plain result
 TOL_INT8 = 1e-4   # both sides: exact bf16 products, f32 sums in another order
@@ -181,6 +205,10 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                                       "exllamav3_tpu/ops/flash_attention.py:419"),
     "linear_attention_quant_per_head": ("exllamav3_tpu_torch/csrc/linear_attention_quant.cu",
                                         "exllamav3_tpu/ops/flash_attention.py:253"),
+    "latent_attention": ("exllamav3_tpu_torch/csrc/latent_attention.cu",
+                         "exllamav3_tpu/ops/flash_attention.py:253"),
+    "latent_attention_quant": ("exllamav3_tpu_torch/csrc/latent_attention_quant.cu",
+                               "exllamav3_tpu/ops/flash_attention.py:253"),
 }
 
 
@@ -268,9 +296,12 @@ def check_int8(table, dev):
     # Qwen3-30B-A3B's int8 linears: qkv, o_proj and the 151936-row head
     q3 = [(2048, 5120, "Qwen3-30B-A3B qkv"), (4096, 2048, "Qwen3-30B-A3B o_proj"),
           (2048, 151936, "Qwen3-30B-A3B lm_head")]
+    # widths that are multiples of 64 but not of 128 (a cut last tile):
+    # DeepSeek-V2-Lite's kv_a projection and its dense down projection
+    ds = [(2048, 576, "DeepSeek-V2-Lite kv_a"), (10944, 2048, "DeepSeek-V2-Lite dense down")]
     g = torch.Generator(device=dev).manual_seed(1)
     for m in (1, 8, 2048):
-        for k, n, what in shapes + (q3 if m < 2048 else q3[:2]):
+        for k, n, what in shapes + (q3 if m < 2048 else q3[:2]) + ds:
             def make(i, k=k, n=n, m=m):
                 x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
                 w = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
@@ -305,10 +336,10 @@ def check_int8(table, dev):
 def check_fused_mlp(table, dev):
     from exllamav3_tpu_torch.ops.fused_mlp import fused_mlp_int8_kernel, fused_mlp_int8_plain
 
-    h, inter = 4096, 14336
     g = torch.Generator(device=dev).manual_seed(2)
-    for m in (1, 8, 16):
-        def make(i, m=m):
+    # Llama-3.1-8B; DeepSeek-V2-Lite's two shared experts (one gated MLP of 2 x 1408)
+    for m, h, inter in ((1, 4096, 14336), (8, 4096, 14336), (16, 4096, 14336), (8, 2048, 2816)):
+        def make(i, m=m, h=h, inter=inter):
             x = torch.randn((m, h), generator=g, device=dev).to(torch.bfloat16)
             gu = torch.randint(-127, 128, (h, 2 * inter), generator=g, device=dev, dtype=torch.int8)
             gs = torch.full((2 * inter,), 1.0 / (73.0 * math.sqrt(h)), device=dev)
@@ -331,22 +362,29 @@ def check_fused_mlp(table, dev):
         if not rel <= TOL_MLP:
             raise AssertionError(f"fused_mlp m={m}: rel err {rel} > {TOL_MLP}")
         table.add("fused_mlp", err, ms, plain, bnd, None, f"m={m} h={h} i={inter}",
-                  main=(m == 8))
+                  main=(m == 8 and h == 4096))
         del args, ref, got, nxt
     torch.cuda.empty_cache()
 
 
-def _attn_work(qpos, total, Hq, Hk, D, window):
-    """Bytes and operations this data needs: visible (query, key) pairs and
-    the distinct keys each sequence's rows can see."""
-    B, S = qpos.shape
+def _visible(qpos, total, window=0):
+    """(visible (query, key) pairs, distinct keys each sequence's rows can
+    see, summed over the sequences) of this data."""
     pairs, keys = 0, 0
-    for b in range(B):
+    for b in range(qpos.shape[0]):
         hi = np.minimum(qpos[b], total[b] - 1)
         lo = np.maximum(qpos[b] - window + 1, 0) if window else np.zeros_like(hi)
         cnt = np.maximum(hi - lo + 1, 0)
         pairs += int(cnt.sum())
         keys += int(hi.max() - lo.min() + 1) if cnt.max() > 0 else 0
+    return pairs, keys
+
+
+def _attn_work(qpos, total, Hq, Hk, D, window):
+    """Bytes and operations this data needs: q and the output once, each
+    visible key's K and V once, 4 * D operations per visible pair and head."""
+    B, S = qpos.shape
+    pairs, keys = _visible(qpos, total, window)
     nbytes = B * S * Hq * D * (4 + 4) + keys * Hk * D * 2 * 2
     return nbytes, 4.0 * pairs * Hq * D
 
@@ -356,11 +394,18 @@ def check_attention(table, dev):
     from exllamav3_tpu_torch.ops.flash_attention import (paged_attention_kernel,
                                                           paged_attention_plain)
 
-    Hq, D = 32, 128
+    D = 128
     rng = np.random.default_rng(3)
     cases = []
     ctx = np.linspace(300, 2048, 8).astype(np.int32)
     cases.append(("decode B=8 ctx 300-2048", ctx[:, None] - 1, ctx, {}, True))
+    # GQA groups that do not divide the block's 64 rows: Qwen2.5-14B/32B and
+    # Qwen3-14B (40 q / 8 kv heads), Qwen2.5-1.5B (12 / 2), Qwen2.5-7B (28 / 4)
+    for hq, hk in ((40, 8), (12, 2), (28, 4)):
+        cases.append((f"decode B=8 ctx 300-2048, group {hq // hk}", ctx[:, None] - 1, ctx,
+                      {"q_heads": hq, "kv_heads": hk}, False))
+    cases.append(("verify S=5 B=8, group 7", ctx[:, None] - 5 + np.arange(5, dtype=np.int32),
+                  ctx, {"q_heads": 28, "kv_heads": 4}, False))
     # Qwen3-30B-A3B: 32 q / 4 kv heads, a GQA group of 8
     cases.append(("decode B=8 ctx 300-2048, group 8", ctx[:, None] - 1, ctx, {"kv_heads": 4},
                   False))
@@ -380,6 +425,7 @@ def check_attention(table, dev):
     for name, qpos, total, kw, main in cases:
         B, S = qpos.shape
         Hk = kw.pop("kv_heads", 8)
+        Hq = kw.pop("q_heads", 32)
         mp = int(math.ceil(total.max() / PAGE_SIZE)) + 1
         P = B * mp + 1
         perm = rng.permutation(np.arange(1, P))[: B * mp].reshape(B, mp).astype(np.int32)
@@ -630,7 +676,8 @@ def check_packed(table, dev, name: str):
 # (name, h, i, E, k, token counts) from the published configs
 MOE_SHAPES = [("Qwen3-30B-A3B", 2048, 768, 128, 8, (1, 8, 15)),
               ("Qwen3-235B-A22B", 4096, 1536, 128, 8, (8,)),
-              ("Mixtral-8x7B", 4096, 14336, 8, 2, (1, 8))]
+              ("Mixtral-8x7B", 4096, 14336, 8, 2, (1, 8)),
+              ("DeepSeek-V2-Lite", 2048, 1408, 64, 6, (1, 8))]
 
 
 def _moe_routing(rng, T, E, k, dev):
@@ -730,10 +777,9 @@ def _quant_attn_work(qpos, total, Hq, Hk, D, window, k_bits, v_bits):
     """As _attn_work, with each visible key costing its packed words and its
     two rows of bf16 scales."""
     B, S = qpos.shape
-    nb, flops = _attn_work(qpos, total, Hq, Hk, D, window)
-    keys = (nb - B * S * Hq * D * 8) // (Hk * D * 4)
+    pairs, keys = _visible(qpos, total, window)
     per_key = Hk * (D * (k_bits + v_bits) // 8 + 2 * (D // 32) * 2)
-    return B * S * Hq * D * 8 + keys * per_key, flops
+    return B * S * Hq * D * 8 + keys * per_key, 4.0 * pairs * Hq * D
 
 
 def check_attention_quant(table, dev):
@@ -743,12 +789,17 @@ def check_attention_quant(table, dev):
     from exllamav3_tpu_torch.ops.kv_quant import (dequantize_kv_stored, merged_layout,
                                                    quantize_kv_stored)
 
-    Hq, Hk, D = 32, 8, 128
+    D = 128
     rng = np.random.default_rng(8)
     ctx = np.linspace(300, 2048, 8).astype(np.int32)
     decode = (ctx[:, None] - 1, ctx)
     prefill = ((512 + np.arange(2048, dtype=np.int32))[None], np.array([2560], np.int32))
     cases = []
+    # GQA groups 5, 6 and 7 (the heads of Qwen2.5-14B, -1.5B and -7B)
+    for (hq, hk), bits in (((40, 8), (4, 4)), ((12, 2), (5, 3)), ((28, 4), (4, 4)),
+                           ((28, 4), (5, 3))):
+        cases.append((f"decode B=8 ctx 300-2048 bits={bits}, group {hq // hk}", *decode, bits,
+                      0.0, {"q_heads": hq, "kv_heads": hk}, False))
     for bits in [(4, 4), (8, 8), (2, 2), (5, 3), (6, 6), (3, 7)]:
         for a in (0.0, 0.65):
             cases.append((f"decode B=8 ctx 300-2048 bits={bits} compand_a={a}", *decode, bits, a,
@@ -762,6 +813,7 @@ def check_attention_quant(table, dev):
     cases.append(("decode + sinks bits=(5, 3)", *decode, (5, 3), 0.65, {"sinks": True}, False))
     for name, qpos, total, (kb, vb), a, kw, main in cases:
         B, S = qpos.shape
+        Hq, Hk = kw.pop("q_heads", 32), kw.pop("kv_heads", 8)
         mp = int(math.ceil(total.max() / PAGE_SIZE)) + 1
         P = B * mp + 1
         perm = rng.permutation(np.arange(1, P))[: B * mp].reshape(B, mp).astype(np.int32)
@@ -871,6 +923,12 @@ def check_linear_attention(table, dev):
          np.array([900], np.int32), None,
          {"sliding_window": 128, "logit_softcap": 20.0, "sinks": True}, False),
     ]
+    # GQA groups 5, 6 and 7 over a cache of T = 2052 slots (no multiple of 8)
+    ctx52 = np.minimum(_CTX_T, 2052)
+    cases += [(f"decode B=8 ctx 300-2052, group {hq // hk}, T=2052", (hq, hk, 128), 8, 2052,
+               ctx52[:, None] - 1, ctx52, None, {}, False) for hq, hk in ((40, 8), (12, 2), (28, 4))]
+    cases.append(("verify S=5 B=8, group 7, rows of a 10-row cache, T=2052", (28, 4, 128), 10, 2052,
+                  ctx52[:, None] - 5 + np.arange(5, dtype=np.int32)[None], ctx52, rows8, {}, False))
     for name, (Hq, Hk, D), N, T, qpos, total, rows, kw, main in cases:
         B, S = qpos.shape
         g = torch.Generator(device=dev).manual_seed(15)
@@ -911,7 +969,7 @@ def check_linear_attention_quant(table, dev):
     from exllamav3_tpu_torch.ops.kv_quant import (merged_layout, quant_cache_fetch,
                                                    quantize_kv_stored)
 
-    Hq, Hk, D, T = 32, 8, 128, 2056
+    D, T = 128, 2056
     decode = (_CTX_T[:, None] - 1, _CTX_T)
     rows8 = np.array([5, 0, 7, 2, 9, 4, 1, 6], np.int32)
     cases = [(f"decode B=8 ctx 300-2056 T={T} bits={bits}", 8, T, *decode, None, bits, 0.0, {},
@@ -926,8 +984,14 @@ def check_linear_attention_quant(table, dev):
                0.0, {}, False)]
     cases += [(f"prefill S=2048 on 512 cached bits={bits}", 1, 2560, *_PREFILL, None, bits, 0.0,
                {}, False) for bits in ((4, 4), (5, 3))]
+    # GQA groups 7 and 5 over a cache of T = 2052 slots (no multiple of 8)
+    ctx52 = np.minimum(_CTX_T, 2052)
+    cases += [(f"decode B=8 ctx 300-2052 T=2052 bits={bits}, group {hq // hk}", 8, 2052,
+               ctx52[:, None] - 1, ctx52, None, bits, 0.0, {"q_heads": hq, "kv_heads": hk}, False)
+              for (hq, hk), bits in (((28, 4), (4, 4)), ((40, 8), (5, 3)), ((12, 2), (4, 4)))]
     for name, N, T_, qpos, total, rows, (kb, vb), a, kw, main in cases:
         B, S = qpos.shape
+        Hq, Hk = kw.pop("q_heads", 32), kw.pop("kv_heads", 8)
         g = torch.Generator(device=dev).manual_seed(16)
         q = torch.randn((B, S, Hq, D), generator=g, device=dev)
         merged = merged_layout(kb, vb)
@@ -973,6 +1037,154 @@ def check_linear_attention_quant(table, dev):
         table.add(row, err, ms, plain, bnd, lib,
                   f"{name}: B={B} S={S} Hq={Hq} Hk={Hk} D={D} T={T_}", main=main)
         del q, state, ref, got, kd, vd
+        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
+
+
+def _latent_work(qpos, total, Hq, key_bytes):
+    """Bytes and operations of latent attention on this data: q (576 bf16 a
+    row) and the output (512 f32) once, each distinct visible key's row once
+    (`key_bytes` a token, all heads together), and 2 * (576 + 512) operations
+    per visible (query head, key) pair."""
+    B, S = qpos.shape
+    pairs, keys = _visible(qpos, total)
+    return B * S * Hq * (576 * 2 + 512 * 4) + keys * key_bytes, 2.0 * pairs * Hq * (576 + 512)
+
+
+def _latent_cases():
+    """(name, q heads, cache rows N (0: paged), slots T, q positions, total
+    lengths, named rows, main) at DeepSeek-V2-Lite's shapes and beyond."""
+    decode = (_CTX[:, None] - 1, _CTX)
+    rows8 = np.array([5, 0, 7, 2, 9, 4, 1, 6], np.int32)
+    ctx52 = np.minimum(_CTX_T, 2052)
+    return [
+        ("decode B=8 ctx 300-2048, DeepSeek-V2-Lite (16 heads)", 16, 0, 0, *decode, None, True),
+        ("verify S=5 B=8 ctx 300-2048", 16, 0, 0,
+         _CTX[:, None] - 5 + np.arange(5, dtype=np.int32)[None], _CTX, None, False),
+        ("prefill S=2048 on 512 cached", 16, 0, 0, *_PREFILL, None, False),
+        ("decode B=8 ctx 300-2048, DeepSeek-V2/V3 (128 heads)", 128, 0, 0, *decode, None, False),
+        ("linear decode B=8 ctx 300-2056, T=2056 (tail tile)", 16, 8, 2056, _CTX_T[:, None] - 1,
+         _CTX_T, None, False),
+        ("linear decode B=8 ctx 300-2052, rows of a 10-row cache, T=2052", 16, 10, 2052,
+         ctx52[:, None] - 1, ctx52, rows8, False),
+    ]
+
+
+def _latent_layout(rng, dev, N, T, total, B):
+    """(cache leading shape, block tables or None, rows or None) of one case:
+    paged with a shuffled block table and a scratch column when N == 0."""
+    if N:
+        return (N, T), None
+    mp = int(math.ceil(total.max() / 256)) + 1
+    P = B * mp + 1
+    perm = rng.permutation(np.arange(1, P))[: B * mp].reshape(B, mp).astype(np.int32)
+    perm[:, -1] = 0
+    return (P, 256), torch.as_tensor(perm, device=dev)
+
+
+def _sdpa_latent(q, k, qp, tl, scale):
+    """A callable timing SDPA over gathered latent rows k (B, T, 576) bf16:
+    K the whole row, V its leading 512 channels, one kv head for all q heads."""
+    T = k.shape[1]
+    kpos = torch.arange(T, device=q.device)
+    mask = (kpos[None, None, :] <= qp[:, :, None]) & (kpos[None, None, :] < tl[:, None, None])
+    kk = k[:, None].contiguous()
+    vv = k[:, None, :, :512].contiguous()
+    qt = q.transpose(1, 2)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kk, vv, attn_mask=mask[:, None], scale=scale, enable_gqa=True)
+
+
+def check_latent_attention(table, dev):
+    from exllamav3_tpu_torch.ops.flash_attention import (latent_attention_kernel,
+                                                          latent_attention_plain)
+
+    rng = np.random.default_rng(21)
+    scale = 192 ** -0.5
+    for name, Hq, N, T, qpos, total, rows, main in _latent_cases():
+        B, S = qpos.shape
+        lead, bt = _latent_layout(rng, dev, N, T, total, B)
+        g = torch.Generator(device=dev).manual_seed(22)
+        q = (torch.randn((B, S, Hq, 576), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+        kv = torch.randn((*lead, 1, 576), generator=g, device=dev).to(torch.bfloat16)
+        qp = torch.as_tensor(qpos, device=dev)
+        tl = torch.as_tensor(total, device=dev)
+        rw = None if rows is None else torch.as_tensor(rows, device=dev)
+        args = dict(block_tables=bt, rows=rw, scale=scale)
+        ref = latent_attention_plain(q, kv, qp, tl, 512, **args)
+        got = latent_attention_kernel(q, kv, qp, tl, **args)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"latent_attention {name}: non-finite output")
+        err = float((got - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        if not rel <= TOL_ATTN:
+            raise AssertionError(f"latent_attention {name}: rel err {rel} > {TOL_ATTN}")
+        ms = time_ms(lambda: latent_attention_kernel(q, kv, qp, tl, **args), 10)
+        plain = time_ms(lambda: latent_attention_plain(q, kv, qp, tl, 512, **args), 2)
+        k = kv[bt.long()].reshape(B, -1, 576) if bt is not None else (
+            kv[:B, :, 0] if rw is None else kv[rw.long(), :, 0])
+        lib = time_ms(_sdpa_latent(q, k.reshape(B, -1, 576), qp, tl, scale), 10)
+        bnd = bound_ms(*_latent_work(qpos, total, Hq, 1152))
+        log(f"latent_attention {name} (Hq={Hq}, {'paged' if bt is not None else f'linear T={T}'}): "
+            f"max_abs_err={err:.3e} rel={rel:.2e} kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+            f"library_ms(sdpa on the gathered latent)={lib:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]})")
+        table.add("latent_attention", err, ms, plain, bnd, lib, f"{name}: B={B} S={S} Hq={Hq}",
+                  main=main)
+        del q, kv, ref, got, k
+    torch.cuda.empty_cache()
+
+
+def check_latent_attention_quant(table, dev):
+    from exllamav3_tpu_torch.ops.flash_attention import (latent_attention_quant_kernel,
+                                                          latent_attention_quant_plain)
+    from exllamav3_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv
+
+    rng = np.random.default_rng(23)
+    scale = 192 ** -0.5
+    cases = [(c, 4, 0.0) for c in _latent_cases()]
+    decode = _latent_cases()[0]
+    cases += [(decode, 3, 0.0), (decode, 4, 0.65)]
+    for (name, Hq, N, T, qpos, total, rows, main), bits, a in cases:
+        name = f"{name} bits={bits} compand_a={a}"
+        main = main and bits == 4 and a == 0.0
+        B, S = qpos.shape
+        lead, bt = _latent_layout(rng, dev, N, T, total, B)
+        g = torch.Generator(device=dev).manual_seed(24)
+        q = (torch.randn((B, S, Hq, 576), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+        raw = torch.randn((*lead, 1, 576), generator=g, device=dev)
+        kq, ks = quantize_kv(raw[..., :512], bits, a)
+        state = {"kv_q": kq, "kv_s": ks, "k_pe": raw[..., 512:].to(torch.bfloat16).contiguous()}
+        del raw
+        qp = torch.as_tensor(qpos, device=dev)
+        tl = torch.as_tensor(total, device=dev)
+        rw = None if rows is None else torch.as_tensor(rows, device=dev)
+        args = dict(block_tables=bt, rows=rw, scale=scale)
+        ref = latent_attention_quant_plain(q, state, qp, tl, bits, a, **args)
+        got = latent_attention_quant_kernel(q, state, qp, tl, bits, a, **args)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"latent_attention_quant {name}: non-finite output")
+        err = float((got - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        if not rel <= TOL_ATTN_Q:
+            raise AssertionError(f"latent_attention_quant {name}: rel err {rel} > {TOL_ATTN_Q}")
+        ms = time_ms(lambda: latent_attention_quant_kernel(q, state, qp, tl, bits, a, **args), 10)
+        plain = time_ms(lambda: latent_attention_quant_plain(q, state, qp, tl, bits, a, **args), 2)
+        # yardstick: SDPA over the gathered latent, dequantized to bf16
+        lat = torch.cat([dequantize_kv(state["kv_q"], state["kv_s"], bits, torch.bfloat16, a),
+                         state["k_pe"]], dim=-1)[..., 0, :]
+        k = lat[bt.long()].reshape(B, -1, 576) if bt is not None else (
+            lat[:B] if rw is None else lat[rw.long()])
+        lib = time_ms(_sdpa_latent(q, k, qp, tl, scale), 10)
+        bnd = bound_ms(*_latent_work(qpos, total, Hq, 64 * bits + 32 + 128))
+        log(f"latent_attention_quant {name} (Hq={Hq}, "
+            f"{'paged' if bt is not None else f'linear T={T}'}): max_abs_err={err:.3e} "
+            f"rel={rel:.2e} kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms(sdpa on the "
+            f"dequantized bf16 latent)={lib:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]})")
+        table.add("latent_attention_quant", err, ms, plain, bnd, lib,
+                  f"{name}: B={B} S={S} Hq={Hq}", main=main)
+        del q, state, ref, got, lat, k
         torch.cuda.empty_cache()
     torch.cuda.empty_cache()
 
@@ -1181,7 +1393,9 @@ def profile_decode(step, steps: int, what: str) -> None:
 def _wrappers() -> dict:
     """The kernels' wrappers by name; each counts its launches."""
     from exllamav3_tpu_torch.ops.exl3_gemm import exl3_gemm_kernel
-    from exllamav3_tpu_torch.ops.flash_attention import (linear_attention_kernel,
+    from exllamav3_tpu_torch.ops.flash_attention import (latent_attention_kernel,
+                                                          latent_attention_quant_kernel,
+                                                          linear_attention_kernel,
                                                           linear_attention_quant_kernel,
                                                           paged_attention_kernel,
                                                           paged_attention_quant_kernel)
@@ -1195,7 +1409,9 @@ def _wrappers() -> dict:
             **{name: getattr(qm, name + "_kernel") for name in PACKED},
             "moe_gemm": selected_expert_mlp_kernel,
             "linear_attention": linear_attention_kernel,
-            "linear_attention_quant": linear_attention_quant_kernel}
+            "linear_attention_quant": linear_attention_quant_kernel,
+            "latent_attention": latent_attention_kernel,
+            "latent_attention_quant": latent_attention_quant_kernel}
 
 
 def _reset_counts():
@@ -1221,15 +1437,24 @@ def uncounted():
 
 @contextlib.contextmanager
 def plain_ops():
-    """Inside, the capacity path's dispatches (trellis linears, quantized
-    attention over the paged and the linear cache) run their plain PyTorch
-    versions on the card's tensors, so a forward computes the same function
-    through no hand-written kernel."""
+    """Inside, the dispatches of the quantized-cache paths (trellis and int8
+    linears, the fused MLP, the selected experts, quantized attention over the
+    paged and the linear cache, the quantized latent attention) run their
+    plain PyTorch versions on the card's tensors, so a forward computes the
+    same function through no hand-written kernel."""
     import exllamav3_tpu_torch.modules.attn as attn_mod
+    import exllamav3_tpu_torch.modules.block_sparse_mlp as moe_mod
     import exllamav3_tpu_torch.modules.linear as linear_mod
+    import exllamav3_tpu_torch.modules.mla_attn as mla_mod
+    import exllamav3_tpu_torch.modules.mlp as mlp_mod
+    import exllamav3_tpu_torch.modules.multilinear as multi_mod
+    from exllamav3_tpu_torch.ops import fused_mlp as fm
+    from exllamav3_tpu_torch.ops import q_matmul as qm
     from exllamav3_tpu_torch.ops.exl3_gemm import exl3_matmul_plain
-    from exllamav3_tpu_torch.ops.flash_attention import (linear_attention_quant_plain,
+    from exllamav3_tpu_torch.ops.flash_attention import (latent_attention_quant_plain,
+                                                          linear_attention_quant_plain,
                                                           paged_attention_quant_plain)
+    from exllamav3_tpu_torch.ops.moe_gemm import selected_expert_mlp_plain
 
     def attn_plain(q, layer_state, bt, qp, tl, k_bits=0, v_bits=0, compand_a=0.0, **kw):
         return paged_attention_quant_plain(q, layer_state, bt, qp, tl, k_bits, v_bits,
@@ -1239,13 +1464,35 @@ def plain_ops():
         return linear_attention_quant_plain(q, layer_state, qp, tl, k_bits, v_bits, compand_a,
                                             **kw)
 
-    saved = linear_mod.exl3_matmul, attn_mod.paged_attention, attn_mod.linear_attention
-    linear_mod.exl3_matmul, attn_mod.paged_attention = exl3_matmul_plain, attn_plain
-    attn_mod.linear_attention = linear_plain
+    def latent_plain(q, layer_state, qp, tl, latent, k_bits=0, compand_a=0.0, **kw):
+        return latent_attention_quant_plain(q, layer_state, qp, tl, k_bits, compand_a, **kw)
+
+    def int8_plain(x, w_q, scale, bias=None):
+        y = qm.int8_matmul_plain(x.reshape(-1, x.shape[-1]), w_q, scale)
+        y = y if bias is None else y + bias
+        return y.reshape(*x.shape[:-1], w_q.shape[1])
+
+    def fused_mlp_plain(x, gu_q, gu_scale, d_q, d_scale, d_bias=None):
+        y = fm.fused_mlp_int8_plain(x.reshape(-1, x.shape[-1]), gu_q, gu_scale, d_q)
+        y = y * d_scale[None, :]
+        return (y if d_bias is None else y + d_bias).reshape(x.shape)
+
+    def experts_plain(x, topi, topv, wu, wd, wg=None):
+        return selected_expert_mlp_plain(x, topi, topv, wg, wu, wd)
+
+    swaps = [(linear_mod, "exl3_matmul", exl3_matmul_plain), (attn_mod, "paged_attention", attn_plain),
+             (attn_mod, "linear_attention", linear_plain), (mla_mod, "latent_attention", latent_plain),
+             (linear_mod, "int8_matmul", int8_plain), (multi_mod, "int8_matmul", int8_plain),
+             (mlp_mod, "fused_mlp_int8", fused_mlp_plain),
+             (moe_mod, "selected_expert_mlp", experts_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        linear_mod.exl3_matmul, attn_mod.paged_attention, attn_mod.linear_attention = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 @contextlib.contextmanager
@@ -1593,10 +1840,108 @@ def phase_serve_moe() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"serve_moe: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before the load")
-    counts = _serve("serve_moe", _moe_checkpoint(MOE_SERVE_LAYERS), "auto", {}, "int8",
-                    _serve_prompts(QWEN3_30B["vocab_size"]))
+    ckpt = _moe_checkpoint(MOE_SERVE_LAYERS)
+    counts = _serve("serve_moe", ckpt, "auto", {}, "int8", _serve_prompts(QWEN3_30B["vocab_size"]))
     _require_launches("serve_moe", counts, used)
+    shutil.rmtree(ckpt)  # ~7.5 GB that no later phase reads
     return {n: counts[n] for n in used}
+
+
+def _mla_checkpoint(layers: int) -> str:
+    """A synthetic DeepSeek-V2-Lite EXL3 checkpoint at full width (the
+    published config.json, cut to `layers` layers), K=4, one shard a layer,
+    written once per machine."""
+    from exllamav3_tpu_torch.conversion.synth import deepseek_v2_lite_cfg, write_tiny_deepseek_exl3
+
+    d = os.path.join(WORK, f"deepseek_v2_lite_{layers}layers")
+    t0 = time.time()
+    if not os.path.exists(os.path.join(d, "config.json")):
+        write_tiny_deepseek_exl3(d, deepseek_v2_lite_cfg(num_hidden_layers=layers), K=4,
+                                 seed=5 if layers == 2 else 4)
+    size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    log(f"checkpoint: {layers} layers at DeepSeek-V2-Lite width ready in {time.time() - t0:.1f} s, "
+        f"{size / 2**30:.2f} GiB on disk ({d})")
+    return d
+
+
+def phase_parity_mla():
+    """The MLA path on a 2-layer DeepSeek-V2-Lite checkpoint at full width
+    (layer 0 dense, layer 1 MoE with shared experts; int8 projections and
+    head, bf16 kv_a projection, dense MLP and expert stacks): forward_simple,
+    a paged prefill and decode steps over a bf16 latent cache, GPU (kernels)
+    against CPU (plain versions), the GPU given the CPU's routing as in
+    parity_moe, every position held to TOL_MOE_PATH; then a prefill and a
+    decode step over a (4)-bit latent cache, held to TOL_QUANT_PATH."""
+    from exllamav3_tpu_torch.model import Cache, CacheSpec, Config, InferParams, Model
+    from exllamav3_tpu_torch.util.params import params_to
+
+    d = _mla_checkpoint(2)
+    cfg = Config.from_directory(d, infer_params=InferParams(linear_mode="auto"))
+    gpu = Model.from_config(cfg, device="cuda")
+    gpu.load()
+    cpu = Model.from_config(cfg, device="cpu")
+    cpu.params = params_to(gpu.params, "cpu")
+    V = V2_LITE["vocab_size"]
+    ids = np.random.default_rng(18).integers(0, V, size=(1, 400))
+    tag = f"DeepSeek-V2-Lite {cfg.infer_params.linear_mode}"
+    log(f"parity: {tag}, 2 layers at DeepSeek-V2-Lite width, the GPU on the CPU's routing")
+
+    def both(what, fn, rel_tol):
+        with record_routing() as ref_w:
+            ref = fn(cpu)
+        with record_routing(forced=ref_w) as own_w:
+            got = fn(gpu)
+        alike = torch.stack([((a > 0) == (b > 0)).all(dim=-1) for a, b in zip(own_w, ref_w)])
+        log(f"parity {tag} {what}: the GPU's own expert sets agree with the CPU's for "
+            f"{float(alike.float().mean()):.4f} of {alike.numel()} (token, layer) pairs")
+        _compare(f"{tag} {what}", got, ref, rel_tol)
+
+    both("forward_simple S=96", lambda m: m.forward_simple(ids[:, :96]), TOL_MOE_PATH)
+    bt = np.array([[1, 2, 0]], np.int32)
+    S = 300
+    for spec_kw, steps, rel_tol in (({}, 4, TOL_MOE_PATH), (dict(k_bits=4, v_bits=4), 1,
+                                                            TOL_QUANT_PATH)):
+        caches = {m: Cache(m, CacheSpec(num_pages=4, **spec_kw)) for m in (gpu, cpu)}
+        c = f"cache={spec_kw or 'bf16'}"
+        both(f"paged prefill S={S} {c}", lambda m: m.forward(
+            ids[:, :S], caches[m], np.arange(S, dtype=np.int32)[None], np.array([0], np.int32),
+            bt), rel_tol)
+        before = _read_counts()
+        for p in range(S, S + steps):
+            both(f"paged decode pos={p} {c}", lambda m: m.forward(
+                ids[:, p: p + 1], caches[m], np.array([[p]], np.int32), np.array([p], np.int32),
+                bt), rel_tol)
+        after = _read_counts()
+        latent = "latent_attention_quant" if spec_kw else "latent_attention"
+        if (after["moe_gemm"] - before["moe_gemm"] != steps
+                or after[latent] - before[latent] != 2 * steps
+                or after["paged_attention"] != before["paged_attention"]):
+            raise AssertionError(f"parity {tag} {c}: the decode steps did not run the "
+                                 "selected-expert kernel once and the latent kernel twice a step")
+        del caches
+    del gpu, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve_mla() -> dict:
+    """The MLA path: DeepSeek-V2-Lite at full width and all 27 layers,
+    linear_mode="auto" (int8 projections and head; bf16 kv_a projection,
+    dense MLP and expert stacks), over a bf16 paged latent cache; then one
+    request over a (4)-bit latent cache."""
+    used = ("int8_matmul", "fused_mlp", "moe_gemm", "latent_attention")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt = _mla_checkpoint(V2_LITE["num_layers"])
+    prompts = _serve_prompts(V2_LITE["vocab_size"])
+    counts = _serve("serve_mla", ckpt, "auto", {}, "int8", prompts)
+    _require_launches("serve_mla", counts, used)
+    quant = _serve("serve_mla (4)-bit latent", ckpt, "auto", dict(k_bits=4, v_bits=4), "int8",
+                   prompts[:1], trace=False)
+    _require_launches("serve_mla (4)-bit latent", quant, used[:3] + ("latent_attention_quant",))
+    shutil.rmtree(ckpt)  # ~8 GB that no later phase reads
+    return {**{n: counts[n] for n in used},
+            "latent_attention_quant": quant["latent_attention_quant"]}
 
 
 # -- phases: linear_decode, serve_spec ---------------------------------------------
@@ -1910,19 +2255,21 @@ CHECKS = {"int8_matmul": check_int8, "fused_mlp": check_fused_mlp,
           **{name: (lambda table, dev, name=name: check_packed(table, dev, name))
              for name in PACKED},
           "moe_gemm": check_moe_gemm, "linear_attention": check_linear_attention,
-          "linear_attention_quant": check_linear_attention_quant}
+          "linear_attention_quant": check_linear_attention_quant,
+          "latent_attention": check_latent_attention,
+          "latent_attention_quant": check_latent_attention_quant}
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="build,kernels,parity,serve,serve_capacity,serve_packed,serve_moe,"
-                            "linear_decode,serve_spec",
+                    default="build,kernels,parity,parity_mla,serve,serve_capacity,serve_packed,"
+                            "serve_moe,linear_decode,serve_spec,serve_mla",
                     help="`kernels` runs every kernel check; a check's name runs that one")
     args = ap.parse_args()
     phases = args.phases.split(",")
-    known = {"build", "kernels", "parity", "serve", "serve_capacity", "serve_packed", "serve_moe",
-             "linear_decode", "serve_spec", *CHECKS}
+    known = {"build", "kernels", "parity", "parity_mla", "serve", "serve_capacity",
+             "serve_packed", "serve_moe", "linear_decode", "serve_spec", "serve_mla", *CHECKS}
     if set(phases) - known:
         ap.error(f"unknown phases {sorted(set(phases) - known)}")
 
@@ -1959,6 +2306,10 @@ def main():
         t0 = time.time()
         phase_parity()
         log(f"phase parity: {time.time() - t0:.1f} s")
+    if "parity_mla" in phases:
+        t0 = time.time()
+        phase_parity_mla()
+        log(f"phase parity_mla: {time.time() - t0:.1f} s")
     if "serve" in phases:
         t0 = time.time()
         table.set_launches(phase_serve())
@@ -1983,6 +2334,10 @@ def main():
         t0 = time.time()
         table.set_launches(phase_serve_spec())
         log(f"phase serve_spec: {time.time() - t0:.1f} s")
+    if "serve_mla" in phases:
+        t0 = time.time()
+        table.set_launches(phase_serve_mla())
+        log(f"phase serve_mla: {time.time() - t0:.1f} s")
     log(f"total: {time.time() - t_all:.1f} s")
     log(smi)  # once more, so that the end of a cut log still names the card
     print(json.dumps({"kernels": list(table.rows.values())}))

@@ -1,8 +1,8 @@
 """Llama-family architecture (counterpart of exllamav3_tpu/architectures/llama.py).
 Covers LlamaForCausalLM and the Mistral, Qwen2 and Qwen3 subclasses; Qwen3
 adds per-head q/k RMSNorms. `LlamaModel.make_mlp` builds each block's MLP,
-so that the MoE models (architectures/moe.py) swap in their block-sparse
-MLP."""
+so that the MoE models (architectures/moe.py, and DeepSeek-V1 in
+architectures/deepseek.py) swap in their block-sparse MLP."""
 from __future__ import annotations
 
 import torch
@@ -64,7 +64,7 @@ class LlamaModel(Model):
                     ),
                     mlp_norm=RMSNorm(config, f"{lk}.post_attention_layernorm",
                                      config.rms_norm_eps),
-                    mlp=self.make_mlp(config, lk),
+                    mlp=self.make_mlp(config, lk, idx),
                 )
             ]
         head_alt_key = None
@@ -77,7 +77,7 @@ class LlamaModel(Model):
                    alt_key=head_alt_key, out_dtype=torch.float32),
         ]
 
-    def make_mlp(self, config, lk: str):
+    def make_mlp(self, config, lk: str, idx: int):
         return GatedMLP(config, f"{lk}.mlp", hidden_size=config.hidden_size,
                         intermediate_size=config.intermediate_size,
                         activation=config.hidden_act, out_dtype=torch.float32)

@@ -34,7 +34,7 @@ class MixtralModel(LlamaModel):
     expert_key = "experts.{expert_idx}"
     mlp_keys = ("w1", "w3", "w2")  # gate, up, down in Mixtral's naming
 
-    def make_mlp(self, config, lk: str):
+    def make_mlp(self, config, lk: str, idx: int):
         kg, ku, kd = self.mlp_keys
         return BlockSparseMLP(
             config, f"{lk}.{self.mlp_key}",

@@ -1,7 +1,7 @@
 """Synthetic EXL3 checkpoints for tests and the chip smoke run
-(counterpart of exllamav3_tpu/conversion/synth.py: the Llama writer, and an
-EXL3 writer for the MoE architectures, which the JAX package writes only as
-dense bf16).
+(counterpart of exllamav3_tpu/conversion/synth.py: the Llama writer, and EXL3
+writers for the MoE and DeepSeek architectures, which the JAX package writes
+only as dense bf16).
 
 Any random bit stream is a valid tail-biting trellis, so a format-correct
 EXL3 checkpoint of any size can be fabricated from a seed. Given the same
@@ -245,6 +245,159 @@ def write_tiny_moe_exl3(directory: str, cfg: dict | None = None, K: int = 4, see
         add_experts(prefix, names[0], h, inter, s)
         add_experts(prefix, names[1], h, inter, s)
         add_experts(prefix, names[2], inter, h, s * 0.5)
+        flush(f"model-layer{i:03d}.safetensors")
+    add_bf16("model.norm.weight", np.ones(h, np.float32))
+    add_exl3("lm_head", h, vocab, s)
+    flush("model-head.safetensors")
+    return directory
+
+
+def deepseek_v2_lite_cfg(**overrides) -> dict:
+    """deepseek-ai/DeepSeek-V2-Lite's config.json numbers (MLA without a q
+    LoRA, kv_lora_rank 512, 64 routed experts of width 1408 with 6 a token and
+    2 shared, one dense layer of width 10944, yarn rope x40), with
+    `overrides` on top (a tiny test model, or fewer layers)."""
+    cfg = {
+        "architectures": ["DeepseekV2ForCausalLM"],
+        "model_type": "deepseek_v2",
+        "bos_token_id": 100000,
+        "eos_token_id": 100001,
+        "hidden_act": "silu",
+        "hidden_size": 2048,
+        "intermediate_size": 10944,
+        "kv_lora_rank": 512,
+        "max_position_embeddings": 163840,
+        "moe_intermediate_size": 1408,
+        "moe_layer_freq": 1,
+        "first_k_dense_replace": 1,
+        "n_group": 1,
+        "n_routed_experts": 64,
+        "n_shared_experts": 2,
+        "norm_topk_prob": False,
+        "num_attention_heads": 16,
+        "num_experts_per_tok": 6,
+        "num_hidden_layers": 27,
+        "num_key_value_heads": 16,
+        "q_lora_rank": None,
+        "qk_nope_head_dim": 128,
+        "qk_rope_head_dim": 64,
+        "rms_norm_eps": 1e-6,
+        "rope_scaling": {"beta_fast": 32, "beta_slow": 1, "factor": 40, "mscale": 0.707,
+                         "mscale_all_dim": 0.707, "original_max_position_embeddings": 4096,
+                         "type": "yarn"},
+        "rope_theta": 10000,
+        "routed_scaling_factor": 1.0,
+        "scoring_func": "softmax",
+        "tie_word_embeddings": False,
+        "topk_group": 1,
+        "topk_method": "greedy",
+        "torch_dtype": "bfloat16",
+        "v_head_dim": 128,
+        "vocab_size": 102400,
+    }
+    cfg.update(overrides)
+    return cfg
+
+
+@_atomic_checkpoint
+def write_tiny_deepseek_exl3(directory: str, cfg: dict | None = None, K: int = 4, seed: int = 0):
+    """Write a synthetic EXL3 DeepSeek-V2 / V3 checkpoint: EXL3 attention
+    projections (q_proj, or q_a_proj and q_b_proj with a q LoRA;
+    kv_a_proj_with_mqa; o_proj), dense MLPs, shared and routed experts and
+    lm_head; bf16 `kv_b_proj.weight` (H * (dn + dv), c), which the MLA module
+    reads as it is, norms drawn from [0.8, 1.2], and a bf16 router (E, h)
+    whose logits have unit spread (V3's sigmoid scoring adds an expert-choice
+    bias). EXL3 rotates both sides of a weight by 128-point Hadamards, so a
+    linear whose input or output width is no multiple of 128 is written as a
+    bf16 `.weight` instead (DeepSeek-V2-Lite's kv_a_proj_with_mqa, 2048 x 576,
+    and its dense MLP of width 10944). One shard a layer, the embedding and
+    the head in shards of their own."""
+    os.makedirs(directory, exist_ok=True)
+    cfg = cfg or deepseek_v2_lite_cfg(num_hidden_layers=2, vocab_size=512, hidden_size=256,
+                                      intermediate_size=320, moe_intermediate_size=128,
+                                      num_attention_heads=4, num_key_value_heads=4,
+                                      kv_lora_rank=128, qk_nope_head_dim=32,
+                                      qk_rope_head_dim=64, v_head_dim=32, n_routed_experts=8,
+                                      num_experts_per_tok=2)
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump(cfg, f, indent=2)
+    rng = np.random.default_rng(seed)
+    h, vocab, H = cfg["hidden_size"], cfg["vocab_size"], cfg["num_attention_heads"]
+    c, dn, dr, dv = (cfg["kv_lora_rank"], cfg["qk_nope_head_dim"], cfg["qk_rope_head_dim"],
+                     cfg["v_head_dim"])
+    qlr = cfg.get("q_lora_rank")
+    E, inter = cfg["n_routed_experts"], cfg["moe_intermediate_size"]
+    shared = cfg.get("n_shared_experts") or 0
+    s = 1.0 / math.sqrt(h)
+
+    tensors: dict[str, np.ndarray] = {}
+    bf16_keys = set()
+
+    def add_bf16(key, arr):
+        tensors[key] = f32_to_bf16_u16(arr.astype(np.float32))
+        bf16_keys.add(key)
+
+    def add_exl3(key, k_in, n_out, out_std):
+        if k_in % 128 or n_out % 128:
+            add_bf16(f"{key}.weight", rng.standard_normal((n_out, k_in)) * out_std)
+            return
+        for sk, t in synth_exl3_linear(rng, k_in, n_out, K, out_std).items():
+            tensors[f"{key}.{sk}"] = t
+
+    def add_mlp(prefix, width):
+        add_exl3(f"{prefix}.gate_proj", h, width, s)
+        add_exl3(f"{prefix}.up_proj", h, width, s)
+        add_exl3(f"{prefix}.down_proj", width, h, s * 0.5)
+
+    def add_experts(prefix, name, k_in, n_out, out_std):
+        """E EXL3 linears at once: any bit stream is a trellis, so the codes
+        are raw generator words"""
+        tk, tn = k_in // 16, n_out // 16
+        words = rng.bit_generator.random_raw(E * tk * tn * 16 * K // 4)
+        trellis = words.view(np.int16).reshape(E, tk, tn, 16 * K)
+        su = np.sign(rng.standard_normal((E, k_in))).astype(np.float16)
+        sv = (np.sign(rng.standard_normal((E, n_out))) * out_std).astype(np.float16)
+        for e in range(E):
+            key = f"{prefix}.experts.{e}.{name}"
+            tensors[key + ".trellis"] = trellis[e]
+            tensors[key + ".suh"] = su[e]
+            tensors[key + ".svh"] = sv[e]
+
+    def flush(name):
+        save_file(tensors, os.path.join(directory, name), bf16_keys=bf16_keys)
+        tensors.clear()
+        bf16_keys.clear()
+
+    add_bf16("model.embed_tokens.weight",
+             rng.standard_normal((vocab, h)).astype(np.float32) * 0.02)
+    flush("model-embed.safetensors")
+    for i in range(cfg["num_hidden_layers"]):
+        lk = f"model.layers.{i}"
+        add_bf16(f"{lk}.input_layernorm.weight", np.ones(h, np.float32))
+        add_bf16(f"{lk}.post_attention_layernorm.weight", np.ones(h, np.float32))
+        ak = f"{lk}.self_attn"
+        if qlr:
+            add_exl3(f"{ak}.q_a_proj", h, qlr, s)
+            add_bf16(f"{ak}.q_a_layernorm.weight", rng.uniform(0.8, 1.2, qlr))
+            add_exl3(f"{ak}.q_b_proj", qlr, H * (dn + dr), 1.0 / math.sqrt(qlr))
+        else:
+            add_exl3(f"{ak}.q_proj", h, H * (dn + dr), s)
+        add_exl3(f"{ak}.kv_a_proj_with_mqa", h, c + dr, s)
+        add_bf16(f"{ak}.kv_a_layernorm.weight", rng.uniform(0.8, 1.2, c))
+        add_bf16(f"{ak}.kv_b_proj.weight", rng.standard_normal((H * (dn + dv), c)) / math.sqrt(c))
+        add_exl3(f"{ak}.o_proj", H * dv, h, s * 0.5)
+        if i < cfg.get("first_k_dense_replace", 0):
+            add_mlp(f"{lk}.mlp", cfg["intermediate_size"])
+        else:
+            prefix = f"{lk}.mlp"
+            add_bf16(f"{prefix}.gate.weight", rng.standard_normal((E, h)) * s)
+            if cfg.get("scoring_func", "sigmoid") == "sigmoid":
+                add_bf16(f"{prefix}.gate.e_score_correction_bias", rng.standard_normal(E) * 0.05)
+            add_experts(prefix, "gate_proj", h, inter, s)
+            add_experts(prefix, "up_proj", h, inter, s)
+            add_experts(prefix, "down_proj", inter, h, s * 0.5)
+            if shared:
+                add_mlp(f"{prefix}.shared_experts", inter * shared)
         flush(f"model-layer{i:03d}.safetensors")
     add_bf16("model.norm.weight", np.ones(h, np.float32))
     add_exl3("lm_head", h, vocab, s)

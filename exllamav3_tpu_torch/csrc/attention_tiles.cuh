@@ -1,33 +1,52 @@
-// The flash-attention tile loop shared by the port's four attention entries:
-// paged_attention.cu, paged_attention_quant.cu, linear_attention.cu and
-// linear_attention_quant.cu.
+// The flash-attention tile loop shared by the port's six attention entries:
+// paged_attention.cu, paged_attention_quant.cu, linear_attention.cu,
+// linear_attention_quant.cu, and latent_attention.cu and
+// latent_attention_quant.cu (absorbed MLA).
 //
-// The kernel is templated twice over:
-//   * Rows: where a 64-key tile's K/V rows lie. PagedRows looks the page up
-//     in the block table (256-token pages, so a tile never crosses a page
-//     and every tile is full); LinearRows reads slot `key` of row b (or of
-//     the row the caller names for sequence b) of an (N, T, Hk, .) cache, and
-//     cuts the last tile at T, which need only be a multiple of 8: keys at or
-//     past T are never read, their tile rows are zero and masked.
+// The kernel is templated three times over:
+//   * Geo: the block's geometry. HeadGeo<D> (per-head K/V of D channels, 64
+//     score rows, 64-key tiles, f32 q entering as hi + lo bf16 pairs) and
+//     the latent ones (one latent K row of 576 channels whose leading 512
+//     are V, bf16 q): LatentGeo, 32 score rows and 32-key tiles, and
+//     LatentDecodeGeo, 16 rows (one token's heads) and 64-key tiles, half
+//     the tiles a decode block walks.
+//   * Rows: where a key tile's rows lie. PagedRows looks the page up in the
+//     block table (256-token pages, so a tile never crosses a page and every
+//     tile is full); LinearRows reads slot `key` of row b (or of the row the
+//     caller names for sequence b) of an (N, T, Hk, .) cache, and cuts the
+//     last tile at T, which may be any length: keys at or past T are never
+//     read, their tile rows are zero and masked.
 //   * KV: how a tile is stored. Bf16KV copies bf16 rows; QuantKV unpacks
 //     packed 2..8-bit words with one bf16 scale per 32 channels (merged-head
 //     and per-head storage address head h of a token alike, at word
-//     (token * Hk + h) * D*bits/32) into hi + lo bf16 pairs.
+//     (token * Hk + h) * D*bits/32) into hi + lo bf16 pairs; LatentKV copies
+//     a bf16 latent row; LatentQuantKV unpacks the packed latent into hi + lo
+//     pairs and copies the bf16 rope key beside it (its lo term is 0).
 //
-// Design: one block per (q block, kv head, sequence). Its 64 score rows are
-// (token, head-in-group) pairs, so the G query heads that share a kv head read
-// each K/V tile once. The block finds its own keys (the TPU kernel's scalar
-// prefetch) and walks only the 64-key tiles between the first and last key any
-// of its rows can see (the TPU kernel's per-q-block page bounds). QK^T and PV
-// run as bf16 WMMA with f32 accumulation; the online softmax keeps its running
-// max, sum and output rows in f32 in shared memory. The TPU kernel multiplies
-// q and P in f32, so each f32 operand enters as two bf16 terms, hi = bf16(x)
-// and lo = bf16(x - hi), one MMA each: the pair holds x to about 2^-16
-// relative. A dequantized K/V value (a grid value times a bf16 scale, at most
-// 16 significant bits) is also stored as hi + lo, exactly; a product then
-// takes three MMAs (hi.hi, lo.hi, hi.lo). The row sum adds P in f32. Decode
-// uses 4 of the 64 rows, and a sequence's keys are walked by one block;
-// splitting the keys across blocks is later work.
+// Design: one block per (q block, kv head and head slice, sequence). Its R
+// score rows are (token, head-in-group) pairs: a block takes HB = min(G, R)
+// heads of a group of G and floor(R / HB) tokens, so any group serves; a
+// group wider than R (MLA: all q heads read one latent row, G = 16 for
+// DeepSeek-V2-Lite, 128 for V2 and V3) is cut into ceil(G / R) head slices,
+// one block each. The heads of a block read each K/V tile once. The block
+// finds its own keys (the TPU kernel's scalar prefetch) and walks only the
+// key tiles between the first and last key any of its rows can see (the TPU
+// kernel's per-q-block page bounds). QK^T and PV run as bf16 WMMA with f32
+// accumulation; the online softmax keeps its running max, sum and output rows
+// in f32 in shared memory. The TPU kernel multiplies q and P in f32, so each
+// f32 operand enters as two bf16 terms, hi = bf16(x) and lo = bf16(x - hi),
+// one MMA each: the pair holds x to about 2^-16 relative (a bf16 q, as MLA
+// hands it over, needs no lo term). A dequantized K/V value (a grid value
+// times a bf16 scale, at most 16 significant bits) is also stored as hi +
+// lo, exactly; a product then takes three MMAs (hi.hi, lo.hi, hi.lo). The
+// row sum adds P in f32. Decode fills few of the rows, and a sequence's keys
+// are walked by one block; splitting the keys across blocks is later work.
+//
+// Warps: the 4 warps split the R rows into R/16 row groups; with R = 32 two
+// warps (with R = 16 all four) share a row group and split its key subtiles
+// (scores) and its output columns (PV), and the softmax, whose rows then
+// span warps, sits between two block barriers. With R = 64 each warp owns 16
+// rows throughout.
 //
 // Visibility: key j is visible to a query at position p iff j < total_len,
 // j <= p, j lies in the layout (j < T, or within the block table), and, with
@@ -45,23 +64,50 @@ namespace {
 
 using namespace nvcuda;
 
-constexpr int THREADS = 128;  // 4 warps x 16 rows
-constexpr int R = 64;         // score rows per block
-constexpr int TK = 64;        // keys per tile
+constexpr int THREADS = 128;  // 4 warps
+constexpr int WARPS = THREADS / 32;
 constexpr int PAGE = 256;
 
+// A block's geometry: K width D, V (and output) width DV, R score rows, TK
+// keys a tile; Q_SPLIT: q is f32 and enters as hi + lo bf16 (else bf16 as it
+// is); V_FROM_K: V is the leading DV channels of the K tile.
+template <int D_, int DV_, int R_, int TK_, bool Q_SPLIT_, bool V_FROM_K_>
+struct Geo {
+    static constexpr int D = D_, DV = DV_, R = R_, TK = TK_;
+    static constexpr bool Q_SPLIT = Q_SPLIT_, V_FROM_K = V_FROM_K_;
+};
+template <int D>
+using HeadGeo = Geo<D, D, 64, 64, true, false>;
+// DeepSeek's latent row: kv_lora_rank 512 + qk_rope_head_dim 64
+constexpr int LATENT = 512, ROPE = 64;
+using LatentGeo = Geo<LATENT + ROPE, LATENT, 32, 32, false, true>;
+using LatentDecodeGeo = Geo<LATENT + ROPE, LATENT, 16, 64, false, true>;
+
 // Shared memory of one block. SPLIT: K and V tiles carry a lo term too.
-template <int D, bool SPLIT>
+//   HeadGeo<128>: q hi + lo 2 x 64 x 136 bf16, K and V 64 x 136 bf16 each
+//     (hi + lo: twice), scores 64 x 68 f32, P hi + lo 2 x 64 x 72 bf16, output
+//     64 x 132 f32: 140,296 bytes bf16, 175,112 quantized.
+//   LatentGeo: q 32 x 584 bf16 (37,376), one K tile 32 x 584 bf16 (37,376;
+//     quantized: hi + lo, 74,752; V is its leading 512 columns), scores
+//     32 x 36 f32 (4,608), P hi + lo 2 x 32 x 40 bf16 (5,120), output
+//     32 x 516 f32 (66,048), row state 520: 151,048 bytes bf16, 188,424
+//     quantized, of the 232,448 a block may have.
+//   LatentDecodeGeo: q 16 x 584 bf16 (18,688), one K tile 64 x 584 bf16
+//     (74,752; quantized 149,504), scores 16 x 68 f32 (4,352), P hi + lo
+//     2 x 16 x 72 bf16 (4,608), output 16 x 516 f32 (33,024), row state 264:
+//     135,688 bytes bf16, 210,440 quantized.
+template <class G_, bool SPLIT>
 struct Layout {
-    static constexpr int LDQ = D + 8, LDK = D + 8, LDS = TK + 4, LDP = TK + 8, LDO = D + 4;
+    static constexpr int D = G_::D, DV = G_::DV, R = G_::R, TK = G_::TK;
+    static constexpr int LDQ = D + 8, LDK = D + 8, LDS = TK + 4, LDP = TK + 8, LDO = DV + 4;
     static constexpr int KV_TILE = TK * LDK * 2;
     static constexpr int OFF_Q = 0;
     static constexpr int OFF_QL = OFF_Q + R * LDQ * 2;
-    static constexpr int OFF_K = OFF_QL + R * LDQ * 2;
+    static constexpr int OFF_K = OFF_QL + (G_::Q_SPLIT ? R * LDQ * 2 : 0);
     static constexpr int OFF_KL = OFF_K + KV_TILE;
     static constexpr int OFF_V = OFF_KL + (SPLIT ? KV_TILE : 0);
-    static constexpr int OFF_VL = OFF_V + KV_TILE;
-    static constexpr int OFF_S = OFF_VL + (SPLIT ? KV_TILE : 0);
+    static constexpr int OFF_VL = OFF_V + (G_::V_FROM_K ? 0 : KV_TILE);
+    static constexpr int OFF_S = OFF_VL + (SPLIT && !G_::V_FROM_K ? KV_TILE : 0);
     static constexpr int OFF_P = OFF_S + R * LDS * 4;
     static constexpr int OFF_PL = OFF_P + R * LDP * 2;
     static constexpr int OFF_O = OFF_PL + R * LDP * 2;
@@ -78,12 +124,13 @@ struct PagedRows {
     __device__ int key_limit() const { return MP * PAGE; }
     // false: the tile's page is out of range and the tile is skipped
     // (uniform across the block). Else the tile's first pool row and its
-    // count of keys.
+    // count of keys. TKT divides the page.
+    template <int TKT>
     __device__ bool tile(int b, int key0, size_t& tok0, int& n) const {
         const int page = bt[(size_t)b * MP + key0 / PAGE];
         if (page < 0 || page >= P) return false;
         tok0 = (size_t)page * PAGE + key0 % PAGE;
-        n = TK;
+        n = TKT;
         return true;
     }
 };
@@ -91,19 +138,34 @@ struct PagedRows {
 struct LinearRows {
     static constexpr bool FULL = false;  // the last tile is cut at T
     const int* rows;  // (B,) cache row of each sequence, or null: row b
-    int N, T;         // cache rows; keys per row, a multiple of 8
+    int N, T;         // cache rows; keys per row
     __device__ int key_limit() const { return T; }
     // false: the sequence's row is out of range and the tile is skipped
+    template <int TKT>
     __device__ bool tile(int b, int key0, size_t& tok0, int& n) const {
         const int row = rows != nullptr ? rows[b] : b;
         if (row < 0 || row >= N) return false;
         tok0 = (size_t)row * T + key0;
-        n = min(TK, T - key0);
+        n = min(TKT, T - key0);
         return true;
     }
 };
 
 // -- how a tile is stored -----------------------------------------------------------
+
+// n <= TKT rows of W bf16 channels, row j at src + ((tok0 + j) * Hk + hk) * W,
+// into dst columns [0, W) of rows of LD; rows n.. are zero
+template <int W, int LD, int TKT>
+__device__ __forceinline__ void copy_rows(const __nv_bfloat16* __restrict__ src, size_t tok0,
+                                          int n, int Hk, int hk, __nv_bfloat16* dst, int tid) {
+    constexpr int VPR = W / 8;  // 16-byte vectors per row
+    for (int e = tid; e < TKT * VPR; e += THREADS) {
+        const int j = e / VPR, c = (e % VPR) * 8;
+        uint4 x = make_uint4(0u, 0u, 0u, 0u);
+        if (j < n) x = __ldg(reinterpret_cast<const uint4*>(src + ((tok0 + j) * Hk + hk) * W + c));
+        *reinterpret_cast<uint4*>(&dst[j * LD + c]) = x;
+    }
+}
 
 template <int D>
 struct Bf16KV {
@@ -112,21 +174,11 @@ struct Bf16KV {
     const __nv_bfloat16* v;
     int Hk;
     // rows tok0 .. tok0+n-1 of head hk into the tiles; rows n.. are zero
-    template <int LD>
+    template <int LD, int TKT>
     __device__ void load(size_t tok0, int n, int hk, __nv_bfloat16* Ks, __nv_bfloat16*,
                          __nv_bfloat16* Vs, __nv_bfloat16*, int tid) const {
-        constexpr int VPR = D / 8;  // 16-byte vectors per row
-        for (int e = tid; e < TK * VPR; e += THREADS) {
-            const int j = e / VPR, c = (e % VPR) * 8;
-            uint4 kx = make_uint4(0u, 0u, 0u, 0u), vx = kx;
-            if (j < n) {
-                const size_t off = ((tok0 + j) * Hk + hk) * D + c;
-                kx = __ldg(reinterpret_cast<const uint4*>(k + off));
-                vx = __ldg(reinterpret_cast<const uint4*>(v + off));
-            }
-            *reinterpret_cast<uint4*>(&Ks[j * LD + c]) = kx;
-            *reinterpret_cast<uint4*>(&Vs[j * LD + c]) = vx;
-        }
+        copy_rows<D, LD, TKT>(k, tok0, n, Hk, hk, Ks, tid);
+        copy_rows<D, LD, TKT>(v, tok0, n, Hk, hk, Vs, tid);
     }
 };
 
@@ -158,7 +210,7 @@ __device__ __forceinline__ uint32_t field(const uint32_t* __restrict__ w, int c)
     }
 }
 
-// Unpack n <= TK keys of one head, starting at token row `tok0` of the
+// Unpack n <= TKT keys of one head, starting at token row `tok0` of the
 // storage, into hi and lo bf16 tiles of LD columns; rows n.. are zero. A
 // thread takes 8 consecutive channels of one key: it reads the words that
 // hold them straight from device memory (neighbouring threads read
@@ -168,13 +220,13 @@ __device__ __forceinline__ uint32_t field(const uint32_t* __restrict__ w, int c)
 // the JAX kernel's channel permutation served the TPU's repeat-widen unpack
 // and is left out, except that odd widths are stored as bit planes in lane
 // order, which field() follows. K and V stay in their stored, rotated basis.
-template <int D, int LD, int BITS>
+template <int D, int LD, int TKT, int BITS>
 __device__ __forceinline__ void unpack_tile(const uint32_t* __restrict__ words,
                                             const __nv_bfloat16* __restrict__ scales,
                                             size_t tok0, int n, int Hk, int hk, float ca, float cb,
                                             __nv_bfloat16* hi_s, __nv_bfloat16* lo_s, int tid) {
     constexpr int W = D * BITS / 32, G = D / 32, RUNS = D / 8, N = 1 << BITS;
-    for (int e = tid; e < TK * RUNS; e += THREADS) {
+    for (int e = tid; e < TKT * RUNS; e += THREADS) {
         const int j = e / RUNS, c0 = (e % RUNS) * 8;
         __align__(16) __nv_bfloat16 hi[8], lo[8];
         if (j < n) {
@@ -200,20 +252,22 @@ __device__ __forceinline__ void unpack_tile(const uint32_t* __restrict__ words,
     }
 }
 
-template <int D, int LD>
+template <int D, int LD, int TKT>
 __device__ __forceinline__ void unpack_any(int bits, const uint32_t* __restrict__ words,
                                            const __nv_bfloat16* __restrict__ scales, size_t tok0,
                                            int n, int Hk, int hk, float ca, float cb,
                                            __nv_bfloat16* hi_s, __nv_bfloat16* lo_s, int tid) {
+#define EXL3_UNPACK(B) unpack_tile<D, LD, TKT, B>(words, scales, tok0, n, Hk, hk, ca, cb, hi_s, lo_s, tid)
     switch (bits) {  // uniform across the grid
-        case 2: unpack_tile<D, LD, 2>(words, scales, tok0, n, Hk, hk, ca, cb, hi_s, lo_s, tid); break;
-        case 3: unpack_tile<D, LD, 3>(words, scales, tok0, n, Hk, hk, ca, cb, hi_s, lo_s, tid); break;
-        case 4: unpack_tile<D, LD, 4>(words, scales, tok0, n, Hk, hk, ca, cb, hi_s, lo_s, tid); break;
-        case 5: unpack_tile<D, LD, 5>(words, scales, tok0, n, Hk, hk, ca, cb, hi_s, lo_s, tid); break;
-        case 6: unpack_tile<D, LD, 6>(words, scales, tok0, n, Hk, hk, ca, cb, hi_s, lo_s, tid); break;
-        case 7: unpack_tile<D, LD, 7>(words, scales, tok0, n, Hk, hk, ca, cb, hi_s, lo_s, tid); break;
-        default: unpack_tile<D, LD, 8>(words, scales, tok0, n, Hk, hk, ca, cb, hi_s, lo_s, tid); break;
+        case 2: EXL3_UNPACK(2); break;
+        case 3: EXL3_UNPACK(3); break;
+        case 4: EXL3_UNPACK(4); break;
+        case 5: EXL3_UNPACK(5); break;
+        case 6: EXL3_UNPACK(6); break;
+        case 7: EXL3_UNPACK(7); break;
+        default: EXL3_UNPACK(8); break;
     }
+#undef EXL3_UNPACK
 }
 
 template <int D>
@@ -225,31 +279,72 @@ struct QuantKV {
     const __nv_bfloat16* vs;
     int Hk, k_bits, v_bits;
     float ca, cb;  // compander a and 1 - a; ca = 0 selects the midpoint grid
-    template <int LD>
+    template <int LD, int TKT>
     __device__ void load(size_t tok0, int n, int hk, __nv_bfloat16* Ks, __nv_bfloat16* Kls,
                          __nv_bfloat16* Vs, __nv_bfloat16* Vls, int tid) const {
-        unpack_any<D, LD>(k_bits, kq, ks, tok0, n, Hk, hk, ca, cb, Ks, Kls, tid);
-        unpack_any<D, LD>(v_bits, vq, vs, tok0, n, Hk, hk, ca, cb, Vs, Vls, tid);
+        unpack_any<D, LD, TKT>(k_bits, kq, ks, tok0, n, Hk, hk, ca, cb, Ks, Kls, tid);
+        unpack_any<D, LD, TKT>(v_bits, vq, vs, tok0, n, Hk, hk, ca, cb, Vs, Vls, tid);
+    }
+};
+
+// bf16 latent rows [c_kv | k_pe], one per token; V is read from the K tile
+struct LatentKV {
+    static constexpr bool SPLIT = false;
+    const __nv_bfloat16* kv;  // (N, T, 1, LATENT + ROPE)
+    template <int LD, int TKT>
+    __device__ void load(size_t tok0, int n, int, __nv_bfloat16* Ks, __nv_bfloat16*,
+                         __nv_bfloat16*, __nv_bfloat16*, int tid) const {
+        copy_rows<LATENT + ROPE, LD, TKT>(kv, tok0, n, 1, 0, Ks, tid);
+    }
+};
+
+// packed latent words (LATENT * bits / 32 a token) with one bf16 scale per 32
+// channels, and the bf16 rope key (ROPE a token) stored apart. The latent
+// unpacks into hi + lo columns [0, LATENT), the rope key copies into hi
+// columns [LATENT, LATENT + ROPE), whose lo columns are 0
+struct LatentQuantKV {
+    static constexpr bool SPLIT = true;
+    const uint32_t* kq;
+    const __nv_bfloat16* ks;
+    const __nv_bfloat16* kpe;
+    int bits;
+    float ca, cb;  // compander a and 1 - a; ca = 0 selects the midpoint grid
+    template <int LD, int TKT>
+    __device__ void load(size_t tok0, int n, int, __nv_bfloat16* Ks, __nv_bfloat16* Kls,
+                         __nv_bfloat16*, __nv_bfloat16*, int tid) const {
+        unpack_any<LATENT, LD, TKT>(bits, kq, ks, tok0, n, 1, 0, ca, cb, Ks, Kls, tid);
+        copy_rows<ROPE, LD, TKT>(kpe, tok0, n, 1, 0, Ks + LATENT, tid);
+        for (int e = tid; e < TKT * (ROPE / 8); e += THREADS) {
+            const int j = e / (ROPE / 8), c = (e % (ROPE / 8)) * 8;
+            *reinterpret_cast<uint4*>(&Kls[j * LD + LATENT + c]) = make_uint4(0u, 0u, 0u, 0u);
+        }
     }
 };
 
 // -- the kernel ----------------------------------------------------------------------
 
-template <int D, class Rows, class KV>
+template <class G_, class Rows, class KV>
 __global__ void __launch_bounds__(THREADS)
-attention_kernel(const float* __restrict__ q, Rows rows, KV kv, const int* __restrict__ qpos,
+attention_kernel(const void* __restrict__ q, Rows rows, KV kv, const int* __restrict__ qpos,
                  const int* __restrict__ total_lens, const float* __restrict__ sinks,
                  float* __restrict__ out, int S, int Hq, int Hk, float scale, int window,
                  float softcap) {
-    constexpr bool SPLIT = KV::SPLIT;
-    using L = Layout<D, SPLIT>;
+    constexpr int D = G_::D, DV = G_::DV, R = G_::R, TK = G_::TK;
+    constexpr bool SPLIT = KV::SPLIT, QS = G_::Q_SPLIT;
+    constexpr int NWR = R / 16;          // row groups of 16
+    constexpr int WPR = WARPS / NWR;     // warps sharing a row group
+    constexpr int TPR = THREADS / R;     // softmax threads a row
+    constexpr int KPT = TK / TPR;        // keys a softmax thread
+    static_assert(NWR * WPR == WARPS && TPR * R == THREADS && KPT * TPR == TK, "geometry");
+    static_assert(D % 16 == 0 && DV % 16 == 0 && TK % 16 == 0 && PAGE % TK == 0, "geometry");
+    using L = Layout<G_, SPLIT>;
     extern __shared__ __align__(128) unsigned char smem[];
     __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_Q);
     __nv_bfloat16* Qls = reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_QL);
     __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_K);
     __nv_bfloat16* Kls = reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_KL);
-    __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_V);
-    __nv_bfloat16* Vls = reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_VL);
+    __nv_bfloat16* Vs = G_::V_FROM_K ? Ks : reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_V);
+    __nv_bfloat16* Vls = G_::V_FROM_K ? Kls : reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_VL);
     float* Ss = reinterpret_cast<float*>(smem + L::OFF_S);
     __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_P);
     __nv_bfloat16* Pls = reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_PL);
@@ -261,42 +356,60 @@ attention_kernel(const float* __restrict__ q, Rows rows, KV kv, const int* __res
     int* key_range = row_pos + R;
 
     const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-    const int b = blockIdx.z, hk = blockIdx.y;
-    const int G = Hq / Hk, QT = R / G;
+    const int b = blockIdx.z;
+    const int G = Hq / Hk;
+    const int HB = min(G, R);            // heads of the group in this block
+    const int NH = (G + HB - 1) / HB;    // head slices of a group
+    const int hk = blockIdx.y / NH, slice = blockIdx.y % NH;
+    const int QT = R / HB;               // tokens in this block
     const int s0 = blockIdx.x * QT;
     const int limit = rows.key_limit();
     const int total = min(total_lens[b], limit);
-    constexpr int VPR = D / 8;  // 16-byte vectors per row
+    // row r -> token s, q head `head`; false for a padding row
+    auto row_of = [&](int r, int& s, int& head) {
+        const int t = r / HB, gh = slice * HB + r % HB;
+        s = s0 + t;
+        head = hk * G + gh;
+        return t < QT && s < S && gh < G;
+    };
 
     for (int r = tid; r < R; r += THREADS) {
-        const int s = s0 + r / G, head = hk * G + r % G;
-        const bool valid = s < S;
+        int s, head;
+        const bool valid = row_of(r, s, head);
         row_pos[r] = valid ? qpos[(size_t)b * S + s] : -1;
         const bool sink = valid && sinks != nullptr;
         row_m[r] = sink ? sinks[head] : -INFINITY;
         row_l[r] = sink ? 1.0f : 0.0f;
     }
-    for (int e = tid; e < R * VPR; e += THREADS) {  // q rows as hi + lo bf16
+    constexpr int VPR = D / 8;  // 16-byte vectors of bf16 per row
+    for (int e = tid; e < R * VPR; e += THREADS) {
         const int r = e / VPR, c = (e % VPR) * 8;
-        const int s = s0 + r / G, head = hk * G + r % G;
-        float x[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-        if (s < S) {
-            const float4* src =
-                reinterpret_cast<const float4*>(q + (((size_t)b * S + s) * Hq + head) * D + c);
-            const float4 a = src[0], b4 = src[1];
-            x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-            x[4] = b4.x; x[5] = b4.y; x[6] = b4.z; x[7] = b4.w;
-        }
-        __align__(16) __nv_bfloat16 hi[8], lo[8];
+        int s, head;
+        const bool valid = row_of(r, s, head);
+        const size_t off = (((size_t)b * S + s) * Hq + head) * D + c;
+        if constexpr (QS) {  // f32 q rows as hi + lo bf16
+            float x[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+            if (valid) {
+                const float4* src = reinterpret_cast<const float4*>(static_cast<const float*>(q) + off);
+                const float4 a = src[0], b4 = src[1];
+                x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+                x[4] = b4.x; x[5] = b4.y; x[6] = b4.z; x[7] = b4.w;
+            }
+            __align__(16) __nv_bfloat16 hi[8], lo[8];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-            hi[i] = __float2bfloat16_rn(x[i]);
-            lo[i] = __float2bfloat16_rn(x[i] - __bfloat162float(hi[i]));
+            for (int i = 0; i < 8; ++i) {
+                hi[i] = __float2bfloat16_rn(x[i]);
+                lo[i] = __float2bfloat16_rn(x[i] - __bfloat162float(hi[i]));
+            }
+            *reinterpret_cast<uint4*>(&Qs[r * L::LDQ + c]) = *reinterpret_cast<const uint4*>(hi);
+            *reinterpret_cast<uint4*>(&Qls[r * L::LDQ + c]) = *reinterpret_cast<const uint4*>(lo);
+        } else {  // bf16 q rows as they are
+            uint4 x = make_uint4(0u, 0u, 0u, 0u);
+            if (valid) x = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(q) + off);
+            *reinterpret_cast<uint4*>(&Qs[r * L::LDQ + c]) = x;
         }
-        *reinterpret_cast<uint4*>(&Qs[r * L::LDQ + c]) = *reinterpret_cast<const uint4*>(hi);
-        *reinterpret_cast<uint4*>(&Qls[r * L::LDQ + c]) = *reinterpret_cast<const uint4*>(lo);
     }
-    for (int e = tid; e < R * D; e += THREADS) Os[(e / D) * L::LDO + e % D] = 0.0f;
+    for (int e = tid; e < R * DV; e += THREADS) Os[(e / DV) * L::LDO + e % DV] = 0.0f;
     __syncthreads();
     if (tid == 0) {  // keys any row of this block can see: [lo, hi]
         int lo = INT32_MAX, hi = -1;
@@ -311,19 +424,20 @@ attention_kernel(const float* __restrict__ q, Rows rows, KV kv, const int* __res
     }
     __syncthreads();
     const int lo = key_range[0], hi = key_range[1];
+    const int rw = (warp % NWR) * 16;  // this warp's row group
+    const int wc = WPR == 1 ? 0 : warp / NWR;  // and its share of the group's work
 
     for (int key0 = (lo / TK) * TK; key0 <= hi; key0 += TK) {
         size_t tok0;
         int n;
-        if (!rows.tile(b, key0, tok0, n)) continue;  // uniform across the block
+        if (!rows.template tile<TK>(b, key0, tok0, n)) continue;  // uniform across the block
         // a constant count for full tiles, so that their loads carry no bound check
-        kv.template load<L::LDK>(tok0, Rows::FULL ? TK : n, hk, Ks, Kls, Vs, Vls, tid);
+        kv.template load<L::LDK, TK>(tok0, Rows::FULL ? TK : n, hk, Ks, Kls, Vs, Vls, tid);
         __syncthreads();
 
-        // scores for this warp's 16 rows x 64 keys
-        const int rw = warp * 16;
+        // scores for this warp's 16 rows x its 16-key subtiles
 #pragma unroll
-        for (int j = 0; j < TK / 16; ++j) {
+        for (int j = wc; j < TK / 16; j += WPR) {
             wmma::fragment<wmma::accumulator, 16, 16, 16, float> sc;
             wmma::fill_fragment(sc, 0.0f);
 #pragma unroll
@@ -333,8 +447,10 @@ attention_kernel(const float* __restrict__ q, Rows rows, KV kv, const int* __res
                 wmma::load_matrix_sync(fb, &Ks[(j * 16) * L::LDK + kk], L::LDK);
                 wmma::load_matrix_sync(fa, &Qs[rw * L::LDQ + kk], L::LDQ);
                 wmma::mma_sync(sc, fa, fb, sc);
-                wmma::load_matrix_sync(fa, &Qls[rw * L::LDQ + kk], L::LDQ);
-                wmma::mma_sync(sc, fa, fb, sc);
+                if constexpr (QS) {
+                    wmma::load_matrix_sync(fa, &Qls[rw * L::LDQ + kk], L::LDQ);
+                    wmma::mma_sync(sc, fa, fb, sc);
+                }
                 if constexpr (SPLIT) {
                     wmma::load_matrix_sync(fb, &Kls[(j * 16) * L::LDK + kk], L::LDK);
                     wmma::load_matrix_sync(fa, &Qs[rw * L::LDQ + kk], L::LDQ);
@@ -343,16 +459,16 @@ attention_kernel(const float* __restrict__ q, Rows rows, KV kv, const int* __res
             }
             wmma::store_matrix_sync(&Ss[rw * L::LDS + j * 16], sc, L::LDS, wmma::mem_row_major);
         }
-        __syncwarp();
+        if constexpr (WPR == 1) __syncwarp(); else __syncthreads();
 
-        // online softmax: two lanes per row, 32 keys each
+        // online softmax: TPR consecutive threads a row, KPT keys each
         {
-            const int r = rw + lane / 2, half = lane % 2;
+            const int r = tid / TPR, part = tid % TPR;
             const int p = row_pos[r];
-            float* srow = &Ss[r * L::LDS + half * 32];
+            float* srow = &Ss[r * L::LDS + part * KPT];
             float mx = -INFINITY;
-            for (int jj = 0; jj < 32; ++jj) {
-                const int key = key0 + half * 32 + jj;
+            for (int jj = 0; jj < KPT; ++jj) {
+                const int key = key0 + part * KPT + jj;
                 float s = srow[jj] * scale;
                 if (softcap > 0.0f) s = tanhf(s / softcap) * softcap;
                 const bool ok = p >= 0 && key < total && key <= p && (window <= 0 || key > p - window);
@@ -360,13 +476,14 @@ attention_kernel(const float* __restrict__ q, Rows rows, KV kv, const int* __res
                 srow[jj] = s;
                 mx = fmaxf(mx, s);
             }
-            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+#pragma unroll
+            for (int o = 1; o < TPR; o *= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
             const float m_old = row_m[r];
             const float m_new = fmaxf(m_old, mx);
             float sum = 0.0f;
-            __nv_bfloat16* prow = &Ps[r * L::LDP + half * 32];
-            __nv_bfloat16* plrow = &Pls[r * L::LDP + half * 32];
-            for (int jj = 0; jj < 32; ++jj) {
+            __nv_bfloat16* prow = &Ps[r * L::LDP + part * KPT];
+            __nv_bfloat16* plrow = &Pls[r * L::LDP + part * KPT];
+            for (int jj = 0; jj < KPT; ++jj) {
                 const float s = srow[jj];
                 const float pf = s == -INFINITY ? 0.0f : expf(s - m_new);
                 const __nv_bfloat16 pb = __float2bfloat16_rn(pf);
@@ -374,25 +491,26 @@ attention_kernel(const float* __restrict__ q, Rows rows, KV kv, const int* __res
                 plrow[jj] = __float2bfloat16_rn(pf - __bfloat162float(pb));
                 sum += pf;
             }
-            sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+#pragma unroll
+            for (int o = 1; o < TPR; o *= 2) sum += __shfl_xor_sync(0xffffffffu, sum, o);
             const float alpha = m_old == -INFINITY ? 0.0f : expf(m_old - m_new);
             __syncwarp();
-            if (half == 0) {
+            if (part == 0) {
                 row_m[r] = m_new;
                 row_l[r] = row_l[r] * alpha + sum;
                 row_alpha[r] = alpha;
             }
         }
-        __syncwarp();
-        for (int e = lane; e < 16 * D; e += 32) {
-            const int r = rw + e / D;
-            Os[r * L::LDO + e % D] *= row_alpha[r];
-        }
-        __syncwarp();
+        if constexpr (WPR == 1) __syncwarp(); else __syncthreads();
 
-        // O += P V for this warp's rows
+        // O = alpha O + P V for this warp's rows and 16-column blocks
 #pragma unroll
-        for (int dcol = 0; dcol < D; dcol += 16) {
+        for (int dcol = wc * 16; dcol < DV; dcol += WPR * 16) {
+            for (int e = lane; e < 16 * 16; e += 32) {
+                const int r = rw + e / 16;
+                Os[r * L::LDO + dcol + e % 16] *= row_alpha[r];
+            }
+            __syncwarp();
             wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
             wmma::load_matrix_sync(o, &Os[rw * L::LDO + dcol], L::LDO, wmma::mem_row_major);
 #pragma unroll
@@ -412,38 +530,39 @@ attention_kernel(const float* __restrict__ q, Rows rows, KV kv, const int* __res
             }
             wmma::store_matrix_sync(&Os[rw * L::LDO + dcol], o, L::LDO, wmma::mem_row_major);
         }
-        __syncthreads();  // K/V tiles are overwritten next
+        __syncthreads();  // K/V tiles and row state are overwritten next
     }
 
-    for (int e = tid; e < R * D; e += THREADS) {
-        const int r = e / D, c = e % D;
-        const int s = s0 + r / G;
-        if (s < S) {
-            const int head = hk * G + r % G;
-            out[(((size_t)b * S + s) * Hq + head) * D + c] =
+    for (int e = tid; e < R * DV; e += THREADS) {
+        const int r = e / DV, c = e % DV;
+        int s, head;
+        if (row_of(r, s, head))
+            out[(((size_t)b * S + s) * Hq + head) * DV + c] =
                 Os[r * L::LDO + c] / fmaxf(row_l[r], 1e-30f);
-        }
     }
 }
 
 // Launch on `st`; returns cudaGetLastError() as an int.
-template <int D, class Rows, class KV>
+template <class G_, class Rows, class KV>
 int launch_attention(const void* q, Rows rows, KV kv, const void* qpos, const void* total_lens,
                      const void* sinks, void* out, int B, int S, int Hq, int Hk, float scale,
                      int window, float softcap, cudaStream_t st) {
-    constexpr int BYTES = Layout<D, KV::SPLIT>::BYTES;
+    constexpr int BYTES = Layout<G_, KV::SPLIT>::BYTES;
+    static_assert(BYTES <= 232448, "shared memory of one block");
     static bool attr_set = false;
     if (!attr_set) {
-        cudaFuncSetAttribute(attention_kernel<D, Rows, KV>,
+        cudaFuncSetAttribute(attention_kernel<G_, Rows, KV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
         attr_set = true;
     }
-    const int QT = R / (Hq / Hk);
-    dim3 grid((S + QT - 1) / QT, Hk, B);
-    attention_kernel<D, Rows, KV><<<grid, THREADS, BYTES, st>>>(
-        static_cast<const float*>(q), rows, kv, static_cast<const int*>(qpos),
-        static_cast<const int*>(total_lens), static_cast<const float*>(sinks),
-        static_cast<float*>(out), S, Hq, Hk, scale, window, softcap);
+    if (Hk <= 0 || Hq % Hk) return (int)cudaErrorInvalidValue;
+    const int G = Hq / Hk, HB = G < G_::R ? G : G_::R;
+    const int QT = G_::R / HB, NH = (G + HB - 1) / HB;
+    dim3 grid((S + QT - 1) / QT, Hk * NH, B);
+    attention_kernel<G_, Rows, KV><<<grid, THREADS, BYTES, st>>>(
+        q, rows, kv, static_cast<const int*>(qpos), static_cast<const int*>(total_lens),
+        static_cast<const float*>(sinks), static_cast<float*>(out), S, Hq, Hk, scale, window,
+        softcap);
     return (int)cudaGetLastError();
 }
 

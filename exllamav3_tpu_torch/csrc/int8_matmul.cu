@@ -4,8 +4,10 @@
 //           (int8_matmul_pallas), which the JAX package reaches through
 //           int8_matmul.
 // Inputs:   x (m, k) bf16 row-major, W_q (k, n) int8 row-major,
-//           scale (n,) f32; k % 128 == 0, n % 128 == 0 (checked by the
-//           Python wrapper).
+//           scale (n,) f32; k % 64 == 0, n % 64 == 0 (checked by the
+//           Python wrapper): the last column tile and the last k tile are
+//           cut at n and k (DeepSeek-V2-Lite's kv_a projection has n = 576,
+//           its dense down projection k = 10944).
 // Bound:    at decode (m <= 16) the weight bytes: 1 byte per weight over
 //           3.35 TB/s; at prefill (m up to 2048) the bf16 tensor-core rate,
 //           2*m*k*n operations over 989 TFLOP/s.
@@ -72,7 +74,8 @@ int8_matmul_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict
     const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
     const int split = blockIdx.z;
     const int kbeg = split * k_per_split;
-    const int ntiles = k_per_split / BK;
+    const int kend = min(kbeg + k_per_split, k);
+    const int ntiles = (kend - kbeg + BK - 1) / BK;  // the last may be cut at kend
 
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
 #pragma unroll
@@ -88,7 +91,7 @@ int8_matmul_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict
             const int idx = tid + i * THREADS;
             const int r = idx / (BK / 8), c = (idx % (BK / 8)) * 8;
             const int grow = row0 + r;
-            a_reg[i] = grow < m
+            a_reg[i] = grow < m && k0 + c < kend
                 ? *reinterpret_cast<const uint4*>(x + (size_t)grow * k + k0 + c)
                 : make_uint4(0, 0, 0, 0);
         }
@@ -96,7 +99,10 @@ int8_matmul_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict
         for (int i = 0; i < B_VEC; ++i) {
             const int idx = tid + i * THREADS;
             const int r = idx / (BN / 16), c = (idx % (BN / 16)) * 16;
-            b_reg[i] = *reinterpret_cast<const uint4*>(w + (size_t)(k0 + r) * n + col0 + c);
+            // n and k are multiples of 64: a vector lies wholly inside or outside
+            b_reg[i] = k0 + r < kend && col0 + c < n
+                ? *reinterpret_cast<const uint4*>(w + (size_t)(k0 + r) * n + col0 + c)
+                : make_uint4(0, 0, 0, 0);
         }
     };
     auto store_tile = [&]() {
@@ -150,7 +156,7 @@ int8_matmul_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict
             for (int e = lane; e < 256; e += 32) {
                 const int grow = row0 + wm * WM + i * 16 + e / 16;
                 const int gcol = col0 + wn * WN + j * 16 + e % 16;
-                if (grow < m) {
+                if (grow < m && gcol < n) {
                     const float v = Cs[warp][e];
                     dst[(size_t)grow * n + gcol] = apply_scale ? v * scale[gcol] : v;
                 }
@@ -186,11 +192,11 @@ extern "C" int exl3_int8_matmul(const void* x, const void* w, const void* scale,
     const auto* wp = static_cast<const int8_t*>(w);
     const auto* sp = static_cast<const float*>(scale);
     if (m <= 16) {
-        dim3 grid(n / 128, (m + 15) / 16, splits);
+        dim3 grid((n + 127) / 128, (m + 15) / 16, splits);
         int8_matmul_kernel<16, 128, 128, 1, 8><<<grid, THREADS, 0, st>>>(
             xp, wp, sp, dst, m, k, n, k_per_split, splits);
     } else {
-        dim3 grid(n / 128, (m + 127) / 128, splits);
+        dim3 grid((n + 127) / 128, (m + 127) / 128, splits);
         int8_matmul_kernel<128, 128, 32, 2, 4><<<grid, THREADS, 0, st>>>(
             xp, wp, sp, dst, m, k, n, k_per_split, splits);
     }

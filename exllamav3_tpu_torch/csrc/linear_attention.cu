@@ -4,11 +4,11 @@
 // Replaces: exllamav3_tpu/ops/flash_attention.py::_flash_kernel in its linear
 //           layout with unquantized K/V (flash_attention with
 //           block_tables=None, its pallas_call at :999).
-// Inputs:   q (B, S, Hq, D) f32; k, v (N, T, Hk, D) bf16, T a multiple of 8;
+// Inputs:   q (B, S, Hq, D) f32; k, v (N, T, Hk, D) bf16, any T;
 //           rows (B,) int32, the cache row of each sequence, or null for
 //           rows 0..B-1 (a row out of range sees no key); q_positions (B, S)
 //           int32; total_lens (B,) int32; sinks (Hq,) f32 or null. D in
-//           {64, 128}; 64 % (Hq/Hk) == 0.
+//           {64, 128}; any GQA group.
 // Output:   (B, S, Hq, D) f32, with the visibility rule of paged_attention.cu
 //           (key j visible iff j < min(total_len, T), j <= p and, with a
 //           window, j > p - window).
@@ -17,10 +17,11 @@
 //           operations per visible (query, key) pair at the bf16 rate.
 // Design:   attention_tiles.cuh, with the tile's rows at row*T + key
 //           (LinearRows). The TPU kernel tiles T by the largest of 256..8
-//           that divides it; here the tile stays 64 keys wide and the last
-//           one is cut at T: its loads stop at T (never the next sequence's
-//           row, never past the allocation), its other rows are zero and
-//           masked.
+//           that divides it (and the JAX package takes a dense path for
+//           other T); here the tile stays 64 keys wide and the last one is
+//           cut at T, whatever T is: its loads stop at T (never the next
+//           sequence's row, never past the allocation), its other rows are
+//           zero and masked.
 #include "attention_tiles.cuh"
 
 // rows: (B,) int32 cache row of each sequence, or null for row b.
@@ -29,15 +30,17 @@ extern "C" int exl3_linear_attention(const void* q, const void* k, const void* v
                                      void* out, int B, int S, int Hq, int Hk, int D, int N, int T,
                                      float scale, int window, float softcap, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (T <= 0 || T % 8) return (int)cudaErrorInvalidValue;
+    if (T <= 0) return (int)cudaErrorInvalidValue;
     const LinearRows rows{static_cast<const int*>(rows_), N, T};
     const auto* kb = static_cast<const __nv_bfloat16*>(k);
     const auto* vb = static_cast<const __nv_bfloat16*>(v);
     if (D == 128)
-        return launch_attention<128>(q, rows, Bf16KV<128>{kb, vb, Hk}, qpos, total_lens, sinks,
-                                     out, B, S, Hq, Hk, scale, window, softcap, st);
+        return launch_attention<HeadGeo<128>>(q, rows, Bf16KV<128>{kb, vb, Hk}, qpos,
+                                              total_lens, sinks, out, B, S, Hq, Hk, scale,
+                                              window, softcap, st);
     if (D == 64)
-        return launch_attention<64>(q, rows, Bf16KV<64>{kb, vb, Hk}, qpos, total_lens, sinks,
-                                    out, B, S, Hq, Hk, scale, window, softcap, st);
+        return launch_attention<HeadGeo<64>>(q, rows, Bf16KV<64>{kb, vb, Hk}, qpos,
+                                             total_lens, sinks, out, B, S, Hq, Hk, scale,
+                                             window, softcap, st);
     return (int)cudaErrorInvalidValue;
 }

@@ -8,10 +8,10 @@
 //           widths as bit planes), both with block_tables=None.
 // Inputs:   q (B, S, Hq, D) f32, already rotated by the per-32-channel
 //           Hadamard; k_q, v_q int32 packed words and k_s, v_s bf16 scales,
-//           (N, T, Hk, .) or (N, T, Hk * .), T a multiple of 8; rows (B,)
+//           (N, T, Hk, .) or (N, T, Hk * .), any T; rows (B,)
 //           int32 or null, as in linear_attention.cu; q_positions (B, S)
 //           int32; total_lens (B,) int32; sinks (Hq,) f32 or null.
-//           D in {64, 128}; 64 % (Hq/Hk) == 0; k_bits and v_bits independent
+//           D in {64, 128}; any GQA group; k_bits and v_bits independent
 //           in 2..8; compand_a > 0 selects the cubic compander.
 // Output:   (B, S, Hq, D) f32 in V's rotated basis (the caller rotates it
 //           back), with the visibility rule of linear_attention.cu.
@@ -31,7 +31,7 @@ extern "C" int exl3_linear_attention_quant(
     int B, int S, int Hq, int Hk, int D, int N, int T, int k_bits, int v_bits, float compand_a,
     float compand_b, float scale, int window, float softcap, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (k_bits < 2 || k_bits > 8 || v_bits < 2 || v_bits > 8 || T <= 0 || T % 8)
+    if (k_bits < 2 || k_bits > 8 || v_bits < 2 || v_bits > 8 || T <= 0)
         return (int)cudaErrorInvalidValue;
     const LinearRows rows{static_cast<const int*>(rows_), N, T};
     const auto* kw = static_cast<const uint32_t*>(kq);
@@ -39,11 +39,11 @@ extern "C" int exl3_linear_attention_quant(
     const auto* kscale = static_cast<const __nv_bfloat16*>(ks);
     const auto* vscale = static_cast<const __nv_bfloat16*>(vs);
     if (D == 128)
-        return launch_attention<128>(
+        return launch_attention<HeadGeo<128>>(
             q, rows, QuantKV<128>{kw, kscale, vw, vscale, Hk, k_bits, v_bits, compand_a, compand_b},
             qpos, total_lens, sinks, out, B, S, Hq, Hk, scale, window, softcap, st);
     if (D == 64)
-        return launch_attention<64>(
+        return launch_attention<HeadGeo<64>>(
             q, rows, QuantKV<64>{kw, kscale, vw, vscale, Hk, k_bits, v_bits, compand_a, compand_b},
             qpos, total_lens, sinks, out, B, S, Hq, Hk, scale, window, softcap, st);
     return (int)cudaErrorInvalidValue;

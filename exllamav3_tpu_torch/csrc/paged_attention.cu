@@ -4,7 +4,7 @@
 //           layout with unquantized K/V (flash_attention with block_tables).
 // Inputs:   q (B, S, Hq, D) f32; k, v (P, 256, Hk, D) bf16; block_tables
 //           (B, MP) int32; q_positions (B, S) int32; total_lens (B,) int32;
-//           sinks (Hq,) f32 or null. D in {64, 128}; 64 % (Hq/Hk) == 0.
+//           sinks (Hq,) f32 or null. D in {64, 128}; any GQA group.
 // Output:   (B, S, Hq, D) f32. Key j is visible to a query at position p iff
 //           j < total_len, j <= p and, with a window, j > p - window. Scores
 //           are scale*q.k, then the softcap; sinks join the denominator. A
@@ -26,10 +26,12 @@ extern "C" int exl3_paged_attention(const void* q, const void* k, const void* v,
     const auto* kb = static_cast<const __nv_bfloat16*>(k);
     const auto* vb = static_cast<const __nv_bfloat16*>(v);
     if (D == 128)
-        return launch_attention<128>(q, rows, Bf16KV<128>{kb, vb, Hk}, qpos, total_lens, sinks,
-                                     out, B, S, Hq, Hk, scale, window, softcap, st);
+        return launch_attention<HeadGeo<128>>(q, rows, Bf16KV<128>{kb, vb, Hk}, qpos,
+                                              total_lens, sinks, out, B, S, Hq, Hk, scale,
+                                              window, softcap, st);
     if (D == 64)
-        return launch_attention<64>(q, rows, Bf16KV<64>{kb, vb, Hk}, qpos, total_lens, sinks,
-                                    out, B, S, Hq, Hk, scale, window, softcap, st);
+        return launch_attention<HeadGeo<64>>(q, rows, Bf16KV<64>{kb, vb, Hk}, qpos,
+                                             total_lens, sinks, out, B, S, Hq, Hk, scale,
+                                             window, softcap, st);
     return (int)cudaErrorInvalidValue;
 }

@@ -12,7 +12,7 @@
 //           Hadamard; k_q, v_q int32 packed words and k_s, v_s bf16 scales,
 //           (P, 256, Hk, .) or (P, 256, Hk * .); block_tables (B, MP) int32;
 //           q_positions (B, S) int32; total_lens (B,) int32; sinks (Hq,) f32
-//           or null. D in {64, 128}; 64 % (Hq/Hk) == 0; k_bits and v_bits
+//           or null. D in {64, 128}; any GQA group; k_bits and v_bits
 //           independent in 2..8; compand_a > 0 selects the cubic compander.
 // Output:   (B, S, Hq, D) f32 in V's rotated basis (the caller rotates it
 //           back). Masking, softcap, sinks and empty rows as in
@@ -44,11 +44,11 @@ extern "C" int exl3_paged_attention_quant(
     const auto* kscale = static_cast<const __nv_bfloat16*>(ks);
     const auto* vscale = static_cast<const __nv_bfloat16*>(vs);
     if (D == 128)
-        return launch_attention<128>(
+        return launch_attention<HeadGeo<128>>(
             q, rows, QuantKV<128>{kw, kscale, vw, vscale, Hk, k_bits, v_bits, compand_a, compand_b},
             qpos, total_lens, sinks, out, B, S, Hq, Hk, scale, window, softcap, st);
     if (D == 64)
-        return launch_attention<64>(
+        return launch_attention<HeadGeo<64>>(
             q, rows, QuantKV<64>{kw, kscale, vw, vscale, Hk, k_bits, v_bits, compand_a, compand_b},
             qpos, total_lens, sinks, out, B, S, Hq, Hk, scale, window, softcap, st);
     return (int)cudaErrorInvalidValue;

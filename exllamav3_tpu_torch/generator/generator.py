@@ -373,8 +373,9 @@ class Generator:
         if not job.new_tokens:
             job.time_first_token = now
         job.time_last_token = now
-        job.new_tokens.append(tok)
+        # the forward that sampled `tok` wrote the K/V of the token before it
         self._maybe_finalize_decode_page(job)
+        job.new_tokens.append(tok)
         if tok in job.stop_tokens:
             job.new_tokens.pop()  # the stop token is not part of the output
             self._finish_job(job, "stop_token", results)
@@ -385,6 +386,12 @@ class Generator:
             self._finish_job(job, "max_new_tokens", results)
 
     def _maybe_finalize_decode_page(self, job: Job):
+        """Register the page that the job's last token completed, once a
+        forward has written that token's K/V: called before the job receives
+        the token that forward sampled. A page completed by a job's final
+        token is never written and never registered (the JAX package
+        registers it at once, and a later prompt may then reuse a page whose
+        last slot holds no K/V)."""
         n = job.seq_len
         if n % PAGE_SIZE == 0:
             pi = n // PAGE_SIZE - 1

@@ -8,7 +8,11 @@ Two layouts per attention layer:
     position; a step writes and reads row b of the cache for its sequence b,
     or the rows it names (a draft model's cache, one row per job slot).
 With k_bits / v_bits set, packed int32 words k_q, v_q and bf16 group scales
-k_s, v_s replace k and v in either layout (ops/kv_quant.py). The JAX package
+k_s, v_s replace k and v in either layout (ops/kv_quant.py). An MLA layer
+(modules/mla_attn.py) holds one latent row a token instead, {"kv"} of
+(N, T, 1, kv_lora_rank + rope) bf16, or with k_bits {"kv_q", "kv_s"} (the
+latent packed, per-head storage with one head) and {"k_pe"} (the rope key,
+bf16); each cache user makes its own layer state. The JAX package
 threads the cache through its jitted step as a functional pytree; here the
 tensors are updated in place, which keeps one copy of the cache in device
 memory. The layout defaults to "paged" (JAX: "linear"), which every caller

@@ -10,8 +10,7 @@ gates and the module-level sliding window, softcap and sinks (the kernels
 take them) are not ported yet. Both cached paths hand q to the kernel in f32,
 as the JAX package's Pallas path does; the cacheless path rounds it to bf16,
 as the JAX package's does. The JAX package takes its dense linear branch
-when T % 8 != 0 (its kernel's tiling); the port's kernel needs T % 8 == 0 as
-well and raises otherwise.
+when T % 8 != 0 (its kernel's tiling); the port's kernels take any T.
 """
 from __future__ import annotations
 

@@ -23,7 +23,8 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "exllamav3_tpu_torch"
 SOURCES = ("int8_matmul.cu", "fused_mlp.cu", "paged_attention.cu", "exl3_gemm.cu",
            "paged_attention_quant.cu", "int4_matmul.cu", "intb_matmul.cu", "moe_gemm.cu",
-           "linear_attention.cu", "linear_attention_quant.cu")
+           "linear_attention.cu", "linear_attention_quant.cu", "latent_attention.cu",
+           "latent_attention_quant.cu")
 HEADERS = ("packed_matmul.cuh", "attention_tiles.cuh")  # included by sources; part of the digest
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -50,6 +51,9 @@ SIGNATURES = {
                               _I, _F, _P],
     "exl3_linear_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                     _I, _I, _I, _I, _F, _F, _F, _I, _F, _P],
+    "exl3_latent_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "exl3_latent_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                    _I, _I, _F, _F, _F, _P],
 }
 
 _LIB = None

@@ -1,23 +1,27 @@
 """Attention over the paged and the linear KV cache, bf16 or quantized
 (counterpart of exllamav3_tpu/ops/flash_attention.py::flash_attention, with
-block_tables for the paged layout and without for the linear one).
+block_tables for the paged layout and without for the linear one, and with
+`latent` for MLA).
 
-Four CUDA entries share one tile loop (csrc/attention_tiles.cuh):
+Six CUDA entries share one tile loop (csrc/attention_tiles.cuh):
 csrc/paged_attention.cu and csrc/linear_attention.cu serve the bf16 cache,
 csrc/paged_attention_quant.cu and csrc/linear_attention_quant.cu the
 quantized one (packed 2..8-bit words with bf16 group scales, merged-head or
 per-head storage, unpacked in the kernel). Each serves decode, prefill chunks
-and padded rows: causal by absolute position against total_lens, GQA,
-optional sliding window, logit softcap and per-head sinks. A row that sees no
-valid key gives 0. The linear layout holds one row of T slots per sequence
-(slot == position, T a multiple of 8); a step may name the cache row of each
-of its sequences. On a CPU tensor a wrapper runs its plain version, built on
-ops/attention.py. `paged_attention_any` and `linear_attention_any` pick the
-storage by the layer state's keys (modules/attn.py picks the layout by the
-cache's). The JAX package
-dequantizes a whole merged pool for tall chunks (a TPU tile-occupancy
-matter); the port's kernels take any S. The MLA and ring variants are not
-ported yet.
+and padded rows: causal by absolute position against total_lens, any GQA
+group, optional sliding window, logit softcap and per-head sinks. A row that
+sees no valid key gives 0. The linear layout holds one row of T slots per
+sequence (slot == position, any T); a step may name the cache row of each of
+its sequences. csrc/latent_attention.cu and csrc/latent_attention_quant.cu
+serve the absorbed MLA form over DeepSeek's latent cache, paged or linear:
+one kv head whose 576-channel row is the latent (512) and the rope key (64),
+V the latent itself; bf16, or the latent packed with the rope key in bf16.
+On a CPU tensor a wrapper runs its plain version, built on ops/attention.py.
+`paged_attention_any`, `linear_attention_any` and `latent_attention_any` pick
+the storage by the layer state's keys (modules/attn.py picks the layout by
+the cache's). The JAX package dequantizes a whole merged pool for tall
+chunks (a TPU tile-occupancy matter); the port's kernels take any S. The
+ring variant and `return_stats` are not ported yet.
 """
 from __future__ import annotations
 
@@ -26,9 +30,9 @@ import torch
 from ..constants import PAGE_SIZE
 from .attention import attend_dense, attend_paged
 from .build import check_aligned, check_launch, library
-from .kv_quant import quant_cache_fetch, rotate_groups, state_heads
+from .kv_quant import dequantize_rotated, quant_cache_fetch, rotate_groups, state_heads
 
-Q_ROWS = 64  # query rows (tokens x group heads) per block in the kernel
+LATENT, ROPE = 512, 64  # the latent kernels' row: DeepSeek's kv_lora_rank and rope key
 
 
 def has_valid_key(q_positions, total_lens, sliding_window: int = 0) -> torch.Tensor:
@@ -55,8 +59,8 @@ def paged_attention_kernel(q, k_pages, v_pages, block_tables, q_positions, total
                            logit_softcap: float = 0.0, sinks=None) -> torch.Tensor:
     """Launch csrc/paged_attention.cu. q (B, S, Hq, D) f32; k/v pages
     (P, 256, Hk, D) bf16; block_tables (B, MP), q_positions (B, S) and
-    total_lens (B,) int32; sinks (Hq,) f32 or None; D in {64, 128} and
-    64 % (Hq / Hk) == 0."""
+    total_lens (B,) int32; sinks (Hq,) f32 or None; D in {64, 128}, any GQA
+    group."""
     B, S, Hq, D = q.shape
     P, PS, Hk, Dk = k_pages.shape
     ints = (block_tables, q_positions, total_lens)
@@ -69,7 +73,7 @@ def paged_attention_kernel(q, k_pages, v_pages, block_tables, q_positions, total
         raise TypeError("paged_attention_kernel: expected f32 q, bf16 k/v, int32 tables "
                         "and positions, f32 sinks")
     if (PS != PAGE_SIZE or Dk != D or v_pages.shape != k_pages.shape or D not in (64, 128)
-            or Hq % Hk or Q_ROWS % (Hq // Hk) or block_tables.shape[0] != B
+            or Hq % Hk or block_tables.shape[0] != B
             or q_positions.shape != (B, S) or total_lens.shape != (B,)
             or (sinks is not None and sinks.shape != (Hq,))):
         raise ValueError(f"paged_attention_kernel: unsupported shapes q {tuple(q.shape)}, "
@@ -126,9 +130,9 @@ def paged_attention_quant_kernel(q, layer_state: dict, block_tables, q_positions
     layer_state {k_q, v_q int32 words, k_s, v_s bf16 scales}, merged
     (P, 256, Hk*w) or per-head (P, 256, Hk, w); block_tables (B, MP),
     q_positions (B, S) and total_lens (B,) int32; sinks (Hq,) f32 or None;
-    k_bits, v_bits in 2..8; D in {64, 128} and 64 % (Hq / Hk) == 0. q is
-    rotated per 32-channel group before the launch and the output rotated
-    back after it; K and V stay in their stored, rotated basis."""
+    k_bits, v_bits in 2..8; D in {64, 128}, any GQA group. q is rotated per
+    32-channel group before the launch and the output rotated back after it;
+    K and V stay in their stored, rotated basis."""
     B, S, Hq, D = q.shape
     kq, ks, vq, vs = (layer_state[n] for n in ("k_q", "k_s", "v_q", "v_s"))
     ints = (block_tables, q_positions, total_lens)
@@ -149,7 +153,7 @@ def paged_attention_quant_kernel(q, layer_state: dict, block_tables, q_positions
     g = D // 32
     want = {"k_q": Hk * D * k_bits // 32, "k_s": Hk * g, "v_q": Hk * D * v_bits // 32,
             "v_s": Hk * g}
-    if (PS != PAGE_SIZE or Hk < 1 or Hq % Hk or Q_ROWS % (Hq // Hk)
+    if (PS != PAGE_SIZE or Hk < 1 or Hq % Hk
             or any(layer_state[n].shape[:2] != (P, PS) or layer_state[n][0, 0].numel() != w
                    for n, w in want.items())
             or block_tables.shape[0] != B or q_positions.shape != (B, S)
@@ -228,9 +232,9 @@ def linear_attention_kernel(q, k, v, q_positions, total_lens, rows=None, scale: 
                             sliding_window: int = 0, logit_softcap: float = 0.0,
                             sinks=None) -> torch.Tensor:
     """Launch csrc/linear_attention.cu. q (B, S, Hq, D) f32; k, v (N, T, Hk, D)
-    bf16 with T % 8 == 0; rows (B,) int32 or None (rows 0..B-1); q_positions
-    (B, S) and total_lens (B,) int32; sinks (Hq,) f32 or None; D in
-    {64, 128} and 64 % (Hq / Hk) == 0."""
+    bf16, any T; rows (B,) int32 or None (rows 0..B-1); q_positions (B, S)
+    and total_lens (B,) int32; sinks (Hq,) f32 or None; D in {64, 128}, any
+    GQA group."""
     B, S, Hq, D = q.shape
     N, T, Hk, Dk = k.shape
     ints = (q_positions, total_lens)
@@ -242,8 +246,8 @@ def linear_attention_kernel(q, k, v, q_positions, total_lens, rows=None, scale: 
             or (sinks is not None and sinks.dtype != torch.float32)):
         raise TypeError("linear_attention_kernel: expected f32 q, bf16 k/v, int32 positions "
                         "and lengths, f32 sinks")
-    if (Dk != D or v.shape != k.shape or D not in (64, 128) or T % 8 or Hq % Hk
-            or Q_ROWS % (Hq // Hk) or q_positions.shape != (B, S) or total_lens.shape != (B,)
+    if (Dk != D or v.shape != k.shape or D not in (64, 128) or T < 1 or Hq % Hk
+            or q_positions.shape != (B, S) or total_lens.shape != (B,)
             or (sinks is not None and sinks.shape != (Hq,))):
         raise ValueError(f"linear_attention_kernel: unsupported shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
@@ -283,10 +287,10 @@ def linear_attention_quant_kernel(q, layer_state: dict, q_positions, total_lens,
                                   logit_softcap: float = 0.0, sinks=None) -> torch.Tensor:
     """Launch csrc/linear_attention_quant.cu. q (B, S, Hq, D) f32; layer_state
     {k_q, v_q int32 words, k_s, v_s bf16 scales}, merged (N, T, Hk*w) or
-    per-head (N, T, Hk, w), T % 8 == 0; rows (B,) int32 or None; q_positions
-    (B, S) and total_lens (B,) int32; sinks (Hq,) f32 or None; k_bits, v_bits
-    in 2..8; D in {64, 128} and 64 % (Hq / Hk) == 0. q is rotated per
-    32-channel group before the launch and the output rotated back after it."""
+    per-head (N, T, Hk, w), any T; rows (B,) int32 or None; q_positions (B, S)
+    and total_lens (B,) int32; sinks (Hq,) f32 or None; k_bits, v_bits in
+    2..8; D in {64, 128}, any GQA group. q is rotated per 32-channel group
+    before the launch and the output rotated back after it."""
     B, S, Hq, D = q.shape
     kq, ks, vq, vs = (layer_state[n] for n in ("k_q", "k_s", "v_q", "v_s"))
     ints = (q_positions, total_lens)
@@ -307,7 +311,7 @@ def linear_attention_quant_kernel(q, layer_state: dict, q_positions, total_lens,
     g = D // 32
     want = {"k_q": Hk * D * k_bits // 32, "k_s": Hk * g, "v_q": Hk * D * v_bits // 32,
             "v_s": Hk * g}
-    if (T % 8 or Hk < 1 or Hq % Hk or Q_ROWS % (Hq // Hk)
+    if (T < 1 or Hk < 1 or Hq % Hk
             or any(layer_state[n].shape[:2] != (N, T) or layer_state[n][0, 0].numel() != w
                    for n, w in want.items())
             or q_positions.shape != (B, S) or total_lens.shape != (B,)
@@ -349,3 +353,163 @@ def linear_attention_any(q, layer_state: dict, q_positions, total_lens, k_bits: 
                   rows=rows, **kw)
     fn = linear_attention_plain if cpu else linear_attention_kernel
     return fn(q, layer_state["k"], layer_state["v"], q_positions, total_lens, rows=rows, **kw)
+
+
+# -- latent (MLA) cache -------------------------------------------------------------
+
+def _latent_rows(t: torch.Tensor, B: int, block_tables=None, rows=None) -> torch.Tensor:
+    """(B, T, ...) of a latent cache tensor, each sequence's keys in order:
+    its pages through the block table (paged), or its row (linear: row b, or
+    rows[b])."""
+    if block_tables is not None:
+        return t[block_tables.long()].reshape(B, -1, *t.shape[2:])
+    return t[:B] if rows is None else t[rows.long()]
+
+
+def _latent_dense(q, k, latent: int, q_positions, total_lens, scale: float) -> torch.Tensor:
+    """Dense absorbed attention over gathered (B, T, 1, D) keys, V = the
+    leading `latent` channels of each key; rows that see no key set to 0."""
+    T = k.shape[1]
+    k_pos = torch.arange(T, dtype=torch.int32, device=q.device)[None].expand(q.shape[0], T)
+    o = attend_dense(q, k, k[..., :latent], q_positions, k_pos,
+                     k_valid=k_pos < total_lens[:, None], scale=scale)
+    valid = has_valid_key(q_positions, torch.clamp(total_lens, max=T))
+    return o * valid[:, :, None, None].to(o.dtype)
+
+
+def latent_attention_plain(q, kv, q_positions, total_lens, latent: int, block_tables=None,
+                           rows=None, scale: float = 1.0) -> torch.Tensor:
+    """(B, S, Hq, latent) f32 over a bf16 latent cache kv, paged
+    (P, 256, 1, D) with block_tables or linear (N, T, 1, D) with rows (or
+    rows 0..B-1): each row of kv is [c_kv | k_pe], V its leading `latent`
+    channels. q (B, S, Hq, D) as the MLA module hands it over."""
+    k = _latent_rows(kv, q.shape[0], block_tables, rows).float()
+    return _latent_dense(q, k, latent, q_positions, total_lens, scale)
+
+
+def _latent_args(name: str, q, tensors: tuple, block_tables, rows, q_positions, total_lens):
+    """Checks common to both latent kernels; the paged or linear arguments
+    (bt, rows, MP, P, N, T) of the launch."""
+    B, S, Hq, D = q.shape
+    cache = tensors[0]
+    ints = (q_positions, total_lens) + ((block_tables,) if block_tables is not None else ())
+    if not all(t.is_cuda and t.device == q.device for t in (q,) + tensors + ints):
+        raise ValueError(f"{name}: all tensors must be on one CUDA device")
+    if q.dtype != torch.bfloat16 or any(t.dtype != torch.int32 for t in ints):
+        raise TypeError(f"{name}: expected bf16 q, int32 tables, positions and lengths")
+    if (D != LATENT + ROPE or cache.dim() != 4 or cache.shape[2] != 1
+            or q_positions.shape != (B, S) or total_lens.shape != (B,)
+            or (block_tables is not None and (block_tables.shape[0] != B
+                                              or cache.shape[1] != PAGE_SIZE))):
+        raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)}, "
+                         f"cache {tuple(cache.shape)}")
+    if not all(t.is_contiguous() for t in (q,) + tensors + ints):
+        raise ValueError(f"{name}: tensors must be contiguous")
+    check_aligned(name, q, *tensors)
+    N, T = cache.shape[:2]
+    if block_tables is not None:
+        return block_tables.data_ptr(), None, block_tables.shape[1], N, 0, 0
+    return None, _linear_rows(rows, B, N, q.device), 0, 0, N, T
+
+
+def latent_attention_kernel(q, kv, q_positions, total_lens, block_tables=None, rows=None,
+                            scale: float = 1.0) -> torch.Tensor:
+    """Launch csrc/latent_attention.cu. q (B, S, Hq, 576) bf16; kv bf16,
+    paged (P, 256, 1, 576) with block_tables (B, MP) int32, or linear
+    (N, T, 1, 576) with rows (B,) int32 or None; q_positions (B, S) and
+    total_lens (B,) int32; any Hq. -> (B, S, Hq, 512) f32."""
+    B, S, Hq, _ = q.shape
+    if kv.dtype != torch.bfloat16 or kv.shape[-1] != LATENT + ROPE:
+        raise TypeError("latent_attention_kernel: expected a bf16 (., ., 1, 576) latent cache")
+    bt, rp, MP, P, N, T = _latent_args("latent_attention_kernel", q, (kv,), block_tables, rows,
+                                       q_positions, total_lens)
+    out = torch.empty((B, S, Hq, LATENT), dtype=torch.float32, device=q.device)
+    err = library().exl3_latent_attention(
+        q.data_ptr(), kv.data_ptr(), bt, rp, q_positions.data_ptr(), total_lens.data_ptr(),
+        out.data_ptr(), B, S, Hq, MP, P, N, T, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch("exl3_latent_attention", err)
+    latent_attention_kernel.launches += 1
+    return out
+
+
+latent_attention_kernel.launches = 0
+
+
+def rotate_latent_q(q: torch.Tensor, latent: int) -> torch.Tensor:
+    """bf16 q with its leading `latent` channels rotated per 32-channel group
+    (in f32, then rounded to bf16, as the JAX package rounds its rotated q)
+    and the rope channels as they are: the q that scores against the stored,
+    rotated latent."""
+    qf = q.float()
+    return torch.cat([rotate_groups(qf[..., :latent]), qf[..., latent:]], dim=-1).to(torch.bfloat16)
+
+
+def latent_attention_quant_plain(q, layer_state: dict, q_positions, total_lens, k_bits: int,
+                                 compand_a: float = 0.0, block_tables=None, rows=None,
+                                 scale: float = 1.0) -> torch.Tensor:
+    """(B, S, Hq, c) f32 over a quantized latent cache {kv_q int32 words,
+    kv_s bf16 scales, k_pe bf16}, paged or linear as latent_attention_plain:
+    q rotated as the kernel takes it (rotate_latent_q), the latent dequantized
+    to f32 in its rotated basis beside the rope key, dense attention, and the
+    output rotated back."""
+    c = layer_state["kv_s"].shape[-1] * 32
+    B = q.shape[0]
+    words, scales, k_pe = (_latent_rows(layer_state[n], B, block_tables, rows)
+                           for n in ("kv_q", "kv_s", "k_pe"))
+    k = torch.cat([dequantize_rotated(words, scales, k_bits, compand_a), k_pe.float()], dim=-1)
+    o = _latent_dense(rotate_latent_q(q, c), k, c, q_positions, total_lens, scale)
+    return rotate_groups(o)
+
+
+def latent_attention_quant_kernel(q, layer_state: dict, q_positions, total_lens, k_bits: int,
+                                  compand_a: float = 0.0, block_tables=None, rows=None,
+                                  scale: float = 1.0) -> torch.Tensor:
+    """Launch csrc/latent_attention_quant.cu. q (B, S, Hq, 576) bf16;
+    layer_state {kv_q (., ., 1, 16 * k_bits) int32, kv_s (., ., 1, 16) bf16,
+    k_pe (., ., 1, 64) bf16}, paged with block_tables or linear with rows, as
+    latent_attention_kernel; k_bits in 2..8. q's latent is rotated per
+    32-channel group before the launch and the output rotated back after it."""
+    B, S, Hq, _ = q.shape
+    kq, ks, kpe = (layer_state[n] for n in ("kv_q", "kv_s", "k_pe"))
+    lead = kq.shape[:3]
+    if (kq.dtype != torch.int32 or ks.dtype != torch.bfloat16 or kpe.dtype != torch.bfloat16
+            or not 2 <= k_bits <= 8 or kq.shape[-1] != LATENT * k_bits // 32
+            or ks.shape != (*lead, LATENT // 32) or kpe.shape != (*lead, ROPE)):
+        raise ValueError(f"latent_attention_quant_kernel: unsupported state "
+                         f"kv_q {tuple(kq.shape)} {kq.dtype}, k_pe {tuple(kpe.shape)}, "
+                         f"bits {k_bits}")
+    qr = rotate_latent_q(q, LATENT)
+    bt, rp, MP, P, N, T = _latent_args("latent_attention_quant_kernel", qr, (kq, ks, kpe),
+                                       block_tables, rows, q_positions, total_lens)
+    out = torch.empty((B, S, Hq, LATENT), dtype=torch.float32, device=q.device)
+    err = library().exl3_latent_attention_quant(
+        qr.data_ptr(), kq.data_ptr(), ks.data_ptr(), kpe.data_ptr(), bt, rp,
+        q_positions.data_ptr(), total_lens.data_ptr(), out.data_ptr(), B, S, Hq, MP, P, N, T,
+        int(k_bits), float(compand_a), float(1.0 - compand_a), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch("exl3_latent_attention_quant", err)
+    latent_attention_quant_kernel.launches += 1
+    return rotate_groups(out)
+
+
+latent_attention_quant_kernel.launches = 0
+
+
+def latent_attention_any(q, layer_state: dict, q_positions, total_lens, latent: int,
+                         k_bits: int = 0, compand_a: float = 0.0, block_tables=None, rows=None,
+                         scale: float = 1.0) -> torch.Tensor:
+    """(B, S, Hq, latent) f32 over a latent cache, paged (with block_tables)
+    or linear (with rows, or rows 0..B-1). Dispatch by the layer state's keys:
+    {"kv"} is the bf16 cache, {"kv_q", "kv_s", "k_pe"} the quantized one; CUDA
+    tensors go through the kernel, CPU tensors through the plain version."""
+    cpu = q.device.type == "cpu"
+    if not cpu and latent != LATENT:
+        raise ValueError(f"latent_attention: the kernels take a latent of {LATENT}, not {latent}")
+    kw = dict(block_tables=block_tables, rows=rows, scale=scale)
+    if "kv_q" in layer_state:
+        fn = latent_attention_quant_plain if cpu else latent_attention_quant_kernel
+        return fn(q, layer_state, q_positions, total_lens, k_bits, compand_a, **kw)
+    if cpu:
+        return latent_attention_plain(q, layer_state["kv"], q_positions, total_lens, latent, **kw)
+    return latent_attention_kernel(q, layer_state["kv"], q_positions, total_lens, **kw)

@@ -52,20 +52,22 @@ def _split_k(tiles: int, k_tiles: int, device) -> int:
 
 def int8_matmul_kernel(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Launch csrc/int8_matmul.cu: x (m, k) bf16, w_q (k, n) int8, scale (n,)
-    f32, all contiguous on one CUDA device; k % 128 == 0, n % 128 == 0."""
+    f32, all contiguous on one CUDA device; k % 64 == 0, n % 64 == 0 (the
+    kernel cuts its last column and k tiles at n and k)."""
     m, k = x.shape
     n = w_q.shape[1]
     if not (x.is_cuda and w_q.device == x.device and scale.device == x.device):
         raise ValueError("int8_matmul_kernel: all tensors must be on one CUDA device")
     if x.dtype != torch.bfloat16 or w_q.dtype != torch.int8 or scale.dtype != torch.float32:
         raise TypeError(f"int8_matmul_kernel: dtypes {x.dtype}, {w_q.dtype}, {scale.dtype}")
-    if w_q.shape[0] != k or scale.shape != (n,) or k % 128 or n % 128 or m == 0:
+    if w_q.shape[0] != k or scale.shape != (n,) or k % 64 or n % 64 or m == 0:
         raise ValueError(f"int8_matmul_kernel: shapes x {tuple(x.shape)}, w {tuple(w_q.shape)}")
     if not (x.is_contiguous() and w_q.is_contiguous() and scale.is_contiguous()):
         raise ValueError("int8_matmul_kernel: tensors must be contiguous")
     check_aligned("int8_matmul_kernel", x, w_q, scale)
     bm, bk = (16, 128) if m <= SMALL_M else (128, 32)
-    splits = _split_k((n // 128) * -(-m // bm), k // bk, x.device)
+    # k splits only into whole k tiles
+    splits = _split_k(-(-n // 128) * -(-m // bm), k // bk if k % bk == 0 else 1, x.device)
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     ws = torch.empty((splits, m, n), dtype=torch.float32, device=x.device) if splits > 1 else y
     err = library().exl3_int8_matmul(

@@ -1,6 +1,9 @@
-"""Rotary position embeddings, NEOX style with the `default` and `llama3`
-scalings (counterpart of exllamav3_tpu/util/rope.py; GPTJ, linear, yarn,
-longrope and MRoPE wait)."""
+"""Rotary position embeddings, NEOX and GPTJ (interleaved pairs) styles with
+the `default`, `llama3` and `yarn` scalings (counterpart of
+exllamav3_tpu/util/rope.py; linear, dynamic, longrope, MRoPE and the
+NANOCHAT style wait). DeepSeek's yarn takes the ratio of its two mscales as
+the attention factor (`RopeSettings.yarn_mscale_ratio`); the architecture
+folds the other into the softmax scale."""
 from __future__ import annotations
 
 import math
@@ -27,11 +30,44 @@ class RopeSettings:
     max_position_embeddings: int | None = None
     original_max_position_embeddings: int | None = None
     rope_style: RopeStyle = RopeStyle.NEOX
+    # DeepSeek-style yarn: the attention factor is the ratio of the mscale
+    # computed with `mscale` over the one with `mscale_all_dim` (the latter is
+    # folded into sm_scale by the architecture's config instead)
+    yarn_mscale_ratio: bool = False
 
     def rotary_width(self) -> int:
         if self.rotary_dim is not None:
             return self.rotary_dim
         return int(self.head_dim * self.partial_rotary_factor)
+
+
+def _yarn_inv_freq(dim: int, base: float, sc: dict) -> np.ndarray:
+    """Yarn's blend of interpolated and extrapolated frequencies over the
+    correction range set by beta_fast / beta_slow."""
+    pos_freqs = base ** (np.arange(0, dim, 2, dtype=np.float64) / dim)
+    extrap = 1.0 / pos_freqs
+    factor = float(sc["factor"])
+    orig_max_pos = int(sc["original_max_position_embeddings"])
+    beta_fast = float(sc.get("beta_fast", 32))
+    beta_slow = float(sc.get("beta_slow", 1))
+
+    def corr_dim(num_rot):
+        return (dim * math.log(orig_max_pos / (num_rot * 2 * math.pi))) / (2 * math.log(base))
+
+    low, high = corr_dim(beta_fast), corr_dim(beta_slow)
+    if sc.get("truncate", True):
+        low, high = math.floor(low), math.ceil(high)
+    low, high = max(low, 0), min(high, dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = (np.arange(dim // 2, dtype=np.float64) - low) / (high - low)
+    extrap_factor = 1.0 - np.clip(ramp, 0, 1)
+    interp = 1.0 / (factor * pos_freqs)
+    return interp * (1 - extrap_factor) + extrap * extrap_factor
+
+
+def yarn_mscale(scale: float, mscale: float = 1.0) -> float:
+    return 1.0 if scale <= 1.0 else 0.1 * mscale * math.log(scale) + 1.0
 
 
 def compute_rope_params(settings: RopeSettings) -> tuple[np.ndarray, float]:
@@ -40,8 +76,20 @@ def compute_rope_params(settings: RopeSettings) -> tuple[np.ndarray, float]:
     base = settings.rope_theta
     sc = settings.rope_scaling
     inv_freq = 1.0 / (base ** (np.arange(0, dim, 2, dtype=np.float64) / dim))
+    attn_factor = 1.0
     rt = "default" if sc is None else sc.get("rope_type", sc.get("type", "default"))
-    if rt == "llama3":
+    if rt == "yarn":
+        inv_freq = _yarn_inv_freq(dim, base, sc)
+        factor = float(sc["factor"])
+        mscale = float(sc.get("mscale", 1.0))
+        msad = float(sc.get("mscale_all_dim", 0.0))
+        if settings.yarn_mscale_ratio:
+            attn_factor = yarn_mscale(factor, mscale) / (yarn_mscale(factor, msad) if msad else 1.0)
+        elif sc.get("attention_factor") is not None:
+            attn_factor = float(sc["attention_factor"])
+        else:
+            attn_factor = yarn_mscale(factor, mscale)
+    elif rt == "llama3":
         factor = float(sc["factor"])
         lo_factor = float(sc.get("low_freq_factor", 1.0))
         hi_factor = float(sc.get("high_freq_factor", 4.0))
@@ -56,14 +104,14 @@ def compute_rope_params(settings: RopeSettings) -> tuple[np.ndarray, float]:
         inv_freq = np.where(is_mid, smoothed, inv_llama)
     elif rt != "default":
         raise ValueError(f"rope_type {rt} is not ported yet")
-    return inv_freq.astype(np.float64), 1.0
+    return inv_freq.astype(np.float64), float(attn_factor)
 
 
 class Rope:
     """Precomputed RoPE application for a fixed head_dim/settings."""
 
     def __init__(self, settings: RopeSettings):
-        if settings.rope_style not in (RopeStyle.NONE, RopeStyle.NEOX):
+        if settings.rope_style not in (RopeStyle.NONE, RopeStyle.NEOX, RopeStyle.GPTJ):
             raise ValueError(f"rope style {settings.rope_style!r} is not ported yet")
         self.settings = settings
         self.style = settings.rope_style
@@ -88,8 +136,12 @@ class Rope:
         x_rot, x_pass = xf[..., :rot], xf[..., rot:]
         s = sin[..., :, None, :]
         c = cos[..., :, None, :]
-        x1, x2 = x_rot[..., : rot // 2], x_rot[..., rot // 2:]
-        out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+        if self.style == RopeStyle.NEOX:
+            x1, x2 = x_rot[..., : rot // 2], x_rot[..., rot // 2:]
+            out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+        else:  # GPTJ: interleaved pairs
+            x1, x2 = x_rot[..., 0::2], x_rot[..., 1::2]
+            out = torch.stack([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).reshape(x_rot.shape)
         if x_pass.shape[-1]:
             out = torch.cat([out, x_pass], dim=-1)
         return out.to(x.dtype)

@@ -148,3 +148,36 @@ def test_repetition_penalty_statistics():
     for t in (toks, jtoks):
         emp = np.bincount(t, minlength=V) / N
         assert 0.5 * np.abs(emp - expect).sum() < 0.02
+
+
+@pytest.mark.parametrize("a_new,reused", [(1, 0), (2, 256)])
+def test_prefix_reuse_waits_for_the_written_slot(tmp_path, a_new, reused):
+    """Job A (255 prompt tokens) completes page 0 with its first decoded
+    token, whose K/V only the next forward writes. With one new token A ends
+    there, so page 0 must not be offered for reuse; with two, a forward wrote
+    it and job B (A's 256 tokens and 40 more) reuses it. Either way B's 8
+    greedy tokens equal B's tokens on a fresh generator, exactly."""
+    d = write_tiny_llama_exl3(str(tmp_path / "m"), seed=11)
+    pm = Model.from_config(Config.from_directory(d, infer_params=InferParams(linear_mode="bf16")),
+                           device="cpu")
+    pm.load()
+
+    def gen():
+        return Generator(pm, Cache(pm, CacheSpec(num_pages=8)), max_batch_size=4)
+
+    def run(g, ids, n):
+        job = Job(ids, max_new_tokens=n, sampler=GreedySampler())
+        g.enqueue(job)
+        while g.num_remaining_jobs():
+            g.iterate()
+        return list(job.new_tokens), job.cached_tokens
+
+    rng = np.random.default_rng(0)
+    a_ids = rng.integers(0, 512, 255)
+    g = gen()
+    a_out, _ = run(g, a_ids, a_new)
+    b_ids = np.concatenate([a_ids, a_out[:1], rng.integers(0, 512, 40)])
+    got, cached = run(g, b_ids, 8)
+    ref, _ = run(gen(), b_ids, 8)
+    assert cached == reused
+    assert got == ref

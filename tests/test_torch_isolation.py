@@ -39,6 +39,8 @@ def test_no_jax_imports_in_port_sources():
             "exllamav3_tpu_torch/ops/moe_gemm.py", "exllamav3_tpu_torch/modules/block_sparse_mlp.py",
             "exllamav3_tpu_torch/architectures/moe.py", "exllamav3_tpu_torch/generator/ngram.py",
             "exllamav3_tpu_torch/generator/generator.py", "exllamav3_tpu_torch/modules/attn.py",
+            "exllamav3_tpu_torch/modules/mla_attn.py", "exllamav3_tpu_torch/architectures/deepseek.py",
+            "exllamav3_tpu_torch/util/rope.py", "exllamav3_tpu_torch/conversion/synth.py",
             "chip_smoke.py"} <= scanned
     for path in files:
         with open(path) as f:
@@ -196,3 +198,69 @@ def test_linear_cache_and_draft_follow_the_model_device(tmp_path, monkeypatch):
     pos = torch.zeros((1, 1), dtype=torch.int32)
     with pytest.raises(ValueError, match="one CUDA device"):
         linear_attention_kernel(x, kv, kv, pos, torch.ones(1, dtype=torch.int32))
+
+
+def test_mla_modules_import_without_a_built_library():
+    """The MLA module, the DeepSeek architectures and the latent attention
+    wrappers import on a machine with no compiler: nothing builds or loads a
+    kernel library, and neither triton nor jax comes in."""
+    code = (
+        "import sys\n"
+        "import exllamav3_tpu_torch.modules.mla_attn as mla\n"
+        "import exllamav3_tpu_torch.architectures.deepseek as ds\n"
+        "import exllamav3_tpu_torch.ops.flash_attention as fa\n"
+        "import exllamav3_tpu_torch.ops.build as build\n"
+        "from exllamav3_tpu_torch.architectures import get_architectures\n"
+        "assert build._LIB is None and not build.BUILD_LOG\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'exllamav3_tpu', 'triton')]\n"
+        "assert not bad, bad\n"
+        "assert {'latent_attention.cu', 'latent_attention_quant.cu'} <= set(build.SOURCES)\n"
+        "assert all(hasattr(fa, 'latent_attention' + s + '_' + r) for s in ('', '_quant') "
+        "for r in ('kernel', 'plain')) and callable(fa.latent_attention_any)\n"
+        "assert {'DeepseekV3ForCausalLM', 'DeepseekV2ForCausalLM', 'DeepseekForCausalLM'} "
+        "<= set(get_architectures())\n"
+        "assert callable(mla.MLAttention) and callable(ds.DeepseekV2Model)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+@pytest.mark.parametrize("k_bits", [0, 4])
+def test_latent_cache_follows_the_model_device(tmp_path, monkeypatch, k_bits):
+    """A DeepSeek model's latent cache lands on the model's device: the card
+    by default (refused without CUDA), the CPU only when asked; the latent
+    kernels refuse CPU tensors rather than run their plain versions."""
+    from exllamav3_tpu_torch.conversion.synth import write_tiny_deepseek_exl3
+    from exllamav3_tpu_torch.model import Cache, CacheSpec, Config, Model
+    from exllamav3_tpu_torch.ops.flash_attention import (latent_attention_kernel,
+                                                          latent_attention_quant_kernel)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    d = write_tiny_deepseek_exl3(str(tmp_path / "ds"), seed=2)
+    config = Config.from_directory(d)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Model.from_config(config)
+    model = Model.from_config(config, device="cpu")
+    spec = CacheSpec(num_pages=3, k_bits=k_bits, v_bits=k_bits)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Cache(model, spec, device="cuda")
+    layer = Cache(model, spec).state["model.layers.0.self_attn"]
+    names = {"kv_q", "kv_s", "k_pe"} if k_bits else {"kv"}
+    assert set(layer) == names and all(t.device.type == "cpu" for t in layer.values())
+    q = torch.zeros((1, 1, 16, 576), dtype=torch.bfloat16)
+    pos = torch.zeros((1, 1), dtype=torch.int32)
+    bt = torch.zeros((1, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        if k_bits:
+            state = {"kv_q": torch.zeros((2, 256, 1, 64), dtype=torch.int32),
+                     "kv_s": torch.zeros((2, 256, 1, 16), dtype=torch.bfloat16),
+                     "k_pe": torch.zeros((2, 256, 1, 64), dtype=torch.bfloat16)}
+            latent_attention_quant_kernel(q, state, pos, torch.ones(1, dtype=torch.int32), 4,
+                                          block_tables=bt)
+        else:
+            kv = torch.zeros((2, 256, 1, 576), dtype=torch.bfloat16)
+            latent_attention_kernel(q, kv, pos, torch.ones(1, dtype=torch.int32), block_tables=bt)

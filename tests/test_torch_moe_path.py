@@ -268,8 +268,8 @@ def test_moe_decode_dense_and_offload(pairs, monkeypatch):
     assert len(calls) == 2
     with pytest.raises(TypeError, match="moe_offload"):
         InferParams(moe_offload=True)
-    with pytest.raises(NotImplementedError, match="shared_experts"):
-        BlockSparseMLP(pm.config, "x", 256, 128, 8, 2, shared_experts=object())
+    with pytest.raises(NotImplementedError, match="key_shared_gate"):
+        BlockSparseMLP(pm.config, "x", 256, 128, 8, 2, key_shared_gate="shared_expert_gate")
 
 
 def test_dense_qwen3_qk_norms_match_jax(tmp_path):
