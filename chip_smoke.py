@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases build,linear_attention,linear_attention_quant
     python3 chip_smoke.py --phases build,serve_spec
     python3 chip_smoke.py --phases build,latent_attention,latent_attention_quant,parity_mla,serve_mla
+    python3 chip_smoke.py --phases build,ring_attention,fused_mlp,parity_gemma,serve_gemma
 
 Phases:
   build     build the CUDA kernels from exllamav3_tpu_torch/csrc/ (timed)
@@ -33,10 +34,15 @@ Phases:
             latent_attention_quant (absorbed MLA over the latent cache at
             DeepSeek-V2-Lite's 16 heads and DeepSeek-V2/V3's 128: decode,
             verify, prefill, paged and linear at T = 2056 and 2052; (4),
-            (3) and (4) with the compander). int8_matmul also runs the
+            (3) and (4) with the compander), ring_attention (decode over the
+            SWA ring at Gemma-3-27B's shapes, batch 8, q positions 300-2048,
+            rings wrapped and still filling, never-written and stale slots, a
+            permuted slot table; D = 64 at groups 5 and 7; sinks and a softcap
+            of 50). int8_matmul also runs the
             Qwen3-30B-A3B attention and head shapes and DeepSeek-V2-Lite's
             576- and 10944-wide ones, fused_mlp the shared experts' width,
-            moe_gemm DeepSeek-V2-Lite's experts, the four attention checks
+            moe_gemm DeepSeek-V2-Lite's experts, fused_mlp Gemma-3-27B's
+            gelu_pytorch_tanh MLP at m = 1 and 8, the four attention checks
             GQA groups 5, 6 and 7 (and 8), the linear ones at T = 2052
   parity    a 2-layer checkpoint at full 8B width: forward_simple and paged
             prefill + decode steps on the GPU (kernels) against the CPU
@@ -50,6 +56,13 @@ Phases:
             a 2-layer DeepSeek-V2-Lite checkpoint at full width (the dense
             layer and one MoE layer with shared experts), the GPU against the
             CPU on the CPU's routing over a bf16 and a (4)-bit latent cache
+  parity_gemma
+            the first 6 layers (5 sliding, 1 global) of a Gemma-3-27B-width
+            checkpoint (int8): a 1536-token prompt and 32 greedy decode steps
+            over the SWA ring, the GPU (ring kernel) against the CPU (plain
+            versions; its 32 new tokens as one chunk); then the same request
+            with the sliding layers in the paged cache (the paged kernel with
+            the window): the same greedy tokens
   serve     a 32-layer synthetic checkpoint at Llama-3.1-8B geometry loaded
             with linear_mode="auto" (int8 on an 80 GB card) over a bf16 cache
             and served by the continuous-batching generator: 8 greedy
@@ -85,7 +98,7 @@ Phases:
             to the same step over a paged cache and to the serve phases'
             references
   serve_spec
-            greedy speculative decoding on the 32-layer 8B-geometry target
+            greedy speculative decoding on a 16-layer 8B-geometry target
             (int8, bf16 paged cache), the serve phases' traffic: plain
             decoding, then (a) a 16-layer Llama-3.2-1B-geometry draft and (b)
             the target drafting for itself, 4 tokens a job over the draft's
@@ -96,6 +109,12 @@ Phases:
             vocab 102400) loaded with linear_mode="auto" (int8; bf16 expert
             stacks) over a bf16 paged latent cache, the same traffic; then one
             request over a (4)-bit latent cache
+  serve_gemma
+            a synthetic Gemma-3-27B checkpoint at full width and all 62 layers
+            (gelu_pytorch_tanh, tied head, vocab 262208) loaded with
+            linear_mode="auto" (int8) over a bf16 paged cache whose 52 sliding
+            layers keep SWA rings (recurrent_slots 9), the same traffic: the
+            ring kernel 52 times and the paged kernel 10 times a decode step
 
 Each serve phase sets every kernel's launch count to 0 before its run and
 reads it after: the kernels of its path must all have launched and the
@@ -104,8 +123,8 @@ others not at all.
 The second-to-last line is the kernel table as JSON and the last line is
 {"ok": true, "device": {...}}. Any failed phase raises and exits non-zero
 without that line. Needs CUDA; writes its checkpoints under build/chip_smoke/
-(the 24-layer MoE one is ~7.5 GB and the 27-layer DeepSeek-V2-Lite one ~8 GB,
-one shard a layer).
+(the 24-layer MoE one is ~7.5 GB, the 27-layer DeepSeek-V2-Lite one ~8 GB and
+the 62-layer Gemma-3-27B one ~15 GB, one shard a layer).
 """
 from __future__ import annotations
 
@@ -209,6 +228,8 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                          "exllamav3_tpu/ops/flash_attention.py:253"),
     "latent_attention_quant": ("exllamav3_tpu_torch/csrc/latent_attention_quant.cu",
                                "exllamav3_tpu/ops/flash_attention.py:253"),
+    "ring_attention": ("exllamav3_tpu_torch/csrc/ring_attention.cu",
+                       "exllamav3_tpu/ops/flash_attention.py:1045"),
 }
 
 
@@ -337,8 +358,12 @@ def check_fused_mlp(table, dev):
     from exllamav3_tpu_torch.ops.fused_mlp import fused_mlp_int8_kernel, fused_mlp_int8_plain
 
     g = torch.Generator(device=dev).manual_seed(2)
-    # Llama-3.1-8B; DeepSeek-V2-Lite's two shared experts (one gated MLP of 2 x 1408)
-    for m, h, inter in ((1, 4096, 14336), (8, 4096, 14336), (16, 4096, 14336), (8, 2048, 2816)):
+    # Llama-3.1-8B; DeepSeek-V2-Lite's two shared experts (one gated MLP of 2 x 1408);
+    # Gemma-3-27B's gelu_pytorch_tanh MLP
+    for m, h, inter, act in ((1, 4096, 14336, "silu"), (8, 4096, 14336, "silu"),
+                             (16, 4096, 14336, "silu"), (8, 2048, 2816, "silu"),
+                             (1, 5376, 21504, "gelu_pytorch_tanh"),
+                             (8, 5376, 21504, "gelu_pytorch_tanh")):
         def make(i, m=m, h=h, inter=inter):
             x = torch.randn((m, h), generator=g, device=dev).to(torch.bfloat16)
             gu = torch.randint(-127, 128, (h, 2 * inter), generator=g, device=dev, dtype=torch.int8)
@@ -348,20 +373,20 @@ def check_fused_mlp(table, dev):
         nb = m * h * 2 + 3 * h * inter + 2 * inter * 4 + m * h * 4
         nxt = rotating(make, nb)
         args = nxt()
-        ref = fused_mlp_int8_plain(*args)
-        got = fused_mlp_int8_kernel(*args)
+        ref = fused_mlp_int8_plain(*args, act)
+        got = fused_mlp_int8_kernel(*args, act)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         rel = err / float(ref.abs().max())
-        ms = time_ms(lambda: fused_mlp_int8_kernel(*nxt()), 20)
-        plain = time_ms(lambda: fused_mlp_int8_plain(*nxt()), 3)
+        ms = time_ms(lambda: fused_mlp_int8_kernel(*nxt(), act), 20)
+        plain = time_ms(lambda: fused_mlp_int8_plain(*nxt(), act), 3)
         bnd = bound_ms(nb, 6.0 * m * h * inter)
-        log(f"fused_mlp m={m} h={h} i={inter}: max_abs_err={err:.3e} rel={rel:.2e} "
+        log(f"fused_mlp {act} m={m} h={h} i={inter}: max_abs_err={err:.3e} rel={rel:.2e} "
             f"kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms=null "
             f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
         if not rel <= TOL_MLP:
-            raise AssertionError(f"fused_mlp m={m}: rel err {rel} > {TOL_MLP}")
-        table.add("fused_mlp", err, ms, plain, bnd, None, f"m={m} h={h} i={inter}",
+            raise AssertionError(f"fused_mlp {act} m={m}: rel err {rel} > {TOL_MLP}")
+        table.add("fused_mlp", err, ms, plain, bnd, None, f"{act} m={m} h={h} i={inter}",
                   main=(m == 8 and h == 4096))
         del args, ref, got, nxt
     torch.cuda.empty_cache()
@@ -469,6 +494,102 @@ def check_attention(table, dev):
             raise AssertionError(f"paged_attention {name}: rel err {rel} > {TOL_ATTN}")
         table.add("paged_attention", err, ms, plain, bnd, lib,
                   f"{name}: B={B} S={S} Hq={Hq} Hk={Hk} D={D}", main=main)
+        del q, k, v, ref, got
+    torch.cuda.empty_cache()
+
+
+def _ring_rows(rng, N, W, qpos, slots, stale: int = 3):
+    """(N, W) int32 positions of rings as a generator leaves them: row
+    slots[b] holds its sequence's last W positions up to qpos[b] at slot
+    position % W (slots of a ring still filling stay -1), then up to `stale`
+    rejected speculative writes past qpos[b]; other rows hold only -1."""
+    pos = np.full((N, W), -1, np.int32)
+    for b, row in enumerate(slots):
+        p = int(qpos[b])
+        for t in range(max(0, p - W + 1), p + 1):
+            pos[row, t % W] = t
+        for t in range(p + 1, p + 1 + int(rng.integers(0, stale + 1))):
+            pos[row, t % W] = t
+    return pos
+
+
+def _ring_work(pos, slots, qpos, Hq, Hk, D, window):
+    """Bytes and operations of ring decode on this data: q and the output
+    once, every slot's position, each visible slot's K and V once; 4 * D
+    operations a visible slot and q head."""
+    vis = 0
+    for b, row in enumerate(slots):
+        kp = pos[row]
+        ok = (kp >= 0) & (kp <= qpos[b])
+        if window:
+            ok &= kp > qpos[b] - window
+        vis += int(ok.sum())
+    B = len(slots)
+    nbytes = B * Hq * D * (4 + 4) + B * pos.shape[1] * 4 + vis * Hk * D * 2 * 2
+    return nbytes, 4.0 * vis * Hq * D
+
+
+def check_ring_attention(table, dev):
+    """Row 8: decode over the SWA ring at Gemma-3-27B's shapes (batch 8, q
+    positions 300-2048, so rings that have wrapped and rings still filling,
+    window 1024, W = 1048, 32 q / 16 kv heads of 128), the rings in a 9-row
+    state with a permuted slot table, never-written and stale slots; then
+    D = 64 at GQA groups 5 and 7, and sinks with a softcap of 50."""
+    from exllamav3_tpu_torch.ops.flash_attention import (ring_attention_kernel,
+                                                          ring_attention_plain, ring_visible)
+
+    rng = np.random.default_rng(21)
+    qpos = np.linspace(300, 2048, 8).astype(np.int32)
+    slots = np.array([3, 7, 0, 5, 8, 1, 6, 2], np.int32)
+    cases = [("Gemma-3-27B decode B=8 q_pos 300-2048", (32, 16, 128), 1024, {}, True),
+             ("decode B=8, D=64, group 5", (40, 8, 64), 1024, {}, False),
+             ("decode B=8, D=64, group 7", (28, 4, 64), 1024, {}, False),
+             ("Gemma-3-27B decode + sinks + softcap 50", (32, 16, 128), 1024,
+              {"sinks": True, "logit_softcap": 50.0}, False),
+             ("Gemma-2-9B-shaped decode, window 4096 (no ring wraps), softcap 50", (16, 8, 128),
+              4096, {"logit_softcap": 50.0}, False)]
+    for name, (Hq, Hk, D), window, kw, main in cases:
+        W = window + 17
+        W += (-W) % 8
+        N, B = 9, len(qpos)
+        g = torch.Generator(device=dev).manual_seed(22)
+        q = torch.randn((B, 1, Hq, D), generator=g, device=dev)
+        k = torch.randn((N, W, Hk, D), generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn((N, W, Hk, D), generator=g, device=dev).to(torch.bfloat16)
+        pos_np = _ring_rows(rng, N, W, qpos, slots)
+        pos = torch.as_tensor(pos_np, device=dev)
+        sl = torch.as_tensor(slots, device=dev)
+        qp = torch.as_tensor(qpos[:, None], device=dev)
+        args = dict(scale=168 ** -0.5, sliding_window=window,
+                    logit_softcap=kw.get("logit_softcap", 0.0),
+                    sinks=(torch.randn(Hq, generator=g, device=dev) if kw.get("sinks") else None))
+        ref = ring_attention_plain(q, k, v, pos, sl, qp, **args)
+        got = ring_attention_kernel(q, k, v, pos, sl, qp, **args)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"ring_attention {name}: non-finite output")
+        err = float((got - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        if not rel <= TOL_ATTN:
+            raise AssertionError(f"ring_attention {name}: rel err {rel} > {TOL_ATTN}")
+        ms = time_ms(lambda: ring_attention_kernel(q, k, v, pos, sl, qp, **args), 20)
+        plain = time_ms(lambda: ring_attention_plain(q, k, v, pos, sl, qp, **args), 3)
+        lib = None
+        if not kw:
+            # SDPA over the rings gathered by slot, with a boolean mask from pos
+            kc = k[sl.long()].transpose(1, 2).contiguous()
+            vc = v[sl.long()].transpose(1, 2).contiguous()
+            mask = ring_visible(pos[sl.long()], qp, window)[:, None]
+            qt = q.to(torch.bfloat16).transpose(1, 2)
+            lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kc, vc, attn_mask=mask, scale=168 ** -0.5, enable_gqa=True), 20)
+        bnd = bound_ms(*_ring_work(pos_np, slots, qpos, Hq, Hk, D, window))
+        log(f"ring_attention {name} (Hq={Hq} Hk={Hk} D={D} N={N} W={W}): max_abs_err={err:.3e} "
+            f"rel={rel:.2e} kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms(sdpa on the "
+            f"gathered rings)={lib if lib is None else f'{lib:.4f}'} bound_ms={bnd[0]:.4f} "
+            f"({bnd[1]})")
+        table.add("ring_attention", err, ms, plain, bnd, lib,
+                  f"{name}: B={B} Hq={Hq} Hk={Hk} D={D} W={W}", main=main)
         del q, k, v, ref, got
     torch.cuda.empty_cache()
 
@@ -1398,7 +1519,8 @@ def _wrappers() -> dict:
                                                           linear_attention_kernel,
                                                           linear_attention_quant_kernel,
                                                           paged_attention_kernel,
-                                                          paged_attention_quant_kernel)
+                                                          paged_attention_quant_kernel,
+                                                          ring_attention_kernel)
     from exllamav3_tpu_torch.ops.fused_mlp import fused_mlp_int8_kernel
     from exllamav3_tpu_torch.ops.moe_gemm import selected_expert_mlp_kernel
     import exllamav3_tpu_torch.ops.q_matmul as qm
@@ -1411,7 +1533,8 @@ def _wrappers() -> dict:
             "linear_attention": linear_attention_kernel,
             "linear_attention_quant": linear_attention_quant_kernel,
             "latent_attention": latent_attention_kernel,
-            "latent_attention_quant": latent_attention_quant_kernel}
+            "latent_attention_quant": latent_attention_quant_kernel,
+            "ring_attention": ring_attention_kernel}
 
 
 def _reset_counts():
@@ -1472,8 +1595,8 @@ def plain_ops():
         y = y if bias is None else y + bias
         return y.reshape(*x.shape[:-1], w_q.shape[1])
 
-    def fused_mlp_plain(x, gu_q, gu_scale, d_q, d_scale, d_bias=None):
-        y = fm.fused_mlp_int8_plain(x.reshape(-1, x.shape[-1]), gu_q, gu_scale, d_q)
+    def fused_mlp_plain(x, gu_q, gu_scale, d_q, d_scale, d_bias=None, activation="silu"):
+        y = fm.fused_mlp_int8_plain(x.reshape(-1, x.shape[-1]), gu_q, gu_scale, d_q, activation)
         y = y * d_scale[None, :]
         return (y if d_bias is None else y + d_bias).reshape(x.shape)
 
@@ -1530,9 +1653,30 @@ def _shift(a, b) -> tuple[float, float]:
     return float((a[-1] - b[-1]).abs().max()) / rng, float((a - b).abs().max()) / rng
 
 
+def _layer_view(src: str, layers: int, files: list) -> str:
+    """A checkpoint of the first `layers` layers of the checkpoint in `src`:
+    its config.json with num_hidden_layers cut, beside links to `files` of
+    src (the shards those layers need). Written once per machine, no tensor
+    copied."""
+    d = f"{src}_first{layers}"
+    if not os.path.exists(os.path.join(d, "config.json")):
+        os.makedirs(d, exist_ok=True)
+        for f in files:
+            if not os.path.lexists(os.path.join(d, f)):
+                os.symlink(os.path.join(src, f), os.path.join(d, f))
+        with open(os.path.join(src, "config.json")) as f:
+            cfg = json.load(f)
+        cfg["num_hidden_layers"] = layers
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(cfg, f)
+    return d
+
+
 def _checkpoint(layers: int) -> str:
     from exllamav3_tpu_torch.conversion.synth import tiny_llama_cfg, write_tiny_llama_exl3
 
+    if layers == SPEC_TARGET_LAYERS:  # the first layers of the 32-layer checkpoint
+        return _layer_view(_checkpoint(32), layers, ["model.safetensors"])
     d = os.path.join(WORK, f"llama8b_{layers}layers")
     t0 = time.time()
     if not os.path.exists(os.path.join(d, "config.json")):
@@ -1598,11 +1742,13 @@ def _drive(tag: str, gen, prompts: list, V: int, new_tokens: int = 128):
 
 
 def _serve(tag: str, ckpt: str, linear_mode: str, spec_kw: dict, expect_mode: str,
-           prompts: list, trace: bool = True) -> dict:
+           prompts: list, trace: bool = True, step_launches: dict | None = None) -> dict:
     """Load the checkpoint `ckpt` in `linear_mode`, serve `prompts` (128
     greedy tokens each; the first arrives alone, the rest once it decodes)
-    over a paged cache made with `spec_kw`, and check the outcome. Returns
-    the kernels' launch counts over the measured run."""
+    over a paged cache made with `spec_kw`, and check the outcome. A cache
+    with SWA rings (spec_kw swa_ring) reuses no prefix pages and reports its
+    rings' bytes. `step_launches` names launch counts one batch-1 decode step
+    must show. Returns the kernels' launch counts over the measured run."""
     from exllamav3_tpu_torch.generator import Generator, GreedySampler, Job
     from exllamav3_tpu_torch.model import Cache, CacheSpec, Config, InferParams, Model
     from exllamav3_tpu_torch.model.model import estimate_linear_mode_bytes
@@ -1629,6 +1775,16 @@ def _serve(tag: str, ckpt: str, linear_mode: str, spec_kw: dict, expect_mode: st
     cache = Cache(model, CacheSpec(num_pages=72, **spec_kw))
     log(f"{tag}: cache {spec_kw or 'bf16'}: "
         f"{(torch.cuda.memory_allocated() - base) / (72 * 256):.0f} bytes per token")
+    rings = [layer for layer in cache.state.values() if "pos" in layer]
+    if rings:
+        def nbytes(layers):
+            return sum(t.numel() * t.element_size() for layer in layers for t in layer.values())
+        paged = [layer for layer in cache.state.values() if "pos" not in layer]
+        per_token = nbytes(paged) / (72 * 256)
+        log(f"{tag}: {len(rings)} SWA rings of {tuple(rings[0]['k'].shape)}: {nbytes(rings)} "
+            f"bytes ({nbytes(rings) / 2**30:.2f} GiB) for {rings[0]['pos'].shape[0]} state slots; "
+            f"paged cache bytes a token {per_token:.0f} with the rings, "
+            f"{per_token * len(cache.state) / len(paged):.0f} without")
     gen = Generator(model, cache, max_batch_size=8, max_chunk_size=2048, seed=0)
     jobs, finished, decode_tokens, decode_s, wall, counts = _drive(tag, gen, prompts, V)
     total_new = 128 * len(jobs)
@@ -1643,7 +1799,7 @@ def _serve(tag: str, ckpt: str, linear_mode: str, spec_kw: dict, expect_mode: st
     # distance of that reference from the cacheless forward (what the cache's
     # widths do to the logits) and the kernels' distance from it are printed
     first = finished[jobs[0].identifier]["new_tokens"][0]
-    if spec_kw:
+    if spec_kw.get("k_bits"):
         n = len(prompts[0])
         pages = -(-n // 256)
         one_chunk = (np.arange(n, dtype=np.int32)[None], np.array([0], np.int32),
@@ -1689,7 +1845,10 @@ def _serve(tag: str, ckpt: str, linear_mode: str, spec_kw: dict, expect_mode: st
     _reset_counts()
     model.forward(prompts[-1][None, 511:512], c1, np.array([[511]], np.int32),
                   np.array([511], np.int32), np.array([[1, 2, 0]], np.int32))
-    log(f"{tag}: launches per batch-1 decode step " + json.dumps(_read_counts()))
+    step = _read_counts()
+    log(f"{tag}: launches per batch-1 decode step " + json.dumps(step))
+    if step_launches and any(step[n] != c for n, c in step_launches.items()):
+        raise AssertionError(f"{tag}: a decode step launched {step}, expected {step_launches}")
     del c1
     if trace:
         # a traced window of decode steps over the same prompts (prefixes
@@ -1702,8 +1861,9 @@ def _serve(tag: str, ckpt: str, linear_mode: str, spec_kw: dict, expect_mode: st
             gen.iterate()
     if first not in top5:
         raise AssertionError(f"{tag}: generator's first token disagrees with the reference forward")
-    if len(jobs) > 1 and reused <= 0:
-        raise AssertionError(f"{tag}: no prefix pages were reused")
+    if len(jobs) > 1 and (reused <= 0) != bool(rings):
+        raise AssertionError(f"{tag}: {reused} prefix tokens reused "
+                             f"({'none' if rings else 'some'} expected)")
     del model, cache, gen
     gc.collect()  # a model's modules refer to each other: free its tensors now
     torch.cuda.empty_cache()
@@ -1944,6 +2104,142 @@ def phase_serve_mla() -> dict:
             "latent_attention_quant": quant["latent_attention_quant"]}
 
 
+# -- phases: parity_gemma, serve_gemma ---------------------------------------------
+
+# google/gemma-3-27b-it text_config (conversion/synth.py::gemma3_27b_cfg)
+GEMMA27B = dict(vocab_size=262208, num_layers=62)
+GEMMA_SERVE_LAYERS = 62
+
+
+def _gemma_checkpoint(layers: int) -> str:
+    """A synthetic Gemma-3 EXL3 checkpoint at Gemma-3-27B width, K=4, one
+    shard a layer: all 62 layers, written once per machine, or a view of its
+    first `layers` layers."""
+    from exllamav3_tpu_torch.conversion.synth import gemma3_27b_cfg, write_tiny_gemma_exl3
+
+    n = GEMMA27B["num_layers"]
+    d = os.path.join(WORK, f"gemma3_27b_{n}layers")
+    t0 = time.time()
+    if not os.path.exists(os.path.join(d, "config.json")):
+        write_tiny_gemma_exl3(d, gemma3_27b_cfg(num_hidden_layers=n), K=4, seed=8)
+    if layers < n:
+        d = _layer_view(d, layers, ["model-embed.safetensors", "model-norm.safetensors"]
+                        + [f"model-layer{i:03d}.safetensors" for i in range(layers)])
+    size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    log(f"checkpoint: {layers} layers at Gemma-3-27B width ready in {time.time() - t0:.1f} s, "
+        f"{size / 2**30:.2f} GiB on disk ({d})")
+    return d
+
+
+def _gemma_request(model, ring: bool, prompt, steps: int):
+    """A prompt as one prefill chunk, then `steps` greedy decode steps over a
+    fresh paged cache, its sliding layers in SWA rings (state slot 1) or in
+    the pages. Returns (prefill logits (S, V), decode logits (steps, V), the
+    fed tokens (steps,), launch counts of the decode steps)."""
+    from exllamav3_tpu_torch.model import Cache, CacheSpec
+
+    n = prompt.shape[1]
+    pages = -(-(n + steps) // 256)
+    bt = np.array([list(range(1, pages + 1)) + [0]], np.int32)
+    cache = Cache(model, CacheSpec(num_pages=pages + 1, swa_ring=ring, recurrent_slots=2))
+    slots = np.array([1], np.int32) if ring else None
+    pre = model.forward(prompt, cache, np.arange(n, dtype=np.int32)[None], np.array([0], np.int32),
+                        bt, state_slots=slots)[0]
+    toks, outs = [], []
+    last = pre[-1]
+    before = _read_counts()
+    for i in range(steps):
+        t = int(last.argmax())
+        toks.append(t)
+        p = n + i
+        last = model.forward(np.array([[t]]), cache, np.array([[p]], np.int32),
+                             np.array([p], np.int32), bt, state_slots=slots)[0, -1]
+        outs.append(last)
+    after = _read_counts()
+    return pre, torch.stack(outs), toks, {k: after[k] - before[k] for k in after}
+
+
+def phase_parity_gemma():
+    """The Gemma-3 path on the first 6 layers of a Gemma-3-27B-width
+    checkpoint (5 sliding, 1 global; int8 projections, gelu_pytorch_tanh
+    fused decode MLP, bf16 tied head): one request of 1536 prompt tokens and
+    32 greedy decode steps over the SWA ring on the GPU (the ring kernel),
+    held to the CPU (plain versions: the prefill, then the 32 fed tokens as
+    one chunk through the ring's dense path) at every position within 2e-2 of
+    the largest logit; then the same request on the GPU with the sliding
+    layers in the paged cache (the paged kernel with the window): logits
+    within the same limit and the same greedy tokens."""
+    from exllamav3_tpu_torch.model import Cache, CacheSpec, Config, InferParams, Model
+    from exllamav3_tpu_torch.util.params import params_to
+
+    d = _gemma_checkpoint(6)
+    cfg = Config.from_directory(d, infer_params=InferParams(linear_mode="auto"))
+    gpu = Model.from_config(cfg, device="cuda")
+    gpu.load()
+    cpu = Model.from_config(cfg, device="cpu")
+    cpu.params = params_to(gpu.params, "cpu")
+    n_ring = sum(1 for m in gpu.root.walk() if getattr(m, "sliding_window", 0))
+    tag = f"Gemma-3-27B {cfg.infer_params.linear_mode}"
+    log(f"parity: {tag}, 6 layers at Gemma-3-27B width ({n_ring} sliding)")
+    prompt = np.random.default_rng(23).integers(0, GEMMA27B["vocab_size"], size=(1, 1536))
+    steps = 32
+    pre, dec, toks, counts = _gemma_request(gpu, True, prompt, steps)
+    if (counts["ring_attention"] != n_ring * steps
+            or counts["paged_attention"] != (6 - n_ring) * steps
+            or counts["fused_mlp"] != 6 * steps):
+        raise AssertionError(f"parity {tag}: the decode steps launched {counts}")
+    t0 = time.time()
+    n = prompt.shape[1]
+    bt = np.array([list(range(1, 8)) + [0]], np.int32)
+    cache = Cache(cpu, CacheSpec(num_pages=8, swa_ring=True, recurrent_slots=2))
+    ring_slot = np.array([1], np.int32)
+    ref_pre = cpu.forward(prompt, cache, np.arange(n, dtype=np.int32)[None],
+                          np.array([0], np.int32), bt, state_slots=ring_slot)[0]
+    _compare(f"{tag} prefill S={n} over the ring", pre, ref_pre)
+    ref = cpu.forward(np.array([toks]), cache, (n + np.arange(steps, dtype=np.int32))[None],
+                      np.array([n], np.int32), bt, state_slots=ring_slot)[0]
+    log(f"parity {tag}: the CPU's side took {time.time() - t0:.1f} s")
+    _compare(f"{tag} {steps} decode steps through the ring kernel, against one CPU chunk",
+             dec, ref)
+    _, dec_paged, toks_paged, counts_paged = _gemma_request(gpu, False, prompt, steps + 1)
+    _, dec_ring, toks_ring, _ = _gemma_request(gpu, True, prompt, steps + 1)
+    _compare(f"{tag} {steps + 1} decode steps over the ring against the pages", dec_ring,
+             dec_paged)
+    log(f"parity {tag}: greedy tokens over the ring {toks_ring[:8]}..., over the pages "
+        f"{toks_paged[:8]}...; alike {sum(a == b for a, b in zip(toks_ring, toks_paged))} "
+        f"of {steps + 1}")
+    if toks_paged != toks_ring or toks_ring[:steps] != toks:
+        raise AssertionError(f"parity {tag}: greedy tokens differ with and without the ring")
+    if counts_paged["ring_attention"] or counts_paged["paged_attention"] != 6 * (steps + 1):
+        raise AssertionError(f"parity {tag}: without the ring the steps launched {counts_paged}")
+    del gpu, cpu, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve_gemma() -> dict:
+    """The Gemma-3 path: Gemma-3-27B at full width and GEMMA_SERVE_LAYERS
+    layers, linear_mode="auto" (int8 projections; the tied head bf16), a bf16
+    paged cache with the sliding layers in SWA rings, 9 state slots (the
+    batch of 8 and a scrap row). A decode step launches the ring kernel once
+    a sliding layer and the paged kernel once a global layer."""
+    from exllamav3_tpu_torch.model import Config
+
+    used = ("int8_matmul", "fused_mlp", "paged_attention", "ring_attention")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt = _gemma_checkpoint(GEMMA_SERVE_LAYERS)
+    cfg = Config.from_directory(ckpt)
+    n_sliding = sum(cfg.layer_is_sliding(i) for i in range(cfg.num_hidden_layers))
+    counts = _serve("serve_gemma", ckpt, "auto", dict(swa_ring=True, recurrent_slots=9), "int8",
+                    _serve_prompts(GEMMA27B["vocab_size"]),
+                    step_launches={"ring_attention": n_sliding,
+                                   "paged_attention": cfg.num_hidden_layers - n_sliding})
+    _require_launches("serve_gemma", counts, used)
+    shutil.rmtree(os.path.join(WORK, f"gemma3_27b_{GEMMA27B['num_layers']}layers"))  # ~15 GB
+    return {n: counts[n] for n in used}
+
+
 # -- phases: linear_decode, serve_spec ---------------------------------------------
 
 # meta-llama/Llama-3.2-1B config.json; the vocabulary cut to the target's 32768,
@@ -1954,6 +2250,9 @@ LLAMA1B = dict(vocab_size=32768, hidden_size=2048, intermediate_size=8192, num_q
                              "original_max_position_embeddings": 8192, "rope_type": "llama3"},
                extra={"rope_theta": 500000.0, "max_position_embeddings": 131072})
 GAP_LIMIT = 2e-2  # a speculative token may part from plain decoding only at a near-tie
+# depth of the speculative serve's 8B-geometry target: 16 of its 32 layers,
+# so that the whole script stays within 900 s with the Gemma phases
+SPEC_TARGET_LAYERS = 16
 
 
 def _load(tag: str, ckpt: str, linear_mode: str, expect_mode: str):
@@ -2200,7 +2499,7 @@ def _spec_run(tag: str, target, draft, prompts: list, plain: list, gaps: list,
 
 
 def phase_serve_spec() -> dict:
-    """Greedy speculative decoding on the Llama-3.1-8B-geometry target
+    """Greedy speculative decoding on a 16-layer Llama-3.1-8B-geometry target
     (linear_mode="auto": int8 on an 80 GB card, bf16 paged cache), the
     serve phases' traffic: plain decoding first, then (a) a Llama-3.2-1B-
     geometry draft and (b) the target drafting for itself (the same Model),
@@ -2208,7 +2507,7 @@ def phase_serve_spec() -> dict:
     from exllamav3_tpu_torch.generator import Generator
     from exllamav3_tpu_torch.model import Cache, CacheSpec
 
-    target = _load("serve_spec target", _checkpoint(32), "auto", "int8")
+    target = _load("serve_spec target", _checkpoint(SPEC_TARGET_LAYERS), "auto", "int8")
     draft = _load("serve_spec draft", _draft_checkpoint(), "auto", "int8")
     head = draft.params["lm_head"].get("weight")
     embed = draft.params["model.embed_tokens"]["weight"]
@@ -2257,19 +2556,22 @@ CHECKS = {"int8_matmul": check_int8, "fused_mlp": check_fused_mlp,
           "moe_gemm": check_moe_gemm, "linear_attention": check_linear_attention,
           "linear_attention_quant": check_linear_attention_quant,
           "latent_attention": check_latent_attention,
-          "latent_attention_quant": check_latent_attention_quant}
+          "latent_attention_quant": check_latent_attention_quant,
+          "ring_attention": check_ring_attention}
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="build,kernels,parity,parity_mla,serve,serve_capacity,serve_packed,"
-                            "serve_moe,linear_decode,serve_spec,serve_mla",
+                    default="build,kernels,parity,parity_mla,parity_gemma,serve,serve_capacity,"
+                            "serve_packed,serve_moe,linear_decode,serve_spec,serve_mla,"
+                            "serve_gemma",
                     help="`kernels` runs every kernel check; a check's name runs that one")
     args = ap.parse_args()
     phases = args.phases.split(",")
-    known = {"build", "kernels", "parity", "parity_mla", "serve", "serve_capacity",
-             "serve_packed", "serve_moe", "linear_decode", "serve_spec", "serve_mla", *CHECKS}
+    known = {"build", "kernels", "parity", "parity_mla", "parity_gemma", "serve",
+             "serve_capacity", "serve_packed", "serve_moe", "linear_decode", "serve_spec",
+             "serve_mla", "serve_gemma", *CHECKS}
     if set(phases) - known:
         ap.error(f"unknown phases {sorted(set(phases) - known)}")
 
@@ -2310,6 +2612,10 @@ def main():
         t0 = time.time()
         phase_parity_mla()
         log(f"phase parity_mla: {time.time() - t0:.1f} s")
+    if "parity_gemma" in phases:
+        t0 = time.time()
+        phase_parity_gemma()
+        log(f"phase parity_gemma: {time.time() - t0:.1f} s")
     if "serve" in phases:
         t0 = time.time()
         table.set_launches(phase_serve())
@@ -2338,6 +2644,10 @@ def main():
         t0 = time.time()
         table.set_launches(phase_serve_mla())
         log(f"phase serve_mla: {time.time() - t0:.1f} s")
+    if "serve_gemma" in phases:
+        t0 = time.time()
+        table.set_launches(phase_serve_gemma())
+        log(f"phase serve_gemma: {time.time() - t0:.1f} s")
     log(f"total: {time.time() - t_all:.1f} s")
     log(smi)  # once more, so that the end of a cut log still names the card
     print(json.dumps({"kernels": list(table.rows.values())}))

@@ -1,7 +1,7 @@
 """Synthetic EXL3 checkpoints for tests and the chip smoke run
 (counterpart of exllamav3_tpu/conversion/synth.py: the Llama writer, and EXL3
-writers for the MoE and DeepSeek architectures, which the JAX package writes
-only as dense bf16).
+writers for the MoE, DeepSeek and Gemma architectures, which the JAX package
+writes only as dense bf16).
 
 Any random bit stream is a valid tail-biting trellis, so a format-correct
 EXL3 checkpoint of any size can be fabricated from a seed. Given the same
@@ -402,4 +402,114 @@ def write_tiny_deepseek_exl3(directory: str, cfg: dict | None = None, K: int = 4
     add_bf16("model.norm.weight", np.ones(h, np.float32))
     add_exl3("lm_head", h, vocab, s)
     flush("model-head.safetensors")
+    return directory
+
+
+def gemma3_27b_cfg(**overrides) -> dict:
+    """google/gemma-3-27b-it's text_config numbers (62 layers, 5 sliding to 1
+    global, window 1024, 32 q / 16 kv heads of 128, linear x8 rope on the
+    global layers, tied embeddings, vocabulary 262208), with `overrides` on
+    top (a tiny test model, fewer layers, or Gemma-2's architecture and
+    softcaps)."""
+    cfg = {
+        "architectures": ["Gemma3ForCausalLM"],
+        "model_type": "gemma3_text",
+        "bos_token_id": 2,
+        "eos_token_id": 1,
+        "head_dim": 128,
+        "hidden_activation": "gelu_pytorch_tanh",
+        "hidden_size": 5376,
+        "intermediate_size": 21504,
+        "max_position_embeddings": 131072,
+        "num_attention_heads": 32,
+        "num_hidden_layers": 62,
+        "num_key_value_heads": 16,
+        "query_pre_attn_scalar": 168,
+        "rms_norm_eps": 1e-6,
+        "rope_local_base_freq": 10000.0,
+        "rope_scaling": {"factor": 8.0, "rope_type": "linear"},
+        "rope_theta": 1000000.0,
+        "sliding_window": 1024,
+        "sliding_window_pattern": 6,
+        "tie_word_embeddings": True,
+        "torch_dtype": "bfloat16",
+        "vocab_size": 262208,
+    }
+    cfg.update(overrides)
+    return cfg
+
+
+@_atomic_checkpoint
+def write_tiny_gemma_exl3(directory: str, cfg: dict | None = None, K: int = 4, seed: int = 0):
+    """Write a synthetic EXL3 Gemma-2 or Gemma-3 checkpoint: EXL3 q/k/v/o and
+    gate/up/down projections (any random bit stream is a trellis, so the codes
+    are raw generator words), norm weights w ~ N(0, 0.1^2) that Gemma's norms
+    apply as 1 + w (the q/k norms with Gemma-3 only), and the bf16 embedding,
+    which the tied head reads. The default is a 4-layer Gemma-3 at h = 256
+    with a sliding window of 16 on layers 0 and 2 (`sliding_window_pattern`
+    2) and linear x8 rope on the global layers. One shard a layer, the
+    embedding in a shard of its own."""
+    os.makedirs(directory, exist_ok=True)
+    cfg = cfg or gemma3_27b_cfg(hidden_size=256, intermediate_size=512, num_hidden_layers=4,
+                                num_attention_heads=4, num_key_value_heads=2, head_dim=64,
+                                query_pre_attn_scalar=64, sliding_window=16,
+                                sliding_window_pattern=2, vocab_size=512)
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump(cfg, f, indent=2)
+    gemma3 = cfg["architectures"][0] == "Gemma3ForCausalLM"
+    rng = np.random.default_rng(seed)
+    h, inter, vocab = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"]
+    nq, nkv, hd = cfg["num_attention_heads"], cfg["num_key_value_heads"], cfg["head_dim"]
+    s = 1.0 / math.sqrt(h)
+
+    tensors: dict[str, np.ndarray] = {}
+    bf16_keys = set()
+
+    def add_bf16(key, arr):
+        tensors[key] = f32_to_bf16_u16(arr.astype(np.float32))
+        bf16_keys.add(key)
+
+    def add_exl3(key, k_in, n_out, out_std):
+        words = rng.bit_generator.random_raw(k_in * n_out * K // 64)
+        tensors[key + ".trellis"] = words.view(np.int16).reshape(k_in // 16, n_out // 16, 16 * K)
+        tensors[key + ".suh"] = np.sign(rng.standard_normal(k_in)).astype(np.float16)
+        tensors[key + ".svh"] = (np.sign(rng.standard_normal(n_out)) * out_std).astype(np.float16)
+
+    def add_norm(key, dim):
+        add_bf16(key + ".weight", rng.standard_normal(dim) * 0.1)
+
+    def flush(name):
+        save_file(tensors, os.path.join(directory, name), bf16_keys=bf16_keys)
+        tensors.clear()
+        bf16_keys.clear()
+
+    # the embedding in f32 blocks of rows, straight into bf16 (262208 x 5376
+    # at 27B: one f64 draw would hold 11 GB)
+    emb = np.empty((vocab, h), np.uint16)
+    for r in range(0, vocab, 8192):
+        n = min(8192, vocab - r)
+        emb[r: r + n] = f32_to_bf16_u16(rng.standard_normal((n, h), dtype=np.float32)
+                                        * np.float32(0.02))
+    tensors["model.embed_tokens.weight"] = emb
+    bf16_keys.add("model.embed_tokens.weight")
+    flush("model-embed.safetensors")
+    for i in range(cfg["num_hidden_layers"]):
+        lk = f"model.layers.{i}"
+        for name in ("input_layernorm", "post_attention_layernorm", "pre_feedforward_layernorm",
+                     "post_feedforward_layernorm"):
+            add_norm(f"{lk}.{name}", h)
+        ak = f"{lk}.self_attn"
+        add_exl3(f"{ak}.q_proj", h, nq * hd, s)
+        add_exl3(f"{ak}.k_proj", h, nkv * hd, s)
+        add_exl3(f"{ak}.v_proj", h, nkv * hd, s)
+        add_exl3(f"{ak}.o_proj", nq * hd, h, s * 0.5)
+        if gemma3:
+            add_norm(f"{ak}.q_norm", hd)
+            add_norm(f"{ak}.k_norm", hd)
+        add_exl3(f"{lk}.mlp.gate_proj", h, inter, s)
+        add_exl3(f"{lk}.mlp.up_proj", h, inter, s)
+        add_exl3(f"{lk}.mlp.down_proj", inter, h, s * 0.5)
+        flush(f"model-layer{i:03d}.safetensors")
+    add_norm("model.norm", h)
+    flush("model-norm.safetensors")
     return directory

@@ -1,7 +1,8 @@
-// The flash-attention tile loop shared by the port's six attention entries:
+// The flash-attention tile loop shared by the port's seven attention entries:
 // paged_attention.cu, paged_attention_quant.cu, linear_attention.cu,
-// linear_attention_quant.cu, and latent_attention.cu and
-// latent_attention_quant.cu (absorbed MLA).
+// linear_attention_quant.cu, latent_attention.cu and
+// latent_attention_quant.cu (absorbed MLA), and ring_attention.cu (decode
+// over a sliding-window ring).
 //
 // The kernel is templated three times over:
 //   * Geo: the block's geometry. HeadGeo<D> (per-head K/V of D channels, 64
@@ -9,13 +10,18 @@
 //     the latent ones (one latent K row of 576 channels whose leading 512
 //     are V, bf16 q): LatentGeo, 32 score rows and 32-key tiles, and
 //     LatentDecodeGeo, 16 rows (one token's heads) and 64-key tiles, half
-//     the tiles a decode block walks.
+//     the tiles a decode block walks; HeadDecodeGeo<D>, HeadGeo's tiles with
+//     16 score rows, for one decode token's group of heads.
 //   * Rows: where a key tile's rows lie. PagedRows looks the page up in the
 //     block table (256-token pages, so a tile never crosses a page and every
 //     tile is full); LinearRows reads slot `key` of row b (or of the row the
 //     caller names for sequence b) of an (N, T, Hk, .) cache, and cuts the
 //     last tile at T, which may be any length: keys at or past T are never
-//     read, their tile rows are zero and masked.
+//     read, their tile rows are zero and masked. RingRows reads slot `key`
+//     of ring row slots[b] of an (N, W, Hk, .) ring, cuts the last tile at W,
+//     and is the one policy whose keys' positions come from an array
+//     (POS_FROM_ARRAY): each tile stages its slots' stored positions into
+//     shared memory, the mask tests those, and every slot 0..W-1 is walked.
 //   * KV: how a tile is stored. Bf16KV copies bf16 rows; QuantKV unpacks
 //     packed 2..8-bit words with one bf16 scale per 32 channels (merged-head
 //     and per-head storage address head h of a token alike, at word
@@ -50,8 +56,12 @@
 //
 // Visibility: key j is visible to a query at position p iff j < total_len,
 // j <= p, j lies in the layout (j < T, or within the block table), and, with
-// a window, j > p - window. Scores are scale*q.k, then the softcap; sinks join
-// the denominator. A row that sees no key gives 0.
+// a window, j > p - window. In a ring, key j is the slot's stored position
+// pos[j] instead, visible iff 0 <= pos[j] <= p and, with a window,
+// pos[j] > p - window (-1 marks a slot never written; a stale speculative
+// write holds a future position and masks itself); there is no total_len.
+// Scores are scale*q.k, then the softcap; sinks join the denominator. A row
+// that sees no key gives 0.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -78,6 +88,8 @@ struct Geo {
 };
 template <int D>
 using HeadGeo = Geo<D, D, 64, 64, true, false>;
+template <int D>
+using HeadDecodeGeo = Geo<D, D, 16, 64, true, false>;
 // DeepSeek's latent row: kv_lora_rank 512 + qk_rope_head_dim 64
 constexpr int LATENT = 512, ROPE = 64;
 using LatentGeo = Geo<LATENT + ROPE, LATENT, 32, 32, false, true>;
@@ -96,7 +108,11 @@ using LatentDecodeGeo = Geo<LATENT + ROPE, LATENT, 16, 64, false, true>;
 //     (74,752; quantized 149,504), scores 16 x 68 f32 (4,352), P hi + lo
 //     2 x 16 x 72 bf16 (4,608), output 16 x 516 f32 (33,024), row state 264:
 //     135,688 bytes bf16, 210,440 quantized.
-template <class G_, bool SPLIT>
+//   HeadDecodeGeo<128> over a ring: q hi + lo 2 x 16 x 136 bf16, K and V
+//     64 x 136 bf16 each, scores 16 x 68 f32, P hi + lo 2 x 16 x 72 bf16,
+//     output 16 x 132 f32, row state 264, and the tile's 64 slot positions
+//     (POS): 61,448 bytes.
+template <class G_, bool SPLIT, bool POS = false>
 struct Layout {
     static constexpr int D = G_::D, DV = G_::DV, R = G_::R, TK = G_::TK;
     static constexpr int LDQ = D + 8, LDK = D + 8, LDS = TK + 4, LDP = TK + 8, LDO = DV + 4;
@@ -112,13 +128,15 @@ struct Layout {
     static constexpr int OFF_PL = OFF_P + R * LDP * 2;
     static constexpr int OFF_O = OFF_PL + R * LDP * 2;
     static constexpr int OFF_ROWS = OFF_O + R * LDO * 4;
-    static constexpr int BYTES = OFF_ROWS + R * 4 * 4 + 2 * 4;
+    static constexpr int OFF_KPOS = OFF_ROWS + R * 4 * 4 + 2 * 4;
+    static constexpr int BYTES = OFF_KPOS + (POS ? TK * 4 : 0);
 };
 
 // -- where a tile's rows lie -----------------------------------------------------
 
 struct PagedRows {
     static constexpr bool FULL = true;  // every tile holds TK keys
+    static constexpr bool POS_FROM_ARRAY = false;  // key j sits at position j
     const int* bt;  // (B, MP) block tables
     int MP, P;
     __device__ int key_limit() const { return MP * PAGE; }
@@ -137,6 +155,7 @@ struct PagedRows {
 
 struct LinearRows {
     static constexpr bool FULL = false;  // the last tile is cut at T
+    static constexpr bool POS_FROM_ARRAY = false;
     const int* rows;  // (B,) cache row of each sequence, or null: row b
     int N, T;         // cache rows; keys per row
     __device__ int key_limit() const { return T; }
@@ -148,6 +167,29 @@ struct LinearRows {
         tok0 = (size_t)row * T + key0;
         n = min(TKT, T - key0);
         return true;
+    }
+};
+
+struct RingRows {
+    static constexpr bool FULL = false;  // the last tile is cut at W
+    static constexpr bool POS_FROM_ARRAY = true;  // positions from `pos`
+    const int* slots;  // (B,) ring row of each sequence
+    const int* pos;    // (N, W) position each slot holds, -1 = never written
+    int N, W;          // ring rows; slots a row
+    __device__ int key_limit() const { return W; }
+    // false: the sequence's ring row is out of range and the tile is skipped
+    template <int TKT>
+    __device__ bool tile(int b, int key0, size_t& tok0, int& n) const {
+        const int row = slots[b];
+        if (row < 0 || row >= N) return false;
+        tok0 = (size_t)row * W + key0;
+        n = min(TKT, W - key0);
+        return true;
+    }
+    // the stored positions of the tile's n slots into dst[0, TKT); -1 past n
+    template <int TKT>
+    __device__ void stage_pos(size_t tok0, int n, int* dst, int tid) const {
+        for (int j = tid; j < TKT; j += THREADS) dst[j] = j < n ? __ldg(pos + tok0 + j) : -1;
     }
 };
 
@@ -330,14 +372,14 @@ attention_kernel(const void* __restrict__ q, Rows rows, KV kv, const int* __rest
                  float* __restrict__ out, int S, int Hq, int Hk, float scale, int window,
                  float softcap) {
     constexpr int D = G_::D, DV = G_::DV, R = G_::R, TK = G_::TK;
-    constexpr bool SPLIT = KV::SPLIT, QS = G_::Q_SPLIT;
+    constexpr bool SPLIT = KV::SPLIT, QS = G_::Q_SPLIT, RING = Rows::POS_FROM_ARRAY;
     constexpr int NWR = R / 16;          // row groups of 16
     constexpr int WPR = WARPS / NWR;     // warps sharing a row group
     constexpr int TPR = THREADS / R;     // softmax threads a row
     constexpr int KPT = TK / TPR;        // keys a softmax thread
     static_assert(NWR * WPR == WARPS && TPR * R == THREADS && KPT * TPR == TK, "geometry");
     static_assert(D % 16 == 0 && DV % 16 == 0 && TK % 16 == 0 && PAGE % TK == 0, "geometry");
-    using L = Layout<G_, SPLIT>;
+    using L = Layout<G_, SPLIT, RING>;
     extern __shared__ __align__(128) unsigned char smem[];
     __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_Q);
     __nv_bfloat16* Qls = reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_QL);
@@ -354,6 +396,7 @@ attention_kernel(const void* __restrict__ q, Rows rows, KV kv, const int* __rest
     float* row_alpha = row_l + R;
     int* row_pos = reinterpret_cast<int*>(row_alpha + R);
     int* key_range = row_pos + R;
+    int* key_pos = reinterpret_cast<int*>(smem + L::OFF_KPOS);  // RING: the tile's positions
 
     const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
     const int b = blockIdx.z;
@@ -364,7 +407,8 @@ attention_kernel(const void* __restrict__ q, Rows rows, KV kv, const int* __rest
     const int QT = R / HB;               // tokens in this block
     const int s0 = blockIdx.x * QT;
     const int limit = rows.key_limit();
-    const int total = min(total_lens[b], limit);
+    int total = limit;  // a ring has no length: its stored positions decide
+    if constexpr (!RING) total = min(total_lens[b], limit);
     // row r -> token s, q head `head`; false for a padding row
     auto row_of = [&](int r, int& s, int& head) {
         const int t = r / HB, gh = slice * HB + r % HB;
@@ -416,8 +460,13 @@ attention_kernel(const void* __restrict__ q, Rows rows, KV kv, const int* __rest
         for (int r = 0; r < R; ++r) {
             const int p = row_pos[r];
             if (p < 0) continue;
-            hi = max(hi, min(p, total - 1));
-            lo = min(lo, window > 0 ? max(p - window + 1, 0) : 0);
+            if constexpr (RING) {  // any slot may hold a visible position
+                lo = 0;
+                hi = limit - 1;
+            } else {
+                hi = max(hi, min(p, total - 1));
+                lo = min(lo, window > 0 ? max(p - window + 1, 0) : 0);
+            }
         }
         key_range[0] = lo;
         key_range[1] = min(hi, limit - 1);
@@ -433,6 +482,7 @@ attention_kernel(const void* __restrict__ q, Rows rows, KV kv, const int* __rest
         if (!rows.template tile<TK>(b, key0, tok0, n)) continue;  // uniform across the block
         // a constant count for full tiles, so that their loads carry no bound check
         kv.template load<L::LDK, TK>(tok0, Rows::FULL ? TK : n, hk, Ks, Kls, Vs, Vls, tid);
+        if constexpr (RING) rows.template stage_pos<TK>(tok0, n, key_pos, tid);
         __syncthreads();
 
         // scores for this warp's 16 rows x its 16-key subtiles
@@ -468,10 +518,16 @@ attention_kernel(const void* __restrict__ q, Rows rows, KV kv, const int* __rest
             float* srow = &Ss[r * L::LDS + part * KPT];
             float mx = -INFINITY;
             for (int jj = 0; jj < KPT; ++jj) {
-                const int key = key0 + part * KPT + jj;
                 float s = srow[jj] * scale;
                 if (softcap > 0.0f) s = tanhf(s / softcap) * softcap;
-                const bool ok = p >= 0 && key < total && key <= p && (window <= 0 || key > p - window);
+                bool ok;
+                if constexpr (RING) {
+                    const int kp = key_pos[part * KPT + jj];
+                    ok = p >= 0 && kp >= 0 && kp <= p && (window <= 0 || kp > p - window);
+                } else {
+                    const int key = key0 + part * KPT + jj;
+                    ok = p >= 0 && key < total && key <= p && (window <= 0 || key > p - window);
+                }
                 s = ok ? s : -INFINITY;
                 srow[jj] = s;
                 mx = fmaxf(mx, s);
@@ -547,7 +603,7 @@ template <class G_, class Rows, class KV>
 int launch_attention(const void* q, Rows rows, KV kv, const void* qpos, const void* total_lens,
                      const void* sinks, void* out, int B, int S, int Hq, int Hk, float scale,
                      int window, float softcap, cudaStream_t st) {
-    constexpr int BYTES = Layout<G_, KV::SPLIT>::BYTES;
+    constexpr int BYTES = Layout<G_, KV::SPLIT, Rows::POS_FROM_ARRAY>::BYTES;
     static_assert(BYTES <= 232448, "shared memory of one block");
     static bool attr_set = false;
     if (!attr_set) {

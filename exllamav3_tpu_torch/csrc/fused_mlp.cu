@@ -1,11 +1,14 @@
 // Fused decode MLP for Hopper:
-//   acc = sum over intermediate tiles t of bf16(silu(x@Wg_t*sg_t) * (x@Wu_t*su_t)) @ Wd_t
+//   acc = sum over intermediate tiles t of bf16(act(x@Wg_t*sg_t) * (x@Wu_t*su_t)) @ Wd_t
 // (m <= 16 rows, f32 out; the caller applies the down scale and bias).
 //
 // Replaces: exllamav3_tpu/ops/fused_mlp.py::_fused_mlp_kernel
 //           (fused_mlp_int8_pallas, dispatched by fused_mlp_int8).
 // Inputs:   x (m, h) bf16; gu (h, 2i) int8 [gate | up]; gu_scale (2i,) f32;
-//           d (i, h) int8; h % 256 == 0, i % 128 == 0 (checked in Python).
+//           d (i, h) int8; h % 256 == 0, i % 128 == 0 (checked in Python);
+//           act: 0 silu, 1 gelu (erf), 2 gelu_pytorch_tanh, 3 relu2, a
+//           template argument of the kernel, taken in f32 before the bf16
+//           round as the JAX kernel's _act does.
 // Bound:    the weight bytes (3*h*i int8) over 3.35 TB/s; the operations
 //           (6*m*h*i) are far below the tensor-core rate at m <= 16.
 // Design:   the TPU grid walked intermediate tiles in order with one
@@ -59,6 +62,24 @@ __device__ __forceinline__ void store_i8x16_as_bf16(__nv_bfloat16* dst, uint4 v)
     reinterpret_cast<uint4*>(dst)[1] = make_uint4(o[4], o[5], o[6], o[7]);
 }
 
+enum Activation { SILU = 0, GELU = 1, GELU_TANH = 2, RELU2 = 3 };
+
+template <int ACT>
+__device__ __forceinline__ float activate(float g) {
+    if constexpr (ACT == SILU) {
+        return g * (1.0f / (1.0f + expf(-g)));
+    } else if constexpr (ACT == GELU) {  // the plain version's (and jax.nn.gelu's) order
+        return 0.5f * g * erfcf(-g * 0.70710678118654752f);
+    } else if constexpr (ACT == GELU_TANH) {
+        const float c = 0.79788456080286536f;  // sqrt(2 / pi)
+        return g * (0.5f * (1.0f + tanhf(c * (g + 0.044715f * (g * g * g)))));
+    } else {
+        const float r = fmaxf(g, 0.0f);
+        return r * r;
+    }
+}
+
+template <int ACT>
 __global__ void __launch_bounds__(THREADS)
 fused_mlp_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ gu,
                  const float* __restrict__ gu_scale, const int8_t* __restrict__ d,
@@ -106,12 +127,12 @@ fused_mlp_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
     wmma::store_matrix_sync(&Cs[warp * 16], acc, LDC, wmma::mem_row_major);
     __syncthreads();
 
-    // activation, rounded to bf16 as the JAX kernel does: a = silu(g) * u
+    // activation, rounded to bf16 as the JAX kernel does: a = act(g) * u
     for (int e = tid; e < MR * TI; e += THREADS) {
         const int r = e / TI, c = e % TI;
         const float g = Cs[r * LDC + c] * gu_scale[i0 + c];
         const float u = Cs[r * LDC + TI + c] * gu_scale[inter + i0 + c];
-        Act[r * LDA + c] = __float2bfloat16_rn(g * (1.0f / (1.0f + expf(-g))) * u);
+        Act[r * LDA + c] = __float2bfloat16_rn(activate<ACT>(g) * u);
     }
     __syncthreads();
 
@@ -165,13 +186,22 @@ __global__ void tile_reduce_kernel(const float* __restrict__ partial, float* __r
 }  // namespace
 
 extern "C" int exl3_fused_mlp(const void* x, const void* gu, const void* gu_scale, const void* d,
-                              void* partial, void* out, int m, int h, int inter, void* stream) {
+                              void* partial, void* out, int m, int h, int inter, int act,
+                              void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int tiles = inter / TI;
-    fused_mlp_kernel<<<tiles, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(gu),
-        static_cast<const float*>(gu_scale), static_cast<const int8_t*>(d),
-        static_cast<float*>(partial), m, h, inter);
+    const auto* xb = static_cast<const __nv_bfloat16*>(x);
+    const auto* gq = static_cast<const int8_t*>(gu);
+    const auto* gs = static_cast<const float*>(gu_scale);
+    const auto* dq = static_cast<const int8_t*>(d);
+    float* part = static_cast<float*>(partial);
+    switch (act) {
+        case SILU: fused_mlp_kernel<SILU><<<tiles, THREADS, 0, st>>>(xb, gq, gs, dq, part, m, h, inter); break;
+        case GELU: fused_mlp_kernel<GELU><<<tiles, THREADS, 0, st>>>(xb, gq, gs, dq, part, m, h, inter); break;
+        case GELU_TANH: fused_mlp_kernel<GELU_TANH><<<tiles, THREADS, 0, st>>>(xb, gq, gs, dq, part, m, h, inter); break;
+        case RELU2: fused_mlp_kernel<RELU2><<<tiles, THREADS, 0, st>>>(xb, gq, gs, dq, part, m, h, inter); break;
+        default: return (int)cudaErrorInvalidValue;
+    }
     const int count = m * h;
     tile_reduce_kernel<<<(count + 255) / 256, 256, 0, st>>>(
         static_cast<const float*>(partial), static_cast<float*>(out), count, tiles);

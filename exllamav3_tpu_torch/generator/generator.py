@@ -28,11 +28,19 @@ and overwrite position 0 of the others), and the running jobs' draft steps
 are batched into one (n_jobs, 1) step per drafted token, looped on the host
 (JAX scans k steps on the device, one job at a time).
 
+A cache with SWA rings (CacheSpec(swa_ring=True)) keys per-sequence state
+by each job's slot: every forward names its jobs' slot rows, a slot is
+cleared when a job takes it (positions to -1, K/V to 0), and prefix reuse is
+off, since a job's ring must see every token of its prompt. The rings hold
+positions, so a rejected speculative write needs no rewind: it holds a
+future position and masks itself.
+
 Not ported yet: MTP and DFlash drafting, filters (and with them the filtered
 half of the speculative verify), CFG, token healing, banned and stop
-strings, requeue, the CPU page cache, defragmentation, decode bursts,
-recurrent state, sequence parallelism, multihost and the tokenizer: this
-generator takes and returns token ids.
+strings, requeue (and the host stash of a requeued job's ring), the CPU page
+cache, defragmentation, decode bursts, recurrent layers, sequence
+parallelism, multihost and the tokenizer: this generator takes and returns
+token ids.
 """
 from __future__ import annotations
 
@@ -65,7 +73,16 @@ class Generator:
         self.device = model.device
         self.max_batch_size = max_batch_size
         self.max_chunk_size = max_chunk_size
-        self.pagetable = PageTable(cache.spec.num_pages)
+        # the SWA ring layers' state, one row per job slot and a scrap row
+        self.ring_keys = [key for key, layer in cache.state.items() if "pos" in layer]
+        self.has_recurrent = bool(self.ring_keys)
+        if self.has_recurrent:
+            n_slots = cache.state[self.ring_keys[0]]["pos"].shape[0]
+            if n_slots < max_batch_size + 1:
+                raise ValueError(f"the cache has {n_slots} state slots; max_batch_size "
+                                 f"{max_batch_size} needs {max_batch_size + 1} "
+                                 "(set CacheSpec.recurrent_slots)")
+        self.pagetable = PageTable(cache.spec.num_pages, disable_reuse=self.has_recurrent)
         self.pending: list[Job] = []
         self.active: list[Job] = []
         self.job_slots: dict = {}
@@ -165,6 +182,11 @@ class Generator:
             self.active.append(job)
             slot = self.free_slots.pop(0)
             self.job_slots[job] = slot
+            for key in self.ring_keys:  # the slot may hold a finished job's ring
+                layer = self.cache.state[key]
+                layer["pos"][slot] = -1
+                layer["k"][slot] = 0
+                layer["v"][slot] = 0
             # seed the penalty counts from the prompt
             counts = np.zeros(self.model.config.vocab_size, dtype=np.int32)
             np.add.at(counts, job.all_ids() % counts.size, 1)
@@ -184,6 +206,12 @@ class Generator:
             else:
                 hashes.append(None)
         return hashes
+
+    def _state_slots(self, jobs: list) -> np.ndarray | None:
+        """(B,) int32 slot rows of `jobs` for a cache with SWA rings, else None."""
+        if not self.has_recurrent:
+            return None
+        return np.array([self.job_slots[j] for j in jobs], np.int32)
 
     def _block_tables(self, page_lists: list) -> np.ndarray:
         """(B, max pages + 1) int32; unused columns and the extra last column
@@ -206,7 +234,8 @@ class Generator:
         if chunk > 0:
             pos = np.arange(start, start + chunk, dtype=np.int32)[None]
             self.model.forward(ids[None, start: start + chunk], self.cache, pos,
-                               np.array([start], np.int32), self._block_tables([job.pages]))
+                               np.array([start], np.int32), self._block_tables([job.pages]),
+                               state_slots=self._state_slots([job]))
             job.prefill_done = start + chunk
         if job.prefill_done >= end:
             job.status = "running"
@@ -252,7 +281,8 @@ class Generator:
         seqlens = np.array([j.seq_len - 1 for j in jobs], np.int32)
         slots = torch.tensor([self.job_slots[j] for j in jobs], device=self.device)
         logits = self.model.forward(ids, self.cache, seqlens[:, None], seqlens,
-                                    self._block_tables([j.pages for j in jobs]))
+                                    self._block_tables([j.pages for j in jobs]),
+                                    state_slots=self._state_slots(jobs))
         sp = BatchSamplerParams.from_samplers([j.sampler for j in jobs]).as_device(self.device)
         toks = batch_sample(logits[:, -1], sp, self.token_counts[slots], self.rng)
         self.token_counts.index_put_((slots, toks),
@@ -282,7 +312,8 @@ class Generator:
             ids[i, : 1 + len(drafts[i])] = [int(last)] + drafts[i]
             pos[i] = np.arange(seqlens[i], seqlens[i] + S)
         logits = self.model.forward(ids, self.cache, pos, seqlens,
-                                    self._block_tables([j.pages for j in jobs]))
+                                    self._block_tables([j.pages for j in jobs]),
+                                    state_slots=self._state_slots(jobs))
         out = logits.argmax(dim=-1).cpu().numpy()
         for i, job in enumerate(jobs):
             d = drafts[i]

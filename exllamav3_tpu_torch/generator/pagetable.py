@@ -32,9 +32,12 @@ class CachePage:
 
 
 class PageTable:
-    def __init__(self, num_pages: int):
+    def __init__(self, num_pages: int, disable_reuse: bool = False):
         assert num_pages >= 2
         self.num_pages = num_pages
+        # a model with per-sequence state (SWA rings) cannot skip a prompt's
+        # tokens: cached pages are not handed out again
+        self.disable_reuse = disable_reuse
         self.page_size = PAGE_SIZE
         self.pages = [CachePage(index=i) for i in range(num_pages)]
         self.pages[0].ref_count = 1  # scratch page
@@ -69,7 +72,7 @@ class PageTable:
         allocated: list[int] = []
         reused_tokens = 0
         prev_hash: bytes | None = None
-        matching = True
+        matching = not self.disable_reuse
         for pi in range((n + self.page_size - 1) // self.page_size):
             a, b = pi * self.page_size, min((pi + 1) * self.page_size, n)
             page_hash = _page_hash(prev_hash, ids[a:b]) if b - a == self.page_size else None

@@ -12,12 +12,15 @@ k_s, v_s replace k and v in either layout (ops/kv_quant.py). An MLA layer
 (modules/mla_attn.py) holds one latent row a token instead, {"kv"} of
 (N, T, 1, kv_lora_rank + rope) bf16, or with k_bits {"kv_q", "kv_s"} (the
 latent packed, per-head storage with one head) and {"k_pe"} (the rope key,
-bf16); each cache user makes its own layer state. The JAX package
-threads the cache through its jitted step as a functional pytree; here the
-tensors are updated in place, which keeps one copy of the cache in device
-memory. The layout defaults to "paged" (JAX: "linear"), which every caller
-of the port's first slices relies on. Recurrent slots and the SWA ring are
-not ported yet.
+bf16); each cache user makes its own layer state. With `swa_ring`, a
+sliding-window attention layer holds a ring instead, {"k", "v": (N, W, Hk, D),
+"pos": (N, W) int32, -1 where never written}, one row of W slots per
+sequence slot (modules/attn.py); N is `recurrent_slots`, or the JAX
+package's default (batch_size for the linear layout, 33 for the paged one).
+The JAX package threads the cache through its jitted step as a functional
+pytree; here the tensors are updated in place, which keeps one copy of the
+cache in device memory. The layout defaults to "paged" (JAX: "linear"),
+which every caller of the port's first slices relies on.
 """
 from __future__ import annotations
 
@@ -39,6 +42,19 @@ class CacheSpec:
     k_bits: int = 0  # 0 = unquantized; 2..8 = quantized cache
     v_bits: int = 0
     compand_a: float = 0.0  # cubic compander of the quantized cache (0 = off)
+    # sequence slots of per-sequence state (the SWA rings); 0 = derive
+    recurrent_slots: int = 0
+    # sliding-window layers as rings of window + 17 slots (rounded up to 8)
+    # a sequence slot instead of full-length caches; turns prefix reuse off
+    swa_ring: bool = False
+
+    def state_slots(self) -> int:
+        """Rows of per-sequence state: recurrent_slots, else batch_size for
+        the linear layout and 33 (a generator's 32 jobs and a scrap row) for
+        the paged one."""
+        if self.recurrent_slots:
+            return self.recurrent_slots
+        return self.batch_size if self.layout == "linear" else 33
 
 
 def cache_base_shape(spec: CacheSpec, heads: int, dim: int) -> tuple:

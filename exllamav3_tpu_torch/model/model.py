@@ -115,13 +115,15 @@ class Model:
 
     @torch.no_grad()
     def forward(self, ids, cache, positions, cache_seqlens, block_tables=None,
-                cache_rows=None) -> torch.Tensor:
+                cache_rows=None, state_slots=None) -> torch.Tensor:
         """One step over `cache` (a Cache): ids (B, S) at absolute `positions`
         (B, S), with `cache_seqlens` (B,) tokens already cached. The layout
         follows the cache's spec: a paged cache needs `block_tables`
         (B, max_pages); a linear one takes none, and writes and reads row b
-        for sequence b, or row cache_rows[b] when given. Writes this chunk's
-        keys/values into the cache and returns the logits (B, S, vocab) f32."""
+        for sequence b, or row cache_rows[b] when given. A cache with SWA
+        rings keeps sequence b's ring in row state_slots[b] (row b when not
+        given). Writes this chunk's keys/values into the cache and returns
+        the logits (B, S, vocab) f32."""
         dev = self.device
         linear = cache.spec.layout == "linear"
         if linear and block_tables is not None:
@@ -138,6 +140,7 @@ class Model:
             block_tables=_as_tensor(block_tables, dev),
             cache_seqlens=_as_tensor(cache_seqlens, dev),
             cache_rows=_as_tensor(cache_rows, dev),
+            state_slots=_as_tensor(state_slots, dev),
         )
         return self.forward_modules(_as_tensor(ids, dev, torch.long), self.params, ctx)
 

@@ -27,6 +27,9 @@ Parameter layouts (the JAX package's own keys): {"trellis","suh","svh"},
 int8, "scale4" (in/32, out) bf16}, {"weight_qb" (kp, out) int32, "scale_qb"
 bf16}, {"weight_sq", "scale_sq"} (as weight_qb, rotated basis), each with an
 optional f32 "bias".
+
+`softcap` caps the f32 output as tanh(y / c) * c (Gemma-2's final logits);
+`post_scale` waits.
 """
 from __future__ import annotations
 
@@ -64,12 +67,13 @@ def int8_requant(w: torch.Tensor):
 
 class Linear(Module):
     def __init__(self, config, key: str, in_features: int, out_features: int,
-                 alt_key: str | None = None, out_dtype=None):
+                 alt_key: str | None = None, out_dtype=None, softcap: float = 0.0):
         super().__init__(config, key)
         self.in_features = in_features
         self.out_features = out_features
         self.alt_key = alt_key
         self.out_dtype = out_dtype
+        self.softcap = softcap
         self.cb = 0
         self.qbits = None  # width of the int-B codes, once loaded in such a mode
         stc = config.stc
@@ -201,6 +205,8 @@ class Linear(Module):
             y = bf16_matmul_f32(x, p["weight"])
             if bias is not None:
                 y = y + bias
+        if self.softcap:
+            y = torch.tanh(y / self.softcap) * self.softcap
         return y.to(out_dtype)
 
     def get_weight_f32(self, params: dict) -> torch.Tensor:

@@ -1,11 +1,12 @@
-"""Gated MLP with silu (counterpart of exllamav3_tpu/modules/mlp.py).
+"""Gated MLP (counterpart of exllamav3_tpu/modules/mlp.py): silu, gelu (erf),
+gelu_pytorch_tanh and relu2.
 
 Decode batches (T <= 16 rows) with fused int8 gate_up and int8 down go
 through the fused MLP kernel (ops/fused_mlp.py); everything else runs the
 gate_up product, the activation and the down product separately: in the
 `fused` linear mode nothing fuses (a trellis `words` group is no int8
-weight), so gate, up and down run as three trellis linears. The other
-activations, clamps and the non-gated MLP wait.
+weight), so gate, up and down run as three trellis linears. The clamped and
+silu_oai activations, xielu and the non-gated MLP wait.
 """
 from __future__ import annotations
 
@@ -14,14 +15,14 @@ import torch
 from .linear import Linear
 from .module import ForwardCtx, Module
 from .multilinear import fused_forward, is_fused, try_fuse
-from ..ops.fused_mlp import fused_mlp_eligible, fused_mlp_int8
+from ..ops.fused_mlp import ACTIVATIONS, apply_activation, fused_mlp_eligible, fused_mlp_int8
 
 
 class GatedMLP(Module):
     def __init__(self, config, key: str, hidden_size: int, intermediate_size: int,
                  activation: str = "silu", out_dtype=None):
         super().__init__(config, key)
-        if activation != "silu":
+        if activation not in ACTIVATIONS:
             raise ValueError(f"activation {activation!r} is not ported yet")
         self.activation = activation
         self.out_dtype = out_dtype
@@ -41,7 +42,7 @@ class GatedMLP(Module):
             p = params[self.key]
             pd = params[self.down.key]
             y = fused_mlp_int8(x, p["gate_up_q"], p["gate_up_scale"], pd["weight_q"],
-                               pd["scale"], d_bias=pd.get("bias"))
+                               pd["scale"], d_bias=pd.get("bias"), activation=self.activation)
         else:
             if is_fused(params, self.key, "gate_up"):
                 gu = fused_forward(params, self.key, "gate_up", x)
@@ -50,6 +51,6 @@ class GatedMLP(Module):
             else:
                 g = self.gate.forward(x, params, ctx).to(torch.float32)
                 u = self.up.forward(x, params, ctx).to(torch.float32)
-            h = (torch.nn.functional.silu(g) * u).to(x.dtype)
+            h = (apply_activation(self.activation, g) * u).to(x.dtype)
             y = self.down.forward(h, params, ctx)
         return y if self.out_dtype is None else y.to(self.out_dtype)

@@ -1,5 +1,7 @@
 """Transformer block: residual wiring around attention and MLP, residuals
-accumulated in f32 (counterpart of exllamav3_tpu/modules/transformer.py)."""
+accumulated in f32 (counterpart of exllamav3_tpu/modules/transformer.py).
+Gemma's sandwich norms (`attn_post_norm`, `mlp_post_norm`) normalize each
+branch's output before its residual add."""
 from __future__ import annotations
 
 import torch
@@ -9,20 +11,28 @@ from .module import ForwardCtx, Module
 
 class TransformerBlock(Module):
     def __init__(self, config, key: str, layer_idx: int, attn_norm: Module,
-                 attn: Module, mlp_norm: Module, mlp: Module):
+                 attn: Module, mlp_norm: Module, mlp: Module,
+                 attn_post_norm: Module | None = None, mlp_post_norm: Module | None = None):
         super().__init__(config, key)
         self.layer_idx = layer_idx
         self.attn_norm = attn_norm
         self.attn = attn
+        self.attn_post_norm = attn_post_norm
         self.mlp_norm = mlp_norm
         self.mlp = mlp
-        self.modules = [attn_norm, attn, mlp_norm, mlp]
+        self.mlp_post_norm = mlp_post_norm
+        self.modules = [m for m in (attn_norm, attn, attn_post_norm, mlp_norm, mlp,
+                                    mlp_post_norm) if m is not None]
 
     def forward(self, x, params: dict, ctx: ForwardCtx):
         res = x.to(torch.float32)
         h = self.attn.forward(self.attn_norm.forward(x, params, ctx), params, ctx)
+        if self.attn_post_norm is not None:
+            h = self.attn_post_norm.forward(h, params, ctx)
         res = res + h.to(torch.float32)
         x = res.to(x.dtype)
         h = self.mlp.forward(self.mlp_norm.forward(x, params, ctx), params, ctx)
+        if self.mlp_post_norm is not None:
+            h = self.mlp_post_norm.forward(h, params, ctx)
         res = res + h.to(torch.float32)
         return res.to(x.dtype)

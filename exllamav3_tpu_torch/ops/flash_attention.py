@@ -16,12 +16,15 @@ its sequences. csrc/latent_attention.cu and csrc/latent_attention_quant.cu
 serve the absorbed MLA form over DeepSeek's latent cache, paged or linear:
 one kv head whose 576-channel row is the latent (512) and the rope key (64),
 V the latent itself; bf16, or the latent packed with the rope key in bf16.
+csrc/ring_attention.cu serves decode (S = 1) over a sliding-window layer's
+ring (`ring_attention`): each sequence's ring row holds W slots of bf16 K/V
+beside the position each slot holds, and the positions decide visibility.
 On a CPU tensor a wrapper runs its plain version, built on ops/attention.py.
 `paged_attention_any`, `linear_attention_any` and `latent_attention_any` pick
 the storage by the layer state's keys (modules/attn.py picks the layout by
 the cache's). The JAX package dequantizes a whole merged pool for tall
 chunks (a TPU tile-occupancy matter); the port's kernels take any S. The
-ring variant and `return_stats` are not ported yet.
+`return_stats` variant is not ported yet.
 """
 from __future__ import annotations
 
@@ -513,3 +516,84 @@ def latent_attention_any(q, layer_state: dict, q_positions, total_lens, latent: 
     if cpu:
         return latent_attention_plain(q, layer_state["kv"], q_positions, total_lens, latent, **kw)
     return latent_attention_kernel(q, layer_state["kv"], q_positions, total_lens, **kw)
+
+
+# -- SWA ring ------------------------------------------------------------------------
+
+def ring_visible(ring_pos, q_positions, sliding_window: int = 0) -> torch.Tensor:
+    """(B, S, W) bool: slot j of each sequence's ring rows `ring_pos` (B, W)
+    is visible to the query at q_positions (B, S): 0 <= pos[j] <= q_pos and,
+    with a window, pos[j] > q_pos - window."""
+    kp, qp = ring_pos[:, None, :], q_positions[:, :, None]
+    vis = (kp >= 0) & (kp <= qp)
+    if sliding_window:
+        vis &= kp > qp - sliding_window
+    return vis
+
+
+def ring_attention_plain(q, ring_k, ring_v, ring_pos, slots, q_positions, sinks=None,
+                         scale: float = 1.0, sliding_window: int = 0,
+                         logit_softcap: float = 0.0) -> torch.Tensor:
+    """(B, 1, Hq, D) f32: each sequence's ring row slots[b] gathered, masked by
+    its stored positions, and the softmax taken in f32; rows that see no slot
+    set to 0. q (B, 1, Hq, D) f32; ring_k, ring_v (N, W, Hk, D) bf16;
+    ring_pos (N, W) int32; slots (B,) int32; q_positions (B, 1) int32."""
+    rows = slots.long()
+    pos = ring_pos[rows]
+    o = attend_dense(q, ring_k[rows], ring_v[rows], q_positions, pos, k_valid=pos >= 0,
+                     scale=scale, sliding_window=sliding_window, logit_softcap=logit_softcap,
+                     sinks=sinks)
+    valid = ring_visible(pos, q_positions, sliding_window).any(dim=-1)
+    return o * valid[:, :, None, None].to(o.dtype)
+
+
+def ring_attention_kernel(q, ring_k, ring_v, ring_pos, slots, q_positions, sinks=None,
+                          scale: float = 1.0, sliding_window: int = 0,
+                          logit_softcap: float = 0.0) -> torch.Tensor:
+    """Launch csrc/ring_attention.cu: decode (S = 1). q (B, 1, Hq, D) f32;
+    ring_k, ring_v (N, W, Hk, D) bf16; ring_pos (N, W), slots (B,) and
+    q_positions (B, 1) int32; sinks (Hq,) f32 or None; D in {64, 128}, any
+    GQA group, any W."""
+    B, S, Hq, D = q.shape
+    N, W, Hk, Dk = ring_k.shape
+    ints = (ring_pos, slots, q_positions)
+    tensors = (q, ring_k, ring_v) + ints + ((sinks,) if sinks is not None else ())
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError("ring_attention_kernel: all tensors must be on one CUDA device")
+    if (q.dtype != torch.float32 or ring_k.dtype != torch.bfloat16
+            or ring_v.dtype != torch.bfloat16 or any(t.dtype != torch.int32 for t in ints)
+            or (sinks is not None and sinks.dtype != torch.float32)):
+        raise TypeError("ring_attention_kernel: expected f32 q, bf16 ring k/v, int32 positions "
+                        "and slots, f32 sinks")
+    if (S != 1 or Dk != D or ring_v.shape != ring_k.shape or D not in (64, 128) or W < 1
+            or Hq % Hk or ring_pos.shape != (N, W) or slots.shape != (B,)
+            or q_positions.shape != (B, 1) or (sinks is not None and sinks.shape != (Hq,))):
+        raise ValueError(f"ring_attention_kernel: unsupported shapes q {tuple(q.shape)}, "
+                         f"ring {tuple(ring_k.shape)}, pos {tuple(ring_pos.shape)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("ring_attention_kernel: tensors must be contiguous")
+    check_aligned("ring_attention_kernel", q, ring_k, ring_v)
+    out = torch.empty((B, 1, Hq, D), dtype=torch.float32, device=q.device)
+    err = library().exl3_ring_attention(
+        q.data_ptr(), ring_k.data_ptr(), ring_v.data_ptr(), ring_pos.data_ptr(),
+        slots.data_ptr(), q_positions.data_ptr(),
+        sinks.data_ptr() if sinks is not None else None, out.data_ptr(),
+        B, Hq, Hk, D, N, W, float(scale), int(sliding_window), float(logit_softcap),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch("exl3_ring_attention", err)
+    ring_attention_kernel.launches += 1
+    return out
+
+
+ring_attention_kernel.launches = 0
+
+
+def ring_attention(q, ring_k, ring_v, ring_pos, slots, q_positions, sinks=None,
+                   scale: float = 1.0, sliding_window: int = 0,
+                   logit_softcap: float = 0.0) -> torch.Tensor:
+    """(B, 1, Hq, D) f32, decode over the SWA ring (the JAX package's
+    flash_ring_attention). CUDA tensors go through the kernel, CPU tensors
+    through the plain version."""
+    fn = ring_attention_plain if q.device.type == "cpu" else ring_attention_kernel
+    return fn(q, ring_k, ring_v, ring_pos, slots, q_positions, sinks=sinks, scale=scale,
+              sliding_window=sliding_window, logit_softcap=logit_softcap)

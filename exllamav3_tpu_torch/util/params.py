@@ -5,9 +5,13 @@ numpy arrays (e.g. `jax.tree.map(np.asarray, jmodel.params)`), into a port
 model on its device. The two packages use the same keys and layouts, so both
 then run on identical weights: int8 codes, `fused` trellis words, the packed
 int4 bytes and int-B words (`weight_q4`, `weight_qb`, `weight_sq` and their
-fused `*_q4`, `*_qb`, `*_sq` entries) bit for bit, their scales as bf16. `cache_state_from_jax` does the same for a cache state, bf16
-({"k", "v"}) or quantized ({"k_q", "v_q"} int32 words, {"k_s", "v_s"} bf16
-scales). This module needs no JAX: it only reads numpy arrays.
+fused `*_q4`, `*_qb`, `*_sq` entries) bit for bit, their scales as bf16.
+Gemma's parameters carry as they are: its norms' weights w (applied as
+1 + w), q/k norms, and the tied head's bf16 "weight" under "lm_head".
+`cache_state_from_jax` does the same for a cache state, bf16 ({"k", "v"}),
+quantized ({"k_q", "v_q"} int32 words, {"k_s", "v_s"} bf16 scales) or an SWA
+ring ({"k", "v"} bf16 and {"pos"} int32 slot positions). This module needs
+no JAX: it only reads numpy arrays.
 """
 from __future__ import annotations
 

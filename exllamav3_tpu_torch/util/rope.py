@@ -1,7 +1,7 @@
 """Rotary position embeddings, NEOX and GPTJ (interleaved pairs) styles with
-the `default`, `llama3` and `yarn` scalings (counterpart of
-exllamav3_tpu/util/rope.py; linear, dynamic, longrope, MRoPE and the
-NANOCHAT style wait). DeepSeek's yarn takes the ratio of its two mscales as
+the `default`, `linear`, `llama3` and `yarn` scalings (counterpart of
+exllamav3_tpu/util/rope.py; dynamic, longrope, MRoPE and the NANOCHAT style
+wait). DeepSeek's yarn takes the ratio of its two mscales as
 the attention factor (`RopeSettings.yarn_mscale_ratio`); the architecture
 folds the other into the softmax scale."""
 from __future__ import annotations
@@ -89,6 +89,9 @@ def compute_rope_params(settings: RopeSettings) -> tuple[np.ndarray, float]:
             attn_factor = float(sc["attention_factor"])
         else:
             attn_factor = yarn_mscale(factor, mscale)
+    elif rt == "linear":  # Gemma-3's global layers: positions divided by the factor
+        inv_freq = 1.0 / (float(sc["factor"])
+                          * base ** (np.arange(0, dim, 2, dtype=np.float64) / dim))
     elif rt == "llama3":
         factor = float(sc["factor"])
         lo_factor = float(sc.get("low_freq_factor", 1.0))

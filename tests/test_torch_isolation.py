@@ -41,7 +41,7 @@ def test_no_jax_imports_in_port_sources():
             "exllamav3_tpu_torch/generator/generator.py", "exllamav3_tpu_torch/modules/attn.py",
             "exllamav3_tpu_torch/modules/mla_attn.py", "exllamav3_tpu_torch/architectures/deepseek.py",
             "exllamav3_tpu_torch/util/rope.py", "exllamav3_tpu_torch/conversion/synth.py",
-            "chip_smoke.py"} <= scanned
+            "exllamav3_tpu_torch/architectures/gemma.py", "chip_smoke.py"} <= scanned
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -264,3 +264,47 @@ def test_latent_cache_follows_the_model_device(tmp_path, monkeypatch, k_bits):
         else:
             kv = torch.zeros((2, 256, 1, 576), dtype=torch.bfloat16)
             latent_attention_kernel(q, kv, pos, torch.ones(1, dtype=torch.int32), block_tables=bt)
+
+
+def test_ring_modules_import_without_a_built_library():
+    """The ring attention wrappers, the Gemma architectures and the fused MLP
+    with its activations import on a machine with no compiler: nothing builds
+    or loads a kernel library, and neither triton nor jax comes in."""
+    code = (
+        "import sys\n"
+        "import exllamav3_tpu_torch.architectures.gemma as gemma\n"
+        "import exllamav3_tpu_torch.ops.flash_attention as fa\n"
+        "import exllamav3_tpu_torch.ops.fused_mlp as fm\n"
+        "import exllamav3_tpu_torch.ops.build as build\n"
+        "assert build._LIB is None and not build.BUILD_LOG\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'exllamav3_tpu', 'triton')]\n"
+        "assert not bad, bad\n"
+        "assert 'ring_attention.cu' in build.SOURCES\n"
+        "assert all(hasattr(fa, 'ring_attention' + s) for s in ('', '_kernel', '_plain'))\n"
+        "assert set(fm.ACTIVATIONS) == {'silu', 'gelu', 'gelu_pytorch_tanh', 'relu2'}\n"
+        "assert callable(gemma.Gemma2Config) and callable(gemma.Gemma3Config)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_ring_kernel_refuses_cpu_tensors_and_prefill():
+    """The ring kernel's wrapper never runs its plain version: CPU tensors
+    and chunks of more than one query are refused before any launch."""
+    from exllamav3_tpu_torch.ops.flash_attention import ring_attention_kernel
+    from exllamav3_tpu_torch.ops.fused_mlp import fused_mlp_int8_kernel
+
+    q = torch.zeros((1, 1, 4, 64))
+    ring = torch.zeros((2, 24, 2, 64), dtype=torch.bfloat16)
+    pos = torch.full((2, 24), -1, dtype=torch.int32)
+    one = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ring_attention_kernel(q, ring, ring, pos, one, one[:, None])
+    with pytest.raises(ValueError, match="activation"):
+        fused_mlp_int8_kernel(torch.zeros((1, 256), dtype=torch.bfloat16),
+                              torch.zeros((256, 256), dtype=torch.int8), torch.ones(256),
+                              torch.zeros((128, 256), dtype=torch.int8), activation="xielu")
