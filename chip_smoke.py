@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases build,serve_spec
     python3 chip_smoke.py --phases build,latent_attention,latent_attention_quant,parity_mla,serve_mla
     python3 chip_smoke.py --phases build,ring_attention,fused_mlp,parity_gemma,serve_gemma
+    python3 chip_smoke.py --phases build,ring_attention,latent_attention,attention_stats,parity_dsv4,serve_dsv4
 
 Phases:
   build     build the CUDA kernels from exllamav3_tpu_torch/csrc/ (timed)
@@ -38,11 +39,17 @@ Phases:
             SWA ring at Gemma-3-27B's shapes, batch 8, q positions 300-2048,
             rings wrapped and still filling, never-written and stale slots, a
             permuted slot table; D = 64 at groups 5 and 7; sinks and a softcap
-            of 50). int8_matmul also runs the
+            of 50), attention_stats (row 6b, the return_stats entries, at
+            DeepSeek-V4's decode shapes: 128 heads over one 512-wide row,
+            batch 8, the sliding ring, the HCA pool of 2-entry pages through a
+            shuffled block table, the CSA top 512 in rows; rows that see no
+            key; two halves merged with sinks). int8_matmul also runs the
             Qwen3-30B-A3B attention and head shapes and DeepSeek-V2-Lite's
             576- and 10944-wide ones, fused_mlp the shared experts' width,
             moe_gemm DeepSeek-V2-Lite's experts, fused_mlp Gemma-3-27B's
-            gelu_pytorch_tanh MLP at m = 1 and 8, the four attention checks
+            gelu_pytorch_tanh MLP at m = 1 and 8 and DeepSeek-V4's clamped
+            shared expert (h 7168, i 2048), moe_gemm DeepSeek-V4's clamped
+            experts (256 of 7168 x 2048, top 8), the four attention checks
             GQA groups 5, 6 and 7 (and 8), the linear ones at T = 2052
   parity    a 2-layer checkpoint at full 8B width: forward_simple and paged
             prefill + decode steps on the GPU (kernels) against the CPU
@@ -63,6 +70,12 @@ Phases:
             versions; its 32 new tokens as one chunk); then the same request
             with the sliding layers in the paged cache (the paged kernel with
             the window): the same greedy tokens
+  parity_dsv4
+            a 2-layer DeepSeek-V4 checkpoint at full width (HCA then CSA, one
+            hash-routed layer; conversion/synth.py::deepseek_v4_cfg): a
+            2100-token prompt, then 32 greedy decode steps through the row 6b
+            kernels, against one dense forward of the same tokens given the
+            decode run's routing
   serve     a 32-layer synthetic checkpoint at Llama-3.1-8B geometry loaded
             with linear_mode="auto" (int8 on an 80 GB card) over a bf16 cache
             and served by the continuous-batching generator: 8 greedy
@@ -115,6 +128,13 @@ Phases:
             linear_mode="auto" (int8) over a bf16 paged cache whose 52 sliding
             layers keep SWA rings (recurrent_slots 9), the same traffic: the
             ring kernel 52 times and the paged kernel 10 times a decode step
+  serve_dsv4
+            the 2-layer full-width DeepSeek-V4 checkpoint (~13 GB) loaded with
+            linear_mode="auto" (int8; bf16 expert stacks) over a bf16 paged
+            cache of compressed pools with 9 state slots of rings and
+            compressor buffers, the same traffic: the three row 6b kernels,
+            the clamped fused MLP and the clamped selected-expert kernel each
+            decode step
 
 Each serve phase sets every kernel's launch count to 0 before its run and
 reads it after: the kernels of its path must all have launched and the
@@ -123,8 +143,9 @@ others not at all.
 The second-to-last line is the kernel table as JSON and the last line is
 {"ok": true, "device": {...}}. Any failed phase raises and exits non-zero
 without that line. Needs CUDA; writes its checkpoints under build/chip_smoke/
-(the 24-layer MoE one is ~7.5 GB, the 27-layer DeepSeek-V2-Lite one ~8 GB and
-the 62-layer Gemma-3-27B one ~15 GB, one shard a layer).
+(the 24-layer MoE one is ~7.5 GB, the 27-layer DeepSeek-V2-Lite one ~8 GB,
+the 62-layer Gemma-3-27B one ~15 GB and the 2-layer DeepSeek-V4 one ~13 GB,
+one shard a layer).
 """
 from __future__ import annotations
 
@@ -230,6 +251,13 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                                "exllamav3_tpu/ops/flash_attention.py:253"),
     "ring_attention": ("exllamav3_tpu_torch/csrc/ring_attention.cu",
                        "exllamav3_tpu/ops/flash_attention.py:1045"),
+    # row 6b, _flash_kernel with return_stats (:273), in DeepSeek-V4's three layouts
+    "ring_attention_stats": ("exllamav3_tpu_torch/csrc/attention_stats.cu",
+                             "exllamav3_tpu/ops/flash_attention.py:1045"),
+    "pool_attention_stats": ("exllamav3_tpu_torch/csrc/attention_stats.cu",
+                             "exllamav3_tpu/ops/flash_attention.py:273"),
+    "rows_attention_stats": ("exllamav3_tpu_torch/csrc/attention_stats.cu",
+                             "exllamav3_tpu/ops/flash_attention.py:273"),
 }
 
 
@@ -359,11 +387,15 @@ def check_fused_mlp(table, dev):
 
     g = torch.Generator(device=dev).manual_seed(2)
     # Llama-3.1-8B; DeepSeek-V2-Lite's two shared experts (one gated MLP of 2 x 1408);
-    # Gemma-3-27B's gelu_pytorch_tanh MLP
-    for m, h, inter, act in ((1, 4096, 14336, "silu"), (8, 4096, 14336, "silu"),
-                             (16, 4096, 14336, "silu"), (8, 2048, 2816, "silu"),
-                             (1, 5376, 21504, "gelu_pytorch_tanh"),
-                             (8, 5376, 21504, "gelu_pytorch_tanh")):
+    # Gemma-3-27B's gelu_pytorch_tanh MLP; DeepSeek-V4's shared expert (h 7168, i 2048)
+    # at its swiglu_limit of 10, and at a limit of 1 that clips about a fifth of the
+    # gate values of this data
+    for m, h, inter, act, clamp in ((1, 4096, 14336, "silu", 0.0), (8, 4096, 14336, "silu", 0.0),
+                                    (16, 4096, 14336, "silu", 0.0), (8, 2048, 2816, "silu", 0.0),
+                                    (1, 5376, 21504, "gelu_pytorch_tanh", 0.0),
+                                    (8, 5376, 21504, "gelu_pytorch_tanh", 0.0),
+                                    (1, 7168, 2048, "silu", 10.0), (8, 7168, 2048, "silu", 10.0),
+                                    (8, 7168, 2048, "silu", 1.0)):
         def make(i, m=m, h=h, inter=inter):
             x = torch.randn((m, h), generator=g, device=dev).to(torch.bfloat16)
             gu = torch.randint(-127, 128, (h, 2 * inter), generator=g, device=dev, dtype=torch.int8)
@@ -373,21 +405,25 @@ def check_fused_mlp(table, dev):
         nb = m * h * 2 + 3 * h * inter + 2 * inter * 4 + m * h * 4
         nxt = rotating(make, nb)
         args = nxt()
-        ref = fused_mlp_int8_plain(*args, act)
-        got = fused_mlp_int8_kernel(*args, act)
+        ref = fused_mlp_int8_plain(*args, act, clamp)
+        got = fused_mlp_int8_kernel(*args, act, clamp)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         rel = err / float(ref.abs().max())
-        ms = time_ms(lambda: fused_mlp_int8_kernel(*nxt(), act), 20)
-        plain = time_ms(lambda: fused_mlp_int8_plain(*nxt(), act), 3)
+        ms = time_ms(lambda: fused_mlp_int8_kernel(*nxt(), act, clamp), 20)
+        plain = time_ms(lambda: fused_mlp_int8_plain(*nxt(), act, clamp), 3)
         bnd = bound_ms(nb, 6.0 * m * h * inter)
-        log(f"fused_mlp {act} m={m} h={h} i={inter}: max_abs_err={err:.3e} rel={rel:.2e} "
+        what = f"{act}{f' clamp {clamp:g}' if clamp else ''} m={m} h={h} i={inter}"
+        if clamp:
+            x, gu, gs, _ = args
+            gate = (x.float() @ gu[:, :inter].float()) * gs[:inter]
+            what += f" ({float((gate.abs() > clamp).float().mean()):.3f} of gate values clipped)"
+        log(f"fused_mlp {what}: max_abs_err={err:.3e} rel={rel:.2e} "
             f"kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms=null "
             f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
         if not rel <= TOL_MLP:
-            raise AssertionError(f"fused_mlp {act} m={m}: rel err {rel} > {TOL_MLP}")
-        table.add("fused_mlp", err, ms, plain, bnd, None, f"{act} m={m} h={h} i={inter}",
-                  main=(m == 8 and h == 4096))
+            raise AssertionError(f"fused_mlp {what}: rel err {rel} > {TOL_MLP}")
+        table.add("fused_mlp", err, ms, plain, bnd, None, what, main=(m == 8 and h == 4096))
         del args, ref, got, nxt
     torch.cuda.empty_cache()
 
@@ -594,6 +630,163 @@ def check_ring_attention(table, dev):
     torch.cuda.empty_cache()
 
 
+# DeepSeek-V4's decode attention (conversion/synth.py::deepseek_v4_cfg): 128 q heads
+# over one 512-wide kv row, softmax scale 512^-0.5, window 128 in a ring of 144
+# slots, HCA pool entries every 128 positions (2 a 256-token page), CSA top 512
+DSV4_ATTN = dict(Hq=128, D=512, window=128, ring=144, hca=128, csa=4, topk=512)
+
+
+def _stats_rel(tag: str, got: tuple, ref: tuple) -> float:
+    """The largest error of acc, m and l, each over the largest magnitude of
+    its plain result; raises above TOL_ATTN or on a non-finite value."""
+    worst = 0.0
+    for what, a, b in zip(("acc", "m", "l"), got, ref):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{tag}: non-finite {what}")
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if not rel <= TOL_ATTN:
+            raise AssertionError(f"{tag}: {what} rel err {rel} > {TOL_ATTN}")
+        worst = max(worst, rel)
+    return worst
+
+
+def _stats_library(q, k, vis, scale):
+    """A callable timing SDPA over gathered rows k (B, T, 512) bf16, K and V
+    alike, one kv head for all q heads, masked by vis (B, 1, T): the
+    normalised output only, not the stats."""
+    kk = k[:, None].contiguous()
+    qt = q.transpose(1, 2)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kk, kk, attn_mask=vis[:, None], scale=scale, enable_gqa=True)
+
+
+def _stats_bound(vis_keys: int, B: int, Hq: int, pairs: int) -> tuple:
+    """Each visible key's 1024-byte row once for all heads, q in and the
+    stats out once; 4 * 512 operations a visible (head, key) pair."""
+    D = DSV4_ATTN["D"]
+    nbytes = vis_keys * D * 2 + B * Hq * D * 2 + B * Hq * (D * 4 + 8)
+    return bound_ms(nbytes, 4.0 * pairs * Hq * D)
+
+
+def check_attention_stats(table, dev):
+    """Row 6b at DeepSeek-V4's decode shapes, batch 8, q positions 300-2048:
+    the sliding ring (9 rows, a permuted slot table, stale and never-written
+    slots), the HCA pool (2 entries a page through a shuffled block table)
+    and the CSA selection (512 gathered entries, the first min(visible, 512)
+    of them visible). acc, m and l each against the plain version; a row
+    that sees no key reads exactly (0, -1e30, 0); two halves of one key range
+    merged with sinks by merge_stats equal the single shot."""
+    from exllamav3_tpu_torch.ops import flash_attention as F
+
+    a = DSV4_ATTN
+    Hq, D, scale = a["Hq"], a["D"], a["D"] ** -0.5
+    rng = np.random.default_rng(31)
+    qpos = np.linspace(300, 2048, 8).astype(np.int32)
+    B = len(qpos)
+    g = torch.Generator(device=dev).manual_seed(32)
+    q = (torch.randn((B, 1, Hq, D), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    qp = torch.as_tensor(qpos[:, None], device=dev)
+
+    # the ring
+    N, W = 9, a["ring"]
+    slots = np.array([3, 7, 0, 5, 8, 1, 6, 2], np.int32)
+    pos_np = _ring_rows(rng, N, W, qpos, slots)
+    ring = torch.randn((N, W, D), generator=g, device=dev).to(torch.bfloat16)
+    pos = torch.as_tensor(pos_np, device=dev)
+    sl = torch.as_tensor(slots, device=dev)
+    # the HCA pool: entry e of sequence b is slot e % 2 of page bt[b, e // 2]
+    epp = 256 // a["hca"]
+    mp = -(-int(qpos.max() + 1) // 256) + 1
+    P = B * mp + 1
+    bt_np = rng.permutation(np.arange(1, P))[: B * mp].reshape(B, mp).astype(np.int32)
+    bt = torch.as_tensor(bt_np, device=dev)
+    pool = torch.randn((P, epp, D), generator=g, device=dev).to(torch.bfloat16)
+    n_pool = (qpos + 1) // a["hca"]
+    # the CSA selection: 512 entries gathered a sequence, the first vcount visible
+    K = a["topk"]
+    vcount = np.minimum((qpos + 1) // a["csa"], K).astype(np.int32)
+    sel = torch.randn((B, K, D), generator=g, device=dev).to(torch.bfloat16)
+
+    def entries(n_):
+        """(q positions (B, 1), lengths (B,)) of n_ visible entries each"""
+        return (torch.as_tensor((n_ - 1)[:, None].astype(np.int32), device=dev),
+                torch.as_tensor(n_.astype(np.int32), device=dev))
+
+    pq, pt = entries(n_pool)
+    rq, rt = entries(vcount)
+    kpos = torch.arange(K, device=dev)
+    ring_vis = F.ring_visible(pos[sl.long()], qp, a["window"])
+    pool_keys, _ = F._pool_keys(pool, bt)
+    cases = [
+        ("ring_attention_stats", "sliding ring, W=144, window 128",
+         lambda: F.ring_attention_stats_kernel(q, ring, pos, sl, qp, scale, a["window"]),
+         lambda: F.ring_attention_stats_plain(q, ring, pos, sl, qp, scale, a["window"]),
+         _stats_library(q, ring[sl.long()], ring_vis, scale),
+         _stats_bound(int(ring_vis.sum()), B, Hq, int(ring_vis.sum()))),
+        ("pool_attention_stats", f"HCA pool, {epp} entries a page, shuffled table, "
+         f"{int(n_pool.min())}-{int(n_pool.max())} entries",
+         lambda: F.pool_attention_stats_kernel(q, pool, bt, pq, pt, scale),
+         lambda: F.pool_attention_stats_plain(q, pool, bt, pq, pt, scale),
+         _stats_library(q, pool_keys, torch.arange(pool_keys.shape[1], device=dev)[None, None]
+                        < pt[:, None, None], scale),
+         _stats_bound(int(n_pool.sum()), B, Hq, int(n_pool.sum()))),
+        ("rows_attention_stats", f"CSA top {K} gathered, {int(vcount.min())}-{int(vcount.max())} "
+         f"visible",
+         lambda: F.rows_attention_stats_kernel(q, sel, rq, rt, scale),
+         lambda: F.rows_attention_stats_plain(q, sel, rq, rt, scale),
+         _stats_library(q, sel, kpos[None, None] < rt[:, None, None], scale),
+         _stats_bound(int(vcount.sum()), B, Hq, int(vcount.sum()))),
+    ]
+    for name, what, kern, plain_fn, lib_fn, bnd in cases:
+        ref = plain_fn()
+        got = kern()
+        torch.cuda.synchronize()
+        rel = _stats_rel(f"{name} {what}", got, ref)
+        err = max(float((x - y).abs().max()) for x, y in zip(got, ref))
+        ms = time_ms(kern, 20)
+        plain = time_ms(plain_fn, 3)
+        lib = time_ms(lib_fn, 20)
+        log(f"{name} DeepSeek-V4 decode B={B} Hq={Hq} D={D}, {what}: max_abs_err={err:.3e} "
+            f"rel={rel:.2e} kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms(sdpa on the "
+            f"gathered rows; normalised output only)={lib:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]})")
+        table.add(name, err, ms, plain, bnd, lib, f"DeepSeek-V4 decode B={B} Hq={Hq} D={D}, {what}",
+                  main=True)
+
+    # rows that see no key: an empty pool (positions below 127) and no selection
+    low = np.array([100, 20, 126, 127, 300, 5, 64, 0], np.int32)
+    n_low = (low + 1) // a["hca"]
+    lq, lt = entries(n_low)
+    empty = torch.as_tensor(n_low == 0, device=dev)
+    for name, args in (("pool_attention_stats", (q, pool, bt, lq, lt, scale)),
+                       ("rows_attention_stats", (q, sel, lq, lt, scale))):
+        got = getattr(F, name + "_kernel")(*args)
+        _stats_rel(f"{name} with empty rows", got, getattr(F, name + "_plain")(*args))
+        acc, m, l = got
+        if not ((acc[empty] == 0).all() and (m[empty] == F.NEG_INF).all()
+                and (l[empty] == 0).all()):
+            raise AssertionError(f"{name}: a row that sees no key is not (0, -1e30, 0)")
+        log(f"{name}: {int(empty.sum())} rows that see no key read exactly (0, -1e30, 0)")
+
+    # two halves of the CSA selection, merged with sinks, against the single shot
+    sinks = torch.randn(Hq, generator=g, device=dev) * 0.5
+    h = K // 2
+    one = F.rows_attention_stats_kernel(q, sel, rq, rt, scale)
+    lo = F.rows_attention_stats_kernel(q, sel[:, :h].contiguous(), rq, torch.clamp(rt, max=h),
+                                       scale)
+    hi = F.rows_attention_stats_kernel(q, sel[:, h:].contiguous(), rq - h,
+                                       torch.clamp(rt - h, min=0), scale)
+    merged, single = F.merge_stats([lo, hi], sinks), F.merge_stats([one], sinks)
+    ref = F.merge_stats([F.rows_attention_stats_plain(q, sel, rq, rt, scale)], sinks)
+    for tag, x in (("merged halves against the single shot", merged),
+                   ("single shot against the plain version", single)):
+        rel = float((x - (single if x is merged else ref)).abs().max()) / float(ref.abs().max())
+        log(f"rows_attention_stats: {tag}, with sinks: rel={rel:.2e}")
+        if not rel <= TOL_ATTN:
+            raise AssertionError(f"rows_attention_stats: {tag}: rel err {rel} > {TOL_ATTN}")
+    del q, ring, pool, sel, pool_keys
+    torch.cuda.empty_cache()
+
+
 SASS_LINE = re.compile(r"^\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)[^;]*;")
 SASS_MEMORY = {"LDS", "LDSM", "LDG", "LD", "LDC", "STS", "STG", "ST"}
 SASS_CONTROL = {"BRA", "BRX", "JMP", "CALL", "RET", "EXIT", "BSSY", "BSYNC", "BAR", "WARPSYNC",
@@ -795,10 +988,14 @@ def check_packed(table, dev, name: str):
 
 
 # (name, h, i, E, k, token counts) from the published configs
-MOE_SHAPES = [("Qwen3-30B-A3B", 2048, 768, 128, 8, (1, 8, 15)),
-              ("Qwen3-235B-A22B", 4096, 1536, 128, 8, (8,)),
-              ("Mixtral-8x7B", 4096, 14336, 8, 2, (1, 8)),
-              ("DeepSeek-V2-Lite", 2048, 1408, 64, 6, (1, 8))]
+# (name, h, i, E, k, tokens, activation clamps): DeepSeek-V4's experts at
+# DeepSeek-V3's widths and its swiglu_limit of 10, and at a limit of 1 that
+# clips this data's activations often
+MOE_SHAPES = [("Qwen3-30B-A3B", 2048, 768, 128, 8, (1, 8, 15), (0.0,)),
+              ("Qwen3-235B-A22B", 4096, 1536, 128, 8, (8,), (0.0,)),
+              ("Mixtral-8x7B", 4096, 14336, 8, 2, (1, 8), (0.0,)),
+              ("DeepSeek-V2-Lite", 2048, 1408, 64, 6, (1, 8), (0.0,)),
+              ("DeepSeek-V4", 7168, 2048, 256, 8, (1, 8), (10.0, 1.0))]
 
 
 def _moe_routing(rng, T, E, k, dev):
@@ -813,18 +1010,20 @@ def _moe_routing(rng, T, E, k, dev):
     return torch.as_tensor(topi, device=dev), torch.as_tensor(topv, device=dev)
 
 
-def moe_library(x, groups, topv, wg, wu, wd):
+def moe_library(x, groups, topv, wg, wu, wd, clamp: float = 0.0):
     """The same routed function from PyTorch products, as the grouped path
     computes it: for each distinct routed expert, its tokens times its three
     bf16 weights (cuBLAS), the activation rounded to bf16, the weighted rows
     added into the output. `groups` is [(expert, token rows, slot rows)],
     made on the host beforehand."""
+    from exllamav3_tpu_torch.ops.moe_gemm import silu_mul
+
     out = torch.zeros((x.shape[0], x.shape[1]), dtype=torch.float32, device=x.device)
     flat_v = topv.reshape(-1)
     for e, rows, slots in groups:
         xe = x[rows]
-        a = (torch.nn.functional.silu(torch.matmul(xe, wg[e]).float())
-             * torch.matmul(xe, wu[e]).float()).to(torch.bfloat16)
+        a = silu_mul(torch.matmul(xe, wg[e]).float(), torch.matmul(xe, wu[e]).float(),
+                     clamp).to(torch.bfloat16)
         out.index_add_(0, rows, torch.matmul(a, wd[e]).float() * flat_v[slots, None])
     return out
 
@@ -835,11 +1034,14 @@ def check_moe_gemm(table, dev):
 
     rng = np.random.default_rng(13)
     g = torch.Generator(device=dev).manual_seed(13)
-    for name, h, inter, E, k, Ts in MOE_SHAPES:
-        wg = (torch.randn((E, h, inter), generator=g, device=dev) / math.sqrt(h)).to(torch.bfloat16)
-        wu = (torch.randn((E, h, inter), generator=g, device=dev) / math.sqrt(h)).to(torch.bfloat16)
-        wd = (torch.randn((E, inter, h), generator=g, device=dev) / math.sqrt(inter)).to(torch.bfloat16)
-        for T in Ts:
+    for name, h, inter, E, k, Ts, clamps in MOE_SHAPES:
+        def weights(shape, fan_in):
+            w = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+            return w.mul_(1.0 / math.sqrt(fan_in))
+        wg = weights((E, h, inter), h)
+        wu = weights((E, h, inter), h)
+        wd = weights((E, inter, h), inter)
+        for T, clamp in ((T, c) for T in Ts for c in clamps):
             # several routings in turn, so that timed calls read other experts
             # than the call before, as consecutive layers do
             sets = []
@@ -852,42 +1054,43 @@ def check_moe_gemm(table, dev):
                           for e in np.unique(ti)]
                 sets.append((x, topi, topv, groups, len(groups)))
             x, topi, topv, groups, distinct = sets[0]
-            ref = selected_expert_mlp_plain(x, topi, topv, wg, wu, wd)
-            got = selected_expert_mlp_kernel(x, topi, topv, wg, wu, wd)
+            ref = selected_expert_mlp_plain(x, topi, topv, wg, wu, wd, clamp)
+            got = selected_expert_mlp_kernel(x, topi, topv, wg, wu, wd, clamp)
             torch.cuda.synchronize()
+            name_c = f"{name} clamp {clamp:g}" if clamp else name
             if not torch.isfinite(got).all():
-                raise AssertionError(f"moe_gemm {name} T={T}: non-finite output")
+                raise AssertionError(f"moe_gemm {name_c} T={T}: non-finite output")
             err = float((got - ref).abs().max())
             rel = err / float(ref.abs().max())
             rel_range = err / float(ref.max() - ref.min())
-            lib_err = float((moe_library(x, groups, topv, wg, wu, wd) - ref).abs().max())
+            lib_err = float((moe_library(x, groups, topv, wg, wu, wd, clamp) - ref).abs().max())
             state = {"i": 0}
 
             def nxt():
                 state["i"] += 1
                 return sets[state["i"] % len(sets)]
-            ms = time_ms(lambda: selected_expert_mlp_kernel(*nxt()[:3], wg, wu, wd), 20)
-            plain = time_ms(lambda: selected_expert_mlp_plain(*nxt()[:3], wg, wu, wd), 2)
+            ms = time_ms(lambda: selected_expert_mlp_kernel(*nxt()[:3], wg, wu, wd, clamp), 20)
+            plain = time_ms(lambda: selected_expert_mlp_plain(*nxt()[:3], wg, wu, wd, clamp), 2)
 
             def lib_call():
                 xs, _, tv, grp, _ = nxt()
-                return moe_library(xs, grp, tv, wg, wu, wd)
+                return moe_library(xs, grp, tv, wg, wu, wd, clamp)
             lib = time_ms(lib_call, 5)
             # the distinct experts each routing reads, averaged over the timed sets
             n_dist = float(np.mean([s[4] for s in sets]))
             nb = n_dist * 3 * h * inter * 2 + T * h * 2 + T * k * 8 + T * h * 4
             bnd = bound_ms(nb, 6.0 * T * k * h * inter)
-            log(f"moe_gemm {name} T={T} (h={h} i={inter} E={E} k={k}, {distinct} distinct experts "
-                f"in the checked routing, {n_dist:.2f} on average): max_abs_err={err:.3e} "
+            log(f"moe_gemm {name_c} T={T} (h={h} i={inter} E={E} k={k}, {distinct} distinct "
+                f"experts in the checked routing, {n_dist:.2f} on average): max_abs_err={err:.3e} "
                 f"rel={rel:.2e}, {rel_range:.2e} of the range (library vs plain {lib_err:.3e}) "
                 f"kernel_ms={ms:.4f} "
                 f"plain_ms={plain:.4f} library_ms(torch.matmul per distinct expert)={lib:.4f} "
                 f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
             if not rel_range <= TOL_MOE:
-                raise AssertionError(f"moe_gemm {name} T={T}: err {rel_range} of the range "
+                raise AssertionError(f"moe_gemm {name_c} T={T}: err {rel_range} of the range "
                                      f"> {TOL_MOE}")
             table.add("moe_gemm", err, ms, plain, bnd, lib,
-                      f"{name} T={T} h={h} i={inter} E={E} k={k}, {n_dist:.2f} distinct experts",
+                      f"{name_c} T={T} h={h} i={inter} E={E} k={k}, {n_dist:.2f} distinct experts",
                       main=(name == "Qwen3-30B-A3B" and T == 8))
             del sets, x, topi, topv, groups, ref, got
         del wg, wu, wd
@@ -1520,7 +1723,10 @@ def _wrappers() -> dict:
                                                           linear_attention_quant_kernel,
                                                           paged_attention_kernel,
                                                           paged_attention_quant_kernel,
-                                                          ring_attention_kernel)
+                                                          pool_attention_stats_kernel,
+                                                          ring_attention_kernel,
+                                                          ring_attention_stats_kernel,
+                                                          rows_attention_stats_kernel)
     from exllamav3_tpu_torch.ops.fused_mlp import fused_mlp_int8_kernel
     from exllamav3_tpu_torch.ops.moe_gemm import selected_expert_mlp_kernel
     import exllamav3_tpu_torch.ops.q_matmul as qm
@@ -1534,7 +1740,10 @@ def _wrappers() -> dict:
             "linear_attention_quant": linear_attention_quant_kernel,
             "latent_attention": latent_attention_kernel,
             "latent_attention_quant": latent_attention_quant_kernel,
-            "ring_attention": ring_attention_kernel}
+            "ring_attention": ring_attention_kernel,
+            "ring_attention_stats": ring_attention_stats_kernel,
+            "pool_attention_stats": pool_attention_stats_kernel,
+            "rows_attention_stats": rows_attention_stats_kernel}
 
 
 def _reset_counts():
@@ -1595,13 +1804,15 @@ def plain_ops():
         y = y if bias is None else y + bias
         return y.reshape(*x.shape[:-1], w_q.shape[1])
 
-    def fused_mlp_plain(x, gu_q, gu_scale, d_q, d_scale, d_bias=None, activation="silu"):
-        y = fm.fused_mlp_int8_plain(x.reshape(-1, x.shape[-1]), gu_q, gu_scale, d_q, activation)
+    def fused_mlp_plain(x, gu_q, gu_scale, d_q, d_scale, d_bias=None, activation="silu",
+                        act_clamp=0.0):
+        y = fm.fused_mlp_int8_plain(x.reshape(-1, x.shape[-1]), gu_q, gu_scale, d_q, activation,
+                                    act_clamp)
         y = y * d_scale[None, :]
         return (y if d_bias is None else y + d_bias).reshape(x.shape)
 
-    def experts_plain(x, topi, topv, wu, wd, wg=None):
-        return selected_expert_mlp_plain(x, topi, topv, wg, wu, wd)
+    def experts_plain(x, topi, topv, wu, wd, wg=None, act_clamp=0.0):
+        return selected_expert_mlp_plain(x, topi, topv, wg, wu, wd, act_clamp)
 
     swaps = [(linear_mod, "exl3_matmul", exl3_matmul_plain), (attn_mod, "paged_attention", attn_plain),
              (attn_mod, "linear_attention", linear_plain), (mla_mod, "latent_attention", latent_plain),
@@ -1776,7 +1987,17 @@ def _serve(tag: str, ckpt: str, linear_mode: str, spec_kw: dict, expect_mode: st
     log(f"{tag}: cache {spec_kw or 'bf16'}: "
         f"{(torch.cuda.memory_allocated() - base) / (72 * 256):.0f} bytes per token")
     rings = [layer for layer in cache.state.values() if "pos" in layer]
-    if rings:
+    if rings and "k" not in rings[0]:  # DeepSeek-V4: rings, buffers and paged pools
+        slot_b = sum(t.numel() * t.element_size() for layer in rings
+                     for n, t in layer.items() if not n.startswith("pg_"))
+        pool_b = sum(t.numel() * t.element_size() for layer in rings
+                     for n, t in layer.items() if n.startswith("pg_"))
+        n_slots = rings[0]["pos"].shape[0]
+        log(f"{tag}: per-slot state (rings and compressor buffers of {len(rings)} layers) "
+            f"{slot_b} bytes ({slot_b / 2**30:.3f} GiB) for {n_slots} state slots, "
+            f"{slot_b / n_slots:.0f} a slot; the compressed pools {pool_b / (72 * 256):.2f} "
+            f"bytes a token")
+    elif rings:
         def nbytes(layers):
             return sum(t.numel() * t.element_size() for layer in layers for t in layer.values())
         paged = [layer for layer in cache.state.values() if "pos" not in layer]
@@ -2240,6 +2461,125 @@ def phase_serve_gemma() -> dict:
     return {n: counts[n] for n in used}
 
 
+# -- phases: parity_dsv4, serve_dsv4 -------------------------------------------------
+
+# the cuts of the DeepSeek-V4 phases: 2 layers (HCA then CSA; every layer also
+# attends its sliding ring, so the two run all three row 6b entries) and one
+# hash-routed layer, at full width (conversion/synth.py::deepseek_v4_cfg)
+DSV4_CUTS = dict(num_hidden_layers=2, compress_ratios=[128, 4], num_hash_layers=1)
+
+
+def _dsv4_checkpoint() -> str:
+    """The 2-layer DeepSeek-V4 EXL3 checkpoint at full width (K=4, ~14 GB),
+    written once per machine."""
+    from exllamav3_tpu_torch.conversion.synth import deepseek_v4_cfg, write_tiny_deepseek_v4_exl3
+
+    d = os.path.join(WORK, "dsv4_2layers")
+    t0 = time.time()
+    if not os.path.exists(os.path.join(d, "config.json")):
+        write_tiny_deepseek_v4_exl3(d, deepseek_v4_cfg(**DSV4_CUTS), K=4, seed=9)
+    size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    log(f"checkpoint: DeepSeek-V4 at full width, cut to {json.dumps(DSV4_CUTS)}, ready in "
+        f"{time.time() - t0:.1f} s, {size / 2**30:.2f} GiB on disk ({d})")
+    return d
+
+
+def phase_parity_dsv4():
+    """The DeepSeek-V4 path on the 2-layer full-width checkpoint (int8
+    projections and head, bf16 expert stacks): a 2100-token prompt (so that
+    the CSA layer selects 512 of up to 533 entries) as one prefill chunk, then
+    32 greedy decode steps one token at a time through the row 6b kernels,
+    against one dense forward (forward_simple) of the prompt and the same 32
+    tokens, every decode position within 2e-2 of the largest logit. The
+    router's bf16 logits round apart between a decode step's product and the
+    2132-row one, and a last-bit difference picks another of the 256 experts
+    (the MoE parity's finding): the dense forward takes the decode run's
+    routing weights, and the share of its own expert sets alike is printed
+    and held. The same 32 steps through the dense decode route
+    (EXL3_TPU_ATTN=dense, the same routing) show how far two dense routes of
+    one function lie apart on this model: the floor the kernels are read
+    against."""
+    from exllamav3_tpu_torch.model import Cache, CacheSpec, Config, InferParams, Model
+
+    cfg = Config.from_directory(_dsv4_checkpoint(), infer_params=InferParams(linear_mode="auto"))
+    model = Model.from_config(cfg, device="cuda")
+    model.load()
+    tag = f"DeepSeek-V4 {cfg.infer_params.linear_mode}"
+    n, steps = 2100, 32
+    prompt = np.random.default_rng(24).integers(0, cfg.vocab_size, size=(1, n))
+    pages = -(-(n + steps) // 256)
+    bt = np.array([list(range(1, pages + 1)) + [0]], np.int32)
+    slot = np.array([1], np.int32)
+
+    def decode(toks: list, forced=None):
+        """The prompt as one chunk, then `steps` decode steps feeding `toks`
+        (greedy when empty). -> (decode logits, fed tokens, routing weights,
+        launch counts of the steps)"""
+        cache = Cache(model, CacheSpec(num_pages=pages + 1, recurrent_slots=2))
+        outs, fed = [], list(toks)
+        with record_routing(forced=forced) as weights:
+            last = model.forward(prompt, cache, np.arange(n, dtype=np.int32)[None],
+                                 np.array([0], np.int32), bt, state_slots=slot)[0, -1]
+            _reset_counts()
+            for i in range(steps):
+                if len(fed) <= i:
+                    fed.append(int(last.argmax()))
+                last = model.forward(np.array([[fed[i]]]), cache, np.array([[n + i]], np.int32),
+                                     np.array([n + i], np.int32), bt, state_slots=slot)[0, -1]
+                outs.append(last)
+            counts = _read_counts()
+        return torch.stack(outs), fed, weights, counts
+
+    kern, toks, dec_w, counts = decode([])
+    want = {"ring_attention_stats": 2 * steps, "pool_attention_stats": steps,
+            "rows_attention_stats": steps, "moe_gemm": 2 * steps, "fused_mlp": 2 * steps}
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"parity {tag}: the decode steps launched {counts}, expected {want}")
+    forced = [torch.cat(dec_w)]  # the dense forward's one routing call (one sqrtsp layer)
+    with uncounted(), record_routing(forced=forced) as own_w:
+        ref = model.forward_simple(np.concatenate([prompt, np.array([toks])], axis=1))[0, n:]
+    alike = ((own_w[0] > 0) == (forced[0] > 0)).all(dim=-1)
+    agree = float(alike.float().mean())
+    log(f"parity {tag}: the dense forward's own expert sets agree with the decode run's for "
+        f"{agree:.4f} of {alike.numel()} tokens (layer 1; layer 0 routes by token id)")
+    if agree < MIN_EXPERT_AGREEMENT:
+        raise AssertionError(f"parity {tag}: expert sets agree for only {agree:.4f}")
+    with uncounted(), environ(EXL3_TPU_ATTN="dense"):
+        dense, _, _, dense_counts = decode(toks, forced=dec_w)
+    if any(dense_counts[k] for k in ("ring_attention_stats", "pool_attention_stats",
+                                     "rows_attention_stats")):
+        raise AssertionError(f"parity {tag}: the dense decode route launched {dense_counts}")
+    floor = float((dense - ref).abs().max()) / float(ref.abs().max())
+    apart = float((kern - dense).abs().max()) / float(ref.abs().max())
+    log(f"parity {tag}: the dense decode route against the dense forward: rel={floor:.3e}; "
+        f"the kernel route against the dense decode route: rel={apart:.3e}")
+    _compare(f"{tag} {steps} decode steps through the row 6b kernels (positions {n}-"
+             f"{n + steps - 1}), against one dense forward", kern, ref)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve_dsv4() -> dict:
+    """The DeepSeek-V4 path: the 2-layer full-width checkpoint, linear_mode
+    "auto" (int8 attention, shared experts and head; bf16 expert stacks) over
+    a bf16 paged cache (the compressed pools) with 9 state slots (the rings
+    and compressor buffers of the batch of 8 and a scrap row), the serve
+    traffic. A decode step launches the ring kernel once a layer, the pool
+    kernel in the HCA layer and the rows kernel in the CSA layer."""
+    used = ("int8_matmul", "fused_mlp", "moe_gemm", "ring_attention_stats",
+            "pool_attention_stats", "rows_attention_stats")
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = _serve("serve_dsv4", _dsv4_checkpoint(), "auto", dict(recurrent_slots=9), "int8",
+                    _serve_prompts(129280),
+                    step_launches={"ring_attention_stats": 2, "pool_attention_stats": 1,
+                                   "rows_attention_stats": 1, "moe_gemm": 2, "fused_mlp": 2})
+    _require_launches("serve_dsv4", counts, used)
+    shutil.rmtree(os.path.join(WORK, "dsv4_2layers"))  # ~14 GB
+    return {n: counts[n] for n in used}
+
+
 # -- phases: linear_decode, serve_spec ---------------------------------------------
 
 # meta-llama/Llama-3.2-1B config.json; the vocabulary cut to the target's 32768,
@@ -2557,21 +2897,21 @@ CHECKS = {"int8_matmul": check_int8, "fused_mlp": check_fused_mlp,
           "linear_attention_quant": check_linear_attention_quant,
           "latent_attention": check_latent_attention,
           "latent_attention_quant": check_latent_attention_quant,
-          "ring_attention": check_ring_attention}
+          "ring_attention": check_ring_attention, "attention_stats": check_attention_stats}
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="build,kernels,parity,parity_mla,parity_gemma,serve,serve_capacity,"
-                            "serve_packed,serve_moe,linear_decode,serve_spec,serve_mla,"
-                            "serve_gemma",
+                    default="build,kernels,parity,parity_mla,parity_gemma,parity_dsv4,serve,"
+                            "serve_capacity,serve_packed,serve_moe,linear_decode,serve_spec,"
+                            "serve_mla,serve_gemma,serve_dsv4",
                     help="`kernels` runs every kernel check; a check's name runs that one")
     args = ap.parse_args()
     phases = args.phases.split(",")
-    known = {"build", "kernels", "parity", "parity_mla", "parity_gemma", "serve",
+    known = {"build", "kernels", "parity", "parity_mla", "parity_gemma", "parity_dsv4", "serve",
              "serve_capacity", "serve_packed", "serve_moe", "linear_decode", "serve_spec",
-             "serve_mla", "serve_gemma", *CHECKS}
+             "serve_mla", "serve_gemma", "serve_dsv4", *CHECKS}
     if set(phases) - known:
         ap.error(f"unknown phases {sorted(set(phases) - known)}")
 
@@ -2648,6 +2988,15 @@ def main():
         t0 = time.time()
         table.set_launches(phase_serve_gemma())
         log(f"phase serve_gemma: {time.time() - t0:.1f} s")
+    # after serve_gemma has removed its checkpoint: the two never share the disk
+    if "parity_dsv4" in phases:
+        t0 = time.time()
+        phase_parity_dsv4()
+        log(f"phase parity_dsv4: {time.time() - t0:.1f} s")
+    if "serve_dsv4" in phases:
+        t0 = time.time()
+        table.set_launches(phase_serve_dsv4())
+        log(f"phase serve_dsv4: {time.time() - t0:.1f} s")
     log(f"total: {time.time() - t_all:.1f} s")
     log(smi)  # once more, so that the end of a cut log still names the card
     print(json.dumps({"kernels": list(table.rows.values())}))

@@ -513,3 +513,191 @@ def write_tiny_gemma_exl3(directory: str, cfg: dict | None = None, K: int = 4, s
     add_norm("model.norm", h)
     flush("model-norm.safetensors")
     return directory
+
+
+def deepseek_v4_cfg(**overrides) -> dict:
+    """A DeepSeek-V4 config.json at full width, with `overrides` on top (a
+    tiny test model, fewer layers). The repository holds no published
+    DeepSeek-V4 config.json, so the numbers come from two sources: the widths
+    DeepseekV4Config reads with a default (the JAX package's, from the
+    reference's config class: head_dim 512 with a 64-wide rope, one kv head,
+    8 output groups of rank 1024, window 128, an indexer of 64 heads of 128
+    with top 512, compress rates 4 and 128, 4 mHC streams with 20 Sinkhorn
+    iterations, 1 shared expert, swiglu_limit 10, rope theta 1e4 and
+    compress theta 1.6e5), and for the rest deepseek-ai/DeepSeek-V3's
+    config.json (hidden 7168, 128 q heads, q_lora_rank 1536, 256 routed
+    experts of 2048 with 8 a token and a routed scale of 2.5, vocab 129280,
+    61 layers, rms eps 1e-6). The first two layers are HCA and the rest
+    alternate HCA and CSA (the JAX package's default pattern), the first 3
+    hash-routed."""
+    cfg = {
+        "architectures": ["DeepseekV4ForCausalLM"],
+        "model_type": "deepseek_v4",
+        "bos_token_id": 0,
+        "eos_token_id": 1,
+        "hidden_size": 7168,
+        "max_position_embeddings": 163840,
+        "num_attention_heads": 128,
+        "num_key_value_heads": 1,
+        "num_hidden_layers": 61,
+        "head_dim": 512,
+        "qk_rope_head_dim": 64,
+        "q_lora_rank": 1536,
+        "o_groups": 8,
+        "o_lora_rank": 1024,
+        "sliding_window": 128,
+        "index_n_heads": 64,
+        "index_head_dim": 128,
+        "index_topk": 512,
+        "compress_rate_csa": 4,
+        "compress_rate_hca": 128,
+        "hc_mult": 4,
+        "hc_sinkhorn_iters": 20,
+        "moe_intermediate_size": 2048,
+        "n_routed_experts": 256,
+        "num_experts_per_tok": 8,
+        "n_shared_experts": 1,
+        "num_hash_layers": 3,
+        "routed_scaling_factor": 2.5,
+        "scoring_func": "sqrtsoftplus",
+        "topk_method": "noaux_tc",
+        "swiglu_limit": 10.0,
+        "rms_norm_eps": 1e-6,
+        "rope_theta": 10000.0,
+        "compress_rope_theta": 160000.0,
+        "tie_word_embeddings": False,
+        "torch_dtype": "bfloat16",
+        "vocab_size": 129280,
+    }
+    cfg.update(overrides)
+    if "compress_ratios" not in cfg:
+        n = cfg["num_hidden_layers"]
+        cfg["compress_ratios"] = [128] * min(n, 2) + [4 if i % 2 else 128 for i in range(n - 2)]
+    return cfg
+
+
+@_atomic_checkpoint
+def write_tiny_deepseek_v4_exl3(directory: str, cfg: dict | None = None, K: int = 4,
+                                seed: int = 0):
+    """Write a synthetic DeepSeek-V4 checkpoint in the JAX package's tensor
+    names and draw order (conversion/synth.py::write_synth_dense_for_arch
+    there): EXL3 linears where both widths are multiples of 128 (EXL3's
+    Hadamards; the codes raw generator words), bf16 `.weight` otherwise
+    (`indexer.weights_proj`, 7168 x 64), a bf16 router with its selection
+    bias (`gate.bias`), the hash table `gate.tid2eid` (vocab, k) int32 of the
+    first num_hash_layers layers, sinks, each compressor's `ape` and the mHC
+    tensors (`hc_*_fn`, `_base`, `_scale`). A model whose linears all have a
+    width off the multiples of 128 (the JAX package's tiny test model) gets
+    the same tensors, byte for byte, as the JAX writer writes for it. The
+    default is that tiny model. One shard a layer, the embedding and the head
+    in shards of their own."""
+    os.makedirs(directory, exist_ok=True)
+    cfg = cfg or deepseek_v4_cfg(
+        vocab_size=256, hidden_size=64, num_attention_heads=4, num_hidden_layers=3,
+        rms_norm_eps=1e-5, head_dim=32, qk_rope_head_dim=8, q_lora_rank=32, o_groups=2,
+        o_lora_rank=16, sliding_window=8, index_n_heads=4, index_head_dim=16, index_topk=4,
+        compress_ratios=[0, 4, 128], compress_rate_hca=8, hc_sinkhorn_iters=5,
+        moe_intermediate_size=32, n_routed_experts=4, num_experts_per_tok=2,
+        num_hash_layers=1, routed_scaling_factor=1.5, max_position_embeddings=4096)
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump(cfg, f, indent=2)
+    rng = np.random.default_rng(seed)
+    h, vocab, H = cfg["hidden_size"], cfg["vocab_size"], cfg["num_attention_heads"]
+    D, qlr = cfg["head_dim"], cfg["q_lora_rank"]
+    G, olr = cfg["o_groups"], cfg["o_lora_rank"]
+    Hi, Di = cfg["index_n_heads"], cfg["index_head_dim"]
+    E, k, inter = cfg["n_routed_experts"], cfg["num_experts_per_tok"], cfg["moe_intermediate_size"]
+    hc = cfg["hc_mult"]
+    rates = {0: None, 4: cfg["compress_rate_csa"], 128: cfg["compress_rate_hca"]}  # by ratio code
+
+    tensors: dict[str, np.ndarray] = {}
+    bf16_keys = set()
+
+    def add(key, arr):
+        tensors[key] = f32_to_bf16_u16(arr.astype(np.float32))
+        bf16_keys.add(key)
+
+    def linear(key, k_in, n_out):
+        scale = 1.0 / math.sqrt(k_in)
+        if k_in % 128 or n_out % 128:
+            add(key + ".weight", rng.standard_normal((n_out, k_in)) * scale)
+            return
+        words = rng.bit_generator.random_raw(k_in * n_out * K // 64)
+        tensors[key + ".trellis"] = words.view(np.int16).reshape(k_in // 16, n_out // 16, 16 * K)
+        tensors[key + ".suh"] = np.sign(rng.standard_normal(k_in)).astype(np.float16)
+        tensors[key + ".svh"] = (np.sign(rng.standard_normal(n_out)) * scale).astype(np.float16)
+
+    def flush(name):
+        save_file(tensors, os.path.join(directory, name), bf16_keys=bf16_keys)
+        tensors.clear()
+        bf16_keys.clear()
+
+    # the embedding in f32 blocks of rows where it is large (one f64 draw of
+    # 129280 x 7168 would hold 7.4 GB); one draw, as the JAX writer's, else
+    if vocab * h <= 1 << 24:
+        add("embed.weight", rng.standard_normal((vocab, h)) * 0.02)
+    else:
+        emb = np.empty((vocab, h), np.uint16)
+        for r in range(0, vocab, 8192):
+            n = min(8192, vocab - r)
+            emb[r: r + n] = f32_to_bf16_u16(rng.standard_normal((n, h), dtype=np.float32)
+                                            * np.float32(0.02))
+        tensors["embed.weight"] = emb
+        bf16_keys.add("embed.weight")
+    flush("model-embed.safetensors")
+    for i in range(cfg["num_hidden_layers"]):
+        lk, ak = f"layers.{i}", f"layers.{i}.attn"
+        code = cfg["compress_ratios"][i]
+        m, csa = rates[code], code == 4
+        pw = 2 * D if csa else D
+        add(f"{lk}.attn_norm.weight", np.ones(h))
+        add(f"{ak}.attn_sink", rng.standard_normal(H) * 0.5)
+        if m:
+            add(f"{ak}.compressor.ape", rng.standard_normal((m, pw)) * 0.3)
+        if csa:
+            add(f"{ak}.indexer.compressor.ape", rng.standard_normal((m, 2 * Di)) * 0.3)
+        linear(f"{ak}.wq_a", h, qlr)
+        add(f"{ak}.q_norm.weight", np.ones(qlr))
+        linear(f"{ak}.wq_b", qlr, H * D)
+        linear(f"{ak}.wkv", h, D)
+        add(f"{ak}.kv_norm.weight", np.ones(D))
+        for g in range(G):
+            linear(f"{ak}.wo_a.slice.{g}", H * D // G, olr)
+        linear(f"{ak}.wo_b", G * olr, h)
+        if csa:
+            linear(f"{ak}.indexer.wq_b", qlr, Hi * Di)
+            linear(f"{ak}.indexer.weights_proj", h, Hi)
+        if m:
+            linear(f"{ak}.compressor.wkv", h, pw)
+            linear(f"{ak}.compressor.wgate", h, pw)
+            add(f"{ak}.compressor.norm.weight", np.ones(D))
+        if csa:
+            linear(f"{ak}.indexer.compressor.wkv", h, 2 * Di)
+            linear(f"{ak}.indexer.compressor.wgate", h, 2 * Di)
+            add(f"{ak}.indexer.compressor.norm.weight", np.ones(Di))
+        fk = f"{lk}.ffn"
+        add(f"{lk}.ffn_norm.weight", np.ones(h))
+        for e in range(E):
+            linear(f"{fk}.experts.{e}.w1", h, inter)
+            linear(f"{fk}.experts.{e}.w3", h, inter)
+            linear(f"{fk}.experts.{e}.w2", inter, h)
+        add(f"{fk}.gate.bias", rng.standard_normal(E) * 0.05)
+        if i < cfg.get("num_hash_layers", 3):
+            tensors[f"{fk}.gate.tid2eid"] = rng.integers(0, E, size=(vocab, k)).astype(np.int32)
+        add(f"{fk}.gate.weight", rng.standard_normal((E, h)) * (1.0 / math.sqrt(h)))
+        si = inter * cfg.get("n_shared_experts", 1)
+        linear(f"{fk}.shared_experts.w3", h, si)
+        linear(f"{fk}.shared_experts.w1", h, si)
+        linear(f"{fk}.shared_experts.w2", si, h)
+        for tag in ("attn", "ffn"):
+            add(f"{lk}.hc_{tag}_fn", rng.standard_normal(((2 + hc) * hc, hc * h)) * 0.02)
+            add(f"{lk}.hc_{tag}_base", rng.standard_normal((2 + hc) * hc) * 0.1)
+            add(f"{lk}.hc_{tag}_scale", rng.uniform(0.5, 1.5, 3))
+        flush(f"model-layer{i:03d}.safetensors")
+    add("hc_head_fn", rng.standard_normal((hc, hc * h)) * 0.02)
+    add("hc_head_base", rng.standard_normal(hc) * 0.1)
+    add("hc_head_scale", rng.uniform(0.5, 1.5, hc))
+    add("norm.weight", np.ones(h))
+    linear("head", h, vocab)
+    flush("model-head.safetensors")
+    return directory

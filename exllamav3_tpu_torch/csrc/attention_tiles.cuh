@@ -1,8 +1,9 @@
-// The flash-attention tile loop shared by the port's seven attention entries:
+// The flash-attention tile loop shared by the port's ten attention entries:
 // paged_attention.cu, paged_attention_quant.cu, linear_attention.cu,
 // linear_attention_quant.cu, latent_attention.cu and
-// latent_attention_quant.cu (absorbed MLA), and ring_attention.cu (decode
-// over a sliding-window ring).
+// latent_attention_quant.cu (absorbed MLA), ring_attention.cu (decode over a
+// sliding-window ring), and attention_stats.cu's three DeepSeek-V4 decode
+// entries, which return the unnormalised online-softmax state.
 //
 // The kernel is templated three times over:
 //   * Geo: the block's geometry. HeadGeo<D> (per-head K/V of D channels, 64
@@ -11,7 +12,9 @@
 //     are V, bf16 q): LatentGeo, 32 score rows and 32-key tiles, and
 //     LatentDecodeGeo, 16 rows (one token's heads) and 64-key tiles, half
 //     the tiles a decode block walks; HeadDecodeGeo<D>, HeadGeo's tiles with
-//     16 score rows, for one decode token's group of heads.
+//     16 score rows, for one decode token's group of heads; KvRowDecodeGeo,
+//     DeepSeek-V4's one 512-wide row that is K and V alike (bf16 q, no rope
+//     tail), 16 rows and 64-key tiles.
 //   * Rows: where a key tile's rows lie. PagedRows looks the page up in the
 //     block table (256-token pages, so a tile never crosses a page and every
 //     tile is full); LinearRows reads slot `key` of row b (or of the row the
@@ -22,12 +25,22 @@
 //     and is the one policy whose keys' positions come from an array
 //     (POS_FROM_ARRAY): each tile stages its slots' stored positions into
 //     shared memory, the mask tests those, and every slot 0..W-1 is walked.
+//     PoolRows pages a pool through the token block table with `epp`
+//     entries a page (DeepSeek-V4's compressed pools: 256 / 128 = 2), so a
+//     64-key tile spans many pages: it is the one policy that GATHERs, each
+//     tile staging the pool row of each of its keys into shared memory
+//     (-1 for a page out of range, which the mask then hides).
 //   * KV: how a tile is stored. Bf16KV copies bf16 rows; QuantKV unpacks
 //     packed 2..8-bit words with one bf16 scale per 32 channels (merged-head
 //     and per-head storage address head h of a token alike, at word
 //     (token * Hk + h) * D*bits/32) into hi + lo bf16 pairs; LatentKV copies
 //     a bf16 latent row; LatentQuantKV unpacks the packed latent into hi + lo
-//     pairs and copies the bf16 rope key beside it (its lo term is 0).
+//     pairs and copies the bf16 rope key beside it (its lo term is 0);
+//     RowKV<W> is LatentKV at any row width W (DeepSeek-V4: 512).
+//   * STATS, a flag: the epilogue writes the output unnormalised beside each
+//     row's running max m and sum l (the JAX kernel's return_stats), for a
+//     caller that merges several key sources with one softmax. A row that
+//     sees no key writes (acc, m, l) = (0, -1e30, 0): JAX's NEG_INF start.
 //
 // Design: one block per (q block, kv head and head slice, sequence). Its R
 // score rows are (token, head-in-group) pairs: a block takes HB = min(G, R)
@@ -94,6 +107,9 @@ using HeadDecodeGeo = Geo<D, D, 16, 64, true, false>;
 constexpr int LATENT = 512, ROPE = 64;
 using LatentGeo = Geo<LATENT + ROPE, LATENT, 32, 32, false, true>;
 using LatentDecodeGeo = Geo<LATENT + ROPE, LATENT, 16, 64, false, true>;
+// DeepSeek-V4's shared K = V row (head_dim 512, the rope on its trailing 64)
+constexpr int KV_ROW = 512;
+using KvRowDecodeGeo = Geo<KV_ROW, KV_ROW, 16, 64, false, true>;
 
 // Shared memory of one block. SPLIT: K and V tiles carry a lo term too.
 //   HeadGeo<128>: q hi + lo 2 x 64 x 136 bf16, K and V 64 x 136 bf16 each
@@ -112,7 +128,12 @@ using LatentDecodeGeo = Geo<LATENT + ROPE, LATENT, 16, 64, false, true>;
 //     64 x 136 bf16 each, scores 16 x 68 f32, P hi + lo 2 x 16 x 72 bf16,
 //     output 16 x 132 f32, row state 264, and the tile's 64 slot positions
 //     (POS): 61,448 bytes.
-template <class G_, bool SPLIT, bool POS = false>
+//   KvRowDecodeGeo: q 16 x 520 bf16 (16,640), one K tile 64 x 520 bf16
+//     (66,560; V is the same tile), scores 16 x 68 f32 (4,352), P hi + lo
+//     2 x 16 x 72 bf16 (4,608), output 16 x 516 f32 (33,024), row state 264:
+//     125,448 bytes, plus 256 over a ring (POS) or 512 over a pool (GATHER:
+//     the tile's 64 pool rows as int64).
+template <class G_, bool SPLIT, bool POS = false, bool GATHER = false>
 struct Layout {
     static constexpr int D = G_::D, DV = G_::DV, R = G_::R, TK = G_::TK;
     static constexpr int LDQ = D + 8, LDK = D + 8, LDS = TK + 4, LDP = TK + 8, LDO = DV + 4;
@@ -129,7 +150,8 @@ struct Layout {
     static constexpr int OFF_O = OFF_PL + R * LDP * 2;
     static constexpr int OFF_ROWS = OFF_O + R * LDO * 4;
     static constexpr int OFF_KPOS = OFF_ROWS + R * 4 * 4 + 2 * 4;
-    static constexpr int BYTES = OFF_KPOS + (POS ? TK * 4 : 0);
+    static constexpr int OFF_TOK = (OFF_KPOS + (POS ? TK * 4 : 0) + 15) / 16 * 16;
+    static constexpr int BYTES = GATHER ? OFF_TOK + TK * 8 : OFF_KPOS + (POS ? TK * 4 : 0);
 };
 
 // -- where a tile's rows lie -----------------------------------------------------
@@ -137,6 +159,7 @@ struct Layout {
 struct PagedRows {
     static constexpr bool FULL = true;  // every tile holds TK keys
     static constexpr bool POS_FROM_ARRAY = false;  // key j sits at position j
+    static constexpr bool GATHER = false;  // a tile's rows are one contiguous run
     const int* bt;  // (B, MP) block tables
     int MP, P;
     __device__ int key_limit() const { return MP * PAGE; }
@@ -156,6 +179,7 @@ struct PagedRows {
 struct LinearRows {
     static constexpr bool FULL = false;  // the last tile is cut at T
     static constexpr bool POS_FROM_ARRAY = false;
+    static constexpr bool GATHER = false;
     const int* rows;  // (B,) cache row of each sequence, or null: row b
     int N, T;         // cache rows; keys per row
     __device__ int key_limit() const { return T; }
@@ -173,6 +197,7 @@ struct LinearRows {
 struct RingRows {
     static constexpr bool FULL = false;  // the last tile is cut at W
     static constexpr bool POS_FROM_ARRAY = true;  // positions from `pos`
+    static constexpr bool GATHER = false;
     const int* slots;  // (B,) ring row of each sequence
     const int* pos;    // (N, W) position each slot holds, -1 = never written
     int N, W;          // ring rows; slots a row
@@ -190,6 +215,38 @@ struct RingRows {
     template <int TKT>
     __device__ void stage_pos(size_t tok0, int n, int* dst, int tid) const {
         for (int j = tid; j < TKT; j += THREADS) dst[j] = j < n ? __ldg(pos + tok0 + j) : -1;
+    }
+};
+
+// A pool of `epp` entries a page, paged through the token block table: key
+// j of sequence b is entry j % epp of page bt[b, j / epp]. Pages hold fewer
+// entries than a tile, so each row is found on its own (GATHER).
+struct PoolRows {
+    static constexpr bool FULL = false;  // the last tile is cut at MP * epp
+    static constexpr bool POS_FROM_ARRAY = false;
+    static constexpr bool GATHER = true;
+    const int* bt;  // (B, MP) block tables
+    int MP, P, epp;
+    __device__ int key_limit() const { return MP * epp; }
+    template <int TKT>
+    __device__ bool tile(int, int key0, size_t& tok0, int& n) const {
+        tok0 = 0;
+        n = min(TKT, MP * epp - key0);
+        return true;
+    }
+    // the pool row (page * epp + slot) of each of the tile's n keys into
+    // dst[0, TKT); -1 past n and for a page out of range
+    template <int TKT>
+    __device__ void stage_rows(int b, int key0, int n, long long* dst, int tid) const {
+        for (int j = tid; j < TKT; j += THREADS) {
+            long long row = -1;
+            if (j < n) {
+                const int key = key0 + j;
+                const int page = __ldg(bt + (size_t)b * MP + key / epp);
+                if (page >= 0 && page < P) row = (long long)page * epp + key % epp;
+            }
+            dst[j] = row;
+        }
     }
 };
 
@@ -329,16 +386,32 @@ struct QuantKV {
     }
 };
 
-// bf16 latent rows [c_kv | k_pe], one per token; V is read from the K tile
-struct LatentKV {
+// bf16 rows of W channels, one per token, that are K and V alike: MLA's
+// latent rows [c_kv | k_pe] (W = 576, V the leading 512) and DeepSeek-V4's
+// 512-wide rows. V is read from the K tile.
+template <int W>
+struct RowKV {
     static constexpr bool SPLIT = false;
-    const __nv_bfloat16* kv;  // (N, T, 1, LATENT + ROPE)
+    const __nv_bfloat16* kv;  // (N, T, 1, W)
     template <int LD, int TKT>
     __device__ void load(size_t tok0, int n, int, __nv_bfloat16* Ks, __nv_bfloat16*,
                          __nv_bfloat16*, __nv_bfloat16*, int tid) const {
-        copy_rows<LATENT + ROPE, LD, TKT>(kv, tok0, n, 1, 0, Ks, tid);
+        copy_rows<W, LD, TKT>(kv, tok0, n, 1, 0, Ks, tid);
+    }
+    // row toks[j] of the storage into tile row j; zero where toks[j] < 0
+    template <int LD, int TKT>
+    __device__ void load_gather(const long long* toks, __nv_bfloat16* Ks, int tid) const {
+        constexpr int VPR = W / 8;
+        for (int e = tid; e < TKT * VPR; e += THREADS) {
+            const int j = e / VPR, c = (e % VPR) * 8;
+            const long long t = toks[j];
+            uint4 x = make_uint4(0u, 0u, 0u, 0u);
+            if (t >= 0) x = __ldg(reinterpret_cast<const uint4*>(kv + (size_t)t * W + c));
+            *reinterpret_cast<uint4*>(&Ks[j * LD + c]) = x;
+        }
     }
 };
+using LatentKV = RowKV<LATENT + ROPE>;
 
 // packed latent words (LATENT * bits / 32 a token) with one bf16 scale per 32
 // channels, and the bf16 rope key (ROPE a token) stored apart. The latent
@@ -365,21 +438,22 @@ struct LatentQuantKV {
 
 // -- the kernel ----------------------------------------------------------------------
 
-template <class G_, class Rows, class KV>
+template <class G_, class Rows, class KV, bool STATS>
 __global__ void __launch_bounds__(THREADS)
 attention_kernel(const void* __restrict__ q, Rows rows, KV kv, const int* __restrict__ qpos,
                  const int* __restrict__ total_lens, const float* __restrict__ sinks,
-                 float* __restrict__ out, int S, int Hq, int Hk, float scale, int window,
-                 float softcap) {
+                 float* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
+                 int S, int Hq, int Hk, float scale, int window, float softcap) {
     constexpr int D = G_::D, DV = G_::DV, R = G_::R, TK = G_::TK;
     constexpr bool SPLIT = KV::SPLIT, QS = G_::Q_SPLIT, RING = Rows::POS_FROM_ARRAY;
+    constexpr bool GATHER = Rows::GATHER;
     constexpr int NWR = R / 16;          // row groups of 16
     constexpr int WPR = WARPS / NWR;     // warps sharing a row group
     constexpr int TPR = THREADS / R;     // softmax threads a row
     constexpr int KPT = TK / TPR;        // keys a softmax thread
     static_assert(NWR * WPR == WARPS && TPR * R == THREADS && KPT * TPR == TK, "geometry");
     static_assert(D % 16 == 0 && DV % 16 == 0 && TK % 16 == 0 && PAGE % TK == 0, "geometry");
-    using L = Layout<G_, SPLIT, RING>;
+    using L = Layout<G_, SPLIT, RING, GATHER>;
     extern __shared__ __align__(128) unsigned char smem[];
     __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_Q);
     __nv_bfloat16* Qls = reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_QL);
@@ -397,6 +471,7 @@ attention_kernel(const void* __restrict__ q, Rows rows, KV kv, const int* __rest
     int* row_pos = reinterpret_cast<int*>(row_alpha + R);
     int* key_range = row_pos + R;
     int* key_pos = reinterpret_cast<int*>(smem + L::OFF_KPOS);  // RING: the tile's positions
+    long long* key_tok = reinterpret_cast<long long*>(smem + L::OFF_TOK);  // GATHER: its rows
 
     const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
     const int b = blockIdx.z;
@@ -480,8 +555,14 @@ attention_kernel(const void* __restrict__ q, Rows rows, KV kv, const int* __rest
         size_t tok0;
         int n;
         if (!rows.template tile<TK>(b, key0, tok0, n)) continue;  // uniform across the block
-        // a constant count for full tiles, so that their loads carry no bound check
-        kv.template load<L::LDK, TK>(tok0, Rows::FULL ? TK : n, hk, Ks, Kls, Vs, Vls, tid);
+        if constexpr (GATHER) {
+            rows.template stage_rows<TK>(b, key0, n, key_tok, tid);
+            __syncthreads();
+            kv.template load_gather<L::LDK, TK>(key_tok, Ks, tid);
+        } else {
+            // a constant count for full tiles, so that their loads carry no bound check
+            kv.template load<L::LDK, TK>(tok0, Rows::FULL ? TK : n, hk, Ks, Kls, Vs, Vls, tid);
+        }
         if constexpr (RING) rows.template stage_pos<TK>(tok0, n, key_pos, tid);
         __syncthreads();
 
@@ -527,6 +608,7 @@ attention_kernel(const void* __restrict__ q, Rows rows, KV kv, const int* __rest
                 } else {
                     const int key = key0 + part * KPT + jj;
                     ok = p >= 0 && key < total && key <= p && (window <= 0 || key > p - window);
+                    if constexpr (GATHER) ok = ok && key_tok[part * KPT + jj] >= 0;
                 }
                 s = ok ? s : -INFINITY;
                 srow[jj] = s;
@@ -592,22 +674,37 @@ attention_kernel(const void* __restrict__ q, Rows rows, KV kv, const int* __rest
     for (int e = tid; e < R * DV; e += THREADS) {
         const int r = e / DV, c = e % DV;
         int s, head;
-        if (row_of(r, s, head))
+        if (row_of(r, s, head)) {
+            const float o = Os[r * L::LDO + c];
             out[(((size_t)b * S + s) * Hq + head) * DV + c] =
-                Os[r * L::LDO + c] / fmaxf(row_l[r], 1e-30f);
+                STATS ? o : o / fmaxf(row_l[r], 1e-30f);
+        }
+    }
+    if constexpr (STATS) {  // a row that saw no key keeps m = -inf: JAX's NEG_INF start
+        for (int r = tid; r < R; r += THREADS) {
+            int s, head;
+            if (row_of(r, s, head)) {
+                const size_t i = ((size_t)b * S + s) * Hq + head;
+                m_out[i] = row_m[r] == -INFINITY ? -1e30f : row_m[r];
+                l_out[i] = row_l[r];
+            }
+        }
     }
 }
 
-// Launch on `st`; returns cudaGetLastError() as an int.
-template <class G_, class Rows, class KV>
+// Launch on `st`; returns cudaGetLastError() as an int. STATS: `out` takes the
+// unnormalised output and m_out, l_out (B, S, Hq) f32 each row's max and sum.
+template <class G_, class Rows, class KV, bool STATS = false>
 int launch_attention(const void* q, Rows rows, KV kv, const void* qpos, const void* total_lens,
                      const void* sinks, void* out, int B, int S, int Hq, int Hk, float scale,
-                     int window, float softcap, cudaStream_t st) {
-    constexpr int BYTES = Layout<G_, KV::SPLIT, Rows::POS_FROM_ARRAY>::BYTES;
+                     int window, float softcap, cudaStream_t st, void* m_out = nullptr,
+                     void* l_out = nullptr) {
+    constexpr int BYTES = Layout<G_, KV::SPLIT, Rows::POS_FROM_ARRAY, Rows::GATHER>::BYTES;
     static_assert(BYTES <= 232448, "shared memory of one block");
+    if (STATS && (m_out == nullptr || l_out == nullptr)) return (int)cudaErrorInvalidValue;
     static bool attr_set = false;
     if (!attr_set) {
-        cudaFuncSetAttribute(attention_kernel<G_, Rows, KV>,
+        cudaFuncSetAttribute(attention_kernel<G_, Rows, KV, STATS>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
         attr_set = true;
     }
@@ -615,10 +712,10 @@ int launch_attention(const void* q, Rows rows, KV kv, const void* qpos, const vo
     const int G = Hq / Hk, HB = G < G_::R ? G : G_::R;
     const int QT = G_::R / HB, NH = (G + HB - 1) / HB;
     dim3 grid((S + QT - 1) / QT, Hk * NH, B);
-    attention_kernel<G_, Rows, KV><<<grid, THREADS, BYTES, st>>>(
+    attention_kernel<G_, Rows, KV, STATS><<<grid, THREADS, BYTES, st>>>(
         q, rows, kv, static_cast<const int*>(qpos), static_cast<const int*>(total_lens),
-        static_cast<const float*>(sinks), static_cast<float*>(out), S, Hq, Hk, scale, window,
-        softcap);
+        static_cast<const float*>(sinks), static_cast<float*>(out), static_cast<float*>(m_out),
+        static_cast<float*>(l_out), S, Hq, Hk, scale, window, softcap);
     return (int)cudaGetLastError();
 }
 

@@ -8,7 +8,9 @@
 //           d (i, h) int8; h % 256 == 0, i % 128 == 0 (checked in Python);
 //           act: 0 silu, 1 gelu (erf), 2 gelu_pytorch_tanh, 3 relu2, a
 //           template argument of the kernel, taken in f32 before the bf16
-//           round as the JAX kernel's _act does.
+//           round as the JAX kernel's _act does; clamp > 0 (DeepSeek-V4's
+//           swiglu_limit) clips the scaled gate to [-clamp, clamp] before the
+//           activation, as that _act does (the up product stays as it is).
 // Bound:    the weight bytes (3*h*i int8) over 3.35 TB/s; the operations
 //           (6*m*h*i) are far below the tensor-core rate at m <= 16.
 // Design:   the TPU grid walked intermediate tiles in order with one
@@ -83,7 +85,7 @@ template <int ACT>
 __global__ void __launch_bounds__(THREADS)
 fused_mlp_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ gu,
                  const float* __restrict__ gu_scale, const int8_t* __restrict__ d,
-                 float* __restrict__ partial, int m, int h, int inter) {
+                 float* __restrict__ partial, int m, int h, int inter, float clamp) {
     __shared__ __align__(128) unsigned char smem[SZ_UNION + SZ_ACT + SZ_C];
     __nv_bfloat16* Xs = reinterpret_cast<__nv_bfloat16*>(smem);            // phase A
     __nv_bfloat16* Gs = reinterpret_cast<__nv_bfloat16*>(smem + SZ_X);     // phase A
@@ -130,7 +132,8 @@ fused_mlp_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
     // activation, rounded to bf16 as the JAX kernel does: a = act(g) * u
     for (int e = tid; e < MR * TI; e += THREADS) {
         const int r = e / TI, c = e % TI;
-        const float g = Cs[r * LDC + c] * gu_scale[i0 + c];
+        float g = Cs[r * LDC + c] * gu_scale[i0 + c];
+        if (clamp > 0.0f) g = fminf(fmaxf(g, -clamp), clamp);
         const float u = Cs[r * LDC + TI + c] * gu_scale[inter + i0 + c];
         Act[r * LDA + c] = __float2bfloat16_rn(activate<ACT>(g) * u);
     }
@@ -187,7 +190,7 @@ __global__ void tile_reduce_kernel(const float* __restrict__ partial, float* __r
 
 extern "C" int exl3_fused_mlp(const void* x, const void* gu, const void* gu_scale, const void* d,
                               void* partial, void* out, int m, int h, int inter, int act,
-                              void* stream) {
+                              float clamp, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int tiles = inter / TI;
     const auto* xb = static_cast<const __nv_bfloat16*>(x);
@@ -196,10 +199,10 @@ extern "C" int exl3_fused_mlp(const void* x, const void* gu, const void* gu_scal
     const auto* dq = static_cast<const int8_t*>(d);
     float* part = static_cast<float*>(partial);
     switch (act) {
-        case SILU: fused_mlp_kernel<SILU><<<tiles, THREADS, 0, st>>>(xb, gq, gs, dq, part, m, h, inter); break;
-        case GELU: fused_mlp_kernel<GELU><<<tiles, THREADS, 0, st>>>(xb, gq, gs, dq, part, m, h, inter); break;
-        case GELU_TANH: fused_mlp_kernel<GELU_TANH><<<tiles, THREADS, 0, st>>>(xb, gq, gs, dq, part, m, h, inter); break;
-        case RELU2: fused_mlp_kernel<RELU2><<<tiles, THREADS, 0, st>>>(xb, gq, gs, dq, part, m, h, inter); break;
+        case SILU: fused_mlp_kernel<SILU><<<tiles, THREADS, 0, st>>>(xb, gq, gs, dq, part, m, h, inter, clamp); break;
+        case GELU: fused_mlp_kernel<GELU><<<tiles, THREADS, 0, st>>>(xb, gq, gs, dq, part, m, h, inter, clamp); break;
+        case GELU_TANH: fused_mlp_kernel<GELU_TANH><<<tiles, THREADS, 0, st>>>(xb, gq, gs, dq, part, m, h, inter, clamp); break;
+        case RELU2: fused_mlp_kernel<RELU2><<<tiles, THREADS, 0, st>>>(xb, gq, gs, dq, part, m, h, inter, clamp); break;
         default: return (int)cudaErrorInvalidValue;
     }
     const int count = m * h;

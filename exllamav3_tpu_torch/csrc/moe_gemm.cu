@@ -1,6 +1,8 @@
 // Selected-expert MoE MLP for Hopper (decode shapes, T <= 16 rows):
 //   out[t] = sum_j topv[t,j] * (bf16(silu(x_t @ wg[e]) * (x_t @ wu[e])) @ wd[e]),  e = topi[t,j]
 // (f32 out; f32 sums, the activation rounded to bf16 before the down product).
+// With clamp L > 0 (DeepSeek-V4's swiglu_limit) the activation is
+// min(silu(g), L) * clip(u, -L, L), the JAX package's act_mul_clamped.
 //
 // Replaces: exllamav3_tpu/ops/moe_gemm.py::_moe_kernel (selected_expert_mlp).
 // Inputs:   x (T, h) bf16; topi (T, k) int32; topv (T, k) f32; wg, wu (E, h, i) bf16;
@@ -50,7 +52,7 @@ __global__ void __launch_bounds__(THREADS)
 moe_tile_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ topi,
                 const __nv_bfloat16* __restrict__ wg, const __nv_bfloat16* __restrict__ wu,
                 const __nv_bfloat16* __restrict__ wd, float* __restrict__ partial,
-                int k, int h, int inter, int E) {
+                int k, int h, int inter, int E, float clamp) {
     extern __shared__ __align__(16) float smem[];
     float* xs = smem;                  // (h,) the token's row of x
     float* red = xs + h;               // (2, RG, TI) gate and up sums by row group
@@ -106,7 +108,12 @@ moe_tile_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ top
             g += red[r * TI + tid];
             u += red[(RG + r) * TI + tid];
         }
-        act[tid] = __bfloat162float(__float2bfloat16_rn(g * (1.0f / (1.0f + expf(-g))) * u));
+        float a = g * (1.0f / (1.0f + expf(-g)));
+        if (clamp > 0.0f) {
+            a = fminf(a, clamp);
+            u = fminf(fmaxf(u, -clamp), clamp);
+        }
+        act[tid] = __bfloat162float(__float2bfloat16_rn(a * u));
     }
     __syncthreads();
 
@@ -155,7 +162,7 @@ moe_reduce_kernel(const float* __restrict__ partial, const float* __restrict__ t
 
 extern "C" int exl3_moe_mlp(const void* x, const void* topi, const void* topv, const void* wg,
                             const void* wu, const void* wd, void* partial, void* out, int T,
-                            int k, int h, int inter, int E, void* stream) {
+                            int k, int h, int inter, int E, float clamp, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int tiles = inter / TI;
     const size_t smem = (size_t)(h + 2 * RG * TI + TI) * sizeof(float);
@@ -167,7 +174,7 @@ extern "C" int exl3_moe_mlp(const void* x, const void* topi, const void* topv, c
     moe_tile_kernel<<<dim3(T * k, tiles), THREADS, smem, st>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const int*>(topi),
         static_cast<const __nv_bfloat16*>(wg), static_cast<const __nv_bfloat16*>(wu),
-        static_cast<const __nv_bfloat16*>(wd), static_cast<float*>(partial), k, h, inter, E);
+        static_cast<const __nv_bfloat16*>(wd), static_cast<float*>(partial), k, h, inter, E, clamp);
     moe_reduce_kernel<<<dim3(h / RED_X, T), dim3(RED_X, RED_Y), 0, st>>>(
         static_cast<const float*>(partial), static_cast<const float*>(topv),
         static_cast<float*>(out), k, h, tiles);

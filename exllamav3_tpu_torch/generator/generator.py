@@ -28,19 +28,24 @@ and overwrite position 0 of the others), and the running jobs' draft steps
 are batched into one (n_jobs, 1) step per drafted token, looped on the host
 (JAX scans k steps on the device, one job at a time).
 
-A cache with SWA rings (CacheSpec(swa_ring=True)) keys per-sequence state
-by each job's slot: every forward names its jobs' slot rows, a slot is
-cleared when a job takes it (positions to -1, K/V to 0), and prefix reuse is
-off, since a job's ring must see every token of its prompt. The rings hold
-positions, so a rejected speculative write needs no rewind: it holds a
-future position and masks itself.
+A cache with SWA rings (CacheSpec(swa_ring=True)), and a model with
+recurrent layers (`is_recurrent`: DeepSeek-V4's attention, whose ring,
+compressor buffers and compressed pools advance destructively), keys
+per-sequence state by each job's slot: every forward names its jobs' slot
+rows, a slot is cleared when a job takes it (every slot-indexed array; "pos"
+to -1, the rest to 0; the page-indexed "pg_*" pools are left alone), and
+prefix reuse is off, since a job's state must see every token of its prompt.
+The rings hold positions, so a rejected speculative write needs no rewind:
+it holds a future position and masks itself. A recurrent layer's state
+would need one (the JAX package's _rewind_recurrent, not ported), so
+speculative decoding over such a model raises.
 
 Not ported yet: MTP and DFlash drafting, filters (and with them the filtered
 half of the speculative verify), CFG, token healing, banned and stop
 strings, requeue (and the host stash of a requeued job's ring), the CPU page
-cache, defragmentation, decode bursts, recurrent layers, sequence
-parallelism, multihost and the tokenizer: this generator takes and returns
-token ids.
+cache, defragmentation, decode bursts, speculative rewind of recurrent
+state, sequence parallelism, multihost and the tokenizer: this generator
+takes and returns token ids.
 """
 from __future__ import annotations
 
@@ -73,11 +78,19 @@ class Generator:
         self.device = model.device
         self.max_batch_size = max_batch_size
         self.max_chunk_size = max_chunk_size
-        # the SWA ring layers' state, one row per job slot and a scrap row
-        self.ring_keys = [key for key, layer in cache.state.items() if "pos" in layer]
-        self.has_recurrent = bool(self.ring_keys)
+        # per-slot state, one row per job slot and a scrap row: recurrent
+        # layers' (DeepSeek-V4) and the SWA ring layers'
+        self.recurrent_keys = [m.key for m in model.root.walk()
+                               if getattr(m, "is_recurrent", False)]
+        self.ring_keys = [key for key, layer in cache.state.items()
+                          if "pos" in layer and key not in self.recurrent_keys]
+        self.has_recurrent = bool(self.recurrent_keys or self.ring_keys)
+        if self.recurrent_keys and (draft_model is not None or use_ngram_draft):
+            raise NotImplementedError("speculative decoding over a model with recurrent layers "
+                                      "needs their state rewound, which is not ported yet")
         if self.has_recurrent:
-            n_slots = cache.state[self.ring_keys[0]]["pos"].shape[0]
+            first = cache.state[(self.recurrent_keys + self.ring_keys)[0]]
+            n_slots = next(t for n, t in first.items() if not n.startswith("pg_")).shape[0]
             if n_slots < max_batch_size + 1:
                 raise ValueError(f"the cache has {n_slots} state slots; max_batch_size "
                                  f"{max_batch_size} needs {max_batch_size + 1} "
@@ -182,11 +195,11 @@ class Generator:
             self.active.append(job)
             slot = self.free_slots.pop(0)
             self.job_slots[job] = slot
-            for key in self.ring_keys:  # the slot may hold a finished job's ring
-                layer = self.cache.state[key]
-                layer["pos"][slot] = -1
-                layer["k"][slot] = 0
-                layer["v"][slot] = 0
+            # the slot may hold a finished job's state; "pg_*" pools are page-indexed
+            for key in self.recurrent_keys + self.ring_keys:
+                for name, t in self.cache.state[key].items():
+                    if not name.startswith("pg_"):
+                        t[slot] = -1 if name == "pos" else 0
             # seed the penalty counts from the prompt
             counts = np.zeros(self.model.config.vocab_size, dtype=np.int32)
             np.add.at(counts, job.all_ids() % counts.size, 1)
@@ -208,7 +221,7 @@ class Generator:
         return hashes
 
     def _state_slots(self, jobs: list) -> np.ndarray | None:
-        """(B,) int32 slot rows of `jobs` for a cache with SWA rings, else None."""
+        """(B,) int32 slot rows of `jobs` for per-slot state, else None."""
         if not self.has_recurrent:
             return None
         return np.array([self.job_slots[j] for j in jobs], np.int32)

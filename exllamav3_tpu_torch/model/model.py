@@ -142,7 +142,9 @@ class Model:
             cache_rows=_as_tensor(cache_rows, dev),
             state_slots=_as_tensor(state_slots, dev),
         )
-        return self.forward_modules(_as_tensor(ids, dev, torch.long), self.params, ctx)
+        ids = _as_tensor(ids, dev, torch.long)
+        ctx.input_ids = ids
+        return self.forward_modules(ids, self.params, ctx)
 
     @torch.no_grad()
     def forward_simple(self, ids) -> torch.Tensor:
@@ -150,4 +152,4 @@ class Model:
         ids = _as_tensor(ids, self.device, torch.long)
         B, S = ids.shape
         positions = torch.arange(S, dtype=torch.int32, device=self.device)[None].expand(B, S)
-        return self.forward_modules(ids, self.params, ForwardCtx(positions=positions))
+        return self.forward_modules(ids, self.params, ForwardCtx(positions=positions, input_ids=ids))

@@ -22,11 +22,12 @@ class ForwardCtx:
 
     positions: torch.Tensor | None = None      # (B, S) int32 token positions
     attn_mode: str = "dense"                   # "dense" (cacheless) | "paged" | "linear"
-    cache: Any = None                          # {layer key: {"k", "v"} | {"k_q", "k_s", "v_q", "v_s"}}
+    cache: Any = None                          # {layer key: {"k", "v"} | {"k_q", "k_s", "v_q", "v_s"} | ...}
     block_tables: torch.Tensor | None = None   # (B, max_pages) int32
     cache_seqlens: torch.Tensor | None = None  # (B,) int32 tokens already cached
     cache_rows: torch.Tensor | None = None     # linear layout: (B,) int32 cache row of each sequence
     state_slots: torch.Tensor | None = None    # (B,) int32 ring row of each sequence (None: row b)
+    input_ids: torch.Tensor | None = None      # (B, S) token ids (DeepSeek-V4's hash routing)
     k_bits: int = 0                            # quantized cache widths (0 = bf16 cache)
     v_bits: int = 0
     compand_a: float = 0.0                     # cubic compander of the quantized cache (0 = off)

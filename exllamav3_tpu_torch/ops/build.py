@@ -24,7 +24,7 @@ BUILD_DIR = PKG_DIR.parent / "build" / "exllamav3_tpu_torch"
 SOURCES = ("int8_matmul.cu", "fused_mlp.cu", "paged_attention.cu", "exl3_gemm.cu",
            "paged_attention_quant.cu", "int4_matmul.cu", "intb_matmul.cu", "moe_gemm.cu",
            "linear_attention.cu", "linear_attention_quant.cu", "latent_attention.cu",
-           "latent_attention_quant.cu", "ring_attention.cu")
+           "latent_attention_quant.cu", "ring_attention.cu", "attention_stats.cu")
 HEADERS = ("packed_matmul.cuh", "attention_tiles.cuh")  # included by sources; part of the digest
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -36,7 +36,7 @@ _F = ctypes.c_float
 # launch's cudaGetLastError() as an int
 SIGNATURES = {
     "exl3_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "exl3_fused_mlp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "exl3_fused_mlp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "exl3_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _F, _I, _F, _P],
     "exl3_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -46,7 +46,7 @@ SIGNATURES = {
     "exl3_int4_matmul_a8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "exl3_intb_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "exl3_intb_matmul_a8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "exl3_moe_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "exl3_moe_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "exl3_linear_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                               _I, _F, _P],
     "exl3_linear_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -56,6 +56,9 @@ SIGNATURES = {
                                     _I, _I, _F, _F, _F, _P],
     "exl3_ring_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _F,
                             _P],
+    "exl3_ring_attention_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "exl3_pool_attention_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "exl3_rows_attention_stats": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
 }
 
 _LIB = None

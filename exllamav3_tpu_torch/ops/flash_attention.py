@@ -1,9 +1,9 @@
 """Attention over the paged and the linear KV cache, bf16 or quantized
 (counterpart of exllamav3_tpu/ops/flash_attention.py::flash_attention, with
-block_tables for the paged layout and without for the linear one, and with
-`latent` for MLA).
+block_tables for the paged layout and without for the linear one, with
+`latent` for MLA, and with `return_stats` for DeepSeek-V4).
 
-Six CUDA entries share one tile loop (csrc/attention_tiles.cuh):
+Ten CUDA entries share one tile loop (csrc/attention_tiles.cuh):
 csrc/paged_attention.cu and csrc/linear_attention.cu serve the bf16 cache,
 csrc/paged_attention_quant.cu and csrc/linear_attention_quant.cu the
 quantized one (packed 2..8-bit words with bf16 group scales, merged-head or
@@ -23,8 +23,15 @@ On a CPU tensor a wrapper runs its plain version, built on ops/attention.py.
 `paged_attention_any`, `linear_attention_any` and `latent_attention_any` pick
 the storage by the layer state's keys (modules/attn.py picks the layout by
 the cache's). The JAX package dequantizes a whole merged pool for tall
-chunks (a TPU tile-occupancy matter); the port's kernels take any S. The
-`return_stats` variant is not ported yet.
+chunks (a TPU tile-occupancy matter); the port's kernels take any S.
+The `return_stats` form (the unnormalised output with each row's max m and
+sum l, for a caller that merges several key sources in one softmax) serves
+DeepSeek-V4's decode over one 512-wide row that is K and V alike:
+csrc/attention_stats.cu's three entries, `ring_attention_stats` (the
+sliding ring), `pool_attention_stats` (a compressed pool of `epp` entries a
+page through the token block table) and `rows_attention_stats` (selected
+entries gathered into rows), each with its plain version, and `merge_stats`,
+the JAX package's epilogue that joins them with the sink logits.
 """
 from __future__ import annotations
 
@@ -597,3 +604,211 @@ def ring_attention(q, ring_k, ring_v, ring_pos, slots, q_positions, sinks=None,
     fn = ring_attention_plain if q.device.type == "cpu" else ring_attention_kernel
     return fn(q, ring_k, ring_v, ring_pos, slots, q_positions, sinks=sinks, scale=scale,
               sliding_window=sliding_window, logit_softcap=logit_softcap)
+
+
+# -- return_stats: DeepSeek-V4's decode over one shared K = V row -----------------------
+
+NEG_INF = -1e30  # the JAX kernel's start of m: a row that saw no key
+KV_ROW = 512     # the stats kernels' row: DeepSeek-V4's head_dim
+
+
+def attend_stats_plain(q, k, visible, scale: float) -> tuple:
+    """(acc (B, S, Hq, D), m (B, S, Hq), l (B, S, Hq)) f32 over gathered keys
+    k (B, T, D) that are V too, visible (B, S, T) bool: m the largest visible
+    score scale * q.k, l = sum exp(s - m), acc = sum exp(s - m) * v; a row
+    that sees no key gives (0, -1e30, 0)."""
+    kf = k.float()
+    s = torch.einsum("bshd,btd->bsht", q.float(), kf) * scale
+    s = torch.where(visible[:, :, None, :], s, torch.full_like(s, -torch.inf))
+    m = s.amax(dim=-1)
+    seen = torch.isfinite(m)
+    p = torch.exp(s - torch.where(seen, m, torch.zeros_like(m))[..., None])
+    acc = torch.einsum("bsht,btd->bshd", p, kf)
+    return acc, torch.where(seen, m, torch.full_like(m, NEG_INF)), p.sum(dim=-1)
+
+
+def merge_stats(parts, sinks) -> torch.Tensor:
+    """One softmax over several key sources and a per-head sink logit
+    (modules/dsv4_attn.py's epilogue in the JAX package): parts a list of
+    (acc (B, S, H, D), m (B, S, H), l (B, S, H)); sinks (H,) f32. A part whose
+    m is NEG_INF saw no key and adds nothing. -> (B, S, H, D) f32."""
+    sk = sinks.float()[None, None, :]
+    mg = sk
+    for _, mp, _ in parts:
+        mg = torch.maximum(mg, mp)
+    lg = torch.exp(sk - mg)
+    acc = 0.0
+    for ap, mp, lp in parts:
+        c = torch.where(mp <= NEG_INF / 2, torch.zeros_like(mp), torch.exp(mp - mg))
+        lg = lg + lp * c
+        acc = acc + ap * c[..., None]
+    return acc / torch.clamp(lg, min=1e-30)[..., None]
+
+
+def _stats_out(q) -> tuple:
+    B, S, Hq, D = q.shape
+    return (torch.empty((B, S, Hq, D), dtype=torch.float32, device=q.device),
+            torch.empty((B, S, Hq), dtype=torch.float32, device=q.device),
+            torch.empty((B, S, Hq), dtype=torch.float32, device=q.device))
+
+
+def _stats_check(name: str, q, store, ints: tuple) -> None:
+    """Checks common to the three stats kernels: decode q (B, 1, Hq, 512) bf16,
+    a bf16 store of 512-wide rows, int32 indices, one CUDA device, contiguous."""
+    tensors = (q, store) + ints
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError(f"{name}: all tensors must be on one CUDA device")
+    if (q.dtype != torch.bfloat16 or store.dtype != torch.bfloat16
+            or any(t.dtype != torch.int32 for t in ints)):
+        raise TypeError(f"{name}: expected bf16 q and rows, int32 indices")
+    if q.dim() != 4 or q.shape[1] != 1 or q.shape[3] != KV_ROW or store.shape[-1] != KV_ROW:
+        raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)}, "
+                         f"rows {tuple(store.shape)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: tensors must be contiguous")
+    check_aligned(name, q, store)
+
+
+def ring_attention_stats_plain(q, ring_kv, ring_pos, slots, q_positions, scale: float = 1.0,
+                               sliding_window: int = 0) -> tuple:
+    """(acc, m, l) over each sequence's ring row slots[b] of ring_kv (N, W, D),
+    K and V alike, visible by stored position (ring_visible)."""
+    rows = slots.long()
+    pos = ring_pos[rows]
+    return attend_stats_plain(q, ring_kv[rows], ring_visible(pos, q_positions, sliding_window),
+                              scale)
+
+
+def ring_attention_stats_kernel(q, ring_kv, ring_pos, slots, q_positions, scale: float = 1.0,
+                                sliding_window: int = 0) -> tuple:
+    """Launch exl3_ring_attention_stats (csrc/attention_stats.cu). q (B, 1, Hq,
+    512) bf16; ring_kv (N, W, 512) bf16; ring_pos (N, W), slots (B,) and
+    q_positions (B, 1) int32."""
+    B, _, Hq, _ = q.shape
+    N, W = ring_pos.shape
+    _stats_check("ring_attention_stats_kernel", q, ring_kv, (ring_pos, slots, q_positions))
+    if (ring_kv.shape != (N, W, KV_ROW) or W < 1 or slots.shape != (B,)
+            or q_positions.shape != (B, 1)):
+        raise ValueError(f"ring_attention_stats_kernel: unsupported shapes ring "
+                         f"{tuple(ring_kv.shape)}, pos {tuple(ring_pos.shape)}")
+    acc, m, l = _stats_out(q)
+    err = library().exl3_ring_attention_stats(
+        q.data_ptr(), ring_kv.data_ptr(), ring_pos.data_ptr(), slots.data_ptr(),
+        q_positions.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), B, Hq, N, W,
+        float(scale), int(sliding_window), torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch("exl3_ring_attention_stats", err)
+    ring_attention_stats_kernel.launches += 1
+    return acc, m, l
+
+
+ring_attention_stats_kernel.launches = 0
+
+
+def ring_attention_stats(q, ring_kv, ring_pos, slots, q_positions, scale: float = 1.0,
+                         sliding_window: int = 0) -> tuple:
+    """(acc, m, l) of decode over the sliding ring (the JAX package's
+    flash_ring_attention with return_stats). CUDA tensors go through the
+    kernel, CPU tensors through the plain version."""
+    fn = ring_attention_stats_plain if q.device.type == "cpu" else ring_attention_stats_kernel
+    return fn(q, ring_kv, ring_pos, slots, q_positions, scale=scale,
+              sliding_window=sliding_window)
+
+
+def _pool_keys(pool, block_tables) -> tuple:
+    """((B, MP * epp, D) entries, (B, MP * epp) bool page in range) of a pool
+    (P, epp, D) paged through the block tables; entry j of sequence b is slot
+    j % epp of page block_tables[b, j // epp]."""
+    P = pool.shape[0]
+    bt = block_tables.long()
+    ok = (bt >= 0) & (bt < P)
+    g = pool[torch.where(ok, bt, torch.zeros_like(bt))]
+    B = bt.shape[0]
+    return g.reshape(B, -1, pool.shape[-1]), ok.repeat_interleave(pool.shape[1], dim=1)
+
+
+def _causal_visible(q_positions, total_lens, T: int, device) -> torch.Tensor:
+    """(B, S, T) bool: key j visible iff j < total_len and j <= q_position."""
+    j = torch.arange(T, device=device)
+    j = j[None, None, :]
+    return (j < total_lens[:, None, None]) & (j <= q_positions[:, :, None])
+
+
+def pool_attention_stats_plain(q, pool, block_tables, q_positions, total_lens,
+                               scale: float = 1.0) -> tuple:
+    """(acc, m, l) over a compressed pool (P, epp, D), K and V alike, paged
+    through the token block tables with epp entries a page."""
+    k, ok = _pool_keys(pool, block_tables)
+    vis = _causal_visible(q_positions, total_lens, k.shape[1], q.device) & ok[:, None, :]
+    return attend_stats_plain(q, k, vis, scale)
+
+
+def pool_attention_stats_kernel(q, pool, block_tables, q_positions, total_lens,
+                                scale: float = 1.0) -> tuple:
+    """Launch exl3_pool_attention_stats (csrc/attention_stats.cu). q (B, 1, Hq,
+    512) bf16; pool (P, epp, 512) bf16, any epp; block_tables (B, MP),
+    q_positions (B, 1) and total_lens (B,) int32."""
+    B, _, Hq, _ = q.shape
+    _stats_check("pool_attention_stats_kernel", q, pool, (block_tables, q_positions, total_lens))
+    P, epp = pool.shape[:2]
+    if (pool.dim() != 3 or epp < 1 or block_tables.dim() != 2 or block_tables.shape[0] != B
+            or q_positions.shape != (B, 1) or total_lens.shape != (B,)):
+        raise ValueError(f"pool_attention_stats_kernel: unsupported shapes pool "
+                         f"{tuple(pool.shape)}, tables {tuple(block_tables.shape)}")
+    acc, m, l = _stats_out(q)
+    err = library().exl3_pool_attention_stats(
+        q.data_ptr(), pool.data_ptr(), block_tables.data_ptr(), q_positions.data_ptr(),
+        total_lens.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), B, Hq,
+        block_tables.shape[1], P, epp, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch("exl3_pool_attention_stats", err)
+    pool_attention_stats_kernel.launches += 1
+    return acc, m, l
+
+
+pool_attention_stats_kernel.launches = 0
+
+
+def pool_attention_stats(q, pool, block_tables, q_positions, total_lens,
+                         scale: float = 1.0) -> tuple:
+    """(acc, m, l) of decode over a paged compressed pool (the JAX package's
+    flash_attention with `latent` and return_stats over the HCA pool). CUDA
+    tensors go through the kernel, CPU tensors through the plain version."""
+    fn = pool_attention_stats_plain if q.device.type == "cpu" else pool_attention_stats_kernel
+    return fn(q, pool, block_tables, q_positions, total_lens, scale=scale)
+
+
+def rows_attention_stats_plain(q, kv, q_positions, total_lens, scale: float = 1.0) -> tuple:
+    """(acc, m, l) over each sequence's own rows kv (B, T, D), K and V alike."""
+    vis = _causal_visible(q_positions, total_lens, kv.shape[1], q.device)
+    return attend_stats_plain(q, kv, vis, scale)
+
+
+def rows_attention_stats_kernel(q, kv, q_positions, total_lens, scale: float = 1.0) -> tuple:
+    """Launch exl3_rows_attention_stats (csrc/attention_stats.cu). q (B, 1, Hq,
+    512) bf16; kv (B, T, 512) bf16, any T; q_positions (B, 1) and total_lens
+    (B,) int32."""
+    B, _, Hq, _ = q.shape
+    _stats_check("rows_attention_stats_kernel", q, kv, (q_positions, total_lens))
+    if kv.dim() != 3 or kv.shape[0] != B or kv.shape[1] < 1 or q_positions.shape != (B, 1) \
+            or total_lens.shape != (B,):
+        raise ValueError(f"rows_attention_stats_kernel: unsupported shapes kv {tuple(kv.shape)}")
+    acc, m, l = _stats_out(q)
+    err = library().exl3_rows_attention_stats(
+        q.data_ptr(), kv.data_ptr(), q_positions.data_ptr(), total_lens.data_ptr(),
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), B, Hq, kv.shape[1], float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch("exl3_rows_attention_stats", err)
+    rows_attention_stats_kernel.launches += 1
+    return acc, m, l
+
+
+rows_attention_stats_kernel.launches = 0
+
+
+def rows_attention_stats(q, kv, q_positions, total_lens, scale: float = 1.0) -> tuple:
+    """(acc, m, l) of decode over selected entries gathered into rows (the JAX
+    package's flash_attention with `latent` and return_stats over the CSA
+    top-k, linear layout). CUDA tensors go through the kernel, CPU tensors
+    through the plain version."""
+    fn = rows_attention_stats_plain if q.device.type == "cpu" else rows_attention_stats_kernel
+    return fn(q, kv, q_positions, total_lens, scale=scale)

@@ -3,9 +3,11 @@
 
 acc = sum over intermediate tiles of bf16(act(x@Wg*sg) * (x@Wu*su)) @ Wd;
 the caller applies the down scale and bias. act is silu, gelu (erf),
-gelu_pytorch_tanh or relu2, taken in f32 before the bf16 round. On a CUDA
-tensor the wrapper launches csrc/fused_mlp.cu; on a CPU tensor it runs the
-plain version. The activation clamp waits.
+gelu_pytorch_tanh or relu2, taken in f32 before the bf16 round; with
+`act_clamp` L > 0 (DeepSeek-V4's swiglu_limit) the scaled gate is clipped to
+[-L, L] first, as the JAX kernel's _act does (the three-dot MLP clamps
+otherwise: modules/mlp.py::act_mul_clamped). On a CUDA tensor the wrapper
+launches csrc/fused_mlp.cu; on a CPU tensor it runs the plain version.
 """
 from __future__ import annotations
 
@@ -33,21 +35,25 @@ def apply_activation(name: str, g: torch.Tensor) -> torch.Tensor:
 
 
 def fused_mlp_int8_plain(x: torch.Tensor, gu_q: torch.Tensor, gu_scale: torch.Tensor,
-                         d_q: torch.Tensor, activation: str = "silu") -> torch.Tensor:
+                         d_q: torch.Tensor, activation: str = "silu",
+                         act_clamp: float = 0.0) -> torch.Tensor:
     """x (m, h); gu_q (h, 2i) int8 [gate | up]; gu_scale (2i,) f32; d_q (i, h)
     int8 -> (m, h) f32 before the down scale."""
     inter = d_q.shape[0]
     gu = (x.to(torch.bfloat16).float() @ gu_q.float()) * gu_scale[None, :]
     g, u = gu[:, :inter], gu[:, inter:]
+    if act_clamp:
+        g = torch.clamp(g, -act_clamp, act_clamp)
     a = (apply_activation(activation, g) * u).to(torch.bfloat16)
     return a.float() @ d_q.float()
 
 
 def fused_mlp_int8_kernel(x: torch.Tensor, gu_q: torch.Tensor, gu_scale: torch.Tensor,
-                          d_q: torch.Tensor, activation: str = "silu") -> torch.Tensor:
+                          d_q: torch.Tensor, activation: str = "silu",
+                          act_clamp: float = 0.0) -> torch.Tensor:
     """Launch csrc/fused_mlp.cu: x (m <= 16, h) bf16, gu_q (h, 2i) int8,
     gu_scale (2i,) f32, d_q (i, h) int8; h % 256 == 0, i % 128 == 0;
-    activation one of ACTIVATIONS."""
+    activation one of ACTIVATIONS; act_clamp >= 0 (0: none)."""
     if activation not in ACTIVATIONS:
         raise ValueError(f"fused_mlp_int8_kernel: activation {activation!r} is not ported yet")
     m, h = x.shape
@@ -70,7 +76,7 @@ def fused_mlp_int8_kernel(x: torch.Tensor, gu_q: torch.Tensor, gu_scale: torch.T
     err = library().exl3_fused_mlp(
         x.data_ptr(), gu_q.data_ptr(), gu_scale.data_ptr(), d_q.data_ptr(),
         partial.data_ptr(), out.data_ptr(), m, h, inter, ACTIVATIONS[activation],
-        torch.cuda.current_stream(x.device).cuda_stream)
+        float(act_clamp), torch.cuda.current_stream(x.device).cuda_stream)
     check_launch("exl3_fused_mlp", err)
     fused_mlp_int8_kernel.launches += 1
     return out
@@ -79,15 +85,16 @@ def fused_mlp_int8_kernel(x: torch.Tensor, gu_q: torch.Tensor, gu_scale: torch.T
 fused_mlp_int8_kernel.launches = 0
 
 
-def fused_mlp_int8(x, gu_q, gu_scale, d_q, d_scale, d_bias=None, activation: str = "silu"):
+def fused_mlp_int8(x, gu_q, gu_scale, d_q, d_scale, d_bias=None, activation: str = "silu",
+                   act_clamp: float = 0.0):
     """x (..., h) -> (..., h) f32, down scale and bias applied."""
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
     if x.device.type == "cpu":
-        y = fused_mlp_int8_plain(x2, gu_q, gu_scale, d_q, activation)
+        y = fused_mlp_int8_plain(x2, gu_q, gu_scale, d_q, activation, act_clamp)
     else:
         y = fused_mlp_int8_kernel(x2.to(torch.bfloat16).contiguous(), gu_q, gu_scale, d_q,
-                                  activation)
+                                  activation, act_clamp)
     y = y * d_scale[None, :]
     if d_bias is not None:
         y = y + d_bias

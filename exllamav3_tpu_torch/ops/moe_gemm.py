@@ -4,10 +4,11 @@
 out[t] = sum over j of topv[t, j] * (bf16(silu(x_t @ wg[e]) * (x_t @ wu[e])) @ wd[e]),
 e = topi[t, j]: only the k routed experts' weights are read, not all E. The
 products accumulate in f32; the activation is computed in f32 and rounded to
-bf16 before the down product. On a CUDA tensor the wrapper launches
-csrc/moe_gemm.cu; on a CPU tensor it runs the plain version. Gated silu
-experts without biases are ported; biases, non-gated experts and the other
-activations (silu_oai, clamps) wait.
+bf16 before the down product; with `act_clamp` L > 0 (DeepSeek-V4's
+swiglu_limit) it is min(silu(g), L) * clip(u, -L, L), the JAX package's
+act_mul_clamped. On a CUDA tensor the wrapper launches csrc/moe_gemm.cu; on a
+CPU tensor it runs the plain version. Gated silu experts without biases are
+ported; biases, non-gated experts and silu_oai wait.
 """
 from __future__ import annotations
 
@@ -36,8 +37,18 @@ def _pick_bi(h: int, i: int) -> int:
     return bi
 
 
+def silu_mul(g: torch.Tensor, u: torch.Tensor, act_clamp: float = 0.0) -> torch.Tensor:
+    """silu(g) * u, or with act_clamp L > 0 min(silu(g), L) * clip(u, -L, L)
+    (the JAX package's act_mul_clamped)."""
+    a = torch.nn.functional.silu(g)
+    if act_clamp:
+        return torch.clamp(a, max=act_clamp) * torch.clamp(u, -act_clamp, act_clamp)
+    return a * u
+
+
 def selected_expert_mlp_plain(x: torch.Tensor, topi: torch.Tensor, topv: torch.Tensor,
-                              wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor) -> torch.Tensor:
+                              wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
+                              act_clamp: float = 0.0) -> torch.Tensor:
     """x (T, h); topi (T, k) int; topv (T, k); wg, wu (E, h, i) bf16; wd
     (E, i, h) bf16 -> (T, h) f32. One gathered expert per (token, slot)."""
     T, h = x.shape
@@ -46,16 +57,17 @@ def selected_expert_mlp_plain(x: torch.Tensor, topi: torch.Tensor, topv: torch.T
     xs = x.to(torch.bfloat16).float().repeat_interleave(k, dim=0)[:, None, :]   # (T*k, 1, h)
     g = torch.bmm(xs, wg[e].float())
     u = torch.bmm(xs, wu[e].float())
-    a = (torch.nn.functional.silu(g) * u).to(torch.bfloat16).float()
+    a = silu_mul(g, u, act_clamp).to(torch.bfloat16).float()
     y = torch.bmm(a, wd[e].float())[:, 0, :].reshape(T, k, h)
     return (y * topv.float()[:, :, None]).sum(dim=1)
 
 
 def selected_expert_mlp_kernel(x: torch.Tensor, topi: torch.Tensor, topv: torch.Tensor,
-                               wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor) -> torch.Tensor:
+                               wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
+                               act_clamp: float = 0.0) -> torch.Tensor:
     """Launch csrc/moe_gemm.cu: x (T <= 16, h) bf16, topi (T, k) int32, topv
     (T, k) f32, wg/wu (E, h, i) bf16, wd (E, i, h) bf16; h % 128 == 0,
-    i % 64 == 0. Returns (T, h) f32."""
+    i % 64 == 0; act_clamp >= 0 (0: none). Returns (T, h) f32."""
     T, h = x.shape
     k = topi.shape[1]
     E, _, inter = wg.shape
@@ -80,7 +92,7 @@ def selected_expert_mlp_kernel(x: torch.Tensor, topi: torch.Tensor, topv: torch.
     out = torch.empty((T, h), dtype=torch.float32, device=x.device)
     err = library().exl3_moe_mlp(
         x.data_ptr(), topi.data_ptr(), topv.data_ptr(), wg.data_ptr(), wu.data_ptr(),
-        wd.data_ptr(), partial.data_ptr(), out.data_ptr(), T, k, h, inter, E,
+        wd.data_ptr(), partial.data_ptr(), out.data_ptr(), T, k, h, inter, E, float(act_clamp),
         torch.cuda.current_stream(x.device).cuda_stream)
     check_launch("exl3_moe_mlp", err)
     selected_expert_mlp_kernel.launches += 1
@@ -96,12 +108,13 @@ def selected_expert_mlp(x, topi, topv, wu, wd, wg=None, bg=None, bu=None, bd=Non
     """The JAX package's signature: x (T, h); topi/topv (T, k); wu/wg (E, h, i);
     wd (E, i, h) -> (T, h) f32. The kernel for CUDA tensors, the plain
     version for CPU tensors."""
-    if wg is None or activation != "silu" or act_clamp:
+    if wg is None or activation != "silu":
         raise NotImplementedError("selected-expert MLP: only gated silu experts are ported")
     if bg is not None or bu is not None or bd is not None:
         raise NotImplementedError("selected-expert MLP: expert biases are not ported yet")
     if x.device.type == "cpu":
-        return selected_expert_mlp_plain(x, topi, topv, wg, wu, wd)
+        return selected_expert_mlp_plain(x, topi, topv, wg, wu, wd, act_clamp)
     return selected_expert_mlp_kernel(x.to(torch.bfloat16).contiguous(),
                                       topi.to(torch.int32).contiguous(),
-                                      topv.to(torch.float32).contiguous(), wg, wu, wd)
+                                      topv.to(torch.float32).contiguous(), wg, wu, wd,
+                                      act_clamp)

@@ -9,6 +9,8 @@ The port reads the JAX package's variable names where a switch carries over:
   EXL3TPU_SQ          1 (default) prefer a checkpoint's `.sq` serving tensors at
                       the asked width over the load-time requant, 0 ignores them
   EXL3_TPU_MOE        MoE decode body (`moe_backend`)
+  EXL3_TPU_ATTN       "dense" sends DeepSeek-V4's decode steps through its
+                      dense path (`dsv4_dense_decode`); other values: kernels
 """
 from __future__ import annotations
 
@@ -42,3 +44,10 @@ def moe_backend() -> str:
         raise ValueError("EXL3_TPU_MOE=interpret has no meaning in the port: "
                          "use selected, dense or auto")
     return "dense" if mode == "dense" else "selected"
+
+
+def dsv4_dense_decode() -> bool:
+    """True when EXL3_TPU_ATTN is "dense": DeepSeek-V4's decode steps over a
+    paged cache take the dense path instead of the row 6b kernels, as the
+    JAX package's do under the same setting."""
+    return env_str("EXL3_TPU_ATTN", "auto") == "dense"

@@ -8,6 +8,11 @@ int4 bytes and int-B words (`weight_q4`, `weight_qb`, `weight_sq` and their
 fused `*_q4`, `*_qb`, `*_sq` entries) bit for bit, their scales as bf16.
 Gemma's parameters carry as they are: its norms' weights w (applied as
 1 + w), q/k norms, and the tied head's bf16 "weight" under "lm_head".
+DeepSeek-V4's carry as they are too (the attention's "sinks", each
+compressor's "ape", the mHC "fn", "base" and "scale"), except the hash
+routing table, which the JAX package keeps on its module and not among its
+parameters: each hash-routed layer reads its "tid2eid" from the checkpoint
+the port model was made from.
 `cache_state_from_jax` does the same for a cache state, bf16 ({"k", "v"}),
 quantized ({"k_q", "v_q"} int32 words, {"k_s", "v_s"} bf16 scales) or an SWA
 ring ({"k", "v"} bf16 and {"pos"} int32 slot positions). This module needs
@@ -41,6 +46,8 @@ def params_from_jax(model, params_np: dict) -> dict:
             if name in group:
                 mod.qbits = intb_bits_from_shapes(group[name].shape[0],
                                                   group[scale_name].shape[0])
+        if hasattr(mod, "load_tid2eid") and mod.key in model.params:
+            mod.load_tid2eid(model.params, model.device)
     return model.params
 
 

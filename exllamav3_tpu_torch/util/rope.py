@@ -3,7 +3,10 @@ the `default`, `linear`, `llama3` and `yarn` scalings (counterpart of
 exllamav3_tpu/util/rope.py; dynamic, longrope, MRoPE and the NANOCHAT style
 wait). DeepSeek's yarn takes the ratio of its two mscales as
 the attention factor (`RopeSettings.yarn_mscale_ratio`); the architecture
-folds the other into the softmax scale."""
+folds the other into the softmax scale. DeepSeek-V4 rotates the trailing
+dims of its rows GPTJ-style (`gptj_rope_trailing`, from
+exllamav3_tpu/modules/dsv4_attn.py), over a plain or yarn table
+(`dsv4_inv_freq`)."""
 from __future__ import annotations
 
 import math
@@ -148,3 +151,29 @@ class Rope:
         if x_pass.shape[-1]:
             out = torch.cat([out, x_pass], dim=-1)
         return out.to(x.dtype)
+
+
+def dsv4_inv_freq(dim: int, base: float, rope_scaling: dict | None = None) -> np.ndarray:
+    """DeepSeek-V4's (dim/2,) f64 table: yarn's when rope_scaling is present
+    (its attention factor is always 1), the plain one otherwise."""
+    if rope_scaling is None:
+        return 1.0 / (base ** (np.arange(0, dim, 2, dtype=np.float64) / dim))
+    return _yarn_inv_freq(dim, base, rope_scaling)
+
+
+def gptj_rope_trailing(x: torch.Tensor, inv_freq: torch.Tensor, positions: torch.Tensor,
+                       neg: bool = False) -> torch.Tensor:
+    """Rotate the trailing 2 * len(inv_freq) dims of x (..., S, H, D) GPTJ-style
+    (interleaved pairs) at `positions` (..., S), in f32; neg=True rotates
+    back. inv_freq is an f32 tensor; the result has x's dtype."""
+    rd = 2 * inv_freq.shape[0]
+    xf = x.to(torch.float32)
+    keep, rot = xf[..., : x.shape[-1] - rd], xf[..., x.shape[-1] - rd:]
+    ang = positions.to(torch.float32)[..., None] * inv_freq
+    s = torch.sin(ang)[..., None, :]
+    c = torch.cos(ang)[..., None, :]
+    if neg:
+        s = -s
+    x1, x2 = rot[..., 0::2], rot[..., 1::2]
+    out = torch.stack([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).reshape(rot.shape)
+    return torch.cat([keep, out], dim=-1).to(x.dtype)

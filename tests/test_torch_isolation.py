@@ -41,7 +41,10 @@ def test_no_jax_imports_in_port_sources():
             "exllamav3_tpu_torch/generator/generator.py", "exllamav3_tpu_torch/modules/attn.py",
             "exllamav3_tpu_torch/modules/mla_attn.py", "exllamav3_tpu_torch/architectures/deepseek.py",
             "exllamav3_tpu_torch/util/rope.py", "exllamav3_tpu_torch/conversion/synth.py",
-            "exllamav3_tpu_torch/architectures/gemma.py", "chip_smoke.py"} <= scanned
+            "exllamav3_tpu_torch/architectures/gemma.py", "chip_smoke.py",
+            "exllamav3_tpu_torch/modules/dsv4_attn.py",
+            "exllamav3_tpu_torch/modules/hyperconnections.py",
+            "exllamav3_tpu_torch/architectures/deepseek_v4.py"} <= scanned
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -308,3 +311,56 @@ def test_ring_kernel_refuses_cpu_tensors_and_prefill():
         fused_mlp_int8_kernel(torch.zeros((1, 256), dtype=torch.bfloat16),
                               torch.zeros((256, 256), dtype=torch.int8), torch.ones(256),
                               torch.zeros((128, 256), dtype=torch.int8), activation="xielu")
+
+
+def test_dsv4_modules_import_without_a_built_library():
+    """DeepSeek-V4's modules, its architecture and the row 6b wrappers import
+    on a machine with no compiler: nothing builds or loads a kernel library,
+    and neither triton nor jax comes in."""
+    code = (
+        "import sys\n"
+        "import exllamav3_tpu_torch.architectures.deepseek_v4 as v4\n"
+        "import exllamav3_tpu_torch.modules.dsv4_attn as dsv4\n"
+        "import exllamav3_tpu_torch.modules.hyperconnections as hc\n"
+        "import exllamav3_tpu_torch.ops.flash_attention as fa\n"
+        "import exllamav3_tpu_torch.ops.build as build\n"
+        "from exllamav3_tpu_torch.architectures import get_architectures\n"
+        "assert build._LIB is None and not build.BUILD_LOG\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'exllamav3_tpu', 'triton')]\n"
+        "assert not bad, bad\n"
+        "assert 'attention_stats.cu' in build.SOURCES\n"
+        "assert all(hasattr(fa, n + '_attention_stats' + s) for n in ('ring', 'pool', 'rows') "
+        "for s in ('', '_kernel', '_plain')) and callable(fa.merge_stats)\n"
+        "assert 'DeepseekV4ForCausalLM' in get_architectures()\n"
+        "assert dsv4.DSV4Attention.is_recurrent and callable(hc.HyperConnection)\n"
+        "assert callable(v4.DeepseekV4Model)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_dsv4_cache_follows_the_model_device(tmp_path, monkeypatch):
+    """A DeepSeek-V4 model and its cache (rings, compressor buffers, paged
+    pools) land on the model's device: the card by default (refused without
+    CUDA), the CPU only when asked."""
+    from exllamav3_tpu_torch.conversion.synth import write_tiny_deepseek_v4_exl3
+    from exllamav3_tpu_torch.model import Cache, CacheSpec, Config, Model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = Config.from_directory(write_tiny_deepseek_v4_exl3(str(tmp_path / "v4"), seed=2))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Model.from_config(config)
+    model = Model.from_config(config, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Cache(model, CacheSpec(num_pages=3), device="cuda")
+    state = Cache(model, CacheSpec(num_pages=3, recurrent_slots=5)).state
+    assert set(state["layers.0.attn"]) == {"kv", "pos"}
+    assert set(state["layers.1.attn"]) == {"kv", "pos", "pg_pool", "cb_kv", "cb_gate", "pg_ipool",
+                                           "icb_kv", "icb_gate"}
+    assert state["layers.2.attn"]["pg_pool"].shape == (3, 256 // 8, 32)
+    assert state["layers.1.attn"]["kv"].shape == (5, 8 + 16, 32)
+    assert all(t.device.type == "cpu" for layer in state.values() for t in layer.values())

@@ -87,9 +87,9 @@ def test_kernel_wrapper_refuses_cpu_tensors(experts):
     assert P.selected_expert_mlp_kernel.launches == before
 
 
-@pytest.mark.parametrize("kw", [dict(wg=None), dict(activation="silu_oai"), dict(act_clamp=7.0),
+@pytest.mark.parametrize("kw", [dict(wg=None), dict(activation="silu_oai"),
                                 dict(bd=torch.zeros(E, H))],
-                         ids=["non-gated", "silu_oai", "clamp", "bias"])
+                         ids=["non-gated", "silu_oai", "bias"])
 def test_unported_variants_raise(experts, kw):
     wg, wu, wd = (to_torch(w) for w in experts)
     topi, topv = (torch.from_numpy(a) for a in _routing(2, 2, 7))
@@ -97,6 +97,21 @@ def test_unported_variants_raise(experts, kw):
     args.update(kw)
     with pytest.raises(NotImplementedError):
         P.selected_expert_mlp(torch.zeros(2, H), topi, topv, wu, wd, **args)
+
+
+def test_clamped_activation_runs_the_plain_version_on_cpu(experts):
+    """The activation clamp (DeepSeek-V4's swiglu_limit) is ported: the
+    dispatcher takes it and runs the plain version on CPU tensors, which
+    clamps min(silu(g), L) * clip(u, -L, L); a limit that clips changes the
+    result, and a limit no value reaches does not."""
+    wg, wu, wd = (to_torch(w) for w in experts)
+    topi, topv = (torch.from_numpy(a) for a in _routing(2, 2, 7))
+    x = torch.randn(2, H, generator=torch.Generator().manual_seed(3))
+    plain = P.selected_expert_mlp(x, topi, topv, wu, wd, wg=wg)
+    assert torch.equal(P.selected_expert_mlp(x, topi, topv, wu, wd, wg=wg, act_clamp=1e9), plain)
+    clipped = P.selected_expert_mlp(x, topi, topv, wu, wd, wg=wg, act_clamp=1e-3)
+    assert torch.equal(clipped, P.selected_expert_mlp_plain(x, topi, topv, wg, wu, wd, 1e-3))
+    assert not torch.allclose(clipped, plain)
 
 
 def test_pick_bi_is_jax_s():
