@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases build,latent_attention,latent_attention_quant,parity_mla,serve_mla
     python3 chip_smoke.py --phases build,ring_attention,fused_mlp,parity_gemma,serve_gemma
     python3 chip_smoke.py --phases build,ring_attention,latent_attention,attention_stats,parity_dsv4,serve_dsv4
+    python3 chip_smoke.py --phases build,fused_ablate,dequant_probe,int4_sweep,a8_ablate,a8_diag_proto,dma_floor
 
 Phases:
   build     build the CUDA kernels from exllamav3_tpu_torch/csrc/ (timed)
@@ -50,12 +51,21 @@ Phases:
             gelu_pytorch_tanh MLP at m = 1 and 8 and DeepSeek-V4's clamped
             shared expert (h 7168, i 2048), moe_gemm DeepSeek-V4's clamped
             experts (256 of 7168 x 2048, top 8), the four attention checks
-            GQA groups 5, 6 and 7 (and 8), the linear ones at T = 2052
-  parity    a 2-layer checkpoint at full 8B width: forward_simple and paged
+            GQA groups 5, 6 and 7 (and 8), the linear ones at T = 2052.
+            Rows 15-20, the measurement probes (probes/), at their JAX tools'
+            default shapes, every variant: fused_ablate (the trellis GEMM
+            stage by stage; exl3_gemm.cu timed beside it), dequant_probe (the
+            quantized-KV dequant, per head, merged and dense bf16),
+            int4_sweep, a8_ablate and a8_diag_proto (the int4 bodies) and
+            dma_floor (an int8 weight streamed: the memory rate reached, also
+            over 128 MB). Exact where the output is integer, else 1e-4
+            (dequant_probe 3e-4, as the attention kernels it mirrors)
+  parity    the first layer of a 2-layer checkpoint at full 8B width
+            (PARITY_LAYERS): forward_simple and paged
             prefill + decode steps on the GPU (kernels) against the CPU
             (plain versions) over the same ids and weights, for the int8 path
             for the capacity path (`fused` linears, (4, 4) cache) and for the
-            packed tiers int4 and int6 (a8 kernels); then a 2-layer Qwen3-MoE
+            packed tiers int4 and int6 (a8 kernels); then a 1-layer Qwen3-MoE
             checkpoint at full Qwen3-30B-A3B width (int8), the GPU given the
             CPU's routing, with the share of (token, layer) expert sets the
             GPU's own router picks alike
@@ -164,11 +174,10 @@ import time
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+from exllamav3_tpu_torch.util.timing import HBM_BYTES_PER_S, rotating, time_ms
+
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core rate
 INT8_OP_PER_S = 1979e12     # dense int8 tensor-core rate
-L2_BYTES = 50 << 20
-SPIN_CYCLES = 35_000_000    # ~20 ms at the H100's clock
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 
@@ -192,6 +201,10 @@ TOL_ATTN = 2e-4   # q and P enter the MMAs as hi + lo bf16 pairs (~2^-16 relativ
 TOL_EXL3 = 1e-4   # both sides: the same bf16 weights and activations, f32 sums in another order
 TOL_PACKED = 1e-4  # both sides: the same bf16 or int8 operands, f32 sums in another order
 TOL_ATTN_Q = 3e-4  # as TOL_ATTN; K/V are exact hi + lo pairs, the rotation sums in another order
+TOL_PROBE = 1e-4  # the probes (rows 15-20) that are not exact: f32 sums in another order
+# dequant_probe (row 16) as the attention kernels it mirrors: q, and K where
+# it has more than 16 significant bits, enter the MMAs as hi + lo bf16 pairs
+TOL_PROBE_KV = TOL_ATTN_Q
 # the selected-expert MLP, relative to the range of the plain result: the same
 # bf16 products, f32 sums in another order, which now and then flip the bf16
 # rounding of one activation (one flip moves an output by 2^-8 of that
@@ -218,6 +231,10 @@ MIN_EXPERT_AGREEMENT = 0.9   # share of (token, layer) expert sets alike on both
 # depth of the MoE serve: 24 of Qwen3-30B-A3B's 48 layers, so that the whole
 # script stays within half its time limit with the linear-cache phases
 MOE_SERVE_LAYERS = 24
+# depth of the parity phase's two checkpoints (8B and Qwen3-30B-A3B width),
+# cut from 2 to 1 when the probes (rows 15-20) joined the default call: their
+# CPU side runs the plain versions of whole full-width layers
+PARITY_LAYERS = 1
 
 # An SM dispatches one warp instruction a clock from each of its four schedulers
 LANES_PER_SM_CLOCK = 4 * 32
@@ -258,6 +275,17 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                              "exllamav3_tpu/ops/flash_attention.py:273"),
     "rows_attention_stats": ("exllamav3_tpu_torch/csrc/attention_stats.cu",
                              "exllamav3_tpu/ops/flash_attention.py:273"),
+    # rows 15-20, the measurement probes: on no served path
+    "fused_ablate": ("exllamav3_tpu_torch/csrc/probe_trellis.cu", "tools/fused_ablate.py:43"),
+    "dequant_probe": ("exllamav3_tpu_torch/csrc/probe_kv_dequant.cu", "tools/dequant_probe.py:39"),
+    "dequant_probe_merged": ("exllamav3_tpu_torch/csrc/probe_kv_dequant.cu",
+                             "tools/dequant_probe.py:125"),
+    "dequant_probe_bf16": ("exllamav3_tpu_torch/csrc/probe_kv_dequant.cu",
+                           "tools/dequant_probe.py:162"),
+    "int4_sweep": ("exllamav3_tpu_torch/csrc/probe_int4.cu", "tools/int4_sweep.py:26"),
+    "a8_ablate": ("exllamav3_tpu_torch/csrc/probe_int4.cu", "tools/a8_ablate.py:8"),
+    "a8_diag_proto": ("exllamav3_tpu_torch/csrc/probe_int4.cu", "tools/a8_diag_proto.py:29"),
+    "dma_floor": ("exllamav3_tpu_torch/csrc/probe_dma.cu", "tools/dma_floor.py:7"),
 }
 
 
@@ -271,38 +299,6 @@ def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOP_PER_S) -> tupl
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     tf = flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
-
-
-def time_ms(fn, calls: int) -> float:
-    """Mean device time of fn() over `calls` launches (CUDA events). The
-    launches queue up behind a ~20 ms spin on the device, so that a short
-    kernel reads its time on the card and not the host's launch rate."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SPIN_CYCLES)
-    t0.record()
-    for _ in range(calls):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / calls
-
-
-def rotating(make, nbytes: int):
-    """Enough independent copies of an input set that cycling through them
-    exceeds the L2 cache, so each timed call reads device memory as the
-    main path does."""
-    n = max(1, math.ceil(2 * L2_BYTES / max(nbytes, 1)))
-    sets = [make(i) for i in range(n)]
-    state = {"i": 0}
-
-    def nxt():
-        s = sets[state["i"] % n]
-        state["i"] += 1
-        return s
-    return nxt
 
 
 class KernelTable:
@@ -1513,6 +1509,200 @@ def check_latent_attention_quant(table, dev):
     torch.cuda.empty_cache()
 
 
+# -- the measurement probes (rows 15-20) ----------------------------------------------------
+
+# the JAX tools' default shapes
+PROBE_TRELLIS = dict(m=16, k=4096, n=4096, K=4, bm=16, bn=256, bk=256)
+PROBE_KV = dict(ctx=16384, bits=4, Hk=8)
+PROBE_INT4 = dict(m=16, k=4096, n=4096)
+PROBE_A8 = dict(k=4096, n=4096)
+PROBE_DMA = dict(kh=2048, n=4096)
+PROBE_DMA_LARGE = 32768  # rows of a 128 MB weight: the rate once launch and ramp are amortized
+
+
+def _probe(table, name: str, variants, make, nbytes, kernel, plain, flops, exact=(),
+           main=None, library=None, shape="", calls=100, peak=BF16_FLOP_PER_S, tol=TOL_PROBE):
+    """Each variant's kernel against its plain version on the card (exact for
+    integer outputs, else `tol` of the largest magnitude), then both timed
+    over inputs that rotate through more than the L2 cache. The row of `name`
+    (none where table is None) carries the main variant's numbers and every
+    variant's under `variants`."""
+    per, worst = {}, 0.0
+    for v in variants:
+        nxt = rotating(lambda i, v=v: make(v, i), nbytes(v))
+        args = nxt()
+        with uncounted():
+            ref = plain(*args, v)
+            got = kernel(*args, v)
+        torch.cuda.synchronize()
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"{name} {v}: shape {tuple(got.shape)} or non-finite output")
+        err = float((got - ref).abs().max())
+        rel = err / max(float(ref.abs().max()), 1e-30)
+        if (v in exact and err != 0.0) or rel > tol:
+            raise AssertionError(f"{name} {v}: max_abs_err {err} rel {rel} "
+                                 f"(tolerance {'exact' if v in exact else tol})")
+        with uncounted():
+            ms = time_ms(lambda: kernel(*nxt(), v), calls)
+            plain_t = time_ms(lambda: plain(*nxt(), v), 2)
+        bnd = bound_ms(nbytes(v), flops(v), peak)
+        per[v] = dict(ms=ms, plain_ms=plain_t, bound_ms=bnd[0], max_abs_err=err)
+        worst = max(worst, err)
+        log(f"{name} {v}: max_abs_err={err:.3e} rel={rel:.2e} kernel_ms={ms:.4f} "
+            f"plain_ms={plain_t:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]}) "
+            f"share_of_bound={bnd[0] / ms:.3f}")
+        del nxt, args, ref, got
+        torch.cuda.empty_cache()
+    main = main or variants[0]
+    if table is not None:
+        m = per[main]
+        table.add(name, worst, m["ms"], m["plain_ms"], bound_ms(nbytes(main), flops(main), peak),
+                  library, f"{shape} {main}".strip(), main=True, variants=per)
+    return per
+
+
+def check_fused_ablate(table, dev):
+    """Row 15 at the JAX tool's defaults (m 16, k = n = 4096, K 4, bn = bk =
+    256): every variant, the production exl3_gemm.cu beside them, and
+    torch.matmul on the decoded weight as the library yardstick."""
+    from exllamav3_tpu_torch.ops.exl3_gemm import exl3_gemm_kernel
+    import exllamav3_tpu_torch.probes.fused_ablate as P
+
+    s = PROBE_TRELLIS
+    m, k, n, K = s["m"], s["k"], s["n"], s["K"]
+    geo = (s["bm"], s["bn"], s["bk"])
+    nb = m * k * 2 + k * n * K // 8 + m * n * 4
+    xh, words = P.make_inputs(m, k, n, K, 0, dev)
+    wd = P.probe_weight(words, K, "full", s["bn"], s["bk"])
+    nxt_lib = rotating(lambda i: (xh, wd.clone()), m * k * 2 + k * n * 2 + m * n * 4)
+    lib = time_ms(lambda: torch.matmul(*nxt_lib()), 100)
+    nxt = rotating(lambda i: P.make_inputs(m, k, n, K, i, dev), nb)
+    with uncounted():
+        prod = time_ms(lambda: exl3_gemm_kernel(*nxt(), K, 0), 100)
+    log(f"fused_ablate: exl3_gemm.cu (production) kernel_ms={prod:.4f}; library_ms(torch.matmul "
+        f"bf16 on the decoded weight)={lib:.4f}")
+    del nxt, nxt_lib, wd
+    _probe(table, "fused_ablate", P.VARIANTS,
+           lambda v, i: P.make_inputs(m, k, n, K, i, dev), lambda v: nb,
+           lambda xh, w, v: P.fused_ablate_kernel(xh, w, K, v, *geo),
+           lambda xh, w, v: P.fused_ablate_plain(xh, w, K, v, *geo),
+           lambda v: 2.0 * m * k * n, main="full", library=lib,
+           shape=f"m={m} k={k} n={n} K={K} bn={s['bn']} bk={s['bk']}")
+    table.rows["fused_ablate"]["exl3_gemm_ms"] = prod
+
+
+def check_dequant_probe(table, dev):
+    """Rows 16a-c at the JAX tool's defaults (ctx 16384, 4 bits, Hk 8, G 4,
+    D 128): the eight per-head variants, the two merged ones, dense bf16 K."""
+    import exllamav3_tpu_torch.probes.dequant_probe as P
+
+    s = PROBE_KV
+    ctx, bits, Hk = s["ctx"], s["bits"], s["Hk"]
+
+    def make(v, i):
+        return P.make_inputs(v, ctx, bits, Hk, i, dev)
+
+    def flops(v):
+        return 2.0 * ctx * (Hk * 4) * (Hk * 128 if v in P.MERGED else 128)
+
+    shape = f"ctx={ctx} bits={bits} Hk={Hk} G=4 D=128"
+    for name, variants in (("dequant_probe", P.PER_HEAD), ("dequant_probe_merged", P.MERGED),
+                           ("dequant_probe_bf16", ("bf16",))):
+        _probe(table, name, variants, make, lambda v: P.input_bytes(v, ctx, bits, Hk),
+               lambda q, kq, ks, v: P.dequant_probe_kernel(q, kq, ks, v, bits),
+               lambda q, kq, ks, v: P.dequant_probe_plain(q, kq, ks, v, bits), flops,
+               shape=shape, calls=20, tol=TOL_PROBE_KV)
+
+
+def check_int4_sweep(table, dev):
+    """Row 17 at the JAX tool's shapes (m 16, k = n = 4096): the four bodies,
+    with torch.matmul on the decoded bf16 weight as the library yardstick.
+    The tool's four block geometries change only the order of the f32 sums,
+    and not the kernel's launch: each variant runs once."""
+    import exllamav3_tpu_torch.ops.q_matmul as qm
+    import exllamav3_tpu_torch.probes.int4_sweep as P
+
+    s = PROBE_INT4
+    m, k, n = s["m"], s["k"], s["n"]
+    nb = m * k * 2 + k // 2 * n + k // 32 * n * 2 + m * n * 4
+    x, packed, scales = P.make_inputs(m, k, n, 0, dev)
+    wd = qm.int4_unpack(packed, scales).to(torch.bfloat16)
+    nxt_lib = rotating(lambda i: (x, wd.clone()), m * k * 2 + k * n * 2 + m * n * 4)
+    lib = time_ms(lambda: torch.matmul(*nxt_lib()), 100)
+    del nxt_lib, wd
+    _probe(table, "int4_sweep", P.VARIANTS, lambda v, i: P.make_inputs(m, k, n, i, dev),
+           lambda v: nb, lambda x, p, sc, v: P.int4_sweep_kernel(x, p, sc, v, *P.GEOMETRIES[0]),
+           lambda x, p, sc, v: P.int4_sweep_plain(x, p, sc, v, *P.GEOMETRIES[0]),
+           lambda v: 2.0 * m * k * n, main="bitcast", library=lib, shape=f"m={m} k={k} n={n}")
+
+
+def check_a8_ablate(table, dev):
+    """Row 18 at the JAX tool's shapes (k = n = 4096: packed 2048 x 4096, 16
+    rows of int8 x a 512-row block): every stage."""
+    import exllamav3_tpu_torch.probes.a8_ablate as P
+
+    k, n = PROBE_A8["k"], PROBE_A8["n"]
+    kh = k // 2
+    nb = kh * n + kh // 32 * n * 2 + kh * 16 + n * 4
+    _probe(table, "a8_ablate", P.STAGES, lambda v, i: P.make_inputs(k, n, i, dev),
+           lambda v: nb, P.a8_ablate_kernel, P.a8_ablate_plain,
+           lambda v: 2.0 * 16 * kh * n * (2 if v == "dot2" else 1), exact=P.EXACT, main="dot",
+           shape=f"kh={kh} n={n}", peak=INT8_OP_PER_S)
+
+
+def check_a8_diag_proto(table, dev):
+    """Row 19 at the JAX tool's shapes (m 1, k = n = 4096): raw_dot off and
+    on at bn = bkh = 512 and at the sweep's bkh = 2048 (64 expanded rows)."""
+    import exllamav3_tpu_torch.probes.a8_diag_proto as P
+
+    m, k, n = 1, PROBE_A8["k"], PROBE_A8["n"]
+    cases = {f"raw={rd} bkh={bkh}": (rd, bkh) for bkh in (512, P.SWEEP[0][1])
+             for rd in (False, True)}
+
+    def make(v, i):
+        rd, bkh = cases[v]
+        xq, packed, scales = P.make_inputs(m, k, n, i, dev)
+        return (*P.diag_inputs(xq, packed, bkh, rd), scales)
+
+    def nbytes(v):  # packed, scales, both expanded planes of x, out
+        return k // 2 * n + k // 32 * n * 2 + k * (cases[v][1] // 32) * m + m * n * 4
+
+    _probe(table, "a8_diag_proto", tuple(cases), make, nbytes,
+           lambda xl, xh, p, s, v: P.a8_diag_kernel(xl, xh, p, s, m, cases[v][0]),
+           lambda xl, xh, p, s, v: P.a8_diag_plain(xl, xh, p, s, m, cases[v][0]),
+           lambda v: 2.0 * (cases[v][1] // 32) * m * k * n, main="raw=False bkh=512",
+           shape=f"m={m} k={k} n={n}", peak=INT8_OP_PER_S)
+
+
+def check_dma_floor(table, dev):
+    """Row 20 at the JAX tool's shape (int8 2048 x 4096) in its three
+    geometries, then a 128 MB weight: the device-memory rate reached, as a
+    share of 3.35 TB/s."""
+    import exllamav3_tpu_torch.probes.dma_floor as P
+
+    geos = {f"bn={bn} bkh={bkh}": (bn, bkh) for bn, bkh in P.GEOMETRIES}
+    n = PROBE_DMA["n"]
+    for kh, label in ((PROBE_DMA["kh"], ""), (PROBE_DMA_LARGE, " large")):
+        nb = kh * n + 16 * n * 4
+        per = _probe(None if label else table, "dma_floor" + label, tuple(geos),
+                     lambda v, i, kh=kh: (P.make_input(kh, n, i, dev),), lambda v, nb=nb: nb,
+                     lambda b, v: P.dma_floor_kernel(b, *geos[v]),
+                     lambda b, v: P.dma_floor_plain(b, *geos[v]), lambda v: 0.0,
+                     exact=tuple(geos), shape=f"kh={kh} n={n}")
+        for v, r in per.items():
+            rate = nb / (r["ms"] * 1e-3)
+            r["reached_bytes_per_s"] = rate
+            log(f"dma_floor{label} {v}: reached {rate / 1e9:.1f} GB/s = "
+                f"{100 * rate / HBM_BYTES_PER_S:.1f}% of 3.35 TB/s")
+        if label:
+            table.rows["dma_floor"]["large"] = {"shape": f"kh={kh} n={n}", "variants": per}
+
+
+PROBE_CHECKS = {"fused_ablate": check_fused_ablate, "dequant_probe": check_dequant_probe,
+                "int4_sweep": check_int4_sweep, "a8_ablate": check_a8_ablate,
+                "a8_diag_proto": check_a8_diag_proto, "dma_floor": check_dma_floor}
+
+
 # -- phase: parity ----------------------------------------------------------------
 
 def _compare(tag, a, b, rel_tol=2e-2):
@@ -1540,15 +1730,15 @@ def _compare(tag, a, b, rel_tol=2e-2):
 
 
 def phase_parity():
-    """GPU (kernels) against CPU (plain versions) on the 2-layer full-width
-    checkpoint: the int8 path over a bf16 cache, then `fused` linears over
+    """GPU (kernels) against CPU (plain versions) on the first PARITY_LAYERS
+    layers of the 2-layer full-width checkpoint: the int8 path over a bf16 cache, then `fused` linears over
     the bf16 cache and over a (4, 4) quantized cache, the capacity path (fewer
     calls: its CPU side decodes every trellis anew in each forward), then the
     packed tiers int4 and int6 through their a8 kernels."""
     from exllamav3_tpu_torch.model import Cache, CacheSpec, Config, InferParams, Model
     from exllamav3_tpu_torch.util.params import params_to
 
-    d = _checkpoint(2)
+    d = _layer_view(_checkpoint(2), PARITY_LAYERS, ["model.safetensors"])
     ids = np.random.default_rng(5).integers(0, LLAMA8B["vocab_size"], size=(1, 400))
     # the logits are held to 2% of their range over the bf16 cache
     for mode, spec_kw, simple, steps, rel_tol in (
@@ -1613,7 +1803,7 @@ def record_routing(forced: list | None = None):
 
 
 def parity_moe():
-    """The MoE path on a 2-layer Qwen3-MoE checkpoint at Qwen3-30B-A3B width
+    """The MoE path on a PARITY_LAYERS-layer Qwen3-MoE checkpoint at Qwen3-30B-A3B width
     (int8 attention and head, bf16 expert stacks): forward_simple (grouped
     experts), a paged prefill (grouped) and decode steps (the selected-expert
     kernel on the GPU, its plain version on the CPU). The router's bf16
@@ -1626,7 +1816,7 @@ def parity_moe():
     from exllamav3_tpu_torch.model import Cache, CacheSpec, Config, InferParams, Model
     from exllamav3_tpu_torch.util.params import params_to
 
-    d = _moe_checkpoint(2)
+    d = _moe_checkpoint(PARITY_LAYERS)
     cfg = Config.from_directory(d, infer_params=InferParams(linear_mode="auto"))
     gpu = Model.from_config(cfg, device="cuda")
     gpu.load()
@@ -1635,7 +1825,8 @@ def parity_moe():
     V = QWEN3_30B["vocab_size"]
     ids = np.random.default_rng(14).integers(0, V, size=(1, 400))
     tag = f"Qwen3-MoE {cfg.infer_params.linear_mode}"
-    log(f"parity: {tag}, 2 layers at Qwen3-30B-A3B width, bf16 cache, the GPU on the CPU's routing")
+    log(f"parity: {tag}, {PARITY_LAYERS} layer(s) at Qwen3-30B-A3B width, bf16 cache, the GPU "
+        f"on the CPU's routing")
 
     def both(what, fn):
         """fn on the CPU, then on the GPU with the CPU's routing; the GPU's own
@@ -1665,7 +1856,7 @@ def parity_moe():
         both(f"paged decode pos={p}", lambda m: m.forward(ids[:, p: p + 1], caches[m],
                                                           np.array([[p]], np.int32),
                                                           np.array([p], np.int32), bt))
-    if _read_counts()["moe_gemm"] - before != 4 * 2:
+    if _read_counts()["moe_gemm"] - before != 4 * PARITY_LAYERS:
         raise AssertionError(f"parity {tag}: the decode steps did not run the selected-expert "
                              "kernel once a layer")
     del gpu, cpu, caches
@@ -1730,6 +1921,9 @@ def _wrappers() -> dict:
     from exllamav3_tpu_torch.ops.fused_mlp import fused_mlp_int8_kernel
     from exllamav3_tpu_torch.ops.moe_gemm import selected_expert_mlp_kernel
     import exllamav3_tpu_torch.ops.q_matmul as qm
+    # rows 15-20, the probes: on no served path, so every serve phase holds them at 0
+    from exllamav3_tpu_torch.probes import (a8_ablate, a8_diag_proto, dequant_probe, dma_floor,
+                                            fused_ablate, int4_sweep)
 
     return {"int8_matmul": qm.int8_matmul_kernel, "fused_mlp": fused_mlp_int8_kernel,
             "paged_attention": paged_attention_kernel, "exl3_gemm": exl3_gemm_kernel,
@@ -1743,7 +1937,11 @@ def _wrappers() -> dict:
             "ring_attention": ring_attention_kernel,
             "ring_attention_stats": ring_attention_stats_kernel,
             "pool_attention_stats": pool_attention_stats_kernel,
-            "rows_attention_stats": rows_attention_stats_kernel}
+            "rows_attention_stats": rows_attention_stats_kernel,
+            "fused_ablate": fused_ablate.fused_ablate_kernel,
+            "dequant_probe": dequant_probe.dequant_probe_kernel,
+            "int4_sweep": int4_sweep.int4_sweep_kernel, "a8_ablate": a8_ablate.a8_ablate_kernel,
+            "a8_diag_proto": a8_diag_proto.a8_diag_kernel, "dma_floor": dma_floor.dma_floor_kernel}
 
 
 def _reset_counts():
@@ -2207,7 +2405,7 @@ def _moe_checkpoint(layers: int) -> str:
     t0 = time.time()
     if not os.path.exists(os.path.join(d, "config.json")):
         write_tiny_moe_exl3(d, tiny_moe_cfg(num_layers=layers, **QWEN3_30B), K=4,
-                            seed=3 if layers == 2 else 2)
+                            seed=3 if layers == PARITY_LAYERS else 2)
     size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
     log(f"checkpoint: {layers} layers at Qwen3-30B-A3B width ready in {time.time() - t0:.1f} s, "
         f"{size / 2**30:.2f} GiB on disk ({d})")
@@ -2897,7 +3095,8 @@ CHECKS = {"int8_matmul": check_int8, "fused_mlp": check_fused_mlp,
           "linear_attention_quant": check_linear_attention_quant,
           "latent_attention": check_latent_attention,
           "latent_attention_quant": check_latent_attention_quant,
-          "ring_attention": check_ring_attention, "attention_stats": check_attention_stats}
+          "ring_attention": check_ring_attention, "attention_stats": check_attention_stats,
+          **PROBE_CHECKS}
 
 
 def main():
@@ -2997,6 +3196,11 @@ def main():
         t0 = time.time()
         table.set_launches(phase_serve_dsv4())
         log(f"phase serve_dsv4: {time.time() - t0:.1f} s")
+    if any(p.startswith("serve") or p == "linear_decode" for p in phases):
+        # each of those runs held every probe's launch count at 0 (_require_launches)
+        for name, (source, _) in KERNELS.items():
+            if "/probe_" in source and name in table.rows:
+                table.rows[name]["launches"] = 0
     log(f"total: {time.time() - t_all:.1f} s")
     log(smi)  # once more, so that the end of a cut log still names the card
     print(json.dumps({"kernels": list(table.rows.values())}))

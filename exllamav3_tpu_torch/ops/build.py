@@ -24,7 +24,8 @@ BUILD_DIR = PKG_DIR.parent / "build" / "exllamav3_tpu_torch"
 SOURCES = ("int8_matmul.cu", "fused_mlp.cu", "paged_attention.cu", "exl3_gemm.cu",
            "paged_attention_quant.cu", "int4_matmul.cu", "intb_matmul.cu", "moe_gemm.cu",
            "linear_attention.cu", "linear_attention_quant.cu", "latent_attention.cu",
-           "latent_attention_quant.cu", "ring_attention.cu", "attention_stats.cu")
+           "latent_attention_quant.cu", "ring_attention.cu", "attention_stats.cu",
+           "probe_dma.cu", "probe_trellis.cu", "probe_kv_dequant.cu", "probe_int4.cu")
 HEADERS = ("packed_matmul.cuh", "attention_tiles.cuh")  # included by sources; part of the digest
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -59,6 +60,13 @@ SIGNATURES = {
     "exl3_ring_attention_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "exl3_pool_attention_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "exl3_rows_attention_stats": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # the measurement probes (probes/)
+    "exl3_probe_dma": [_P, _P, _P, _I, _I, _I, _P],
+    "exl3_probe_trellis": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "exl3_probe_kv_dequant": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "exl3_probe_int4_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "exl3_probe_a8_ablate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "exl3_probe_a8_diag": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _LIB = None

@@ -21,6 +21,7 @@ def _port_files():
             if n.endswith(".py"):
                 yield os.path.join(dirpath, n)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "tools", "torch_attention_ab.py")
 
 
 def _forbidden(module: str) -> bool:
@@ -44,7 +45,11 @@ def test_no_jax_imports_in_port_sources():
             "exllamav3_tpu_torch/architectures/gemma.py", "chip_smoke.py",
             "exllamav3_tpu_torch/modules/dsv4_attn.py",
             "exllamav3_tpu_torch/modules/hyperconnections.py",
-            "exllamav3_tpu_torch/architectures/deepseek_v4.py"} <= scanned
+            "exllamav3_tpu_torch/architectures/deepseek_v4.py",
+            "tools/torch_attention_ab.py", "exllamav3_tpu_torch/util/timing.py",
+            *(f"exllamav3_tpu_torch/probes/{name}.py" for name in
+              ("__init__", "fused_ablate", "dequant_probe", "int4_sweep", "a8_ablate",
+               "a8_diag_proto", "dma_floor"))} <= scanned
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -364,3 +369,33 @@ def test_dsv4_cache_follows_the_model_device(tmp_path, monkeypatch):
     assert state["layers.2.attn"]["pg_pool"].shape == (3, 256 // 8, 32)
     assert state["layers.1.attn"]["kv"].shape == (5, 8 + 16, 32)
     assert all(t.device.type == "cpu" for layer in state.values() for t in layer.values())
+
+
+def test_probe_modules_import_without_a_built_library():
+    """The six probes import on a machine with no compiler: nothing builds or
+    loads a kernel library, and neither triton nor jax comes in; each has a
+    plain version, a kernel wrapper that counts its launches, a dispatcher
+    and main(), and its four sources are in the build."""
+    code = (
+        "import sys\n"
+        "import exllamav3_tpu_torch.ops.build as build\n"
+        "from exllamav3_tpu_torch.probes import (fused_ablate, dequant_probe, int4_sweep, "
+        "a8_ablate, a8_diag_proto, dma_floor)\n"
+        "assert build._LIB is None and not build.BUILD_LOG\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'exllamav3_tpu', 'triton')]\n"
+        "assert not bad, bad\n"
+        "assert {'probe_dma.cu', 'probe_trellis.cu', 'probe_kv_dequant.cu', 'probe_int4.cu'} "
+        "<= set(build.SOURCES)\n"
+        "mods = {fused_ablate: 'fused_ablate', dequant_probe: 'dequant_probe', "
+        "int4_sweep: 'int4_sweep', a8_ablate: 'a8_ablate', a8_diag_proto: 'a8_diag', "
+        "dma_floor: 'dma_floor'}\n"
+        "for m, n in mods.items():\n"
+        "    assert callable(m.main) and callable(getattr(m, n + '_plain'))\n"
+        "    assert getattr(m, n + '_kernel').launches == 0\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
