@@ -23,7 +23,13 @@ Phases:
             codebooks; also an estimate of the decode's dispatch time from the
             compiled kernel's instructions, kept apart from the bound) and
             paged_attention_quant (merged and per-head storage, with and
-            without the compander), int4_matmul, int4_matmul_a8, intb_matmul
+            without the compander; verify S = 5, seven sequences at 300
+            beside one at 8192, a block table four times wider than the
+            longest sequence; decode and verify take the split-key kernel of
+            csrc/attention_decode.cuh, prefill the tile loop; the decode rows
+            are timed over inputs rotated past the 50 MB L2, as is their SDPA
+            yardstick, with the L2-warm times beside them and a sweep of the
+            split size), int4_matmul, int4_matmul_a8, intb_matmul
             and intb_matmul_a8 (the packed-integer linears: also m = 128 and
             the Llama-3.1-70B shapes at m = 8; int-B at B = 3, 4, 5, 6),
             moe_gemm (the selected-expert MLP at the Qwen3-30B-A3B,
@@ -32,7 +38,9 @@ Phases:
             8B decode at batch 1 and 8, a 2048-token prefill, named cache
             rows, window / softcap / sinks, a last tile cut at T = 2056) and
             linear_attention_quant ((4, 4) merged and (5, 3) per-head storage
-            at T = 2056, compander, features, prefill), latent_attention and
+            at T = 2056, compander, features, prefill; batch 1 at 2048 and
+            8192, (2, 2) and (8, 8), 64-wide heads; timed as
+            paged_attention_quant), latent_attention and
             latent_attention_quant (absorbed MLA over the latent cache at
             DeepSeek-V2-Lite's 16 heads and DeepSeek-V2/V3's 128: decode,
             verify, prefill, paged and linear at T = 2056 and 2052; (4),
@@ -1102,6 +1110,32 @@ def _quant_attn_work(qpos, total, Hq, Hk, D, window, k_bits, v_bits):
     return B * S * Hq * D * 8 + keys * per_key, 4.0 * pairs * Hq * D
 
 
+def _cold_warm(fn, first, make=None, nbytes=None, warm=True) -> tuple[float, float | None]:
+    """(ms of fn over input sets that cycle past the 50 MB L2 cache, as the
+    main path reads a cache, ms of fn over `first` alone, L2-warm, or None
+    when not asked). By default the sets are `first` (a dict of tensors) and
+    copies of it."""
+    if make is None:
+        make = lambda i: first if i == 0 else {n: t.clone() for n, t in first.items()}
+        nbytes = sum(t.numel() * t.element_size() for t in first.values())
+    nxt = rotating(make, nbytes)
+    return time_ms(lambda: fn(nxt()), 10), time_ms(lambda: fn(first), 10) if warm else None
+
+
+def _split_sweep(kernel: str, name: str, fn, state: dict, width: int) -> None:
+    """Log the decode kernel's time over rotated inputs at each split size
+    that gives at most DECODE_MAX_SPLITS splits (the wrapper sizes them with
+    decode_split_keys)."""
+    from exllamav3_tpu_torch.ops.flash_attention import DECODE_MAX_SPLITS, DECODE_TILE
+
+    times, split = [], DECODE_TILE
+    while split <= 4096:
+        if -(-width // split) <= DECODE_MAX_SPLITS:
+            times.append(f"{split}: {_cold_warm(lambda st: fn(st, split), state, warm=False)[0]:.4f}")
+        split *= 2
+    log(f"{kernel} {name}: kernel_ms by split_keys {', '.join(times)}")
+
+
 def check_attention_quant(table, dev):
     from exllamav3_tpu_torch.constants import PAGE_SIZE
     from exllamav3_tpu_torch.ops.flash_attention import (paged_attention_quant_kernel,
@@ -1131,10 +1165,20 @@ def check_attention_quant(table, dev):
     cases.append(("decode + softcap 30 bits=(4, 4)", *decode, (4, 4), 0.0,
                   {"logit_softcap": 30.0}, False))
     cases.append(("decode + sinks bits=(5, 3)", *decode, (5, 3), 0.65, {"sinks": True}, False))
+    # the split-key decode kernel: a verify chunk, seven short sequences beside
+    # one of 8192 (their splits end early, the long one's spread), and a table
+    # four times wider than the longest sequence (whole splits see no key)
+    cases.append(("verify S=5 B=8 bits=(5, 3)", ctx[:, None] - 5 + np.arange(5, dtype=np.int32),
+                  ctx, (5, 3), 0.0, {}, False))
+    imbalance = np.array([300] * 7 + [8192], np.int32)
+    cases.append(("decode B=8, seven at ctx 300 and one at 8192, bits=(4, 4)",
+                  imbalance[:, None] - 1, imbalance, (4, 4), 0.0, {"timed": True}, False))
+    cases.append(("decode B=8 ctx 300-2048, a table of 4x the pages, bits=(4, 4)", *decode,
+                  (4, 4), 0.0, {"table_pages": 4 * 8}, False))
     for name, qpos, total, (kb, vb), a, kw, main in cases:
         B, S = qpos.shape
         Hq, Hk = kw.pop("q_heads", 32), kw.pop("kv_heads", 8)
-        mp = int(math.ceil(total.max() / PAGE_SIZE)) + 1
+        mp = kw.pop("table_pages", int(math.ceil(total.max() / PAGE_SIZE)) + 1)
         P = B * mp + 1
         perm = rng.permutation(np.arange(1, P))[: B * mp].reshape(B, mp).astype(np.int32)
         perm[:, -1] = 0  # the scratch column
@@ -1163,14 +1207,14 @@ def check_attention_quant(table, dev):
         row = f"paged_attention_quant_{storage}"
         if not rel <= TOL_ATTN_Q:
             raise AssertionError(f"paged_attention_quant {name}: rel err {rel} > {TOL_ATTN_Q}")
-        timed = main or name.startswith("prefill")
+        timed = main or name.startswith("prefill") or kw.get("timed")
         if not timed:
             log(f"paged_attention_quant {name} ({storage} storage): max_abs_err={err:.3e} "
                 f"rel={rel:.2e}")
             table.add(row, err, None, None, None, None, "", main=False)
             continue
-        ms = time_ms(lambda: paged_attention_quant_kernel(q, state, bt, qp, tl, kb, vb, a,
-                                                          **args), 10)
+        kern = lambda st: paged_attention_quant_kernel(q, st, bt, qp, tl, kb, vb, a, **args)
+        ms, warm = _cold_warm(kern, state)
         plain = time_ms(lambda: paged_attention_quant_plain(q, state, bt, qp, tl, kb, vb, a,
                                                             **args), 2)
         # yardstick: SDPA over pre-gathered, pre-dequantized contiguous bf16 K/V
@@ -1182,14 +1226,20 @@ def check_attention_quant(table, dev):
         kpos = torch.arange(T, device=dev)
         mask = (kpos[None, None, :] <= qp[:, :, None]) & (kpos[None, None, :] < tl[:, None, None])
         qt = q.to(torch.bfloat16).transpose(1, 2)
-        lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kc, vc, attn_mask=mask[:, None], scale=D ** -0.5, enable_gqa=True), 10)
+        lib, lib_warm = _cold_warm(lambda kv: torch.nn.functional.scaled_dot_product_attention(
+            qt, kv["k"], kv["v"], attn_mask=mask[:, None], scale=D ** -0.5, enable_gqa=True),
+            {"k": kc, "v": vc})
         bnd = bound_ms(*_quant_attn_work(qpos, total, Hq, Hk, D, args["sliding_window"], kb, vb))
         log(f"paged_attention_quant {name} ({storage} storage): max_abs_err={err:.3e} "
-            f"rel={rel:.2e} kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms(sdpa on "
-            f"dequantized bf16)={lib:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]})")
+            f"rel={rel:.2e} kernel_ms={ms:.4f} (L2-warm {warm:.4f}) plain_ms={plain:.4f} "
+            f"library_ms(sdpa on dequantized bf16)={lib:.4f} (L2-warm {lib_warm:.4f}) "
+            f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
+        if main:
+            _split_sweep("paged_attention_quant", name, lambda st, sk: paged_attention_quant_kernel(
+                q, st, bt, qp, tl, kb, vb, a, split_keys=sk, **args), state, mp * PAGE_SIZE)
         table.add(row, err, ms, plain, bnd, lib,
-                  f"{name}: B={B} S={S} Hq={Hq} Hk={Hk} D={D}", main=main)
+                  f"{name}: B={B} S={S} Hq={Hq} Hk={Hk} D={D}", main=main, warm_ms=warm,
+                  library_warm_ms=lib_warm)
         del q, state, ref, got, kc, vc
         torch.cuda.empty_cache()
     torch.cuda.empty_cache()
@@ -1289,11 +1339,20 @@ def check_linear_attention_quant(table, dev):
     from exllamav3_tpu_torch.ops.kv_quant import (merged_layout, quant_cache_fetch,
                                                    quantize_kv_stored)
 
-    D, T = 128, 2056
+    T = 2056
     decode = (_CTX_T[:, None] - 1, _CTX_T)
     rows8 = np.array([5, 0, 7, 2, 9, 4, 1, 6], np.int32)
     cases = [(f"decode B=8 ctx 300-2056 T={T} bits={bits}", 8, T, *decode, None, bits, 0.0, {},
               True) for bits in ((4, 4), (5, 3))]
+    # the split-key decode kernel at batch 1 (splits of one tile fill the
+    # card), the widest and narrowest widths, and 64-wide heads
+    cases += [(f"decode B=1 ctx {n} T={n + 8} bits=(4, 4)", 1, n + 8,
+               np.array([[n - 1]], np.int32), np.array([n], np.int32), None, (4, 4), 0.0,
+               {"timed": True}, False) for n in (2048, 8192)]
+    cases += [(f"decode B=8 ctx 300-2056 T={T} bits={bits}", 8, T, *decode, None, bits, 0.0, {},
+               False) for bits in ((2, 2), (8, 8))]
+    cases.append(("Llama-3.2-1B heads (D=64) decode B=8 ctx 300-2056 bits=(5, 3)", 8, T, *decode,
+                  None, (5, 3), 0.0, {"head_dim": 64}, False))
     cases += [("decode B=8 ctx 300-2056, rows of a 10-row cache, bits=(4, 4) compand_a=0.65", 10,
                T, *decode, rows8, (4, 4), 0.65, {}, False),
               ("decode B=8 ctx 300-2056, bits=(3, 7) + window 512 + softcap 30 + sinks", 8, T,
@@ -1311,7 +1370,7 @@ def check_linear_attention_quant(table, dev):
               for (hq, hk), bits in (((28, 4), (4, 4)), ((40, 8), (5, 3)), ((12, 2), (4, 4)))]
     for name, N, T_, qpos, total, rows, (kb, vb), a, kw, main in cases:
         B, S = qpos.shape
-        Hq, Hk = kw.pop("q_heads", 32), kw.pop("kv_heads", 8)
+        Hq, Hk, D = kw.pop("q_heads", 32), kw.pop("kv_heads", 8), kw.pop("head_dim", 128)
         g = torch.Generator(device=dev).manual_seed(16)
         q = torch.randn((B, S, Hq, D), generator=g, device=dev)
         merged = merged_layout(kb, vb)
@@ -1337,25 +1396,35 @@ def check_linear_attention_quant(table, dev):
         row = f"linear_attention_quant_{storage}"
         if not rel <= TOL_ATTN_Q:
             raise AssertionError(f"linear_attention_quant {name}: rel err {rel} > {TOL_ATTN_Q}")
-        timed = main or name.startswith("prefill")
+        timed = main or name.startswith("prefill") or kw.get("timed")
         if not timed:
             log(f"linear_attention_quant {name} ({storage} storage): max_abs_err={err:.3e} "
                 f"rel={rel:.2e}")
             table.add(row, err, None, None, None, None, "", main=False)
             del q, state, ref, got
             continue
-        ms = time_ms(lambda: linear_attention_quant_kernel(q, state, qp, tl, kb, vb, a, **args), 10)
+        ms, warm = _cold_warm(
+            lambda st: linear_attention_quant_kernel(q, st, qp, tl, kb, vb, a, **args), state)
         plain = time_ms(lambda: linear_attention_quant_plain(q, state, qp, tl, kb, vb, a, **args),
                         2)
         # yardstick: SDPA over the dequantized bf16 cache's live slice
         kd, vd = quant_cache_fetch(state, kb, vb, torch.bfloat16, a, hk=Hk)
-        lib = time_ms(_sdpa_linear(q, kd, vd, qp, tl, rw, D), 10)
+        sdpa = _sdpa_linear(q, kd, vd, qp, tl, rw, D)
+        lib, lib_warm = _cold_warm(
+            lambda f: f(), sdpa,
+            make=lambda i: sdpa if i == 0 else _sdpa_linear(q, kd, vd, qp, tl, rw, D),
+            nbytes=2 * q.shape[0] * int(tl.max()) * Hk * D * 2)
         bnd = bound_ms(*_quant_attn_work(qpos, total, Hq, Hk, D, args["sliding_window"], kb, vb))
         log(f"linear_attention_quant {name} ({storage} storage): max_abs_err={err:.3e} "
-            f"rel={rel:.2e} kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms(sdpa on the "
-            f"dequantized bf16 live slice)={lib:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]})")
+            f"rel={rel:.2e} kernel_ms={ms:.4f} (L2-warm {warm:.4f}) plain_ms={plain:.4f} "
+            f"library_ms(sdpa on the dequantized bf16 live slice)={lib:.4f} (L2-warm "
+            f"{lib_warm:.4f}) bound_ms={bnd[0]:.4f} ({bnd[1]})")
+        if main or kw.get("timed"):
+            _split_sweep("linear_attention_quant", name, lambda st, sk: linear_attention_quant_kernel(
+                q, st, qp, tl, kb, vb, a, split_keys=sk, **args), state, T_)
         table.add(row, err, ms, plain, bnd, lib,
-                  f"{name}: B={B} S={S} Hq={Hq} Hk={Hk} D={D} T={T_}", main=main)
+                  f"{name}: B={B} S={S} Hq={Hq} Hk={Hk} D={D} T={T_}", main=main, warm_ms=warm,
+                  library_warm_ms=lib_warm)
         del q, state, ref, got, kd, vd
         torch.cuda.empty_cache()
     torch.cuda.empty_cache()

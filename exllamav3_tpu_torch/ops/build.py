@@ -26,7 +26,7 @@ SOURCES = ("int8_matmul.cu", "fused_mlp.cu", "paged_attention.cu", "exl3_gemm.cu
            "linear_attention.cu", "linear_attention_quant.cu", "latent_attention.cu",
            "latent_attention_quant.cu", "ring_attention.cu", "attention_stats.cu",
            "probe_dma.cu", "probe_trellis.cu", "probe_kv_dequant.cu", "probe_int4.cu")
-HEADERS = ("packed_matmul.cuh", "attention_tiles.cuh")  # included by sources; part of the digest
+HEADERS = ("packed_matmul.cuh", "attention_tiles.cuh", "attention_decode.cuh")  # included by sources; part of the digest
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -41,8 +41,8 @@ SIGNATURES = {
     "exl3_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _F, _I, _F, _P],
     "exl3_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "exl3_paged_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   _I, _I, _I, _I, _F, _F, _F, _I, _F, _P],
+    "exl3_paged_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _F, _I, _P],
     "exl3_int4_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "exl3_int4_matmul_a8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "exl3_intb_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -50,8 +50,8 @@ SIGNATURES = {
     "exl3_moe_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "exl3_linear_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                               _I, _F, _P],
-    "exl3_linear_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                    _I, _I, _I, _I, _F, _F, _F, _I, _F, _P],
+    "exl3_linear_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _F, _I, _P],
     "exl3_latent_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "exl3_latent_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                     _I, _I, _F, _F, _F, _P],

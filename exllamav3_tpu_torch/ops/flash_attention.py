@@ -7,7 +7,12 @@ Ten CUDA entries share one tile loop (csrc/attention_tiles.cuh):
 csrc/paged_attention.cu and csrc/linear_attention.cu serve the bf16 cache,
 csrc/paged_attention_quant.cu and csrc/linear_attention_quant.cu the
 quantized one (packed 2..8-bit words with bf16 group scales, merged-head or
-per-head storage, unpacked in the kernel). Each serves decode, prefill chunks
+per-head storage, unpacked in the kernel). The quantized entries send decode
+and verify (S * G <= DECODE_ROWS) to csrc/attention_decode.cuh, which splits
+each sequence's keys across blocks (decode_split_keys sizes the splits from
+host widths) and merges the splits in the same launch; its plain split
+arithmetic is paged_attention_quant_split_plain and
+linear_attention_quant_split_plain. Each serves decode, prefill chunks
 and padded rows: causal by absolute position against total_lens, any GQA
 group, optional sliding window, logit softcap and per-head sinks. A row that
 sees no valid key gives 0. The linear layout holds one row of T slots per
@@ -118,6 +123,136 @@ def paged_attention(q, k_pages, v_pages, block_tables, q_positions, total_lens,
 
 # -- quantized cache ------------------------------------------------------------
 
+# The split-key decode kernel (csrc/attention_decode.cuh) serves a chunk whose
+# (sequence, kv head) has at most DECODE_ROWS query rows (S * G); its keys are
+# cut into splits of a power of two from one 64-key tile, at most
+# DECODE_MAX_SPLITS of them, so that the grid (splits, Hk, B) holds about
+# DECODE_TARGET_BLOCKS blocks: eight for each of the H100's 132 SMs, enough
+# that the splits of a long sequence spread while short ones end early. The
+# three numbers are the header's DECODE_ROWS, DEC_TK and DEC_MAX_SPLITS.
+DECODE_ROWS = 32
+DECODE_TILE = 64
+DECODE_MAX_SPLITS = 64
+DECODE_TARGET_BLOCKS = 8 * 132
+
+
+def decode_split_keys(width: int, B: int, Hk: int) -> int:
+    """Keys a split of the decode kernel covers, from widths the host knows:
+    the layout's keys a sequence (the block table's width times 256, or the
+    linear cache's T), the batch and the kv heads. Below a page it divides
+    the page; above, it holds whole pages."""
+    want = min(DECODE_MAX_SPLITS, max(1, -(-DECODE_TARGET_BLOCKS // (B * Hk))))
+    split = DECODE_TILE
+    while -(-width // split) > want:
+        split *= 2
+    return split
+
+
+_COUNTERS: dict = {}
+
+
+def _decode_counters(device, n: int) -> torch.Tensor:
+    """The decode kernel's arrival counters, one a (sequence, kv head): zero
+    at first and left zero by every launch, so one tensor a device serves
+    every call (it grows when a call needs more). Launches that share it run
+    one after another on one stream, as the model's steps do."""
+    c = _COUNTERS.get(device)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device] = c
+    return c
+
+
+def _quant_launch(q, Hk: int, width: int, split_keys: int | None) -> tuple:
+    """(q as the launch takes it, workspace, counters, split_keys) for the
+    quantized entries: the decode kernel takes q unrotated and a workspace of
+    (acc, m, l) for each split; the tile loop takes q rotated and neither."""
+    B, S, Hq, D = q.shape
+    if S * (Hq // Hk) > DECODE_ROWS:
+        return rotate_groups(q), None, None, 0
+    split_keys = split_keys or decode_split_keys(width, B, Hk)
+    splits = -(-width // split_keys)
+    if split_keys % DECODE_TILE or splits > DECODE_MAX_SPLITS:
+        raise ValueError(f"split_keys {split_keys}: a multiple of {DECODE_TILE} giving at most "
+                         f"{DECODE_MAX_SPLITS} splits of {width} keys")
+    ws = torch.empty(B * Hk * splits * S * (Hq // Hk) * (D + 2), dtype=torch.float32,
+                     device=q.device)
+    return q, ws, _decode_counters(q.device, B * Hk), split_keys
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _rotated_kv(layer_state: dict, k_bits: int, v_bits: int, compand_a: float, Hk: int) -> tuple:
+    """(k, v) (..., Hk, D) f32 in the stored, rotated basis: the values the
+    kernels unpack, from either storage."""
+    out = []
+    for name, bits in (("k", k_bits), ("v", v_bits)):
+        words, scales = layer_state[name + "_q"], layer_state[name + "_s"]
+        if words.dim() == 3:  # merged: the same bytes as per head
+            words = words.reshape(*words.shape[:2], Hk, -1)
+            scales = scales.reshape(*scales.shape[:2], Hk, -1)
+        out.append(dequantize_rotated(words, scales, bits, compand_a))
+    return tuple(out)
+
+
+def attention_split_plain(q, k, v, visible, split_keys: int, scale: float = 1.0,
+                          logit_softcap: float = 0.0, sinks=None) -> torch.Tensor:
+    """(B, S, Hq, D) f32: the decode kernel's arithmetic in plain torch. q
+    (B, S, Hq, D) f32 unrotated; k, v (B, T, Hk, D) f32 in the rotated
+    basis; visible (B, S, T). q is rotated, the keys are cut into splits of
+    split_keys, each split gives (acc, m, l) as attend_stats_plain does,
+    merge_stats joins them with the sinks, and the output is rotated back."""
+    qr = rotate_groups(q.float())
+    parts = [attend_stats_plain(qr, k[:, k0:k0 + split_keys], visible[..., k0:k0 + split_keys],
+                                scale, v=v[:, k0:k0 + split_keys], logit_softcap=logit_softcap)
+             for k0 in range(0, k.shape[1], split_keys)]
+    return rotate_groups(merge_stats(parts, sinks))
+
+
+def paged_attention_quant_split_plain(q, layer_state: dict, block_tables, q_positions,
+                                      total_lens, k_bits: int, v_bits: int,
+                                      compand_a: float = 0.0, scale: float = 1.0,
+                                      sliding_window: int = 0, logit_softcap: float = 0.0,
+                                      sinks=None, split_keys: int | None = None) -> torch.Tensor:
+    """(B, S, Hq, D) f32 over the paged quantized cache by the decode
+    kernel's split arithmetic (attention_split_plain), cut by the wrapper's
+    decode_split_keys unless split_keys is given; pages out of range hold no
+    visible key."""
+    B, S, Hq, D = q.shape
+    Hk = state_heads(layer_state, D)
+    P, MP = layer_state["k_q"].shape[0], block_tables.shape[1]
+    ok = (block_tables >= 0) & (block_tables < P)
+    bt = torch.where(ok, block_tables, torch.zeros_like(block_tables)).long()
+    k, v = _rotated_kv({n: t[bt] for n, t in layer_state.items()}, k_bits, v_bits, compand_a, Hk)
+    T = MP * PAGE_SIZE
+    k, v = k.reshape(B, T, Hk, D), v.reshape(B, T, Hk, D)
+    vis = (_causal_visible(q_positions, total_lens, T, q.device, sliding_window)
+           & ok.repeat_interleave(PAGE_SIZE, dim=1)[:, None, :])
+    return attention_split_plain(q, k, v, vis, split_keys or decode_split_keys(T, B, Hk), scale,
+                                 logit_softcap, sinks)
+
+
+def linear_attention_quant_split_plain(q, layer_state: dict, q_positions, total_lens,
+                                       k_bits: int, v_bits: int, compand_a: float = 0.0,
+                                       rows=None, scale: float = 1.0, sliding_window: int = 0,
+                                       logit_softcap: float = 0.0, sinks=None,
+                                       split_keys: int | None = None) -> torch.Tensor:
+    """(B, S, Hq, D) f32 over the linear quantized cache (row b, or rows[b])
+    by the decode kernel's split arithmetic, as
+    paged_attention_quant_split_plain."""
+    B, S, Hq, D = q.shape
+    Hk = state_heads(layer_state, D)
+    pick = slice(0, B) if rows is None else rows.long()
+    k, v = _rotated_kv({n: t[pick] for n, t in layer_state.items()}, k_bits, v_bits, compand_a,
+                       Hk)
+    T = k.shape[1]
+    vis = _causal_visible(q_positions, total_lens, T, q.device, sliding_window)
+    return attention_split_plain(q, k, v, vis, split_keys or decode_split_keys(T, B, Hk), scale,
+                                 logit_softcap, sinks)
+
+
 def paged_attention_quant_plain(q, layer_state: dict, block_tables, q_positions, total_lens,
                                 k_bits: int, v_bits: int, compand_a: float = 0.0,
                                 scale: float = 1.0, sliding_window: int = 0,
@@ -135,14 +270,18 @@ def paged_attention_quant_plain(q, layer_state: dict, block_tables, q_positions,
 def paged_attention_quant_kernel(q, layer_state: dict, block_tables, q_positions, total_lens,
                                  k_bits: int, v_bits: int, compand_a: float = 0.0,
                                  scale: float = 1.0, sliding_window: int = 0,
-                                 logit_softcap: float = 0.0, sinks=None) -> torch.Tensor:
+                                 logit_softcap: float = 0.0, sinks=None,
+                                 split_keys: int | None = None) -> torch.Tensor:
     """Launch csrc/paged_attention_quant.cu. q (B, S, Hq, D) f32;
     layer_state {k_q, v_q int32 words, k_s, v_s bf16 scales}, merged
     (P, 256, Hk*w) or per-head (P, 256, Hk, w); block_tables (B, MP),
     q_positions (B, S) and total_lens (B,) int32; sinks (Hq,) f32 or None;
-    k_bits, v_bits in 2..8; D in {64, 128}, any GQA group. q is rotated per
-    32-channel group before the launch and the output rotated back after it;
-    K and V stay in their stored, rotated basis."""
+    k_bits, v_bits in 2..8; D in {64, 128}, any GQA group. K and V stay in
+    their stored, rotated basis. With S * G <= DECODE_ROWS the split-key
+    decode kernel runs (split_keys keys a split, decode_split_keys's by
+    default) and rotates q and the output itself; a longer chunk takes the
+    tile loop, q rotated per 32-channel group before the launch and the
+    output rotated back after it."""
     B, S, Hq, D = q.shape
     kq, ks, vq, vs = (layer_state[n] for n in ("k_q", "k_s", "v_q", "v_s"))
     ints = (block_tables, q_positions, total_lens)
@@ -173,19 +312,20 @@ def paged_attention_quant_kernel(q, layer_state: dict, block_tables, q_positions
                          f"tables {tuple(block_tables.shape)}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention_quant_kernel: tensors must be contiguous")
-    qr = rotate_groups(q)
-    check_aligned("paged_attention_quant_kernel", qr, kq, vq)
+    MP = block_tables.shape[1]
+    qk, ws, counters, split_keys = _quant_launch(q, Hk, MP * PAGE_SIZE, split_keys)
+    check_aligned("paged_attention_quant_kernel", qk, kq, vq)
     out = torch.empty((B, S, Hq, D), dtype=torch.float32, device=q.device)
     err = library().exl3_paged_attention_quant(
-        qr.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
+        qk.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
         block_tables.data_ptr(), q_positions.data_ptr(), total_lens.data_ptr(),
-        sinks.data_ptr() if sinks is not None else None, out.data_ptr(),
-        B, S, Hq, Hk, D, block_tables.shape[1], P, int(k_bits), int(v_bits),
-        float(compand_a), float(1.0 - compand_a), float(scale), int(sliding_window),
-        float(logit_softcap), torch.cuda.current_stream(q.device).cuda_stream)
+        sinks.data_ptr() if sinks is not None else None, out.data_ptr(), _ptr(ws),
+        _ptr(counters), B, S, Hq, Hk, D, MP, P, int(k_bits), int(v_bits), float(compand_a),
+        float(1.0 - compand_a), float(scale), int(sliding_window), float(logit_softcap),
+        split_keys, torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("exl3_paged_attention_quant", err)
     paged_attention_quant_kernel.launches += 1
-    return rotate_groups(out)
+    return out if ws is not None else rotate_groups(out)
 
 
 paged_attention_quant_kernel.launches = 0
@@ -294,13 +434,15 @@ def linear_attention_quant_plain(q, layer_state: dict, q_positions, total_lens, 
 def linear_attention_quant_kernel(q, layer_state: dict, q_positions, total_lens, k_bits: int,
                                   v_bits: int, compand_a: float = 0.0, rows=None,
                                   scale: float = 1.0, sliding_window: int = 0,
-                                  logit_softcap: float = 0.0, sinks=None) -> torch.Tensor:
+                                  logit_softcap: float = 0.0, sinks=None,
+                                  split_keys: int | None = None) -> torch.Tensor:
     """Launch csrc/linear_attention_quant.cu. q (B, S, Hq, D) f32; layer_state
     {k_q, v_q int32 words, k_s, v_s bf16 scales}, merged (N, T, Hk*w) or
     per-head (N, T, Hk, w), any T; rows (B,) int32 or None; q_positions (B, S)
     and total_lens (B,) int32; sinks (Hq,) f32 or None; k_bits, v_bits in
-    2..8; D in {64, 128}, any GQA group. q is rotated per 32-channel group
-    before the launch and the output rotated back after it."""
+    2..8; D in {64, 128}, any GQA group. Decode and verify (S * G <=
+    DECODE_ROWS) run the split-key kernel, which rotates q and the output
+    itself; a longer chunk takes the tile loop, as paged_attention_quant_kernel."""
     B, S, Hq, D = q.shape
     kq, ks, vq, vs = (layer_state[n] for n in ("k_q", "k_s", "v_q", "v_s"))
     ints = (q_positions, total_lens)
@@ -331,19 +473,19 @@ def linear_attention_quant_kernel(q, layer_state: dict, q_positions, total_lens,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("linear_attention_quant_kernel: tensors must be contiguous")
     rows_ptr = _linear_rows(rows, B, N, q.device)
-    qr = rotate_groups(q)
-    check_aligned("linear_attention_quant_kernel", qr, kq, vq)
+    qk, ws, counters, split_keys = _quant_launch(q, Hk, T, split_keys)
+    check_aligned("linear_attention_quant_kernel", qk, kq, vq)
     out = torch.empty((B, S, Hq, D), dtype=torch.float32, device=q.device)
     err = library().exl3_linear_attention_quant(
-        qr.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(), rows_ptr,
+        qk.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(), rows_ptr,
         q_positions.data_ptr(), total_lens.data_ptr(),
-        sinks.data_ptr() if sinks is not None else None, out.data_ptr(),
-        B, S, Hq, Hk, D, N, T, int(k_bits), int(v_bits), float(compand_a),
+        sinks.data_ptr() if sinks is not None else None, out.data_ptr(), _ptr(ws),
+        _ptr(counters), B, S, Hq, Hk, D, N, T, int(k_bits), int(v_bits), float(compand_a),
         float(1.0 - compand_a), float(scale), int(sliding_window), float(logit_softcap),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        split_keys, torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("exl3_linear_attention_quant", err)
     linear_attention_quant_kernel.launches += 1
-    return rotate_groups(out)
+    return out if ws is not None else rotate_groups(out)
 
 
 linear_attention_quant_kernel.launches = 0
@@ -612,31 +754,42 @@ NEG_INF = -1e30  # the JAX kernel's start of m: a row that saw no key
 KV_ROW = 512     # the stats kernels' row: DeepSeek-V4's head_dim
 
 
-def attend_stats_plain(q, k, visible, scale: float) -> tuple:
-    """(acc (B, S, Hq, D), m (B, S, Hq), l (B, S, Hq)) f32 over gathered keys
-    k (B, T, D) that are V too, visible (B, S, T) bool: m the largest visible
-    score scale * q.k, l = sum exp(s - m), acc = sum exp(s - m) * v; a row
-    that sees no key gives (0, -1e30, 0)."""
+def attend_stats_plain(q, k, visible, scale: float, v=None,
+                       logit_softcap: float = 0.0) -> tuple:
+    """(acc (B, S, Hq, D), m (B, S, Hq), l (B, S, Hq)) f32 over gathered keys,
+    visible (B, S, T) bool: k (B, T, D), one row every head reads, or
+    (B, T, Hk, D), q head h reading kv head h // (Hq / Hk); v shaped as k, or
+    None when V is K. m is the largest visible score (scale * q.k, then the
+    softcap), l = sum exp(s - m), acc = sum exp(s - m) * v; a row that sees
+    no key gives (0, -1e30, 0)."""
     kf = k.float()
-    s = torch.einsum("bshd,btd->bsht", q.float(), kf) * scale
+    vf = kf if v is None else v.float()
+    if kf.dim() == 3:
+        s = torch.einsum("bshd,btd->bsht", q.float(), kf) * scale
+    else:
+        G = q.shape[2] // kf.shape[2]
+        kf, vf = kf.repeat_interleave(G, dim=2), vf.repeat_interleave(G, dim=2)
+        s = torch.einsum("bshd,bthd->bsht", q.float(), kf) * scale
+    if logit_softcap > 0.0:
+        s = torch.tanh(s / logit_softcap) * logit_softcap
     s = torch.where(visible[:, :, None, :], s, torch.full_like(s, -torch.inf))
     m = s.amax(dim=-1)
     seen = torch.isfinite(m)
     p = torch.exp(s - torch.where(seen, m, torch.zeros_like(m))[..., None])
-    acc = torch.einsum("bsht,btd->bshd", p, kf)
+    acc = torch.einsum("bsht,btd->bshd" if vf.dim() == 3 else "bsht,bthd->bshd", p, vf)
     return acc, torch.where(seen, m, torch.full_like(m, NEG_INF)), p.sum(dim=-1)
 
 
-def merge_stats(parts, sinks) -> torch.Tensor:
+def merge_stats(parts, sinks=None) -> torch.Tensor:
     """One softmax over several key sources and a per-head sink logit
     (modules/dsv4_attn.py's epilogue in the JAX package): parts a list of
-    (acc (B, S, H, D), m (B, S, H), l (B, S, H)); sinks (H,) f32. A part whose
-    m is NEG_INF saw no key and adds nothing. -> (B, S, H, D) f32."""
-    sk = sinks.float()[None, None, :]
-    mg = sk
+    (acc (B, S, H, D), m (B, S, H), l (B, S, H)); sinks (H,) f32, or None for
+    no sink. A part whose m is NEG_INF saw no key and adds nothing; a row no
+    part saw gives 0. -> (B, S, H, D) f32."""
+    mg = None if sinks is None else sinks.float()[None, None, :]
     for _, mp, _ in parts:
-        mg = torch.maximum(mg, mp)
-    lg = torch.exp(sk - mg)
+        mg = mp if mg is None else torch.maximum(mg, mp)
+    lg = torch.zeros_like(mg) if sinks is None else torch.exp(sinks.float()[None, None, :] - mg)
     acc = 0.0
     for ap, mp, lp in parts:
         c = torch.where(mp <= NEG_INF / 2, torch.zeros_like(mp), torch.exp(mp - mg))
@@ -726,11 +879,14 @@ def _pool_keys(pool, block_tables) -> tuple:
     return g.reshape(B, -1, pool.shape[-1]), ok.repeat_interleave(pool.shape[1], dim=1)
 
 
-def _causal_visible(q_positions, total_lens, T: int, device) -> torch.Tensor:
-    """(B, S, T) bool: key j visible iff j < total_len and j <= q_position."""
-    j = torch.arange(T, device=device)
-    j = j[None, None, :]
-    return (j < total_lens[:, None, None]) & (j <= q_positions[:, :, None])
+def _causal_visible(q_positions, total_lens, T: int, device,
+                    sliding_window: int = 0) -> torch.Tensor:
+    """(B, S, T) bool: key j visible iff j < total_len, j <= q_position and,
+    with a window, j > q_position - window."""
+    j = torch.arange(T, device=device)[None, None, :]
+    qp = q_positions[:, :, None]
+    vis = (j < total_lens[:, None, None]) & (j <= qp)
+    return vis & (j > qp - sliding_window) if sliding_window else vis
 
 
 def pool_attention_stats_plain(q, pool, block_tables, q_positions, total_lens,
