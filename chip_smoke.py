@@ -1122,20 +1122,6 @@ def _cold_warm(fn, first, make=None, nbytes=None, warm=True) -> tuple[float, flo
     return time_ms(lambda: fn(nxt()), 10), time_ms(lambda: fn(first), 10) if warm else None
 
 
-def _split_sweep(kernel: str, name: str, fn, state: dict, width: int) -> None:
-    """Log the decode kernel's time over rotated inputs at each split size
-    that gives at most DECODE_MAX_SPLITS splits (the wrapper sizes them with
-    decode_split_keys)."""
-    from exllamav3_tpu_torch.ops.flash_attention import DECODE_MAX_SPLITS, DECODE_TILE
-
-    times, split = [], DECODE_TILE
-    while split <= 4096:
-        if -(-width // split) <= DECODE_MAX_SPLITS:
-            times.append(f"{split}: {_cold_warm(lambda st: fn(st, split), state, warm=False)[0]:.4f}")
-        split *= 2
-    log(f"{kernel} {name}: kernel_ms by split_keys {', '.join(times)}")
-
-
 def check_attention_quant(table, dev):
     from exllamav3_tpu_torch.constants import PAGE_SIZE
     from exllamav3_tpu_torch.ops.flash_attention import (paged_attention_quant_kernel,
@@ -1234,9 +1220,6 @@ def check_attention_quant(table, dev):
             f"rel={rel:.2e} kernel_ms={ms:.4f} (L2-warm {warm:.4f}) plain_ms={plain:.4f} "
             f"library_ms(sdpa on dequantized bf16)={lib:.4f} (L2-warm {lib_warm:.4f}) "
             f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
-        if main:
-            _split_sweep("paged_attention_quant", name, lambda st, sk: paged_attention_quant_kernel(
-                q, st, bt, qp, tl, kb, vb, a, split_keys=sk, **args), state, mp * PAGE_SIZE)
         table.add(row, err, ms, plain, bnd, lib,
                   f"{name}: B={B} S={S} Hq={Hq} Hk={Hk} D={D}", main=main, warm_ms=warm,
                   library_warm_ms=lib_warm)
@@ -1419,9 +1402,6 @@ def check_linear_attention_quant(table, dev):
             f"rel={rel:.2e} kernel_ms={ms:.4f} (L2-warm {warm:.4f}) plain_ms={plain:.4f} "
             f"library_ms(sdpa on the dequantized bf16 live slice)={lib:.4f} (L2-warm "
             f"{lib_warm:.4f}) bound_ms={bnd[0]:.4f} ({bnd[1]})")
-        if main or kw.get("timed"):
-            _split_sweep("linear_attention_quant", name, lambda st, sk: linear_attention_quant_kernel(
-                q, st, qp, tl, kb, vb, a, split_keys=sk, **args), state, T_)
         table.add(row, err, ms, plain, bnd, lib,
                   f"{name}: B={B} S={S} Hq={Hq} Hk={Hk} D={D} T={T_}", main=main, warm_ms=warm,
                   library_warm_ms=lib_warm)

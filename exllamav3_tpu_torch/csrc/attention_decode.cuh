@@ -20,9 +20,11 @@
 //   * Split keys. The grid is (splits, Hk, B). A split covers split_keys keys
 //     (a power of two from one 64-key tile: below a page it divides the
 //     page, above it holds whole pages), counted by the host from the
-//     layout's width (block table width * 256, or T) and the grid size, never
-//     from the lengths on the device. A split that holds no key its rows can
-//     see does no work.
+//     layout's width (block table width * 256, or T), the grid size and the
+//     card's SM count, never from the lengths on the device. A split that
+//     holds no key its rows can see does no work. The host reads
+//     DECODE_ROWS, DEC_TK and DEC_MAX_SPLITS from their `constexpr int`
+//     lines below (ops/build.py::header_constants).
 //   * One block holds all S * G rows of its (sequence, kv head), so each
 //     packed word is read and unpacked once. q stays f32; scores and P.V are
 //     f32 FMAs on the CUDA cores, which compute the f32 product the JAX

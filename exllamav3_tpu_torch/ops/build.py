@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -138,6 +139,20 @@ def library() -> ctypes.CDLL:
             f.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def header_constants(header: str, *names: str) -> tuple[int, ...]:
+    """The values of the `constexpr int NAME = value;` lines of a header in
+    csrc/, for host code that must agree with a kernel's limits. Raises
+    unless each name is defined once."""
+    src = (CSRC_DIR / header).read_text()
+    values = []
+    for name in names:
+        found = re.findall(rf"^constexpr int {name} = (\d+);", src, re.M)
+        if len(found) != 1:
+            raise RuntimeError(f"{header}: constexpr int {name} is defined {len(found)} times")
+        values.append(int(found[0]))
+    return tuple(values)
 
 
 def check_aligned(fn_name: str, *tensors) -> None:

@@ -40,11 +40,13 @@ the JAX package's epilogue that joins them with the sink logits.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..constants import PAGE_SIZE
 from .attention import attend_dense, attend_paged
-from .build import check_aligned, check_launch, library
+from .build import check_aligned, check_launch, header_constants, library
 from .kv_quant import dequantize_rotated, quant_cache_fetch, rotate_groups, state_heads
 
 LATENT, ROPE = 512, 64  # the latent kernels' row: DeepSeek's kv_lora_rank and rope key
@@ -125,27 +127,37 @@ def paged_attention(q, k_pages, v_pages, block_tables, q_positions, total_lens,
 
 # The split-key decode kernel (csrc/attention_decode.cuh) serves a chunk whose
 # (sequence, kv head) has at most DECODE_ROWS query rows (S * G); its keys are
-# cut into splits of a power of two from one 64-key tile, at most
+# cut into splits of a power of two from one DECODE_TILE-key tile, at most
 # DECODE_MAX_SPLITS of them, so that the grid (splits, Hk, B) holds about
-# DECODE_TARGET_BLOCKS blocks: eight for each of the H100's 132 SMs, enough
-# that the splits of a long sequence spread while short ones end early. The
-# three numbers are the header's DECODE_ROWS, DEC_TK and DEC_MAX_SPLITS.
-DECODE_ROWS = 32
-DECODE_TILE = 64
-DECODE_MAX_SPLITS = 64
-DECODE_TARGET_BLOCKS = 8 * 132
+# DECODE_BLOCKS_PER_SM blocks for each of the card's SMs: enough that the
+# splits of a long sequence spread while short ones end early. The three
+# limits are the header's own.
+DECODE_ROWS, DECODE_TILE, DECODE_MAX_SPLITS = header_constants(
+    "attention_decode.cuh", "DECODE_ROWS", "DEC_TK", "DEC_MAX_SPLITS")
+DECODE_BLOCKS_PER_SM = 8
+H100_SMS = 132  # the SMs that sizing without a card assumes (the plain split versions)
 
 
-def decode_split_keys(width: int, B: int, Hk: int) -> int:
+def decode_split_keys(width: int, B: int, Hk: int, sms: int = H100_SMS) -> int:
     """Keys a split of the decode kernel covers, from widths the host knows:
     the layout's keys a sequence (the block table's width times 256, or the
-    linear cache's T), the batch and the kv heads. Below a page it divides
-    the page; above, it holds whole pages."""
-    want = min(DECODE_MAX_SPLITS, max(1, -(-DECODE_TARGET_BLOCKS // (B * Hk))))
+    linear cache's T), the batch, the kv heads and the card's SM count.
+    Below a page it divides the page; above, it holds whole pages."""
+    want = min(DECODE_MAX_SPLITS, max(1, -(-DECODE_BLOCKS_PER_SM * sms // (B * Hk))))
     split = DECODE_TILE
     while -(-width // split) > want:
         split *= 2
     return split
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def device_sms(device: torch.device) -> int:
+    """The SM count of a CUDA device, read once a device."""
+    return _sm_count(torch.cuda.current_device() if device.index is None else device.index)
 
 
 _COUNTERS: dict = {}
@@ -163,18 +175,16 @@ def _decode_counters(device, n: int) -> torch.Tensor:
     return c
 
 
-def _quant_launch(q, Hk: int, width: int, split_keys: int | None) -> tuple:
+def _quant_launch(q, Hk: int, width: int, sms: int) -> tuple:
     """(q as the launch takes it, workspace, counters, split_keys) for the
-    quantized entries: the decode kernel takes q unrotated and a workspace of
-    (acc, m, l) for each split; the tile loop takes q rotated and neither."""
+    quantized entries: the decode kernel takes q unrotated, a workspace of
+    (acc, m, l) for each split of decode_split_keys's size and the arrival
+    counters; the tile loop takes q rotated and none of them."""
     B, S, Hq, D = q.shape
     if S * (Hq // Hk) > DECODE_ROWS:
         return rotate_groups(q), None, None, 0
-    split_keys = split_keys or decode_split_keys(width, B, Hk)
+    split_keys = decode_split_keys(width, B, Hk, sms)
     splits = -(-width // split_keys)
-    if split_keys % DECODE_TILE or splits > DECODE_MAX_SPLITS:
-        raise ValueError(f"split_keys {split_keys}: a multiple of {DECODE_TILE} giving at most "
-                         f"{DECODE_MAX_SPLITS} splits of {width} keys")
     ws = torch.empty(B * Hk * splits * S * (Hq // Hk) * (D + 2), dtype=torch.float32,
                      device=q.device)
     return q, ws, _decode_counters(q.device, B * Hk), split_keys
@@ -217,9 +227,9 @@ def paged_attention_quant_split_plain(q, layer_state: dict, block_tables, q_posi
                                       sliding_window: int = 0, logit_softcap: float = 0.0,
                                       sinks=None, split_keys: int | None = None) -> torch.Tensor:
     """(B, S, Hq, D) f32 over the paged quantized cache by the decode
-    kernel's split arithmetic (attention_split_plain), cut by the wrapper's
-    decode_split_keys unless split_keys is given; pages out of range hold no
-    visible key."""
+    kernel's split arithmetic (attention_split_plain), cut by
+    decode_split_keys at H100_SMS unless split_keys is given; pages out of
+    range hold no visible key."""
     B, S, Hq, D = q.shape
     Hk = state_heads(layer_state, D)
     P, MP = layer_state["k_q"].shape[0], block_tables.shape[1]
@@ -270,18 +280,17 @@ def paged_attention_quant_plain(q, layer_state: dict, block_tables, q_positions,
 def paged_attention_quant_kernel(q, layer_state: dict, block_tables, q_positions, total_lens,
                                  k_bits: int, v_bits: int, compand_a: float = 0.0,
                                  scale: float = 1.0, sliding_window: int = 0,
-                                 logit_softcap: float = 0.0, sinks=None,
-                                 split_keys: int | None = None) -> torch.Tensor:
+                                 logit_softcap: float = 0.0, sinks=None) -> torch.Tensor:
     """Launch csrc/paged_attention_quant.cu. q (B, S, Hq, D) f32;
     layer_state {k_q, v_q int32 words, k_s, v_s bf16 scales}, merged
     (P, 256, Hk*w) or per-head (P, 256, Hk, w); block_tables (B, MP),
     q_positions (B, S) and total_lens (B,) int32; sinks (Hq,) f32 or None;
     k_bits, v_bits in 2..8; D in {64, 128}, any GQA group. K and V stay in
     their stored, rotated basis. With S * G <= DECODE_ROWS the split-key
-    decode kernel runs (split_keys keys a split, decode_split_keys's by
-    default) and rotates q and the output itself; a longer chunk takes the
-    tile loop, q rotated per 32-channel group before the launch and the
-    output rotated back after it."""
+    decode kernel runs (splits sized by decode_split_keys for this card) and
+    rotates q and the output itself; a longer chunk takes the tile loop, q
+    rotated per 32-channel group before the launch and the output rotated
+    back after it."""
     B, S, Hq, D = q.shape
     kq, ks, vq, vs = (layer_state[n] for n in ("k_q", "k_s", "v_q", "v_s"))
     ints = (block_tables, q_positions, total_lens)
@@ -313,7 +322,7 @@ def paged_attention_quant_kernel(q, layer_state: dict, block_tables, q_positions
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention_quant_kernel: tensors must be contiguous")
     MP = block_tables.shape[1]
-    qk, ws, counters, split_keys = _quant_launch(q, Hk, MP * PAGE_SIZE, split_keys)
+    qk, ws, counters, split_keys = _quant_launch(q, Hk, MP * PAGE_SIZE, device_sms(q.device))
     check_aligned("paged_attention_quant_kernel", qk, kq, vq)
     out = torch.empty((B, S, Hq, D), dtype=torch.float32, device=q.device)
     err = library().exl3_paged_attention_quant(
@@ -434,8 +443,7 @@ def linear_attention_quant_plain(q, layer_state: dict, q_positions, total_lens, 
 def linear_attention_quant_kernel(q, layer_state: dict, q_positions, total_lens, k_bits: int,
                                   v_bits: int, compand_a: float = 0.0, rows=None,
                                   scale: float = 1.0, sliding_window: int = 0,
-                                  logit_softcap: float = 0.0, sinks=None,
-                                  split_keys: int | None = None) -> torch.Tensor:
+                                  logit_softcap: float = 0.0, sinks=None) -> torch.Tensor:
     """Launch csrc/linear_attention_quant.cu. q (B, S, Hq, D) f32; layer_state
     {k_q, v_q int32 words, k_s, v_s bf16 scales}, merged (N, T, Hk*w) or
     per-head (N, T, Hk, w), any T; rows (B,) int32 or None; q_positions (B, S)
@@ -473,7 +481,7 @@ def linear_attention_quant_kernel(q, layer_state: dict, q_positions, total_lens,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("linear_attention_quant_kernel: tensors must be contiguous")
     rows_ptr = _linear_rows(rows, B, N, q.device)
-    qk, ws, counters, split_keys = _quant_launch(q, Hk, T, split_keys)
+    qk, ws, counters, split_keys = _quant_launch(q, Hk, T, device_sms(q.device))
     check_aligned("linear_attention_quant_kernel", qk, kq, vq)
     out = torch.empty((B, S, Hq, D), dtype=torch.float32, device=q.device)
     err = library().exl3_linear_attention_quant(

@@ -22,6 +22,7 @@ torch.set_num_threads(2)
 from exllamav3_tpu.ops import kv_quant as jq
 from exllamav3_tpu.ops.flash_attention import flash_attention as jflash
 from exllamav3_tpu_torch.constants import PAGE_SIZE
+from exllamav3_tpu_torch.ops import build
 from exllamav3_tpu_torch.ops import flash_attention as F
 from exllamav3_tpu_torch.ops import kv_quant as pq
 
@@ -120,36 +121,48 @@ def test_split_plain_matches_jax_kernel(case):
     np.testing.assert_allclose(got, whole_fn(*targs, **tkw).numpy(), rtol=0, atol=tol)
 
 
-@pytest.mark.parametrize("width,B,Hk,want", [
-    (2304, 8, 8, 256),     # the 8B decode over a paged cache: 9 pages a table, one a split
-    (2056, 8, 8, 128),     # the same over a linear cache of T = 2056: 17 splits
-    (2056, 1, 8, 64),      # batch 1: one tile a split, 33 splits
-    (8448, 8, 8, 512),     # a table of 33 pages (one sequence at 8192): two pages a split
-    (8200, 1, 8, 256),     # batch 1 at 8192: no more than 64 splits
-    (256 * 513, 1, 1, 4096),  # 128K keys: 33 splits of 16 pages
-    (40, 4, 2, 64),        # shorter than a tile: one split
+@pytest.mark.parametrize("width,B,Hk,sms,want", [
+    (2304, 8, 8, 132, 256),     # the 8B decode over a paged cache: 9 pages a table, one a split
+    (2056, 8, 8, 132, 128),     # the same over a linear cache of T = 2056: 17 splits
+    (2056, 1, 8, 132, 64),      # batch 1: one tile a split, 33 splits
+    (8448, 8, 8, 132, 512),     # a table of 33 pages (one sequence at 8192): two pages a split
+    (8200, 1, 8, 132, 256),     # batch 1 at 8192: no more than 64 splits
+    (256 * 513, 1, 1, 132, 4096),  # 128K keys: 33 splits of 16 pages
+    (40, 4, 2, 132, 64),        # shorter than a tile: one split
+    (2056, 8, 8, 114, 256),     # a card of 114 SMs wants fewer blocks: 9 splits
+    (2304, 8, 8, 264, 128),     # twice the SMs: half a page a split
 ])
-def test_decode_split_keys(width, B, Hk, want):
-    """Host widths alone fix the split: a power of two from one tile that
-    divides a page or holds whole pages, at most DECODE_MAX_SPLITS splits,
-    and enough blocks for the card unless a split is one tile already."""
-    split = F.decode_split_keys(width, B, Hk)
+def test_decode_split_keys(width, B, Hk, sms, want):
+    """Host widths and the SM count alone fix the split: a power of two from
+    one tile that divides a page or holds whole pages, at most
+    DECODE_MAX_SPLITS splits, and enough blocks for the card unless a split
+    is one tile already."""
+    split = F.decode_split_keys(width, B, Hk, sms)
     assert split == want
     splits = -(-width // split)
     assert split & (split - 1) == 0 and split >= F.DECODE_TILE
     assert PAGE_SIZE % split == 0 or split % PAGE_SIZE == 0
     assert splits <= F.DECODE_MAX_SPLITS
     if split > F.DECODE_TILE:  # half the split would have given too many splits
-        assert -(-width // (split // 2)) > min(F.DECODE_MAX_SPLITS,
-                                              -(-F.DECODE_TARGET_BLOCKS // (B * Hk)))
+        assert -(-width // (split // 2)) > min(
+            F.DECODE_MAX_SPLITS, -(-F.DECODE_BLOCKS_PER_SM * sms // (B * Hk)))
 
 
-def test_decode_constants_match_the_kernel():
-    """The wrapper's copies of the decode kernel's limits are the header's."""
+def test_decode_constants_match_the_kernel(tmp_path, monkeypatch):
+    """The wrapper's limits are read from the kernel's header, where each is
+    defined once; a name defined twice or not at all raises."""
     src = (CSRC / "attention_decode.cuh").read_text()
     for name, value in (("DECODE_ROWS", F.DECODE_ROWS), ("DEC_TK", F.DECODE_TILE),
                         ("DEC_MAX_SPLITS", F.DECODE_MAX_SPLITS)):
-        assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == value
+        assert re.findall(rf"^constexpr int {name} = (\d+);", src, re.M) == [str(value)]
+    assert PAGE_SIZE % F.DECODE_TILE == 0
+    (tmp_path / "h.cuh").write_text("constexpr int A = 3;\nconstexpr int B = 1;\n"
+                                    "constexpr int B = 2;\n")
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    assert build.header_constants("h.cuh", "A") == (3,)
+    for name in ("B", "C"):
+        with pytest.raises(RuntimeError, match=name):
+            build.header_constants("h.cuh", name)
 
 
 @pytest.mark.parametrize("S,Hq,Hk,decode", [(1, 32, 8, True), (5, 32, 8, True),
@@ -160,10 +173,10 @@ def test_quant_launch_picks_the_kernel_by_rows(S, Hq, Hk, decode):
     of (acc, m, l) for every split, the shared zeroed counters. A taller
     chunk takes the tile loop: q rotated, no workspace."""
     q = torch.randn(2, S, Hq, D)
-    qk, ws, counters, split = F._quant_launch(q, Hk, 3 * PAGE_SIZE, None)
+    qk, ws, counters, split = F._quant_launch(q, Hk, 3 * PAGE_SIZE, 132)
     if decode:
         splits = -(-3 * PAGE_SIZE // split)
-        assert qk is q and split == F.decode_split_keys(3 * PAGE_SIZE, 2, Hk)
+        assert qk is q and split == F.decode_split_keys(3 * PAGE_SIZE, 2, Hk, 132)
         assert ws.numel() == 2 * Hk * splits * S * (Hq // Hk) * (D + 2)
         assert counters.dtype == torch.int32 and counters.numel() >= 2 * Hk
         assert not counters.any()

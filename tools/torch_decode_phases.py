@@ -2,7 +2,7 @@
 (exllamav3_tpu_torch/csrc/attention_decode.cuh), on one card.
 
     python3 tools/torch_decode_phases.py                 # (4, 4) and (5, 3), default splits
-    python3 tools/torch_decode_phases.py --splits 256,2048
+    python3 tools/torch_decode_phases.py --splits 64,128,256,512,1024,2048
 
 Writes a copy of the header into build/decode_phases/ with clock64() timers
 around the phases of the tile loop (the wait for the staged tile, the issue
@@ -13,7 +13,13 @@ contexts 300-2056, T = 2056). Thread 0 of each block sums its tiles' cycles
 by phase; the script prints the mean cycles a tile by phase, the blocks'
 mean and longest time in cycles, and the instrumented kernel's time (CUDA
 events over 20 launches, inputs not rotated). The timers cost time of their
-own: compare phases, not the kernel time, with chip_smoke.py's. Needs CUDA.
+own: compare phases, not the kernel time, with chip_smoke.py's. At each
+split size the script also times the uninstrumented kernel as the library
+builds it (exl3_linear_attention_quant called with that split, over inputs
+rotated past L2, util/timing.py), the sweep that chose decode_split_keys's
+sizing; both kernels' outputs are held against the plain version at
+chip_smoke.py's 3e-4 of the largest output, and the script fails if either
+misses. Needs CUDA.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ CSRC = ROOT / "exllamav3_tpu_torch" / "csrc"
 OUT = ROOT / "build" / "decode_phases"
 PHASES = ("wait", "issue", "scores + V unpack", "softmax", "P.V")
 SLOTS = 8  # per block: the five phases, tiles, block cycles, spare
+TOL = 3e-4  # chip_smoke.py's TOL_ATTN_Q
 
 # (anchor in the header, text put in its place); each anchor must occur once
 PATCHES = [
@@ -130,9 +137,11 @@ def main():
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs CUDA")
-    from exllamav3_tpu_torch.ops.flash_attention import (decode_split_keys,
+    from exllamav3_tpu_torch.ops.build import library
+    from exllamav3_tpu_torch.ops.flash_attention import (decode_split_keys, device_sms,
                                                           linear_attention_quant_plain)
     from exllamav3_tpu_torch.ops.kv_quant import merged_layout, quantize_kv_stored
+    from exllamav3_tpu_torch.util.timing import rotating, time_ms
 
     dll = build()
     dev = torch.device("cuda")
@@ -144,7 +153,8 @@ def main():
     g = torch.Generator(device=dev).manual_seed(1)
     q = torch.randn((B, 1, Hq, D), generator=g, device=dev)
     splits = ([int(s) for s in args.splits.split(",")] if args.splits
-              else [decode_split_keys(T, B, Hk)])
+              else [decode_split_keys(T, B, Hk, device_sms(dev))])
+    lib = library()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
     for kb, vb in ((4, 4), (5, 3)):
@@ -153,10 +163,24 @@ def main():
             x = torch.randn((B, T, Hk, D), generator=g, device=dev)
             state[nm + "_q"], state[nm + "_s"] = quantize_kv_stored(x, bits, merged_layout(kb, vb))
         ref = linear_attention_quant_plain(q, state, qp, tl, kb, vb, scale=D ** -0.5)
+        nbytes = sum(t.numel() * t.element_size() for t in state.values())
+        nxt = rotating(lambda i: state if i == 0 else {n: t.clone() for n, t in state.items()},
+                       nbytes)
         for split in splits:
             ns = -(-T // split)
             ws = torch.empty(B * Hk * ns * (Hq // Hk) * (D + 2), device=dev)
             out = torch.empty_like(q)
+            lib_out = torch.empty_like(q)
+
+            def lib_call(st):
+                err = lib.exl3_linear_attention_quant(
+                    q.data_ptr(), st["k_q"].data_ptr(), st["k_s"].data_ptr(),
+                    st["v_q"].data_ptr(), st["v_s"].data_ptr(), None, qp.data_ptr(),
+                    tl.data_ptr(), None, lib_out.data_ptr(), ws.data_ptr(), counters.data_ptr(),
+                    B, 1, Hq, Hk, D, B, T, kb, vb, 0.0, 1.0, D ** -0.5, 0, 0.0, split,
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"launch failed: {err}")
 
             def call():
                 err = dll.phases_linear(
@@ -183,13 +207,20 @@ def main():
                 call()
             e1.record()
             torch.cuda.synchronize()
+            lib_call(state)
+            torch.cuda.synchronize()
+            lib_rel = float((lib_out - ref).abs().max() / ref.abs().max())
+            lib_ms = time_ms(lambda: lib_call(nxt()), 50)
             busy = buf[buf[:, 5] > 0, 6]
             per_tile = ", ".join(f"{nm} {buf[:, k].sum() / tiles:.0f}"
                                  for k, nm in zip((0, 1, 2, 3, 4), PHASES))
             print(f"bits ({kb}, {vb}) split {split}: {int(tiles)} tiles in {len(busy)} blocks that "
                   f"see keys; cycles a tile: {per_tile}; a block: mean {busy.mean():.0f}, longest "
-                  f"{busy.max():.0f}; instrumented kernel {e0.elapsed_time(e1) / 20:.4f} ms; "
-                  f"rel err {rel:.2e}")
+                  f"{busy.max():.0f}; instrumented kernel {e0.elapsed_time(e1) / 20:.4f} ms, "
+                  f"rel err {rel:.2e}; library kernel {lib_ms:.4f} ms over rotated inputs, "
+                  f"rel err {lib_rel:.2e}", flush=True)
+            if not max(rel, lib_rel) <= TOL:
+                raise SystemExit(f"split {split}: rel err {max(rel, lib_rel):.2e} > {TOL}")
 
 
 if __name__ == "__main__":
