@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py                    # every phase
     python3 chip_smoke.py --phases build,exl3_gemm,paged_attention_quant
+    python3 chip_smoke.py --phases build,paged_attention,linear_attention,serve
     python3 chip_smoke.py --phases build,serve_capacity
     python3 chip_smoke.py --phases build,int4_matmul_a8,intb_matmul_a8,serve_packed
     python3 chip_smoke.py --phases build,moe_gemm,serve_moe
@@ -19,7 +20,16 @@ Phases:
             times and the bound (bytes over 3.35 TB/s, or tensor-core
             operations over their peak rate, whichever is larger). In place
             of `kernels`, one check's name runs that check alone:
-            int8_matmul, fused_mlp, paged_attention, exl3_gemm (all K and
+            int8_matmul, fused_mlp, paged_attention (decode and verify take
+            the split-key kernel of csrc/attention_decode.cuh, prefill the
+            tile loop: seven sequences at 300 beside one at 8192, a block
+            table four times wider than the longest sequence, batch 1 at
+            2048 and 8192, 64-wide heads, and verify chunks at group 8 of 32
+            and 40 rows, which the kernel library's count of decode-kernel
+            launches must show on the decode kernel and the tile loop;
+            decode and verify timed over inputs rotated past the
+            50 MB L2, as is their SDPA yardstick, the L2-warm times beside
+            them), exl3_gemm (all K and
             codebooks; also an estimate of the decode's dispatch time from the
             compiled kernel's instructions, kept apart from the bound) and
             paged_attention_quant (merged and per-head storage, with and
@@ -36,7 +46,8 @@ Phases:
             Qwen3-235B-A22B and Mixtral-8x7B expert shapes), linear_attention
             (the linear layout over a bf16 cache: Llama-3.2-1B draft decode,
             8B decode at batch 1 and 8, a 2048-token prefill, named cache
-            rows, window / softcap / sinks, a last tile cut at T = 2056) and
+            rows, window / softcap / sinks, a last tile cut at T = 2056;
+            timed as paged_attention) and
             linear_attention_quant ((4, 4) merged and (5, 3) per-head storage
             at T = 2056, compander, features, prefill; batch 1 at 2048 and
             8192, (2, 2) and (8, 8), 64-wide heads; timed as
@@ -137,9 +148,10 @@ Phases:
             first parting at a near-tie; (b) accepts at least 0.8 of its drafts
   serve_mla a synthetic DeepSeek-V2-Lite checkpoint at full width and all 27
             layers (MLA, 64 experts top 6 with 2 shared, one dense layer,
-            vocab 102400) loaded with linear_mode="auto" (int8; bf16 expert
-            stacks) over a bf16 paged latent cache, the same traffic; then one
-            request over a (4)-bit latent cache
+            vocab 102400) loaded once with linear_mode="auto" (int8; bf16
+            expert stacks) and served over a bf16 paged latent cache, the
+            same traffic, then one request of 32 tokens over a (4)-bit
+            latent cache
   serve_gemma
             a synthetic Gemma-3-27B checkpoint at full width and all 62 layers
             (gelu_pytorch_tanh, tied head, vocab 262208) loaded with
@@ -454,6 +466,33 @@ def _attn_work(qpos, total, Hq, Hk, D, window):
     return nbytes, 4.0 * pairs * Hq * D
 
 
+def _route(S, Hq, Hk) -> str:
+    """The kernel a bf16 or quantized entry launches for these widths."""
+    from exllamav3_tpu_torch.ops.flash_attention import DECODE_ROWS
+    return "decode kernel" if S * (Hq // Hk) <= DECODE_ROWS else "tile loop"
+
+
+def _ms(ms, warm) -> str:
+    """A time as the attention checks print it: with its L2-warm reading
+    beside, where there is one."""
+    if ms is None:
+        return "None"
+    return f"{ms:.4f}" + ("" if warm is None else f" (L2-warm {warm:.4f})")
+
+
+def _decode_kernel_launches(fn) -> int:
+    """Launches of the split-key decode kernel that one call of fn() made, as
+    the kernel library counts them where it launches that kernel (the tile
+    loop is not counted). Needs no profiler, which a host may not allow."""
+    from exllamav3_tpu_torch.ops.build import library
+
+    lib = library()
+    n0 = lib.exl3_decode_launches()
+    fn()
+    torch.cuda.synchronize()
+    return lib.exl3_decode_launches() - n0
+
+
 def check_attention(table, dev):
     from exllamav3_tpu_torch.constants import PAGE_SIZE
     from exllamav3_tpu_torch.ops.flash_attention import (paged_attention_kernel,
@@ -464,6 +503,25 @@ def check_attention(table, dev):
     cases = []
     ctx = np.linspace(300, 2048, 8).astype(np.int32)
     cases.append(("decode B=8 ctx 300-2048", ctx[:, None] - 1, ctx, {}, True))
+    # the split-key decode kernel: seven short sequences beside one of 8192
+    # (their splits end early, the long one's spread), a table four times
+    # wider than the longest sequence (whole splits see no key), batch 1
+    # (splits of one tile fill the card), 64-wide heads (Llama-3.2-1B), and
+    # the boundary: verify chunks at group 8 of 32 rows (the decode kernel)
+    # and of 40 (the tile loop)
+    imbalance = np.array([300] * 7 + [8192], np.int32)
+    cases.append(("decode B=8, seven at ctx 300 and one at 8192", imbalance[:, None] - 1,
+                  imbalance, {}, False))
+    cases.append(("decode B=8 ctx 300-2048, a table of 4x the pages", ctx[:, None] - 1, ctx,
+                  {"table_pages": 4 * 8}, False))
+    for n in (2048, 8192):
+        cases.append((f"decode B=1 ctx {n}", np.array([[n - 1]], np.int32),
+                      np.array([n], np.int32), {}, False))
+    cases.append(("Llama-3.2-1B heads (D=64) decode B=8 ctx 300-2048", ctx[:, None] - 1, ctx,
+                  {"head_dim": 64}, False))
+    for S in (4, 5):
+        cases.append((f"verify S={S} B=8, group 8", ctx[:, None] - S + np.arange(S, dtype=np.int32),
+                      ctx, {"kv_heads": 4}, False))
     # GQA groups that do not divide the block's 64 rows: Qwen2.5-14B/32B and
     # Qwen3-14B (40 q / 8 kv heads), Qwen2.5-1.5B (12 / 2), Qwen2.5-7B (28 / 4)
     for hq, hk in ((40, 8), (12, 2), (28, 4)):
@@ -491,7 +549,8 @@ def check_attention(table, dev):
         B, S = qpos.shape
         Hk = kw.pop("kv_heads", 8)
         Hq = kw.pop("q_heads", 32)
-        mp = int(math.ceil(total.max() / PAGE_SIZE)) + 1
+        D = kw.pop("head_dim", 128)
+        mp = kw.pop("table_pages", int(math.ceil(total.max() / PAGE_SIZE)) + 1)
         P = B * mp + 1
         perm = rng.permutation(np.arange(1, P))[: B * mp].reshape(B, mp).astype(np.int32)
         perm[:, -1] = 0  # the scratch column
@@ -512,29 +571,52 @@ def check_attention(table, dev):
             raise AssertionError(f"paged_attention {name}: non-finite output")
         err = float((got - ref).abs().max())
         rel = err / float(ref.abs().max())
-        ms = time_ms(lambda: paged_attention_kernel(q, k, v, bt, qp, tl, **args), 10)
+        route = _route(S, Hq, Hk)
+        if name.startswith("verify"):  # the library's count shows which kernel the rows took
+            n = _decode_kernel_launches(
+                lambda: paged_attention_kernel(q, k, v, bt, qp, tl, **args))
+            if n != (route == "decode kernel"):
+                raise AssertionError(f"paged_attention {name}: {S * Hq // Hk} rows made {n} "
+                                     f"decode-kernel launches, not the {route}'s")
+            log(f"paged_attention {name}: {S * Hq // Hk} rows a kv head ran the {route} "
+                f"({n} decode-kernel launch)")
+        # decode and verify (the decode kernel) over K/V rotated past L2, as
+        # the main path reads its cache, the L2-warm time beside; prefill warm
+        kern = lambda kv: paged_attention_kernel(q, kv["k"], kv["v"], bt, qp, tl, **args)
+        if route == "decode kernel":
+            ms, warm = _cold_warm(kern, {"k": k, "v": v})
+        else:
+            ms, warm = time_ms(lambda: kern({"k": k, "v": v}), 10), None
         plain = time_ms(lambda: paged_attention_plain(q, k, v, bt, qp, tl, **args), 2)
-        lib = None
+        lib = lib_warm = None
         if not kw:
-            # SDPA over the pre-gathered contiguous K/V with the same mask
+            # SDPA over the pre-gathered contiguous K/V with the same mask,
+            # timed as the kernel is
             T = mp * PAGE_SIZE
             kc = k[bt.long()].reshape(B, T, Hk, D).transpose(1, 2).contiguous()
             vc = v[bt.long()].reshape(B, T, Hk, D).transpose(1, 2).contiguous()
             kpos = torch.arange(T, device=dev)
             mask = (kpos[None, None, :] <= qp[:, :, None]) & (kpos[None, None, :] < tl[:, None, None])
             qt = q.to(torch.bfloat16).transpose(1, 2)
-            lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kc, vc, attn_mask=mask[:, None], scale=D ** -0.5, enable_gqa=True), 10)
+            sdpa = lambda kv: torch.nn.functional.scaled_dot_product_attention(
+                qt, kv["k"], kv["v"], attn_mask=mask[:, None], scale=D ** -0.5, enable_gqa=True)
+            if route == "decode kernel":
+                lib, lib_warm = _cold_warm(sdpa, {"k": kc, "v": vc})
+            else:
+                lib = time_ms(lambda: sdpa({"k": kc, "v": vc}), 10)
+            del kc, vc
         nb, fl = _attn_work(qpos, total, Hq, Hk, D, args["sliding_window"])
         bnd = bound_ms(nb, fl)
-        log(f"paged_attention {name}: max_abs_err={err:.3e} rel={rel:.2e} kernel_ms={ms:.4f} "
-            f"plain_ms={plain:.4f} library_ms(sdpa)={lib if lib is None else f'{lib:.4f}'} "
-            f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
+        log(f"paged_attention {name} (Hq={Hq} Hk={Hk} D={D}, {route}): max_abs_err={err:.3e} "
+            f"rel={rel:.2e} kernel_ms={_ms(ms, warm)} plain_ms={plain:.4f} "
+            f"library_ms(sdpa)={_ms(lib, lib_warm)} bound_ms={bnd[0]:.4f} ({bnd[1]})")
         if not rel <= TOL_ATTN:
             raise AssertionError(f"paged_attention {name}: rel err {rel} > {TOL_ATTN}")
         table.add("paged_attention", err, ms, plain, bnd, lib,
-                  f"{name}: B={B} S={S} Hq={Hq} Hk={Hk} D={D}", main=main)
+                  f"{name}: B={B} S={S} Hq={Hq} Hk={Hk} D={D}", main=main, warm_ms=warm,
+                  library_warm_ms=lib_warm)
         del q, k, v, ref, got
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
 
 
@@ -1303,16 +1385,36 @@ def check_linear_attention(table, dev):
         rel = err / float(ref.abs().max())
         if not rel <= TOL_ATTN:
             raise AssertionError(f"linear_attention {name}: rel err {rel} > {TOL_ATTN}")
-        ms = time_ms(lambda: linear_attention_kernel(q, k, v, qp, tl, **args), 10)
+        route = _route(S, Hq, Hk)
+        # decode and verify (the decode kernel) over caches rotated past L2,
+        # the L2-warm time beside, and SDPA alike; prefill warm
+        kern = lambda kv: linear_attention_kernel(q, kv["k"], kv["v"], qp, tl, **args)
+        if route == "decode kernel":
+            ms, warm = _cold_warm(kern, {"k": k, "v": v})
+        else:
+            ms, warm = time_ms(lambda: kern({"k": k, "v": v}), 10), None
         plain = time_ms(lambda: linear_attention_plain(q, k, v, qp, tl, **args), 2)
-        lib = None if kw else time_ms(_sdpa_linear(q, k, v, qp, tl, rw, D), 10)
+        lib = lib_warm = None
+        if not kw:
+            sdpa = _sdpa_linear(q, k, v, qp, tl, rw, D)
+            if route == "decode kernel":
+                lib, lib_warm = _cold_warm(
+                    lambda f: f(), sdpa,
+                    make=lambda i: sdpa if i == 0 else _sdpa_linear(q, k, v, qp, tl, rw, D),
+                    nbytes=2 * B * int(tl.max()) * Hk * D * 2)
+            else:
+                lib = time_ms(sdpa, 10)
+            del sdpa
         bnd = bound_ms(*_attn_work(qpos, total, Hq, Hk, D, args["sliding_window"]))
-        log(f"linear_attention {name} (Hq={Hq} Hk={Hk} D={D} N={N} T={T}): max_abs_err={err:.3e} "
-            f"rel={rel:.2e} kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms(sdpa on the live "
-            f"slice)={lib if lib is None else f'{lib:.4f}'} bound_ms={bnd[0]:.4f} ({bnd[1]})")
+        log(f"linear_attention {name} (Hq={Hq} Hk={Hk} D={D} N={N} T={T}, {route}): "
+            f"max_abs_err={err:.3e} rel={rel:.2e} kernel_ms={_ms(ms, warm)} "
+            f"plain_ms={plain:.4f} library_ms(sdpa on the live slice)={_ms(lib, lib_warm)} "
+            f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
         table.add("linear_attention", err, ms, plain, bnd, lib,
-                  f"{name}: B={B} S={S} Hq={Hq} Hk={Hk} D={D} T={T}", main=main)
+                  f"{name}: B={B} S={S} Hq={Hq} Hk={Hk} D={D} T={T}", main=main, warm_ms=warm,
+                  library_warm_ms=lib_warm)
         del q, k, v, ref, got
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
 
 
@@ -2199,20 +2301,14 @@ def _drive(tag: str, gen, prompts: list, V: int, new_tokens: int = 128):
     return jobs, finished, decode_tokens, decode_s, wall, counts
 
 
-def _serve(tag: str, ckpt: str, linear_mode: str, spec_kw: dict, expect_mode: str,
-           prompts: list, trace: bool = True, step_launches: dict | None = None) -> dict:
-    """Load the checkpoint `ckpt` in `linear_mode`, serve `prompts` (128
-    greedy tokens each; the first arrives alone, the rest once it decodes)
-    over a paged cache made with `spec_kw`, and check the outcome. A cache
-    with SWA rings (spec_kw swa_ring) reuses no prefix pages and reports its
-    rings' bytes. `step_launches` names launch counts one batch-1 decode step
-    must show. Returns the kernels' launch counts over the measured run."""
-    from exllamav3_tpu_torch.generator import Generator, GreedySampler, Job
-    from exllamav3_tpu_torch.model import Cache, CacheSpec, Config, InferParams, Model
+def _load_model(tag: str, ckpt: str, linear_mode: str, expect_mode: str):
+    """The checkpoint `ckpt` loaded on the card in `linear_mode`, its load
+    time and memory printed; raises unless the mode resolved to
+    `expect_mode`."""
+    from exllamav3_tpu_torch.model import Config, InferParams, Model
     from exllamav3_tpu_torch.model.model import estimate_linear_mode_bytes
 
     cfg = Config.from_directory(ckpt, infer_params=InferParams(linear_mode=linear_mode))
-    V = cfg.vocab_size
     model = Model.from_config(cfg, device="cuda")
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -2228,7 +2324,25 @@ def _serve(tag: str, ckpt: str, linear_mode: str, spec_kw: dict, expect_mode: st
             f"{estimate_linear_mode_bytes(cfg, expect_mode) / 2**30:.2f} GiB")
     if cfg.infer_params.linear_mode != expect_mode:
         raise AssertionError(f"{tag}: linear mode did not resolve to {expect_mode}")
+    return model
 
+
+def _serve(tag: str, ckpt: str, linear_mode: str, spec_kw: dict, expect_mode: str,
+           prompts: list, trace: bool = True, step_launches: dict | None = None,
+           model=None, new_tokens: int = 128) -> dict:
+    """Load the checkpoint `ckpt` in `linear_mode` (or take `model`, loaded
+    from it already), serve `prompts` (`new_tokens` greedy tokens each; the first
+    arrives alone, the rest once it decodes) over a paged cache made with
+    `spec_kw`, and check the outcome. A cache with SWA rings (spec_kw
+    swa_ring) reuses no prefix pages and reports its rings' bytes.
+    `step_launches` names launch counts one batch-1 decode step must show.
+    Returns the kernels' launch counts over the measured run."""
+    from exllamav3_tpu_torch.generator import Generator, GreedySampler, Job
+    from exllamav3_tpu_torch.model import Cache, CacheSpec
+
+    if model is None:
+        model = _load_model(tag, ckpt, linear_mode, expect_mode)
+    V = model.config.vocab_size
     base = torch.cuda.memory_allocated()
     cache = Cache(model, CacheSpec(num_pages=72, **spec_kw))
     log(f"{tag}: cache {spec_kw or 'bf16'}: "
@@ -2254,8 +2368,9 @@ def _serve(tag: str, ckpt: str, linear_mode: str, spec_kw: dict, expect_mode: st
             f"paged cache bytes a token {per_token:.0f} with the rings, "
             f"{per_token * len(cache.state) / len(paged):.0f} without")
     gen = Generator(model, cache, max_batch_size=8, max_chunk_size=2048, seed=0)
-    jobs, finished, decode_tokens, decode_s, wall, counts = _drive(tag, gen, prompts, V)
-    total_new = 128 * len(jobs)
+    jobs, finished, decode_tokens, decode_s, wall, counts = _drive(tag, gen, prompts, V,
+                                                                   new_tokens)
+    total_new = new_tokens * len(jobs)
     reused = sum(finished[j.identifier]["cached_tokens"] for j in jobs)
     # cross-path check: the first generated token of request 0 lies in the
     # top 5 of a reference forward at the end of its prompt. Over the bf16
@@ -2556,17 +2671,24 @@ def phase_serve_mla() -> dict:
     """The MLA path: DeepSeek-V2-Lite at full width and all 27 layers,
     linear_mode="auto" (int8 projections and head; bf16 kv_a projection,
     dense MLP and expert stacks), over a bf16 paged latent cache; then one
-    request over a (4)-bit latent cache."""
+    request of 32 tokens over a (4)-bit latent cache."""
     used = ("int8_matmul", "fused_mlp", "moe_gemm", "latent_attention")
     gc.collect()
     torch.cuda.empty_cache()
     ckpt = _mla_checkpoint(V2_LITE["num_layers"])
     prompts = _serve_prompts(V2_LITE["vocab_size"])
-    counts = _serve("serve_mla", ckpt, "auto", {}, "int8", prompts)
+    # one load serves both caches
+    model = _load_model("serve_mla", ckpt, "auto", "int8")
+    counts = _serve("serve_mla", ckpt, "auto", {}, "int8", prompts, model=model)
     _require_launches("serve_mla", counts, used)
+    # 32 tokens: the quantized latent decode runs at batch 1 (~7 tok/s), so
+    # its depth is cut rather than the bf16 run's
     quant = _serve("serve_mla (4)-bit latent", ckpt, "auto", dict(k_bits=4, v_bits=4), "int8",
-                   prompts[:1], trace=False)
+                   prompts[:1], trace=False, model=model, new_tokens=32)
     _require_launches("serve_mla (4)-bit latent", quant, used[:3] + ("latent_attention_quant",))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     shutil.rmtree(ckpt)  # ~8 GB that no later phase reads
     return {**{n: counts[n] for n in used},
             "latent_attention_quant": quant["latent_attention_quant"]}
@@ -2842,23 +2964,6 @@ GAP_LIMIT = 2e-2  # a speculative token may part from plain decoding only at a n
 SPEC_TARGET_LAYERS = 16
 
 
-def _load(tag: str, ckpt: str, linear_mode: str, expect_mode: str):
-    """A model of `ckpt` loaded on the card in `linear_mode`."""
-    from exllamav3_tpu_torch.model import Config, InferParams, Model
-
-    cfg = Config.from_directory(ckpt, infer_params=InferParams(linear_mode=linear_mode))
-    model = Model.from_config(cfg, device="cuda")
-    base = torch.cuda.memory_allocated()
-    t0 = time.time()
-    model.load()
-    torch.cuda.synchronize()
-    log(f"{tag}: {cfg.num_hidden_layers} layers, linear_mode {cfg.infer_params.linear_mode}, "
-        f"load {time.time() - t0:.1f} s, {(torch.cuda.memory_allocated() - base) / 2**30:.2f} GiB")
-    if cfg.infer_params.linear_mode != expect_mode:
-        raise AssertionError(f"{tag}: linear mode did not resolve to {expect_mode}")
-    return model
-
-
 def _free():
     gc.collect()  # a model's modules refer to each other: free its tensors now
     torch.cuda.empty_cache()
@@ -2952,7 +3057,7 @@ def phase_linear_decode() -> dict:
     linear cache at full depth, and over (5, 3) on 4 layers."""
     from exllamav3_tpu_torch.model import Cache, CacheSpec
 
-    model = _load("linear_decode int8", _checkpoint(32), "auto", "int8")
+    model = _load_model("linear_decode int8", _checkpoint(32), "auto", "int8")
     _reset_counts()
     for B in (1, 8):
         _linear_decode("linear_decode int8", model, B, {})
@@ -2988,7 +3093,7 @@ def phase_linear_decode() -> dict:
     for layers, bits in ((32, (4, 4)), (4, (5, 3))):
         tag = f"linear_decode fused {bits}"
         spec_kw = dict(k_bits=bits[0], v_bits=bits[1])
-        model = _load(tag, _checkpoint(layers), "fused", "fused")
+        model = _load_model(tag, _checkpoint(layers), "fused", "fused")
         _reset_counts()
         _linear_decode(tag, model, 8, spec_kw)
         counts = _read_counts()
@@ -3094,8 +3199,8 @@ def phase_serve_spec() -> dict:
     from exllamav3_tpu_torch.generator import Generator
     from exllamav3_tpu_torch.model import Cache, CacheSpec
 
-    target = _load("serve_spec target", _checkpoint(SPEC_TARGET_LAYERS), "auto", "int8")
-    draft = _load("serve_spec draft", _draft_checkpoint(), "auto", "int8")
+    target = _load_model("serve_spec target", _checkpoint(SPEC_TARGET_LAYERS), "auto", "int8")
+    draft = _load_model("serve_spec draft", _draft_checkpoint(), "auto", "int8")
     head = draft.params["lm_head"].get("weight")
     embed = draft.params["model.embed_tokens"]["weight"]
     if head is None or not torch.equal(head.t(), embed):

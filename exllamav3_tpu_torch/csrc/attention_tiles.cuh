@@ -59,10 +59,11 @@
 // times a bf16 scale, at most 16 significant bits) is also stored as hi +
 // lo, exactly; a product then takes three MMAs (hi.hi, lo.hi, hi.lo). The
 // row sum adds P in f32. Decode fills few of the rows, and a sequence's keys
-// are walked by one block. The two quantized entries send decode and verify
-// (S * G <= 32 rows a kv head) to attention_decode.cuh instead, which splits
-// the keys across blocks and merges them; prefill chunks and the other
-// entries (bf16, latent, ring, stats) take this loop.
+// are walked by one block. The bf16 and quantized entries over the paged and
+// the linear cache send decode and verify (S * G <= 32 rows a kv head) to
+// attention_decode.cuh instead, which splits the keys across blocks and
+// merges them; their prefill chunks and the other entries (latent, ring,
+// stats) take this loop.
 //
 // Warps: the 4 warps split the R rows into R/16 row groups; with R = 32 two
 // warps (with R = 16 all four) share a row group and split its key subtiles

@@ -47,18 +47,18 @@ extern "C" int exl3_linear_attention_quant(
     if (D == 128) {
         const QuantKV<128> kv{kw, kscale, vw, vscale, Hk, k_bits, v_bits, compand_a, compand_b};
         if (decode)
-            return launch_decode_quant<128>(q, rows, kv, qpos, total_lens, sinks, out, ws,
-                                            counters, B, S, Hq, Hk, scale, window, softcap,
-                                            split_keys, T, st);
+            return launch_decode<128>(q, rows, kv, qpos, total_lens, sinks, out, ws,
+                                      counters, B, S, Hq, Hk, scale, window, softcap,
+                                      split_keys, T, st);
         return launch_attention<HeadGeo<128>>(q, rows, kv, qpos, total_lens, sinks, out, B, S, Hq,
                                               Hk, scale, window, softcap, st);
     }
     if (D == 64) {
         const QuantKV<64> kv{kw, kscale, vw, vscale, Hk, k_bits, v_bits, compand_a, compand_b};
         if (decode)
-            return launch_decode_quant<64>(q, rows, kv, qpos, total_lens, sinks, out, ws,
-                                           counters, B, S, Hq, Hk, scale, window, softcap,
-                                           split_keys, T, st);
+            return launch_decode<64>(q, rows, kv, qpos, total_lens, sinks, out, ws,
+                                     counters, B, S, Hq, Hk, scale, window, softcap,
+                                     split_keys, T, st);
         return launch_attention<HeadGeo<64>>(q, rows, kv, qpos, total_lens, sinks, out, B, S, Hq,
                                              Hk, scale, window, softcap, st);
     }

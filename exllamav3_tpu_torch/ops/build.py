@@ -34,13 +34,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signatures: every pointer and the stream are c_void_p; all return the
-# launch's cudaGetLastError() as an int
+# C signatures: every pointer and the stream are c_void_p; all return an int,
+# the launch's cudaGetLastError() where the entry launches a kernel
 SIGNATURES = {
     "exl3_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "exl3_fused_mlp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "exl3_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _I, _F, _I, _F, _P],
+    "exl3_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _I, _F, _I, _F, _I, _P],
     "exl3_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "exl3_paged_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _F, _I, _P],
@@ -49,8 +49,8 @@ SIGNATURES = {
     "exl3_intb_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "exl3_intb_matmul_a8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "exl3_moe_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "exl3_linear_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                              _I, _F, _P],
+    "exl3_linear_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _F, _I, _F, _I, _P],
     "exl3_linear_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _F, _I, _P],
     "exl3_latent_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
@@ -68,6 +68,9 @@ SIGNATURES = {
     "exl3_probe_int4_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "exl3_probe_a8_ablate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "exl3_probe_a8_diag": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # the split-key decode kernel's launches so far (csrc/attention_decode.cuh),
+    # which tell a check the kernel an attention entry chose
+    "exl3_decode_launches": [],
 }
 
 _LIB = None

@@ -7,14 +7,15 @@ Ten CUDA entries share one tile loop (csrc/attention_tiles.cuh):
 csrc/paged_attention.cu and csrc/linear_attention.cu serve the bf16 cache,
 csrc/paged_attention_quant.cu and csrc/linear_attention_quant.cu the
 quantized one (packed 2..8-bit words with bf16 group scales, merged-head or
-per-head storage, unpacked in the kernel). The quantized entries send decode
-and verify (S * G <= DECODE_ROWS) to csrc/attention_decode.cuh, which splits
+per-head storage, unpacked in the kernel). These four send decode and
+verify (S * G <= DECODE_ROWS) to csrc/attention_decode.cuh, which splits
 each sequence's keys across blocks (decode_split_keys sizes the splits from
 host widths) and merges the splits in the same launch; its plain split
-arithmetic is paged_attention_quant_split_plain and
-linear_attention_quant_split_plain. Each serves decode, prefill chunks
-and padded rows: causal by absolute position against total_lens, any GQA
-group, optional sliding window, logit softcap and per-head sinks. A row that
+arithmetic is paged_attention_split_plain and linear_attention_split_plain
+(bf16), paged_attention_quant_split_plain and
+linear_attention_quant_split_plain (quantized). Each serves decode, prefill
+chunks and padded rows: causal by absolute position against total_lens, any
+GQA group, optional sliding window, logit softcap and per-head sinks. A row that
 sees no valid key gives 0. The linear layout holds one row of T slots per
 sequence (slot == position, any T); a step may name the cache row of each of
 its sequences. csrc/latent_attention.cu and csrc/latent_attention_quant.cu
@@ -77,7 +78,9 @@ def paged_attention_kernel(q, k_pages, v_pages, block_tables, q_positions, total
     """Launch csrc/paged_attention.cu. q (B, S, Hq, D) f32; k/v pages
     (P, 256, Hk, D) bf16; block_tables (B, MP), q_positions (B, S) and
     total_lens (B,) int32; sinks (Hq,) f32 or None; D in {64, 128}, any GQA
-    group."""
+    group. With S * G <= DECODE_ROWS the split-key decode kernel runs
+    (splits sized by decode_split_keys for this card), a longer chunk the
+    tile loop."""
     B, S, Hq, D = q.shape
     P, PS, Hk, Dk = k_pages.shape
     ints = (block_tables, q_positions, total_lens)
@@ -98,13 +101,16 @@ def paged_attention_kernel(q, k_pages, v_pages, block_tables, q_positions, total
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention_kernel: tensors must be contiguous")
     check_aligned("paged_attention_kernel", q, k_pages, v_pages)
+    MP = block_tables.shape[1]
+    _, ws, counters, split_keys = _decode_launch(q, Hk, MP * PAGE_SIZE, device_sms(q.device),
+                                                 rotate=False)
     out = torch.empty((B, S, Hq, D), dtype=torch.float32, device=q.device)
     err = library().exl3_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
         q_positions.data_ptr(), total_lens.data_ptr(),
-        sinks.data_ptr() if sinks is not None else None, out.data_ptr(),
-        B, S, Hq, Hk, D, block_tables.shape[1], P, float(scale), int(sliding_window),
-        float(logit_softcap), torch.cuda.current_stream(q.device).cuda_stream)
+        sinks.data_ptr() if sinks is not None else None, out.data_ptr(), _ptr(ws),
+        _ptr(counters), B, S, Hq, Hk, D, MP, P, float(scale), int(sliding_window),
+        float(logit_softcap), split_keys, torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("exl3_paged_attention", err)
     paged_attention_kernel.launches += 1
     return out
@@ -175,14 +181,16 @@ def _decode_counters(device, n: int) -> torch.Tensor:
     return c
 
 
-def _quant_launch(q, Hk: int, width: int, sms: int) -> tuple:
+def _decode_launch(q, Hk: int, width: int, sms: int, rotate: bool) -> tuple:
     """(q as the launch takes it, workspace, counters, split_keys) for the
-    quantized entries: the decode kernel takes q unrotated, a workspace of
-    (acc, m, l) for each split of decode_split_keys's size and the arrival
-    counters; the tile loop takes q rotated and none of them."""
+    four entries over the paged and the linear cache: the decode kernel
+    takes q as it is, a workspace of (acc, m, l) for each split of
+    decode_split_keys's size and the arrival counters; the tile loop takes
+    none of them, and q rotated per 32-channel group when `rotate` (the
+    quantized storage: its tile loop scores in the stored, rotated basis)."""
     B, S, Hq, D = q.shape
     if S * (Hq // Hk) > DECODE_ROWS:
-        return rotate_groups(q), None, None, 0
+        return rotate_groups(q) if rotate else q, None, None, 0
     split_keys = decode_split_keys(width, B, Hk, sms)
     splits = -(-width // split_keys)
     ws = torch.empty(B * Hk * splits * S * (Hq // Hk) * (D + 2), dtype=torch.float32,
@@ -208,17 +216,40 @@ def _rotated_kv(layer_state: dict, k_bits: int, v_bits: int, compand_a: float, H
 
 
 def attention_split_plain(q, k, v, visible, split_keys: int, scale: float = 1.0,
-                          logit_softcap: float = 0.0, sinks=None) -> torch.Tensor:
+                          logit_softcap: float = 0.0, sinks=None,
+                          rotate: bool = True) -> torch.Tensor:
     """(B, S, Hq, D) f32: the decode kernel's arithmetic in plain torch. q
-    (B, S, Hq, D) f32 unrotated; k, v (B, T, Hk, D) f32 in the rotated
-    basis; visible (B, S, T). q is rotated, the keys are cut into splits of
-    split_keys, each split gives (acc, m, l) as attend_stats_plain does,
-    merge_stats joins them with the sinks, and the output is rotated back."""
-    qr = rotate_groups(q.float())
+    (B, S, Hq, D) f32 unrotated; k, v (B, T, Hk, D) f32, in the rotated
+    basis when `rotate` (the quantized storage; bf16 K/V as they are
+    otherwise); visible (B, S, T). With `rotate` q is rotated; the keys are
+    cut into splits of split_keys, each split gives (acc, m, l) as
+    attend_stats_plain does, merge_stats joins them with the sinks, and with
+    `rotate` the output is rotated back."""
+    qr = rotate_groups(q.float()) if rotate else q.float()
     parts = [attend_stats_plain(qr, k[:, k0:k0 + split_keys], visible[..., k0:k0 + split_keys],
                                 scale, v=v[:, k0:k0 + split_keys], logit_softcap=logit_softcap)
              for k0 in range(0, k.shape[1], split_keys)]
-    return rotate_groups(merge_stats(parts, sinks))
+    o = merge_stats(parts, sinks)
+    return rotate_groups(o) if rotate else o
+
+
+def paged_attention_split_plain(q, k_pages, v_pages, block_tables, q_positions, total_lens,
+                                scale: float = 1.0, sliding_window: int = 0,
+                                logit_softcap: float = 0.0, sinks=None,
+                                split_keys: int | None = None) -> torch.Tensor:
+    """(B, S, Hq, D) f32 over the paged bf16 cache by the decode kernel's
+    split arithmetic (attention_split_plain without rotation, K/V as f32),
+    cut by decode_split_keys at H100_SMS unless split_keys is given; pages
+    out of range hold no visible key."""
+    B, Hk = q.shape[0], k_pages.shape[2]
+    ok = (block_tables >= 0) & (block_tables < k_pages.shape[0])
+    bt = torch.where(ok, block_tables, torch.zeros_like(block_tables)).long()
+    T = bt.shape[1] * PAGE_SIZE
+    k, v = (t[bt].reshape(B, T, *t.shape[2:]).float() for t in (k_pages, v_pages))
+    vis = (_causal_visible(q_positions, total_lens, T, q.device, sliding_window)
+           & ok.repeat_interleave(PAGE_SIZE, dim=1)[:, None, :])
+    return attention_split_plain(q, k, v, vis, split_keys or decode_split_keys(T, B, Hk), scale,
+                                 logit_softcap, sinks, rotate=False)
 
 
 def paged_attention_quant_split_plain(q, layer_state: dict, block_tables, q_positions,
@@ -322,7 +353,8 @@ def paged_attention_quant_kernel(q, layer_state: dict, block_tables, q_positions
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention_quant_kernel: tensors must be contiguous")
     MP = block_tables.shape[1]
-    qk, ws, counters, split_keys = _quant_launch(q, Hk, MP * PAGE_SIZE, device_sms(q.device))
+    qk, ws, counters, split_keys = _decode_launch(q, Hk, MP * PAGE_SIZE, device_sms(q.device),
+                                                  rotate=True)
     check_aligned("paged_attention_quant_kernel", qk, kq, vq)
     out = torch.empty((B, S, Hq, D), dtype=torch.float32, device=q.device)
     err = library().exl3_paged_attention_quant(
@@ -387,13 +419,29 @@ def _linear_rows(rows, B: int, N: int, device) -> int | None:
     return rows.data_ptr()
 
 
+def linear_attention_split_plain(q, k, v, q_positions, total_lens, rows=None,
+                                 scale: float = 1.0, sliding_window: int = 0,
+                                 logit_softcap: float = 0.0, sinks=None,
+                                 split_keys: int | None = None) -> torch.Tensor:
+    """(B, S, Hq, D) f32 over the linear bf16 cache k, v (N, T, Hk, D) (row
+    b, or rows[b]) by the decode kernel's split arithmetic, as
+    paged_attention_split_plain."""
+    B, T, Hk = q.shape[0], k.shape[1], k.shape[2]
+    pick = slice(0, B) if rows is None else rows.long()
+    vis = _causal_visible(q_positions, total_lens, T, q.device, sliding_window)
+    return attention_split_plain(q, k[pick].float(), v[pick].float(), vis,
+                                 split_keys or decode_split_keys(T, B, Hk), scale, logit_softcap,
+                                 sinks, rotate=False)
+
+
 def linear_attention_kernel(q, k, v, q_positions, total_lens, rows=None, scale: float = 1.0,
                             sliding_window: int = 0, logit_softcap: float = 0.0,
                             sinks=None) -> torch.Tensor:
     """Launch csrc/linear_attention.cu. q (B, S, Hq, D) f32; k, v (N, T, Hk, D)
     bf16, any T; rows (B,) int32 or None (rows 0..B-1); q_positions (B, S)
     and total_lens (B,) int32; sinks (Hq,) f32 or None; D in {64, 128}, any
-    GQA group."""
+    GQA group. Decode and verify (S * G <= DECODE_ROWS) run the split-key
+    kernel, a longer chunk the tile loop, as paged_attention_kernel."""
     B, S, Hq, D = q.shape
     N, T, Hk, Dk = k.shape
     ints = (q_positions, total_lens)
@@ -414,12 +462,13 @@ def linear_attention_kernel(q, k, v, q_positions, total_lens, rows=None, scale: 
         raise ValueError("linear_attention_kernel: tensors must be contiguous")
     check_aligned("linear_attention_kernel", q, k, v)
     rows_ptr = _linear_rows(rows, B, N, q.device)
+    _, ws, counters, split_keys = _decode_launch(q, Hk, T, device_sms(q.device), rotate=False)
     out = torch.empty((B, S, Hq, D), dtype=torch.float32, device=q.device)
     err = library().exl3_linear_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rows_ptr, q_positions.data_ptr(),
         total_lens.data_ptr(), sinks.data_ptr() if sinks is not None else None, out.data_ptr(),
-        B, S, Hq, Hk, D, N, T, float(scale), int(sliding_window), float(logit_softcap),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _ptr(ws), _ptr(counters), B, S, Hq, Hk, D, N, T, float(scale), int(sliding_window),
+        float(logit_softcap), split_keys, torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("exl3_linear_attention", err)
     linear_attention_kernel.launches += 1
     return out
@@ -481,7 +530,7 @@ def linear_attention_quant_kernel(q, layer_state: dict, q_positions, total_lens,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("linear_attention_quant_kernel: tensors must be contiguous")
     rows_ptr = _linear_rows(rows, B, N, q.device)
-    qk, ws, counters, split_keys = _quant_launch(q, Hk, T, device_sms(q.device))
+    qk, ws, counters, split_keys = _decode_launch(q, Hk, T, device_sms(q.device), rotate=True)
     check_aligned("linear_attention_quant_kernel", qk, kq, vq)
     out = torch.empty((B, S, Hq, D), dtype=torch.float32, device=q.device)
     err = library().exl3_linear_attention_quant(

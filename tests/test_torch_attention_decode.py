@@ -1,14 +1,16 @@
-"""The split-key arithmetic of the quantized decode kernel
-(csrc/attention_decode.cuh) against the JAX package, on the CPU: the plain
-split versions (each split's (acc, m, l) as attend_stats_plain computes
-them, joined by merge_stats) against the JAX kernel in interpret mode, over
-the paged and the linear layout, merged and per-head storage, bits (4, 4),
-(5, 3), (3, 7) and the compander; splits of part of a page, of one page and of
-several, splits wholly past total_lens or before a sliding window, sinks with
-a softcap, rows that see no key, verify chunks and GQA groups 5 and 7. Also
-the split sizing function on host widths alone, merge_stats without sinks and
-the wrappers' choice between the decode kernel and the tile loop. The CUDA
-kernel is held against these plain versions on the card by chip_smoke.py."""
+"""The split-key arithmetic of the decode kernel (csrc/attention_decode.cuh)
+against the JAX package, on the CPU: the plain split versions (each split's
+(acc, m, l) as attend_stats_plain computes them, joined by merge_stats)
+against the JAX kernel in interpret mode, over the paged and the linear
+layout, for the bf16 cache (k_bits = v_bits = 0) and the quantized one
+(merged and per-head storage, bits (4, 4), (5, 3), (3, 7) and the
+compander); splits of part of a page, of one page and of several, splits
+wholly past total_lens or before a sliding window, sinks with a softcap,
+rows that see no key, verify chunks, GQA groups 5 and 7 and named linear
+cache rows. Also the split sizing function on host widths alone,
+merge_stats without sinks and the wrappers' choice between the decode
+kernel and the tile loop, for both storages. The CUDA kernel is held
+against these plain versions on the card by chip_smoke.py."""
 import re
 from pathlib import Path
 
@@ -46,8 +48,20 @@ def _state(rng, lead: tuple, Hk: int, k_bits: int, v_bits: int, a: float) -> tup
     return jstate, tstate
 
 
+def _bf16_state(rng, lead: tuple, Hk: int) -> tuple:
+    """(JAX layer state, the port's) of random bf16 keys and values, the
+    same bits on both sides."""
+    jstate, tstate = {}, {}
+    for name in ("k", "v"):
+        x = jnp.asarray(rng.standard_normal((*lead, Hk, D)).astype(np.float32), jnp.bfloat16)
+        jstate[name] = x
+        tstate[name] = torch.from_numpy(np.asarray(x).view(np.int16).copy()).view(torch.bfloat16)
+    return jstate, tstate
+
+
 # (layout, (k_bits, v_bits), compand_a, (Hq, Hk), q positions, total lengths,
-#  block table or cache rows T, features, split_keys)
+#  block table or cache rows T, features, split_keys); bits (0, 0): the bf16
+#  cache. Feature "rows" names the linear cache row of each sequence
 CASES = {
     # one page a split; the table is two pages wider than the longest
     # sequence, so sequence 0's last three splits and sequence 1's last two
@@ -77,10 +91,38 @@ CASES = {
     "linear-3-7-window-default-splits": (
         "linear", (3, 7), 0.0, (8, 2), [[330], [129]], [331, 130], 336,
         {"sliding_window": 100}, None),
+    # the bf16 cache. One page a split; the table is two pages wider than the
+    # longest sequence, so whole splits lie past total_lens
+    "paged-bf16-page-splits-past-total": (
+        "paged", (0, 0), 0.0, (8, 2), [[299], [700]], [300, 701],
+        [[5, 1, 2, 7, 0], [3, 6, 4, 0, 2]], {}, 256),
+    # a verify chunk of 5 at group 7 over splits of two pages
+    "paged-bf16-verify-group7-two-page-splits": (
+        "paged", (0, 0), 0.0, (14, 2), [[600, 601, 602, 603, 604], [95, 96, 97, 98, 99]],
+        [605, 100], [[2, 4, 1, 0], [3, 0, 5, 6]], {}, 512),
+    # quarter-page splits, a window of 100, sinks with a softcap of 20; row 1
+    # is a padded slot past its sequence, which sees no key
+    "paged-bf16-quarter-page-window-sinks-softcap": (
+        "paged", (0, 0), 0.0, (8, 2), [[510], [4096]], [511, 300], [[1, 3], [2, 0]],
+        {"sliding_window": 100, "logit_softcap": 20.0, "sinks": True}, 64),
+    # group 5 over the linear layout; sequence 2 has no key (total length 0)
+    "linear-bf16-group5-empty-sequence": (
+        "linear", (0, 0), 0.0, (10, 2), [[199], [40], [0]], [200, 41, 0], 208, {}, 64),
+    # named cache rows (sequence 0 in row 3, sequence 1 in row 1 of 5), a
+    # verify chunk, 128-slot splits, sinks and a softcap
+    "linear-bf16-named-rows-verify-sinks-softcap": (
+        "linear", (0, 0), 0.0, (8, 2), [[380, 381, 382, 383, 384], [60, 61, 62, 63, 64]],
+        [385, 65], 400, {"rows": [3, 1], "logit_softcap": 20.0, "sinks": True}, 128),
+    # the wrapper's own sizing (decode_split_keys) under a window of 100
+    "linear-bf16-window-default-splits": (
+        "linear", (0, 0), 0.0, (8, 2), [[330], [129]], [331, 130], 336,
+        {"sliding_window": 100}, None),
 }
 
 
-EMPTY_ROW_CASES = ("paged-3-7-compand-window-sinks-softcap", "linear-4-4-compand-group5")
+EMPTY_ROW_CASES = ("paged-3-7-compand-window-sinks-softcap", "linear-4-4-compand-group5",
+                   "paged-bf16-quarter-page-window-sinks-softcap",
+                   "linear-bf16-group5-empty-sequence")
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -93,23 +135,39 @@ def test_split_plain_matches_jax_kernel(case):
     sinks = rng.standard_normal(Hq).astype(np.float32) if feats.get("sinks") else None
     kw = dict(scale=SCALE, sliding_window=feats.get("sliding_window", 0),
               logit_softcap=feats.get("logit_softcap", 0.0))
+    tkw = dict(kw, sinks=None if sinks is None else torch.from_numpy(sinks))
+    make = (lambda lead: _bf16_state(rng, lead, Hk)) if kb == 0 else (
+        lambda lead: _state(rng, lead, Hk, kb, vb, a))
     if layout == "paged":
         bt = np.array(where, np.int32)
-        jstate, tstate = _state(rng, (int(bt.max()) + 1, PAGE_SIZE), Hk, kb, vb, a)
+        jstate, tstate = make((int(bt.max()) + 1, PAGE_SIZE))
         jbt, tbt = jnp.asarray(bt), (torch.from_numpy(bt),)
+    elif "rows" in feats:  # JAX reads the named rows of the port's cache
+        rows = np.array(feats["rows"], np.int32)
+        jstate, tstate = make((int(rows.max()) + 2, where))
+        jstate = {n: t[rows] for n, t in jstate.items()}
+        jbt, tbt = None, ()
+        tkw["rows"] = torch.from_numpy(rows)
     else:
-        jstate, tstate = _state(rng, (B, where), Hk, kb, vb, a)
+        jstate, tstate = make((B, where))
         jbt, tbt = None, ()
     ref = np.asarray(jflash(jnp.asarray(q), jstate, jnp.asarray(qpos), jnp.asarray(total),
                             block_tables=jbt, k_bits=kb, v_bits=vb, compand_a=a,
                             sinks=None if sinks is None else jnp.asarray(sinks), interpret=True,
                             **kw))
-    targs = (torch.from_numpy(q), tstate, *tbt, torch.from_numpy(qpos), torch.from_numpy(total),
-             kb, vb, a)
-    tkw = dict(kw, sinks=None if sinks is None else torch.from_numpy(sinks))
-    split_fn, whole_fn = ((F.paged_attention_quant_split_plain, F.paged_attention_quant_plain)
-                          if layout == "paged" else
-                          (F.linear_attention_quant_split_plain, F.linear_attention_quant_plain))
+    if kb == 0:
+        targs = (torch.from_numpy(q), tstate["k"], tstate["v"], *tbt, torch.from_numpy(qpos),
+                 torch.from_numpy(total))
+        split_fn, whole_fn = ((F.paged_attention_split_plain, F.paged_attention_plain)
+                              if layout == "paged" else
+                              (F.linear_attention_split_plain, F.linear_attention_plain))
+    else:
+        targs = (torch.from_numpy(q), tstate, *tbt, torch.from_numpy(qpos),
+                 torch.from_numpy(total), kb, vb, a)
+        split_fn, whole_fn = ((F.paged_attention_quant_split_plain, F.paged_attention_quant_plain)
+                              if layout == "paged" else
+                              (F.linear_attention_quant_split_plain,
+                               F.linear_attention_quant_plain))
     got = split_fn(*targs, split_keys=split, **tkw).numpy()
     seen = F.has_valid_key(torch.from_numpy(qpos), torch.from_numpy(total),
                            kw["sliding_window"]).numpy()
@@ -165,15 +223,20 @@ def test_decode_constants_match_the_kernel(tmp_path, monkeypatch):
             build.header_constants("h.cuh", name)
 
 
-@pytest.mark.parametrize("S,Hq,Hk,decode", [(1, 32, 8, True), (5, 32, 8, True),
-                                            (4, 64, 8, True), (5, 56, 8, False),
-                                            (2048, 32, 8, False)])
-def test_quant_launch_picks_the_kernel_by_rows(S, Hq, Hk, decode):
-    """S * G <= DECODE_ROWS takes the decode kernel: q as it is, a workspace
-    of (acc, m, l) for every split, the shared zeroed counters. A taller
-    chunk takes the tile loop: q rotated, no workspace."""
+_ROWS = [(1, 32, 8, True), (5, 32, 8, True), (4, 64, 8, True), (5, 56, 8, False),
+         (2048, 32, 8, False)]
+
+
+@pytest.mark.parametrize("S,Hq,Hk,decode,rotate", [
+    *(pytest.param(*r, True, id="-".join(map(str, r))) for r in _ROWS),  # quantized
+    *(pytest.param(*r, False, id="bf16-" + "-".join(map(str, r))) for r in _ROWS)])
+def test_quant_launch_picks_the_kernel_by_rows(S, Hq, Hk, decode, rotate):
+    """For both storages, S * G <= DECODE_ROWS takes the decode kernel: q as
+    it is, a workspace of (acc, m, l) for every split, the shared zeroed
+    counters. A taller chunk takes the tile loop with no workspace: q
+    rotated for the quantized storage, as it is for bf16."""
     q = torch.randn(2, S, Hq, D)
-    qk, ws, counters, split = F._quant_launch(q, Hk, 3 * PAGE_SIZE, 132)
+    qk, ws, counters, split = F._decode_launch(q, Hk, 3 * PAGE_SIZE, 132, rotate=rotate)
     if decode:
         splits = -(-3 * PAGE_SIZE // split)
         assert qk is q and split == F.decode_split_keys(3 * PAGE_SIZE, 2, Hk, 132)
@@ -182,7 +245,10 @@ def test_quant_launch_picks_the_kernel_by_rows(S, Hq, Hk, decode):
         assert not counters.any()
     else:
         assert ws is None and counters is None
-        torch.testing.assert_close(qk, pq.rotate_groups(q), rtol=0, atol=0)
+        if rotate:
+            torch.testing.assert_close(qk, pq.rotate_groups(q), rtol=0, atol=0)
+        else:
+            assert qk is q
 
 
 @pytest.mark.parametrize("empty", [True, False])

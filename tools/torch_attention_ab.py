@@ -1,5 +1,5 @@
 """Compare two source trees of the PyTorch port, in turns, on one card, by one
-of three runs (`--run`):
+of four runs (`--run`):
 
 - `paged_bf16` (the default): the bf16 paged attention kernel (row 3) at
   decode, batch 8, q positions 299-2047 (contexts 300 to 2048), 32 q / 8 kv
@@ -10,10 +10,13 @@ of three runs (`--run`):
 - `serve_capacity`: `chip_smoke.py --phases build,serve_capacity` in the
   tree (`fused` linears over a (4, 4) paged cache): decode-only tok/s, device
   busy ms a traced step, the traced window's idle share and device
-  operations a step, as that phase prints them.
+  operations a step, as that phase prints them;
+- `serve`: `chip_smoke.py --phases build,serve`, the int8 main path over the
+  bf16 paged cache (row 3 32 times a decode step), read as `serve_capacity`.
 
     python3 tools/torch_attention_ab.py --trees build/parent,.   # parent, change
     python3 tools/torch_attention_ab.py --run serve_capacity --trees A,B --rounds 3
+    python3 tools/torch_attention_ab.py --run serve --trees build/parent,. --rounds 1
 
 Each tree runs in a process of its own (its own checkout of
 exllamav3_tpu_torch, its own kernel build and checkpoint under <tree>/build/),
@@ -85,29 +88,30 @@ for _ in range(5):
 print(json.dumps({"ms": statistics.median(ms), "host_us": statistics.median(host_us)}))
 """
 
-SERVE = re.compile(r"^serve_capacity: 8 requests finished.*decode-only iterations \d+ tokens in "
-                   r"[\d.]+ s \(([\d.]+) tok/s\)", re.M)
+SERVE = (r"^{}: 8 requests finished.*decode-only iterations \d+ tokens in [\d.]+ s "
+         r"\(([\d.]+) tok/s\)")  # formatted with the phase's tag
 PROFILE = re.compile(r"^profile: (\d+) decode steps \(batch 8\), window [\d.]+ ms, device busy "
                      r"([\d.]+) ms \([\d.]+ of the window, idle ([\d.]+)\), ([\d.]+) device ops "
                      r"per step", re.M)
-RUNS = ("paged_bf16", "paged_quant", "serve_capacity")
+RUNS = ("paged_bf16", "paged_quant", "serve_capacity", "serve")
 
 
 def run(tree: str, what: str) -> tuple[dict | None, str]:
     """(the run's numbers, or None if it failed; what to print about it)."""
     tree = os.path.abspath(tree)
     env = dict(os.environ, PYTHONPATH=tree)
-    cmd = ([sys.executable, "chip_smoke.py", "--phases", "build,serve_capacity"]
-           if what == "serve_capacity" else [sys.executable, "-c", KERNEL_RUN, what])
+    serve = what.startswith("serve")
+    cmd = ([sys.executable, "chip_smoke.py", "--phases", f"build,{what}"] if serve
+           else [sys.executable, "-c", KERNEL_RUN, what])
     out = subprocess.run(cmd, cwd=tree, env=env, capture_output=True, text=True)
     if out.returncode != 0:
         tail = (out.stdout + out.stderr).strip().splitlines()[-1:]
         return None, f"failed (rc {out.returncode}): {' '.join(tail)}"
-    if what != "serve_capacity":
+    if not serve:
         res = json.loads(out.stdout.strip().splitlines()[-1])
     else:
         steps, busy, idle, ops = PROFILE.search(out.stdout).groups()
-        res = {"tok_s": float(SERVE.search(out.stdout).group(1)),
+        res = {"tok_s": float(re.search(SERVE.format(what), out.stdout, re.M).group(1)),
                "busy_ms": float(busy) / int(steps), "idle": float(idle), "ops": float(ops)}
     return res, " ".join(f"{k}={v:.4f}" for k, v in res.items())
 
