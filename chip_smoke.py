@@ -24,9 +24,10 @@ Phases:
             the split-key kernel of csrc/attention_decode.cuh, prefill the
             tile loop: seven sequences at 300 beside one at 8192, a block
             table four times wider than the longest sequence, batch 1 at
-            2048 and 8192, 64-wide heads, and verify chunks at group 8 of 32
-            and 40 rows, which the kernel library's count of decode-kernel
-            launches must show on the decode kernel and the tile loop;
+            2048 and 8192, 64-wide heads, groups 1 and 2 (the two-row body),
+            and verify chunks at group 8 of 32 and 40 rows; the kernel
+            library's count of decode-kernel launches must show each case on
+            the decode kernel or the tile loop;
             decode and verify timed over inputs rotated past the
             50 MB L2, as is their SDPA yardstick, the L2-warm times beside
             them), exl3_gemm (all K and
@@ -59,7 +60,8 @@ Phases:
             SWA ring at Gemma-3-27B's shapes, batch 8, q positions 300-2048,
             rings wrapped and still filling, never-written and stale slots, a
             permuted slot table; D = 64 at groups 5 and 7; sinks and a softcap
-            of 50), attention_stats (row 6b, the return_stats entries, at
+            of 50; a group of 40 on the tile loop; W = 1041, no multiple of
+            4), attention_stats (row 6b, the return_stats entries, at
             DeepSeek-V4's decode shapes: 128 heads over one 512-wide row,
             batch 8, the sliding ring, the HCA pool of 2-entry pages through a
             shuffled block table, the CSA top 512 in rows; rows that see no
@@ -532,6 +534,11 @@ def check_attention(table, dev):
     # Qwen3-30B-A3B: 32 q / 4 kv heads, a GQA group of 8
     cases.append(("decode B=8 ctx 300-2048, group 8", ctx[:, None] - 1, ctx, {"kv_heads": 4},
                   False))
+    # the two-row body: Gemma-3-27B's global layers (32 q / 16 kv heads, a
+    # group of 2), and a group of 1 (32 q / 32 kv heads, Llama-2-7B's MHA)
+    for hk in (16, 32):
+        cases.append((f"decode B=8 ctx 300-2048, group {32 // hk}", ctx[:, None] - 1, ctx,
+                      {"kv_heads": hk}, False))
     cases.append(("prefill S=2048 on 512 cached, group 8",
                   (512 + np.arange(2048, dtype=np.int32))[None], np.array([2560], np.int32),
                   {"kv_heads": 4}, False))
@@ -572,14 +579,13 @@ def check_attention(table, dev):
         err = float((got - ref).abs().max())
         rel = err / float(ref.abs().max())
         route = _route(S, Hq, Hk)
-        if name.startswith("verify"):  # the library's count shows which kernel the rows took
-            n = _decode_kernel_launches(
-                lambda: paged_attention_kernel(q, k, v, bt, qp, tl, **args))
-            if n != (route == "decode kernel"):
-                raise AssertionError(f"paged_attention {name}: {S * Hq // Hk} rows made {n} "
-                                     f"decode-kernel launches, not the {route}'s")
-            log(f"paged_attention {name}: {S * Hq // Hk} rows a kv head ran the {route} "
-                f"({n} decode-kernel launch)")
+        # the library's count shows which kernel the rows took
+        n = _decode_kernel_launches(lambda: paged_attention_kernel(q, k, v, bt, qp, tl, **args))
+        if n != (route == "decode kernel"):
+            raise AssertionError(f"paged_attention {name}: {S * Hq // Hk} rows made {n} "
+                                 f"decode-kernel launches, not the {route}'s")
+        log(f"paged_attention {name}: {S * Hq // Hk} rows a kv head ran the {route} "
+            f"({n} decode-kernel launch)")
         # decode and verify (the decode kernel) over K/V rotated past L2, as
         # the main path reads its cache, the L2-warm time beside; prefill warm
         kern = lambda kv: paged_attention_kernel(q, kv["k"], kv["v"], bt, qp, tl, **args)
@@ -656,7 +662,12 @@ def check_ring_attention(table, dev):
     positions 300-2048, so rings that have wrapped and rings still filling,
     window 1024, W = 1048, 32 q / 16 kv heads of 128), the rings in a 9-row
     state with a permuted slot table, never-written and stale slots; then
-    D = 64 at GQA groups 5 and 7, and sinks with a softcap of 50."""
+    D = 64 at GQA groups 5 and 7, sinks with a softcap of 50, a group of 40
+    heads (above DECODE_ROWS: the tile loop) and a ring of W = 1041 slots (no
+    multiple of 4: positions staged by 4-byte copies). Each case reads the kernel
+    library's count of decode-kernel launches: 1 a call at groups up to
+    DECODE_ROWS, 0 above. The Gemma-3-27B case is timed over rings rotated
+    past L2, as the serve path reads them, with the L2-warm time beside."""
     from exllamav3_tpu_torch.ops.flash_attention import (ring_attention_kernel,
                                                           ring_attention_plain, ring_visible)
 
@@ -669,10 +680,16 @@ def check_ring_attention(table, dev):
              ("Gemma-3-27B decode + sinks + softcap 50", (32, 16, 128), 1024,
               {"sinks": True, "logit_softcap": 50.0}, False),
              ("Gemma-2-9B-shaped decode, window 4096 (no ring wraps), softcap 50", (16, 8, 128),
-              4096, {"logit_softcap": 50.0}, False)]
+              4096, {"logit_softcap": 50.0}, False),
+             ("decode B=8, D=64, group 40 (the tile loop)", (40, 1, 64), 1024, {}, False),
+             # W = window + 17 unrounded, no multiple of 4: rows of positions
+             # that start off 16 bytes, staged by 4-byte copies
+             ("Gemma-3-27B decode, W = 1041 (4-byte position copies)", (32, 16, 128), 1024,
+              {"unrounded": True}, False)]
     for name, (Hq, Hk, D), window, kw, main in cases:
         W = window + 17
-        W += (-W) % 8
+        if not kw.pop("unrounded", False):
+            W += (-W) % 8
         N, B = 9, len(qpos)
         g = torch.Generator(device=dev).manual_seed(22)
         q = torch.randn((B, 1, Hq, D), generator=g, device=dev)
@@ -694,24 +711,40 @@ def check_ring_attention(table, dev):
         rel = err / float(ref.abs().max())
         if not rel <= TOL_ATTN:
             raise AssertionError(f"ring_attention {name}: rel err {rel} > {TOL_ATTN}")
-        ms = time_ms(lambda: ring_attention_kernel(q, k, v, pos, sl, qp, **args), 20)
+        # the library's count shows which kernel the group took
+        route = _route(1, Hq, Hk)
+        n = _decode_kernel_launches(lambda: ring_attention_kernel(q, k, v, pos, sl, qp, **args))
+        if n != (route == "decode kernel"):
+            raise AssertionError(f"ring_attention {name}: a group of {Hq // Hk} made {n} "
+                                 f"decode-kernel launches, not the {route}'s")
+        kern = lambda kv: ring_attention_kernel(q, kv["k"], kv["v"], pos, sl, qp, **args)
+        if main:
+            ms, warm = _cold_warm(kern, {"k": k, "v": v})
+        else:
+            ms, warm = time_ms(lambda: kern({"k": k, "v": v}), 20), None
         plain = time_ms(lambda: ring_attention_plain(q, k, v, pos, sl, qp, **args), 3)
-        lib = None
-        if not kw:
+        lib = lib_warm = None
+        if not kw and route == "decode kernel":
             # SDPA over the rings gathered by slot, with a boolean mask from pos
             kc = k[sl.long()].transpose(1, 2).contiguous()
             vc = v[sl.long()].transpose(1, 2).contiguous()
             mask = ring_visible(pos[sl.long()], qp, window)[:, None]
             qt = q.to(torch.bfloat16).transpose(1, 2)
-            lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kc, vc, attn_mask=mask, scale=168 ** -0.5, enable_gqa=True), 20)
+            sdpa = lambda kv: torch.nn.functional.scaled_dot_product_attention(
+                qt, kv["k"], kv["v"], attn_mask=mask, scale=168 ** -0.5, enable_gqa=True)
+            if main:
+                lib, lib_warm = _cold_warm(sdpa, {"k": kc, "v": vc})
+            else:
+                lib = time_ms(lambda: sdpa({"k": kc, "v": vc}), 20)
+            del kc, vc
         bnd = bound_ms(*_ring_work(pos_np, slots, qpos, Hq, Hk, D, window))
-        log(f"ring_attention {name} (Hq={Hq} Hk={Hk} D={D} N={N} W={W}): max_abs_err={err:.3e} "
-            f"rel={rel:.2e} kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms(sdpa on the "
-            f"gathered rings)={lib if lib is None else f'{lib:.4f}'} bound_ms={bnd[0]:.4f} "
-            f"({bnd[1]})")
+        log(f"ring_attention {name} (Hq={Hq} Hk={Hk} D={D} N={N} W={W}, {route}: {n} "
+            f"decode-kernel launch): max_abs_err={err:.3e} rel={rel:.2e} "
+            f"kernel_ms={_ms(ms, warm)} plain_ms={plain:.4f} library_ms(sdpa on the gathered "
+            f"rings)={_ms(lib, lib_warm)} bound_ms={bnd[0]:.4f} ({bnd[1]})")
         table.add("ring_attention", err, ms, plain, bnd, lib,
-                  f"{name}: B={B} Hq={Hq} Hk={Hk} D={D} W={W}", main=main)
+                  f"{name}: B={B} Hq={Hq} Hk={Hk} D={D} W={W}", main=main, warm_ms=warm,
+                  library_warm_ms=lib_warm)
         del q, k, v, ref, got
     torch.cuda.empty_cache()
 
@@ -879,31 +912,30 @@ SASS_CONTROL = {"BRA", "BRX", "JMP", "CALL", "RET", "EXIT", "BSSY", "BSYNC", "BA
                 "NOP", "DEPBAR"}
 
 
-def decode_dispatch_estimate(K: int = 4, cb: int = 0):
-    """(thread instructions per decoded weight, thread instructions the card
-    dispatches a second), read from this build and this card, or None where the
-    toolkit has no cuobjdump or the loop is not found.
-
-    Disassembles the built library, takes exl3_gemm_kernel<K, cb>, and in it
-    the shortest backward-branch span that holds a tensor-core instruction:
-    the loop over the 16-row tiles of a staged step, in which each lane
-    decodes 8 weights. Counted are the span's instructions other than
-    tensor-core, memory and control ones (a static count: all eight row
-    blocks' address arithmetic is in it, of which a decode step runs one).
-    The rate is SMs x 4 schedulers x 32 lanes x the card's highest SM clock."""
+def sass_loop(library: str, symbol: str, row_blocks: int = 1):
+    """(instructions a weight, {opcode: count}, the span's lines) of the trellis
+    GEMM's decode loop in kernel `symbol` (a fragment of its mangled name) of
+    the library at path `library`, or None where the toolkit has no cuobjdump
+    or the loop is not found. The loop is the shortest backward-branch span
+    that holds a tensor-core instruction. A lane decodes 8 weights of a 16 x
+    16 tile into the B fragments of two MMAs for each of the span's
+    `row_blocks` 16-row blocks, so the span decodes 4 * HMMA / row_blocks
+    weights a lane. Counted are the span's instructions other than
+    tensor-core, memory and control ones: a static count, so a span that
+    holds the A-fragment arithmetic of 8 row blocks counts all of it, also
+    where a block runs only the first."""
     import exllamav3_tpu_torch.ops.build as kbuild
 
     tool = os.path.join(os.path.dirname(kbuild.nvcc_path()), "cuobjdump")
     if not os.path.exists(tool):
-        log("exl3_gemm decode estimate: no cuobjdump beside nvcc; not measured")
+        log("exl3_gemm decode count: no cuobjdump beside nvcc; not measured")
         return None
-    sass = subprocess.run([tool, "-sass", str(kbuild.build())], capture_output=True, text=True,
+    sass = subprocess.run([tool, "-sass", library], capture_output=True, text=True,
                           check=True).stdout
-    want = f"exl3_gemm_kernelILi{K}ELi{cb}EE"
     instrs, inside = [], False
     for line in sass.splitlines():
         if "Function :" in line:
-            inside = want in line
+            inside = symbol in line
         elif inside:
             mt = SASS_LINE.match(line)
             if mt:
@@ -916,29 +948,78 @@ def decode_dispatch_estimate(K: int = 4, cb: int = 0):
             if any(i[1] == "HMMA" for i in body):
                 spans.append(body)
     if not spans:
-        log(f"exl3_gemm decode estimate: no loop with HMMA found in {want}; not measured")
+        log(f"exl3_gemm decode count: no loop with HMMA found in {symbol}; not measured")
         return None
     body = min(spans, key=len)
-    with open(os.path.join(WORK, f"exl3_gemm_K{K}_cb{cb}_loop.sass"), "w") as f:
-        f.write("\n".join(i[2] for i in body) + "\n")
     hist: dict = {}
     for _, op, _ in body:
         hist[op] = hist.get(op, 0) + 1
     alu = sum(n for op, n in hist.items()
               if op != "HMMA" and op not in SASS_MEMORY and op not in SASS_CONTROL)
+    weights = 4 * hist["HMMA"] / row_blocks
+    log(f"exl3_gemm decode count: {symbol}: the loop holds {len(body)} instructions, "
+        f"{hist['HMMA']} HMMA over {row_blocks} row blocks ({weights:g} weights a lane), "
+        f"{alu} neither tensor-core, memory nor control: {alu / weights:.3f} a weight; "
+        + json.dumps(dict(sorted(hist.items()))))
+    return alu / weights, hist, [i[2] for i in body]
+
+
+def decode_dispatch_estimate(K: int = 4, cb: int = 0):
+    """(thread instructions per decoded weight, thread instructions the card
+    dispatches a second), read from this build and this card, or None where the
+    toolkit has no cuobjdump or the loop is not found.
+
+    Counts (sass_loop) the decode-size body of the kernel,
+    exl3_gemm_kernel<K, cb, 1, GEMM_STAGES> (one 16-row block), whose loop is
+    a whole unrolled k step. The 128-row body, exl3_gemm_kernel<K, cb, 8,
+    PREFILL_STAGES>, is counted beside it by the same rule: its loop holds the
+    A-fragment arithmetic of 8 row blocks, as the single-stage kernel's tile loop did
+    (tools/torch_gemm_phases.py counts another tree's kernel so). The rate is
+    SMs x 4 schedulers x 32 lanes x the card's highest SM clock."""
+    import exllamav3_tpu_torch.ops.build as kbuild
+    from exllamav3_tpu_torch.ops.exl3_gemm import _PREFILL_MB, _PREFILL_STAGES, _STAGES
+
+    lib = str(kbuild.build())
+    got = sass_loop(lib, f"exl3_gemm_kernelILi{K}ELi{cb}ELi1ELi{_STAGES}EE")
+    if got is None:
+        return None
+    per_weight, _, body = got
+    with open(os.path.join(WORK, f"exl3_gemm_K{K}_cb{cb}_loop.sass"), "w") as f:
+        f.write("\n".join(body) + "\n")
+    sass_loop(lib, f"exl3_gemm_kernelILi{K}ELi{cb}ELi{_PREFILL_MB}ELi{_PREFILL_STAGES}EE",
+              row_blocks=_PREFILL_MB)
     mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                                 "--format=csv,noheader,nounits"], capture_output=True, text=True,
                                check=True).stdout.split()[0])
     rate = torch.cuda.get_device_properties(0).multi_processor_count * LANES_PER_SM_CLOCK * mhz * 1e6
-    log(f"exl3_gemm decode estimate: K={K} cb={cb} tile loop holds {len(body)} instructions for "
-        f"8 weights a lane, {alu} of them neither tensor-core, memory nor control "
-        f"({alu / 8:.3f} a weight); dispatch rate {rate:.4e} thread instructions/s "
-        f"(max SM clock {mhz:.0f} MHz); " + json.dumps(dict(sorted(hist.items()))))
-    return alu / 8, rate
+    log(f"exl3_gemm decode estimate: K={K} cb={cb} decode-size body {per_weight:.3f} "
+        f"instructions a weight; dispatch rate {rate:.4e} thread instructions/s "
+        f"(max SM clock {mhz:.0f} MHz)")
+    return per_weight, rate
+
+
+def _gemm_launches(fn) -> int:
+    """Kernel launches that one call of fn() made in the trellis GEMM's
+    source, as the kernel library counts them where it launches."""
+    from exllamav3_tpu_torch.ops.build import library
+
+    lib = library()
+    n0 = lib.exl3_gemm_launches()
+    fn()
+    torch.cuda.synchronize()
+    return lib.exl3_gemm_launches() - n0
 
 
 def check_exl3_gemm(table, dev):
-    from exllamav3_tpu_torch.ops.exl3_gemm import exl3_gemm_kernel, exl3_gemm_plain
+    """Row 9 at every K and codebook (m = 8, 4096 x 4096), then K = 4 3INST
+    timed over inputs rotated past L2 at the five Llama-3.1-8B shapes at m =
+    1, 8 and 128 and two prefill shapes at m = 2048. Every case is held to
+    TOL_EXL3, to one device kernel a call (the library's launch count) and
+    to the blocks an SM that the host's sizing reckons with (the library's
+    occupancy reading)."""
+    from exllamav3_tpu_torch.ops.build import library
+    from exllamav3_tpu_torch.ops.exl3_gemm import (_blocks_per_sm, exl3_gemm_kernel,
+                                                    exl3_gemm_plain, launch_plan)
 
     est = decode_dispatch_estimate()
 
@@ -969,8 +1050,20 @@ def check_exl3_gemm(table, dev):
         rel = err / float(ref.abs().max())
         if not rel <= TOL_EXL3:
             raise AssertionError(f"exl3_gemm m={m} {what} ({k}x{n}): rel err {rel} > {TOL_EXL3}")
+        launches = _gemm_launches(lambda: exl3_gemm_kernel(xh, w, K, cb))
+        if launches != 1:
+            raise AssertionError(f"exl3_gemm m={m} {what}: {launches} device kernels a call, "
+                                 f"not 1")
+        # the host's sizing reckons with the blocks an SM that the card reports
+        splits, blocks, _, _ = launch_plan(m, k, n, K, dev)
+        per_sm = library().exl3_gemm_blocks_per_sm(m, k, n, K, cb, splits)
+        model = _blocks_per_sm(m, K, -(-(k // 128) // splits))
+        if per_sm != model:
+            raise AssertionError(f"exl3_gemm m={m} {what} K={K}: the card holds {per_sm} blocks "
+                                 f"an SM, the sizing reckons with {model}")
         if not timed:
-            log(f"exl3_gemm m={m} {what} ({k}x{n}): max_abs_err={err:.3e} rel={rel:.2e}")
+            log(f"exl3_gemm m={m} {what} ({k}x{n}): {splits} splits, {per_sm} blocks an SM; "
+                f"max_abs_err={err:.3e} rel={rel:.2e}")
             table.add("exl3_gemm", err, None, None, None, None, "", main=False)
             continue
         calls = 5 if m == 2048 else 20
@@ -987,7 +1080,8 @@ def check_exl3_gemm(table, dev):
         # weight and 128-row block, were nothing else in the way
         t_dec = (None if est is None
                  else k * n * math.ceil(m / 128) * est[0] / est[1] * 1e3)
-        log(f"exl3_gemm m={m} {what} ({k}x{n}) K={K}: max_abs_err={err:.3e} rel={rel:.2e} "
+        log(f"exl3_gemm m={m} {what} ({k}x{n}) K={K}: {splits} splits, {blocks} blocks, "
+            f"{per_sm} blocks an SM, 1 device kernel a call; max_abs_err={err:.3e} rel={rel:.2e} "
             f"kernel_ms={ms:.4f} plain_ms(reconstruct + matmul)={plain:.4f} "
             f"library_ms(torch.matmul bf16 on the decoded weight)={lib:.4f} "
             f"bound_ms={bnd[0]:.4f} ({bnd[1]}) decode_est_ms="
@@ -1364,6 +1458,9 @@ def check_linear_attention(table, dev):
                ctx52[:, None] - 1, ctx52, None, {}, False) for hq, hk in ((40, 8), (12, 2), (28, 4))]
     cases.append(("verify S=5 B=8, group 7, rows of a 10-row cache, T=2052", (28, 4, 128), 10, 2052,
                   ctx52[:, None] - 5 + np.arange(5, dtype=np.int32)[None], ctx52, rows8, {}, False))
+    # the two-row body: Gemma-3-27B's global-layer heads (group 2) and a group of 1
+    cases += [(f"decode B=8 ctx 300-2056 (tail tile), group {32 // hk}", (32, hk, 128), 8, 2056,
+               _CTX_T[:, None] - 1, _CTX_T, None, {}, False) for hk in (16, 32)]
     for name, (Hq, Hk, D), N, T, qpos, total, rows, kw, main in cases:
         B, S = qpos.shape
         g = torch.Generator(device=dev).manual_seed(15)
@@ -1386,6 +1483,10 @@ def check_linear_attention(table, dev):
         if not rel <= TOL_ATTN:
             raise AssertionError(f"linear_attention {name}: rel err {rel} > {TOL_ATTN}")
         route = _route(S, Hq, Hk)
+        n = _decode_kernel_launches(lambda: linear_attention_kernel(q, k, v, qp, tl, **args))
+        if n != (route == "decode kernel"):
+            raise AssertionError(f"linear_attention {name}: {S * Hq // Hk} rows made {n} "
+                                 f"decode-kernel launches, not the {route}'s")
         # decode and verify (the decode kernel) over caches rotated past L2,
         # the L2-warm time beside, and SDPA alike; prefill warm
         kern = lambda kv: linear_attention_kernel(q, kv["k"], kv["v"], qp, tl, **args)
@@ -1406,7 +1507,8 @@ def check_linear_attention(table, dev):
                 lib = time_ms(sdpa, 10)
             del sdpa
         bnd = bound_ms(*_attn_work(qpos, total, Hq, Hk, D, args["sliding_window"]))
-        log(f"linear_attention {name} (Hq={Hq} Hk={Hk} D={D} N={N} T={T}, {route}): "
+        log(f"linear_attention {name} (Hq={Hq} Hk={Hk} D={D} N={N} T={T}, {route}: {n} "
+            f"decode-kernel launch): "
             f"max_abs_err={err:.3e} rel={rel:.2e} kernel_ms={_ms(ms, warm)} "
             f"plain_ms={plain:.4f} library_ms(sdpa on the live slice)={_ms(lib, lib_warm)} "
             f"bound_ms={bnd[0]:.4f} ({bnd[1]})")

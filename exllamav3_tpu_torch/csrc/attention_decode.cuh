@@ -1,8 +1,10 @@
 // Decode and verify attention over the KV cache, bf16 or quantized, for few
 // score rows: the kernel that paged_attention.cu, linear_attention.cu,
 // paged_attention_quant.cu and linear_attention_quant.cu launch when a
-// (sequence, kv head) has S * G <= DECODE_ROWS query rows (G the GQA group).
-// Longer chunks take the tile loop of attention_tiles.cuh.
+// (sequence, kv head) has S * G <= DECODE_ROWS query rows (G the GQA group),
+// and ring_attention.cu for a decode token's group of G <= DECODE_ROWS heads
+// over a sliding-window ring. Longer chunks take the tile loop of
+// attention_tiles.cuh.
 //
 // Function: the tile loop's (the JAX kernels _flash_kernel, bf16 or with
 // k_bits / v_bits > 0, and _flash_kernel_merged): scores scale * q.k in
@@ -13,6 +15,20 @@
 // per-32-channel Hadamard (H32 / sqrt(32), its own inverse) is applied to q
 // as the block loads it and to the output in the merge, so K and V stay in
 // their stored, rotated basis. The bf16 storage rotates nothing.
+//
+// Over a ring (RingRows, whose keys' positions come from an array: the
+// function of flash_ring_attention) key j is slot j of the sequence's ring
+// row and its position is pos[row, j], -1 for a slot never written; a slot is
+// visible iff 0 <= pos <= p and, with a window, pos > p - window (a stale
+// speculative write holds a future position and hides itself). The ring has
+// no length, so every split of the row takes part; at its start a block reads
+// its split's positions, keeps the tiles that hold a slot some row may see
+// (in order, at most DEC_RING_TILES) and walks only those: a ring still
+// filling reads only its written slots. Each kept tile stages its slots'
+// positions beside its K/V (16-byte cp.async where the row start is aligned,
+// 4-byte otherwise), the score pass skips slots outside the block's visible
+// positions and the softmax masks by position. A split that keeps no tile
+// writes the empty record.
 //
 // Storage, the kernel's KV argument: QuantKV<D> (packed words with one bf16
 // scale per 32 channels) or Bf16KV<D> (rows of D bf16). Each tile is staged
@@ -52,7 +68,7 @@
 //   * Merge in the same launch. Each split writes its unnormalised (acc, m,
 //     l) to a workspace the wrapper allocates, in the return_stats
 //     convention (a row that saw no key: (0, -1e30, 0)). The last split of a
-//     (sequence, kv head) to finish, found with a __threadfence() and an
+//     (sequence, kv head) to finish, found by a release-acquire arrival at an
 //     atomic counter that it then resets to 0 for the next launch, merges the
 //     splits that saw keys with the sinks, normalises, rotates (quantized)
 //     and writes.
@@ -77,13 +93,15 @@
 // thread two output columns of every row over a quarter (D = 128) or an
 // eighth (D = 64) of the tile's keys, with its accumulators in registers
 // across tiles; the key groups' sums are added in a fixed order once, at the
-// end of the split. Rows are templated as RT = 4, 8 or 32 (rows past S * G
-// are zero q rows whose results are never written), so no loop branches on
-// the row count.
+// end of the split. Rows are templated as RT = 4, 8 or 32, and 2 over bf16
+// (a decode token's group of two heads, Gemma's: half the score and P.V work
+// of 4) (rows past S * G are zero q rows whose results are never written),
+// so no loop branches on the row count.
 #pragma once
 
 #include <type_traits>
 
+#include "async_copy.cuh"
 #include "attention_tiles.cuh"
 
 // The decode kernel's launches in this library, counted where they are made,
@@ -101,29 +119,13 @@ constexpr int DEC_THREADS = 256;       // 8 warps
 constexpr int DEC_WARPS = DEC_THREADS / 32;
 constexpr int DEC_PARTS = DEC_THREADS / DEC_TK;  // threads a key in the quantized score pass
 constexpr int DEC_MAX_SPLITS = 64;     // splits of a (sequence, kv head)
+constexpr int DEC_RING_TILES = 512;    // tiles a split of a ring row holds at most
 constexpr int BF16_BITS = 16;          // a bf16 row in DecodeLayout's terms: D / 2 words
 constexpr int SM_SHARED = 233472;      // shared memory of an SM (228 KB on the H100)
 constexpr int BLOCK_RESERVED = 1024;   // of it, reserved for each resident block
 constexpr int BLOCK_SHARED_MAX = 232448;  // shared memory a block may have
 constexpr float STATS_EMPTY_M = -1e30f;  // m of a row that saw no key
 constexpr float RSQRT32 = 0.17677669529663687f;
-
-// -- asynchronous copies --------------------------------------------------------
-
-template <int N>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    if constexpr (N == 16)
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-    else
-        asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src), "n"(N));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-// wait until at most N committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // One stream of a tile's staging (K rows, V rows, or a row of scales):
 // this thread's share of each key row, TPR threads a row and V bytes a copy,
@@ -161,12 +163,16 @@ __host__ __device__ constexpr int staged_words(int w) {
 // partial sums at the end), the partial scores of the DEC_THREADS / tk
 // threads of a key (parts x RT x (tk + 4) f32), P (tk x RT f32, key by key),
 // and the rows' state. The bf16 storage's merge keeps its weights in the
-// stages.
+// stages. Over a ring a stage also holds its tk slots' positions, and the
+// block keeps a flag and an index for each tile of its split (DEC_RING_TILES
+// bytes and shorts) and their count.
 struct DecodeLayout {
-    int wk = 0, wv = 0, ldk = 0, ldv = 0, off_vw = 0, off_ks = 0, off_vs = 0, stage = 0;
-    int off_vf = 0, off_q = 0, off_s = 0, off_p = 0, off_rows = 0, bytes = 0;
+    int wk = 0, wv = 0, ldk = 0, ldv = 0, off_vw = 0, off_ks = 0, off_vs = 0, off_pos = 0;
+    int stage = 0, off_vf = 0, off_q = 0, off_s = 0, off_p = 0, off_rows = 0, off_ring = 0;
+    int bytes = 0;
     __host__ __device__ constexpr DecodeLayout(int D, int RT, int k_bits, int v_bits,
-                                               int tk = DEC_TK, int stages = 2) {
+                                               int tk = DEC_TK, int stages = 2,
+                                               bool ring = false) {
         const bool bf16 = k_bits == BF16_BITS;
         const int scales = bf16 ? 0 : tk * (D / 32) * 2;
         wk = D * k_bits / 32;
@@ -176,13 +182,15 @@ struct DecodeLayout {
         off_vw = tk * ldk * 4;
         off_ks = off_vw + tk * ldv * 4;
         off_vs = off_ks + scales;
-        stage = (off_vs + scales + 15) / 16 * 16;
+        off_pos = off_vs + scales;
+        stage = (off_pos + (ring ? tk * 4 : 0) + 15) / 16 * 16;
         off_vf = stages * stage;
         off_q = off_vf + (bf16 ? 0 : tk * (D + 4) * 4);
         off_s = off_q + RT * D * 4;
         off_p = off_s + DEC_THREADS / tk * RT * (tk + 4) * 4;
         off_rows = off_p + tk * RT * 4;
-        bytes = off_rows + 4 * RT * 4 + 16;
+        off_ring = off_rows + 4 * RT * 4 + 16;
+        bytes = off_ring + (ring ? DEC_RING_TILES * 3 + 16 : 0);
     }
 };
 
@@ -191,27 +199,29 @@ struct IsBf16KV : std::false_type {};
 template <int D>
 struct IsBf16KV<Bf16KV<D>> : std::true_type {};
 
-template <int D, int RT, int TK, int STAGES>
+template <int D, int RT, int TK, int STAGES, bool RING>
 __host__ __device__ DecodeLayout layout_of(const QuantKV<D>& kv) {
-    return DecodeLayout(D, RT, kv.k_bits, kv.v_bits, TK, STAGES);
+    return DecodeLayout(D, RT, kv.k_bits, kv.v_bits, TK, STAGES, RING);
 }
-template <int D, int RT, int TK, int STAGES>
+template <int D, int RT, int TK, int STAGES, bool RING>
 __host__ __device__ DecodeLayout layout_of(const Bf16KV<D>&) {
-    return DecodeLayout(D, RT, BF16_BITS, BF16_BITS, TK, STAGES);
+    return DecodeLayout(D, RT, BF16_BITS, BF16_BITS, TK, STAGES, RING);
 }
 
 // A block's largest shared memory and the blocks an SM its launch bounds
-// promise. Registers allow three blocks at 4 rows (85 a thread), two at 8
-// and one at 32 (64 accumulators and 32 scores a thread); the quantized
-// storage promises those (its largest widths, (8, 8), fit fewer), the bf16
-// storage no more than the SM's shared memory holds of its layout.
-template <class KV, int D, int RT, int TK, int STAGES>
+// promise. Registers allow four blocks at 2 rows (64 a thread), three at 4
+// (85), two at 8 and one at 32 (64 accumulators and 32 scores a thread);
+// the quantized storage promises those (its largest widths, (8, 8), fit
+// fewer), the bf16 storage no more than the SM's shared memory holds of its
+// layout.
+template <class KV, int D, int RT, int TK, int STAGES, bool RING>
 struct DecodeBlocks {
     static constexpr bool BF16 = IsBf16KV<KV>::value;
-    static constexpr int BYTES = BF16 ? DecodeLayout(D, RT, BF16_BITS, BF16_BITS, TK, STAGES).bytes
-                                      : DecodeLayout(D, RT, 8, 8, TK, STAGES).bytes;
+    static constexpr int BYTES =
+        BF16 ? DecodeLayout(D, RT, BF16_BITS, BF16_BITS, TK, STAGES, RING).bytes
+             : DecodeLayout(D, RT, 8, 8, TK, STAGES, RING).bytes;
     static constexpr int FIT = SM_SHARED / (BYTES + BLOCK_RESERVED);
-    static constexpr int REGS = RT == 4 ? 3 : RT == 8 ? 2 : 1;
+    static constexpr int REGS = RT == 2 ? 4 : RT == 4 ? 3 : RT == 8 ? 2 : 1;
     static constexpr int MIN = BF16 && FIT < REGS ? FIT : REGS;
     static_assert(BYTES <= BLOCK_SHARED_MAX && MIN >= 1 && (!BF16 || MIN <= FIT),
                   "shared memory of a block");
@@ -444,26 +454,29 @@ __device__ __forceinline__ void key_scores_bf16(const __nv_bfloat16* kr, const f
 // Grid (splits, Hk, B). ws: per (sequence, kv head, split) R * (D + 2) floats,
 // acc (R x D) then m (R) and l (R); counters: B * Hk ints, 0 between launches.
 template <int D, int RT, int TK, int STAGES, class Rows, class KV>
-__global__ void __launch_bounds__(DEC_THREADS, (DecodeBlocks<KV, D, RT, TK, STAGES>::MIN))
+__global__ void __launch_bounds__(DEC_THREADS,
+                                  (DecodeBlocks<KV, D, RT, TK, STAGES, Rows::POS_FROM_ARRAY>::MIN))
 decode_kernel(const float* __restrict__ q, Rows rows, KV kv, const int* __restrict__ qpos,
               const int* __restrict__ total_lens, const float* __restrict__ sinks,
               float* __restrict__ out, float* ws, int* counters, int S, int Hq, float scale,
               int window, float softcap, int split_keys) {
     constexpr bool BF16 = IsBf16KV<KV>::value;
+    constexpr bool RING = Rows::POS_FROM_ARRAY;  // positions from the ring's array
     constexpr int G32 = D / 32, LDV = D + 4, LDP = TK + 4;
     constexpr int PARTS = DEC_THREADS / TK;  // score pass: threads a key
     constexpr int KPL = TK / 32;             // softmax: keys a lane
     constexpr int CP = D / 2;                // P.V: column pairs,
     constexpr int KG = DEC_THREADS / CP;     // groups of keys (4 or 8)
     constexpr int KPG = TK / KG;             // and keys a group
-    static_assert(KG * CP == DEC_THREADS && KPG * KG == TK && KPL * 32 == TK && RT % 4 == 0 &&
+    static_assert(KG * CP == DEC_THREADS && KPG * KG == TK && KPL * 32 == TK &&
+                  (RT % 4 == 0 || (RT == 2 && BF16)) &&
                   RT <= DECODE_ROWS && D / 8 % PARTS == 0 && PAGE % TK == 0 &&
-                  DEC_TK % TK == 0 && STAGES >= 2, "geometry");
+                  DEC_TK % TK == 0 && STAGES >= 2 && (!RING || BF16), "geometry");
     const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
     const int sp = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
     const int NS = gridDim.x, Hk = gridDim.y;
     const int G = Hq / Hk, R = S * G;  // row r: token r / G, q head hk * G + r % G
-    const DecodeLayout L = layout_of<D, RT, TK, STAGES>(kv);
+    const DecodeLayout L = layout_of<D, RT, TK, STAGES, RING>(kv);
     extern __shared__ __align__(128) unsigned char smem[];
     float* Vf = reinterpret_cast<float*>(smem + L.off_vf);  // quantized only
     float* Qs = reinterpret_cast<float*>(smem + L.off_q);
@@ -475,27 +488,86 @@ decode_kernel(const float* __restrict__ q, Rows rows, KV kv, const int* __restri
     int* row_pos = reinterpret_cast<int*>(row_alpha + RT);
     int* flag = row_pos + RT;
 
-    const int total = min(total_lens[b], rows.key_limit());
+    // element tid of the block's q rows, read before anything waits on it
+    float4 early_q = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (tid < RT * (D / 4) && tid / (D / 4) < R) {
+        const int r = tid / (D / 4);
+        early_q = *reinterpret_cast<const float4*>(
+            q + (((size_t)b * S + r / G) * Hq + hk * G + r % G) * D + (tid % (D / 4)) * 4);
+    }
+    // a ring has no length: its positions decide (total_lens is null). Its
+    // split's first DEC_THREADS positions are read at once, one a thread, so
+    // that their latency passes while the rows' state is set up
+    const int total = RING ? rows.key_limit() : min(total_lens[b], rows.key_limit());
+    const int* prow = nullptr;  // RING: the sequence's ring row of positions
+    int early_pos = -1;
+    if constexpr (RING) {
+        prow = rows.row_positions(b);
+        const int j = sp * split_keys + tid;
+        if (prow != nullptr && tid < split_keys && j < total) early_pos = __ldg(prow + j);
+    }
     if (tid < RT) {
         row_pos[tid] = tid < R ? qpos[(size_t)b * S + tid / G] : -1;
         row_m[tid] = -INFINITY;
         row_l[tid] = 0.0f;
     }
     __syncthreads();
-    int lo = INT32_MAX, hi = -1;  // keys any row of the block can see: [lo, hi]
+    // keys any row of the block can see: [lo, hi]; over a ring, the positions
+    // any row can see, and every slot of the split is a candidate
+    int lo = INT32_MAX, hi = -1;
     for (int r = 0; r < R; ++r) {
         const int p = row_pos[r];
         if (p < 0) continue;
-        hi = max(hi, min(p, total - 1));
+        hi = max(hi, RING ? p : min(p, total - 1));
         lo = min(lo, window > 0 ? max(p - window + 1, 0) : 0);
     }
-    const int k_first = max(lo, sp * split_keys);
-    const int k_last = min(hi, (sp + 1) * split_keys - 1);
+    const int k_first = RING ? (lo <= hi ? sp * split_keys : INT32_MAX) : max(lo, sp * split_keys);
+    const int k_last = min(RING ? total - 1 : hi, (sp + 1) * split_keys - 1);
     float* rec = ws + ((size_t)(b * Hk + hk) * NS + sp) * R * (D + 2);
 
-    if (k_first <= k_last) {
+    // a ring: the split's tiles that hold a position in [lo, hi], in order. A
+    // split that keeps none writes the empty record and does no more
+    const short* ring_tiles = reinterpret_cast<const short*>(smem + L.off_ring + DEC_RING_TILES);
+    int ring_kept = 1;
+    if constexpr (RING) {
+        if (k_first <= k_last) {
+            const int t0 = k_first / TK * TK, nt = (k_last - t0) / TK + 1;
+            unsigned char* flags = smem + L.off_ring;
+            short* kept = reinterpret_cast<short*>(smem + L.off_ring + DEC_RING_TILES);
+            int* kept_n = reinterpret_cast<int*>(smem + L.off_ring + 3 * DEC_RING_TILES);
+            for (int t = tid; t < nt; t += DEC_THREADS) flags[t] = 0;
+            __syncthreads();
+            if (prow != nullptr) {
+                for (int j = k_first + tid; j <= k_last; j += DEC_THREADS) {
+                    const int pj = j - k_first < DEC_THREADS ? early_pos : __ldg(prow + j);
+                    if (pj >= lo && pj <= hi) flags[(j - t0) / TK] = 1;
+                }
+            }
+            __syncthreads();
+            if (warp == 0) {
+                int cnt = 0;
+                for (int t0w = 0; t0w < nt; t0w += 32) {
+                    const bool f = t0w + lane < nt && flags[t0w + lane];
+                    const unsigned m = __ballot_sync(0xffffffffu, f);
+                    if (f) kept[cnt + __popc(m & ((1u << lane) - 1u))] = (short)(t0w + lane);
+                    cnt += __popc(m);
+                }
+                if (lane == 0) *kept_n = cnt;
+            }
+            __syncthreads();
+            ring_kept = *kept_n;
+            if (ring_kept == 0 && tid < R) {
+                rec[R * D + tid] = STATS_EMPTY_M;
+                rec[R * D + R + tid] = 0.0f;
+            }
+        }
+    }
+
+    if (k_first <= k_last && ring_kept > 0) {
         const int t0 = k_first / TK * TK;
-        const int ntiles = (k_last - t0) / TK + 1;
+        const int ntiles = RING ? ring_kept : (k_last - t0) / TK + 1;
+        // the first key of the block's i-th tile
+        auto tile_key = [&](int i) { return RING ? t0 + ring_tiles[i] * TK : t0 + i * TK; };
         const int key = tid % TK, part = tid / TK;  // score pass: a key, a part of its runs
         const int cp = tid % CP, kg = tid / CP;     // P.V: a column pair, a group of keys
         float acc[RT][2];
@@ -506,8 +578,25 @@ decode_kernel(const float* __restrict__ q, Rows rows, KV kv, const int* __restri
         auto issue = [&](int i) {  // tile i's rows into stage i % STAGES (none past the last)
             size_t tok0;
             int n;
-            if (i < ntiles && rows.template tile<TK>(b, t0 + i * TK, tok0, n))
-                streams.issue(tok0, n, Hk, smem + (i % STAGES) * L.stage, L);
+            if (i < ntiles && rows.template tile<TK>(b, tile_key(i), tok0, n)) {
+                unsigned char* st = smem + (i % STAGES) * L.stage;
+                streams.issue(tok0, n, Hk, st, L);
+                if constexpr (RING) {  // the slots' positions, -1 past the last slot
+                    const int j = 4 * tid;
+                    if (j < TK) {
+                        int* dst = reinterpret_cast<int*>(st + L.off_pos) + j;
+                        const int* src = rows.pos + tok0 + j;
+                        if (j + 4 <= n && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+                            cp_async<16>(dst, src);
+                        } else {
+                            for (int e = 0; e < 4; ++e) {
+                                if (j + e < n) cp_async<4>(dst + e, src + e);
+                                else dst[e] = -1;
+                            }
+                        }
+                    }
+                }
+            }
             cp_async_commit();  // an empty group past the last tile: the waits stay in step
         };
         for (int i = 0; i < STAGES - 1; ++i) issue(i);
@@ -517,7 +606,9 @@ decode_kernel(const float* __restrict__ q, Rows rows, KV kv, const int* __restri
             const int r = e / (D / 4), c = (e % (D / 4)) * 4;
             const size_t src = (((size_t)b * S + r / G) * Hq + hk * G + r % G) * D + c;
             *reinterpret_cast<float4*>(Qs + r * D + c) =
-                r < R ? *reinterpret_cast<const float4*>(q + src) : make_float4(0.f, 0.f, 0.f, 0.f);
+                e == tid ? early_q
+                         : r < R ? *reinterpret_cast<const float4*>(q + src)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
         }
         __syncthreads();
         if constexpr (!BF16) {
@@ -530,18 +621,20 @@ decode_kernel(const float* __restrict__ q, Rows rows, KV kv, const int* __restri
             issue(i + STAGES - 1);
             cp_async_wait<STAGES - 1>();
             __syncthreads();
-            const int key0 = t0 + i * TK;
+            const int key0 = tile_key(i);
             size_t tok0;
             int n;
             if (rows.template tile<TK>(b, key0, tok0, n)) {  // uniform across the block
-                // tile keys [kb, ke) lie in this split and in [lo, hi], so they were written
+                // tile keys [kb, ke) lie in this split and in [lo, hi], so they
+                // were written; over a ring a slot's position must lie in [lo, hi]
                 const int kb = max(k_first - key0, 0), ke = min(k_last - key0 + 1, n);
                 unsigned char* st = smem + (i % STAGES) * L.stage;
+                const int* kpos = reinterpret_cast<const int*>(st + L.off_pos);  // RING
                 float sacc[RT];
 #pragma unroll
                 for (int r = 0; r < RT; ++r) sacc[r] = 0.0f;
                 float* vrow = Vf + key * LDV;
-                if (key >= kb && key < ke) {
+                if (key >= kb && key < ke && (!RING || (kpos[key] >= lo && kpos[key] <= hi))) {
                     if constexpr (BF16) {
                         key_scores_bf16<D, RT, PARTS>(
                             reinterpret_cast<const __nv_bfloat16*>(st + key * L.ldk * 4), Qs, part,
@@ -577,14 +670,15 @@ decode_kernel(const float* __restrict__ q, Rows rows, KV kv, const int* __restri
                     float s2[KPL], mx = -INFINITY;
 #pragma unroll
                     for (int jj = 0; jj < KPL; ++jj) {
-                        const int j = lane + 32 * jj, kj = key0 + j;
+                        const int j = lane + 32 * jj;
+                        const int kj = RING ? kpos[j] : key0 + j;  // the key's position
                         float s = Sp[r * LDP + j];
 #pragma unroll
                         for (int pt = 1; pt < PARTS; ++pt) s += Sp[(pt * RT + r) * LDP + j];
                         s *= scale;
                         if (softcap > 0.0f) s = tanhf(s / softcap) * softcap;
                         const bool ok = j >= kb && j < ke && p >= 0 && kj <= p &&
-                                        (window <= 0 || kj > p - window);
+                                        (window <= 0 || kj > p - window) && (!RING || kj >= 0);
                         s2[jj] = ok ? s : -INFINITY;
                         mx = fmaxf(mx, s2[jj]);
                     }
@@ -627,8 +721,15 @@ decode_kernel(const float* __restrict__ q, Rows rows, KV kv, const int* __restri
                             *reinterpret_cast<const __nv_bfloat162*>(stv + j * L.ldv * 4));
                     else
                         v = *reinterpret_cast<const float2*>(Vf + j * LDV + 2 * cp);
+                    if constexpr (RT == 2) {
+                        const float2 p = *reinterpret_cast<const float2*>(Pt + j * 2);
+                        acc[0][0] = fmaf(p.x, v.x, acc[0][0]);
+                        acc[0][1] = fmaf(p.x, v.y, acc[0][1]);
+                        acc[1][0] = fmaf(p.y, v.x, acc[1][0]);
+                        acc[1][1] = fmaf(p.y, v.y, acc[1][1]);
+                    }
 #pragma unroll
-                    for (int r4 = 0; r4 < RT; r4 += 4) {
+                    for (int r4 = 0; r4 + 4 <= RT; r4 += 4) {
                         const float4 p = *reinterpret_cast<const float4*>(Pt + j * RT + r4);
                         acc[r4][0] = fmaf(p.x, v.x, acc[r4][0]);
                         acc[r4][1] = fmaf(p.x, v.y, acc[r4][1]);
@@ -665,17 +766,15 @@ decode_kernel(const float* __restrict__ q, Rows rows, KV kv, const int* __restri
     }
 
     // the last split of this (sequence, kv head) to finish merges
-    __threadfence();
     __syncthreads();
-    if (tid == 0) *flag = atomicAdd(counters + b * Hk + hk, 1) == NS - 1;
+    if (tid == 0) *flag = arrive(counters + b * Hk + hk) == NS - 1;
     __syncthreads();
     if (!*flag) return;
-    __threadfence();
-    // the splits that saw keys: those that meet [lo, hi]. Their m and l land
-    // in shared memory by one load a thread, then each row's weights
-    // exp(m - max) take the place of m
-    const int s_lo = lo <= hi ? lo / split_keys : 0;
-    const int nsp = lo <= hi ? min(hi / split_keys, NS - 1) - s_lo + 1 : 0;
+    // the splits that saw keys: those that meet [lo, hi] (over a ring, every
+    // split). Their m and l land in shared memory by one load a thread, then
+    // each row's weights exp(m - max) take the place of m
+    const int s_lo = lo <= hi && !RING ? lo / split_keys : 0;
+    const int nsp = lo <= hi ? (RING ? NS : min(hi / split_keys, NS - 1) - s_lo + 1) : 0;
     const size_t rec_stride = (size_t)R * (D + 2);
     const float* rec0 = ws + ((size_t)(b * Hk + hk) * NS + s_lo) * rec_stride;
     // m (weights after) [nsp][R], then l [nsp][R]: in the V tile, or over
@@ -710,7 +809,10 @@ decode_kernel(const float* __restrict__ q, Rows rows, KV kv, const int* __restri
         const float* a2 = rec0 + e;
         float o = 0.0f;
 #pragma unroll 8
-        for (int s2 = 0; s2 < nsp; ++s2) o = fmaf(ml[s2 * R + r], __ldcg(a2 + s2 * rec_stride), o);
+        for (int s2 = 0; s2 < nsp; ++s2) {  // a split that saw no key wrote no acc
+            const float w = ml[s2 * R + r];
+            if (w != 0.0f) o = fmaf(w, __ldcg(a2 + s2 * rec_stride), o);
+        }
         Qs[e] = o;
     }
     __syncthreads();
@@ -735,14 +837,15 @@ int launch_decode_rt(const float* q, Rows rows, KV kv, const int* qpos, const in
                      const float* sinks, float* out, float* ws, int* counters, int B, int S,
                      int Hq, int Hk, int NS, float scale, int window, float softcap,
                      int split_keys, cudaStream_t st) {
+    constexpr bool RING = Rows::POS_FROM_ARRAY;
     static bool attr_set = false;
     if (!attr_set) {
         cudaFuncSetAttribute(decode_kernel<D, RT, TK, STAGES, Rows, KV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             DecodeBlocks<KV, D, RT, TK, STAGES>::BYTES);
+                             DecodeBlocks<KV, D, RT, TK, STAGES, RING>::BYTES);
         attr_set = true;
     }
-    const int bytes = layout_of<D, RT, TK, STAGES>(kv).bytes;
+    const int bytes = layout_of<D, RT, TK, STAGES, RING>(kv).bytes;
     decode_kernel<D, RT, TK, STAGES, Rows, KV><<<dim3(NS, Hk, B), DEC_THREADS, bytes, st>>>(
         q, rows, kv, qpos, total_lens, sinks, out, ws, counters, S, Hq, scale, window, softcap,
         split_keys);
@@ -753,8 +856,9 @@ int launch_decode_rt(const float* q, Rows rows, KV kv, const int* qpos, const in
 
 // The decode kernel over storage kv (QuantKV<D> or Bf16KV<D>) in tiles of TK
 // keys and STAGES stages. key_limit: the layout's keys a sequence (block
-// table width * 256, or T); split_keys a multiple of 64 giving at most
-// DEC_MAX_SPLITS splits; ws and counters as decode_kernel takes them.
+// table width * 256, T, or a ring's W); split_keys a multiple of 64 giving at
+// most DEC_MAX_SPLITS splits (over a ring, of at most DEC_RING_TILES tiles);
+// ws and counters as decode_kernel takes them; total_lens null over a ring.
 template <int D, int TK = DEC_TK, int STAGES = 2, class Rows, class KV>
 int launch_decode(const void* q, Rows rows, KV kv, const void* qpos, const void* total_lens,
                   const void* sinks, void* out, void* ws, void* counters, int B, int S, int Hq,
@@ -764,7 +868,8 @@ int launch_decode(const void* q, Rows rows, KV kv, const void* qpos, const void*
         || split_keys < DEC_TK || split_keys % DEC_TK || key_limit <= 0)
         return (int)cudaErrorInvalidValue;
     const int NS = (key_limit + split_keys - 1) / split_keys;
-    if (NS > DEC_MAX_SPLITS) return (int)cudaErrorInvalidValue;
+    if (NS > DEC_MAX_SPLITS || (Rows::POS_FROM_ARRAY && split_keys / TK > DEC_RING_TILES))
+        return (int)cudaErrorInvalidValue;
     static_assert(!IsBf16KV<KV>::value || STAGES * DecodeLayout(D, 4, BF16_BITS, BF16_BITS, TK,
                                                                 STAGES).stage >=
                                               DEC_MAX_SPLITS * DECODE_ROWS * 2 * 4,
@@ -776,6 +881,12 @@ int launch_decode(const void* q, Rows rows, KV kv, const void* qpos, const void*
     auto* o = static_cast<float*>(out);
     auto* w = static_cast<float*>(ws);
     auto* c = static_cast<int*>(counters);
+    if constexpr (IsBf16KV<KV>::value) {  // a group of two (Gemma): two rows
+        if (S * (Hq / Hk) <= 2)
+            return launch_decode_rt<D, 2, TK, STAGES>(qf, rows, kv, qp, tl, sk, o, w, c, B, S, Hq,
+                                                      Hk, NS, scale, window, softcap, split_keys,
+                                                      st);
+    }
     if (S * (Hq / Hk) <= 4)
         return launch_decode_rt<D, 4, TK, STAGES>(qf, rows, kv, qp, tl, sk, o, w, c, B, S, Hq, Hk,
                                                   NS, scale, window, softcap, split_keys, st);

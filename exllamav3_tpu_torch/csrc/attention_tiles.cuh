@@ -62,8 +62,9 @@
 // are walked by one block. The bf16 and quantized entries over the paged and
 // the linear cache send decode and verify (S * G <= 32 rows a kv head) to
 // attention_decode.cuh instead, which splits the keys across blocks and
-// merges them; their prefill chunks and the other entries (latent, ring,
-// stats) take this loop.
+// merges them, and so does the ring entry for groups of up to 32 heads;
+// their prefill chunks, the ring's wider groups and the other entries
+// (latent, stats) take this loop.
 //
 // Warps: the 4 warps split the R rows into R/16 row groups; with R = 32 two
 // warps (with R = 16 all four) share a row group and split its key subtiles
@@ -219,6 +220,12 @@ struct RingRows {
     template <int TKT>
     __device__ void stage_pos(size_t tok0, int n, int* dst, int tid) const {
         for (int j = tid; j < TKT; j += THREADS) dst[j] = j < n ? __ldg(pos + tok0 + j) : -1;
+    }
+    // the W stored positions of sequence b's ring row, or null for a row out
+    // of range (attention_decode.cuh reads them before it stages any tile)
+    __device__ const int* row_positions(int b) const {
+        const int row = slots[b];
+        return row < 0 || row >= N ? nullptr : pos + (size_t)row * W;
     }
 };
 

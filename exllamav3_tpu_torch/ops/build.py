@@ -27,7 +27,8 @@ SOURCES = ("int8_matmul.cu", "fused_mlp.cu", "paged_attention.cu", "exl3_gemm.cu
            "linear_attention.cu", "linear_attention_quant.cu", "latent_attention.cu",
            "latent_attention_quant.cu", "ring_attention.cu", "attention_stats.cu",
            "probe_dma.cu", "probe_trellis.cu", "probe_kv_dequant.cu", "probe_int4.cu")
-HEADERS = ("packed_matmul.cuh", "attention_tiles.cuh", "attention_decode.cuh")  # included by sources; part of the digest
+HEADERS = ("packed_matmul.cuh", "attention_tiles.cuh", "attention_decode.cuh",
+           "async_copy.cuh")  # included by sources; part of the digest
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -41,7 +42,7 @@ SIGNATURES = {
     "exl3_fused_mlp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "exl3_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _F, _I, _F, _I, _P],
-    "exl3_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "exl3_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "exl3_paged_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _F, _I, _P],
     "exl3_int4_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -56,8 +57,8 @@ SIGNATURES = {
     "exl3_latent_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "exl3_latent_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                     _I, _I, _F, _F, _F, _P],
-    "exl3_ring_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _F,
-                            _P],
+    "exl3_ring_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                            _I, _F, _I, _P],
     "exl3_ring_attention_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "exl3_pool_attention_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "exl3_rows_attention_stats": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
@@ -71,6 +72,10 @@ SIGNATURES = {
     # the split-key decode kernel's launches so far (csrc/attention_decode.cuh),
     # which tell a check the kernel an attention entry chose
     "exl3_decode_launches": [],
+    # the trellis GEMM's kernel launches so far, and the blocks an SM holds of
+    # the kernel a product of these widths launches (csrc/exl3_gemm.cu)
+    "exl3_gemm_launches": [],
+    "exl3_gemm_blocks_per_sm": [_I, _I, _I, _I, _I, _I],
 }
 
 _LIB = None

@@ -9,15 +9,20 @@ layout (tk, K, tn*8) int32, so a parameter dict carries across unchanged;
 the JAX kernel's permuted row and column orders and its 2^112 output scale
 are artefacts of the TPU and have no counterpart here.
 
-The kernel takes any number of rows: a block covers BLOCK_ROWS of them
-and further rows run as further blocks that decode the weights again. So
-`exl3_matmul` sends every CUDA tensor through the kernel, where the JAX
-dispatch leaves its kernel above its FUSED_MAX_ROWS for reconstruct + matmul.
-On the CPU the plain version serves every row count: the reconstruct
-reference, bf16 operands and f32 sums, which both sides of the JAX dispatch
-compute.
+The kernel takes any number of rows: a block covers 16 of them (m <= 16,
+decode) or BLOCK_ROWS, and further rows run as further blocks that decode
+the weights again. So `exl3_matmul` sends every CUDA tensor through the
+kernel, where the JAX dispatch leaves its kernel above its FUSED_MAX_ROWS
+for reconstruct + matmul. The kernel splits k across blocks (split_count,
+from the card's SM count and the bytes a block keeps in flight) and adds the
+splits' partial sums in split order in the same launch: one device kernel a
+call. exl3_gemm_split_plain is that arithmetic in plain torch. On the CPU
+the plain version serves every row count: the reconstruct reference, bf16
+operands and f32 sums, which both sides of the JAX dispatch compute.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -25,10 +30,27 @@ import torch
 from ..quant.codebook import CB_3INST
 from ..quant.hadamard import had_right
 from ..quant.reconstruct import exl3_matmul_ref, reconstruct_inner
-from .build import check_aligned, check_launch, library
+from ..util.device import H100_SMS, arrival_counters, device_sms
+from .build import check_aligned, check_launch, header_constants, library
 
-BLOCK_ROWS = 128      # rows one block of the kernel covers (BM in the source)
-BLOCKS_WANTED = 264    # in flight at decode sizes: two per SM of an H100
+# the kernel's limits and layout, read from its source: a block covers
+# DECODE_ROWS rows (m <= DECODE_ROWS) in GEMM_STAGES stages of words, with its
+# xh for at most XH_ONCE_STEPS k steps of KC staged at once, or BLOCK_ROWS
+# rows in PREFILL_STAGES stages of words and xh; staged rows of LDW words and
+# LDA bf16; the two bodies' launch bounds promise DECODE_BLOCKS and
+# PREFILL_BLOCKS blocks an SM
+(_STAGES, _PREFILL_STAGES, XH_ONCE_STEPS, _DECODE_MB, _PREFILL_MB, _KC, _LDW, _LDA,
+ _DECODE_BLOCKS, _PREFILL_BLOCKS) = header_constants(
+    "exl3_gemm.cu", "GEMM_STAGES", "PREFILL_STAGES", "XH_ONCE_STEPS", "DECODE_MB", "PREFILL_MB",
+    "KC", "LDW", "LDA", "DECODE_BLOCKS", "PREFILL_BLOCKS")
+DECODE_ROWS, BLOCK_ROWS = 16 * _DECODE_MB, 16 * _PREFILL_MB
+# what an SM has of shared memory for blocks (the H100's 228 KB, 1 KB of it
+# reserved a block), as the decode attention kernel sizes its blocks
+_SM_SHARED, _BLOCK_RESERVED = header_constants("attention_decode.cuh", "SM_SHARED",
+                                               "BLOCK_RESERVED")
+# bytes an SM must keep in flight to stream at the card's rate (Little's law:
+# 3.35 TB/s x ~1 us of latency over 132 SMs)
+IN_FLIGHT_PER_SM = 26 << 10
 
 
 def trellis_to_words(trellis: torch.Tensor) -> torch.Tensor:
@@ -66,19 +88,90 @@ def exl3_gemm_plain(xh: torch.Tensor, words: torch.Tensor, K: int, cb: int) -> t
     return xh.float() @ w.float()
 
 
-def split_count(m: int, k: int, n: int) -> int:
-    """k splits of the kernel's grid: enough blocks to fill the card at
-    decode sizes, no split left without a 128-wide k step."""
-    steps = k // 128
-    blocks = (n // 128) * -(-m // BLOCK_ROWS)
-    want = min(steps, max(1, -(-BLOCKS_WANTED // blocks)))
-    per = -(-steps // want)
-    return -(-steps // per)
+def exl3_gemm_split_plain(xh: torch.Tensor, words: torch.Tensor, K: int, cb: int,
+                          splits: int) -> torch.Tensor:
+    """The kernel's split arithmetic in plain torch: k cut into `splits`
+    runs of whole 128-wide steps as the kernel cuts it, each run's f32
+    partial product, and the partials added in split order (from 0). (m, n)
+    f32."""
+    w = reconstruct_inner(words_to_trellis(words), K, cb, dtype=torch.bfloat16).float()
+    x = xh.float()
+    steps = xh.shape[1] // _KC
+    per = -(-steps // splits)
+    out = torch.zeros((xh.shape[0], w.shape[1]), dtype=torch.float32, device=xh.device)
+    for s in range(splits):
+        k0, k1 = s * per * _KC, min((s + 1) * per, steps) * _KC
+        out = out + x[:, k0:k1] @ w[k0:k1]
+    return out
+
+
+def _blocks_per_sm(m: int, K: int, per: int) -> int:
+    """Blocks an SM holds of a launch whose splits hold `per` k steps: the
+    body's launch bounds, or fewer where its shared memory does not fit
+    (the source's smem_bytes). chip_smoke.py holds it to the card's
+    reading (exl3_gemm_blocks_per_sm)."""
+    decode = m <= DECODE_ROWS
+    words = _KC // 16 * K * _LDW * 4  # a stage of words: KC / 16 tile rows of K rows of LDW
+    if decode:  # 8 or 16 rows of xh for the split's k range
+        smem = _STAGES * words + (8 if m <= 8 else 16) * (per * _KC + 8) * 2
+    else:
+        smem = _PREFILL_STAGES * (words + BLOCK_ROWS * _LDA * 2)
+    held = _DECODE_BLOCKS if decode else _PREFILL_BLOCKS
+    return min(held, _SM_SHARED // (smem + _BLOCK_RESERVED))
+
+
+@functools.lru_cache(maxsize=None)  # a served step asks for a few widths hundreds of times
+def split_count(m: int, k: int, n: int, K: int, sms: int = H100_SMS) -> int:
+    """k splits of the kernel's grid on a card of `sms` SMs. A block's time
+    is its k steps, and the card's is that of its busiest SM: the blocks it
+    holds times their steps, ceil(tiles * splits / sms) * ceil(steps /
+    splits). Among the splits that leave no split without a step, keep a
+    decode-size block's xh within XH_ONCE_STEPS steps and the grid resident
+    at once (or one split), those that give the busiest SM the fewest steps
+    are taken, and of them the fewest splits whose SMs keep IN_FLIGHT_PER_SM
+    bytes in flight (each block its next STAGES - 1 steps of words, and of
+    xh above DECODE_ROWS rows), else the one that keeps the most."""
+    steps = k // _KC
+    decode = m <= DECODE_ROWS
+    tiles = (n // 128) * -(-m // (DECODE_ROWS if decode else BLOCK_ROWS))
+    step_bytes = _KC * 16 * K + (0 if decode else min(m, BLOCK_ROWS) * _KC * 2)  # 128 columns
+    ahead = _STAGES - 1 if decode else _PREFILL_STAGES - 1
+    cands = []
+    for s in range(1, steps + 1):
+        per = -(-steps // s)
+        if (s - 1) * per >= steps or (decode and per > XH_ONCE_STEPS):
+            continue
+        held = _blocks_per_sm(m, K, per)
+        on_sm = -(-tiles * s // sms)  # blocks the busiest SM is given
+        if s > 1 and on_sm > held:
+            continue
+        cands.append((on_sm * per, s, min(on_sm, held) * min(per, ahead) * step_bytes))
+    if not cands:  # only splits past the resident grid keep the xh a block stages
+        return -(-steps // XH_ONCE_STEPS)
+    least = min(c[0] for c in cands)
+    ties = [c for c in cands if c[0] == least]
+    enough = [c for c in ties if c[2] >= IN_FLIGHT_PER_SM]
+    return min(enough)[1] if enough else max(ties, key=lambda c: (c[2], -c[1]))[1]
+
+
+def launch_plan(m: int, k: int, n: int, K: int, device) -> tuple:
+    """(splits, blocks, workspace or None, counters) of a launch on `device`:
+    the splits for its SM count, a (splits, m, n) f32 workspace of partial
+    sums where there is more than one split, and the shared arrival counters
+    (one an output tile, left 0 by every launch)."""
+    splits = split_count(m, k, n, K, device_sms(device))
+    mblocks = -(-m // (DECODE_ROWS if m <= DECODE_ROWS else BLOCK_ROWS))
+    tiles = (n // 128) * mblocks
+    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=device) if splits > 1
+          else None)
+    return splits, tiles * splits, ws, arrival_counters(device, tiles)
 
 
 def exl3_gemm_kernel(xh: torch.Tensor, words: torch.Tensor, K: int, cb: int) -> torch.Tensor:
     """Launch csrc/exl3_gemm.cu: xh (m, k) bf16, words (k/16, K, n/16*8)
-    int32 -> (m, n) f32. k and n are multiples of 128, K in 1..8."""
+    int32 -> (m, n) f32. k and n are multiples of 128, K in 1..8. One device
+    kernel a call: k splits as launch_plan sizes them for this card, merged
+    in the launch."""
     if not (xh.is_cuda and words.is_cuda and xh.device == words.device):
         raise ValueError("exl3_gemm_kernel: xh and words must be on one CUDA device")
     if xh.dtype != torch.bfloat16 or words.dtype != torch.int32:
@@ -95,13 +188,11 @@ def exl3_gemm_kernel(xh: torch.Tensor, words: torch.Tensor, K: int, cb: int) -> 
     if not (xh.is_contiguous() and words.is_contiguous()):
         raise ValueError("exl3_gemm_kernel: tensors must be contiguous")
     check_aligned("exl3_gemm_kernel", xh, words)
-    splits = split_count(m, k, n)
+    splits, _, ws, counters = launch_plan(m, k, n, K, xh.device)
     out = torch.empty((m, n), dtype=torch.float32, device=xh.device)
-    scratch = (torch.empty((splits, m, n), dtype=torch.float32, device=xh.device)
-               if splits > 1 else None)
     err = library().exl3_gemm(
         xh.data_ptr(), words.data_ptr(), out.data_ptr(),
-        scratch.data_ptr() if scratch is not None else None, m, k, n, K, cb, splits,
+        ws.data_ptr() if ws is not None else None, counters.data_ptr(), m, k, n, K, cb, splits,
         torch.cuda.current_stream(xh.device).cuda_stream)
     check_launch("exl3_gemm", err)
     exl3_gemm_kernel.launches += 1

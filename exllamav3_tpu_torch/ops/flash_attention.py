@@ -25,6 +25,9 @@ V the latent itself; bf16, or the latent packed with the rope key in bf16.
 csrc/ring_attention.cu serves decode (S = 1) over a sliding-window layer's
 ring (`ring_attention`): each sequence's ring row holds W slots of bf16 K/V
 beside the position each slot holds, and the positions decide visibility.
+For a group of up to DECODE_ROWS heads it too launches the split-key decode
+kernel, over the ring's slots (its plain split arithmetic:
+ring_attention_split_plain); wider groups take the tile loop.
 On a CPU tensor a wrapper runs its plain version, built on ops/attention.py.
 `paged_attention_any`, `linear_attention_any` and `latent_attention_any` pick
 the storage by the layer state's keys (modules/attn.py picks the layout by
@@ -46,6 +49,7 @@ import functools
 import torch
 
 from ..constants import PAGE_SIZE
+from ..util.device import H100_SMS, arrival_counters, device_sms
 from .attention import attend_dense, attend_paged
 from .build import check_aligned, check_launch, header_constants, library
 from .kv_quant import dequantize_rotated, quant_cache_fetch, rotate_groups, state_heads
@@ -138,12 +142,15 @@ def paged_attention(q, k_pages, v_pages, block_tables, q_positions, total_lens,
 # DECODE_BLOCKS_PER_SM blocks for each of the card's SMs: enough that the
 # splits of a long sequence spread while short ones end early. The three
 # limits are the header's own.
-DECODE_ROWS, DECODE_TILE, DECODE_MAX_SPLITS = header_constants(
-    "attention_decode.cuh", "DECODE_ROWS", "DEC_TK", "DEC_MAX_SPLITS")
+DECODE_ROWS, DECODE_TILE, DECODE_MAX_SPLITS, RING_TILES = header_constants(
+    "attention_decode.cuh", "DECODE_ROWS", "DEC_TK", "DEC_MAX_SPLITS", "DEC_RING_TILES")
+# slots of a ring row the decode kernel takes: DECODE_MAX_SPLITS splits of at
+# most RING_TILES tiles of the bf16 storage's widest, 64 slots
+RING_MAX_SLOTS = DECODE_MAX_SPLITS * RING_TILES * DECODE_TILE
 DECODE_BLOCKS_PER_SM = 8
-H100_SMS = 132  # the SMs that sizing without a card assumes (the plain split versions)
 
 
+@functools.lru_cache(maxsize=None)  # a served step asks for a few widths hundreds of times
 def decode_split_keys(width: int, B: int, Hk: int, sms: int = H100_SMS) -> int:
     """Keys a split of the decode kernel covers, from widths the host knows:
     the layout's keys a sequence (the block table's width times 256, or the
@@ -154,31 +161,6 @@ def decode_split_keys(width: int, B: int, Hk: int, sms: int = H100_SMS) -> int:
     while -(-width // split) > want:
         split *= 2
     return split
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def device_sms(device: torch.device) -> int:
-    """The SM count of a CUDA device, read once a device."""
-    return _sm_count(torch.cuda.current_device() if device.index is None else device.index)
-
-
-_COUNTERS: dict = {}
-
-
-def _decode_counters(device, n: int) -> torch.Tensor:
-    """The decode kernel's arrival counters, one a (sequence, kv head): zero
-    at first and left zero by every launch, so one tensor a device serves
-    every call (it grows when a call needs more). Launches that share it run
-    one after another on one stream, as the model's steps do."""
-    c = _COUNTERS.get(device)
-    if c is None or c.numel() < n:
-        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _COUNTERS[device] = c
-    return c
 
 
 def _decode_launch(q, Hk: int, width: int, sms: int, rotate: bool) -> tuple:
@@ -195,7 +177,7 @@ def _decode_launch(q, Hk: int, width: int, sms: int, rotate: bool) -> tuple:
     splits = -(-width // split_keys)
     ws = torch.empty(B * Hk * splits * S * (Hq // Hk) * (D + 2), dtype=torch.float32,
                      device=q.device)
-    return q, ws, _decode_counters(q.device, B * Hk), split_keys
+    return q, ws, arrival_counters(q.device, B * Hk), split_keys
 
 
 def _ptr(t):
@@ -753,13 +735,36 @@ def ring_attention_plain(q, ring_k, ring_v, ring_pos, slots, q_positions, sinks=
     return o * valid[:, :, None, None].to(o.dtype)
 
 
+def ring_attention_split_plain(q, ring_k, ring_v, ring_pos, slots, q_positions, sinks=None,
+                               scale: float = 1.0, sliding_window: int = 0,
+                               logit_softcap: float = 0.0,
+                               split_keys: int | None = None) -> torch.Tensor:
+    """(B, 1, Hq, D) f32 over the ring by the decode kernel's split
+    arithmetic (attention_split_plain without rotation, K/V as f32, ring_visible
+    as the mask): the W slots of each sequence's ring row cut into splits of
+    decode_split_keys(W) at H100_SMS unless split_keys is given, every split
+    taking part; a ring row out of range holds no visible slot."""
+    B, Hk = q.shape[0], ring_k.shape[2]
+    N, W = ring_pos.shape
+    ok = (slots >= 0) & (slots < N)
+    rows = torch.where(ok, slots, torch.zeros_like(slots)).long()
+    pos = ring_pos[rows]
+    vis = ring_visible(pos, q_positions, sliding_window) & ok[:, None, None]
+    return attention_split_plain(q, ring_k[rows].float(), ring_v[rows].float(), vis,
+                                 split_keys or decode_split_keys(W, B, Hk), scale,
+                                 logit_softcap, sinks, rotate=False)
+
+
 def ring_attention_kernel(q, ring_k, ring_v, ring_pos, slots, q_positions, sinks=None,
                           scale: float = 1.0, sliding_window: int = 0,
                           logit_softcap: float = 0.0) -> torch.Tensor:
     """Launch csrc/ring_attention.cu: decode (S = 1). q (B, 1, Hq, D) f32;
     ring_k, ring_v (N, W, Hk, D) bf16; ring_pos (N, W), slots (B,) and
     q_positions (B, 1) int32; sinks (Hq,) f32 or None; D in {64, 128}, any
-    GQA group, any W."""
+    GQA group, any W (up to RING_MAX_SLOTS for a group of up to DECODE_ROWS
+    heads, which the split-key decode kernel serves, splits sized by
+    decode_split_keys over W for this card; wider groups take the tile
+    loop)."""
     B, S, Hq, D = q.shape
     N, W, Hk, Dk = ring_k.shape
     ints = (ring_pos, slots, q_positions)
@@ -778,14 +783,18 @@ def ring_attention_kernel(q, ring_k, ring_v, ring_pos, slots, q_positions, sinks
                          f"ring {tuple(ring_k.shape)}, pos {tuple(ring_pos.shape)}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ring_attention_kernel: tensors must be contiguous")
+    if Hq // Hk <= DECODE_ROWS and W > RING_MAX_SLOTS:
+        raise ValueError(f"ring_attention_kernel: a ring of {W} slots exceeds the decode "
+                         f"kernel's {RING_MAX_SLOTS}")
     check_aligned("ring_attention_kernel", q, ring_k, ring_v)
+    _, ws, counters, split_keys = _decode_launch(q, Hk, W, device_sms(q.device), rotate=False)
     out = torch.empty((B, 1, Hq, D), dtype=torch.float32, device=q.device)
     err = library().exl3_ring_attention(
         q.data_ptr(), ring_k.data_ptr(), ring_v.data_ptr(), ring_pos.data_ptr(),
         slots.data_ptr(), q_positions.data_ptr(),
-        sinks.data_ptr() if sinks is not None else None, out.data_ptr(),
-        B, Hq, Hk, D, N, W, float(scale), int(sliding_window), float(logit_softcap),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        sinks.data_ptr() if sinks is not None else None, out.data_ptr(), _ptr(ws),
+        _ptr(counters), B, Hq, Hk, D, N, W, float(scale), int(sliding_window),
+        float(logit_softcap), split_keys, torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("exl3_ring_attention", err)
     ring_attention_kernel.launches += 1
     return out

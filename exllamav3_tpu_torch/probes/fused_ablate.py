@@ -32,7 +32,7 @@ import argparse
 import torch
 
 from ..ops.build import check_aligned, check_launch, library
-from ..ops.exl3_gemm import exl3_gemm_kernel, split_count
+from ..ops.exl3_gemm import exl3_gemm_kernel
 from ..util.timing import rotating, time_ms
 from . import card, cuda_args, report
 
@@ -116,6 +116,18 @@ def fused_ablate_plain(xh: torch.Tensor, words: torch.Tensor, K: int, variant: s
     return xh.to(torch.float32) @ probe_weight(words, K, variant, bn, bk).to(torch.float32)
 
 
+def _split_count(m: int, k: int, n: int) -> int:
+    """k splits of the probe's grid: the sizing of the trellis GEMM whose
+    staging the probe mirrors (csrc/exl3_gemm.cu's first, single-stage design): about
+    264 blocks (two an SM of an H100) at decode sizes, no split without a
+    128-wide k step."""
+    steps = k // 128
+    blocks = (n // 128) * -(-m // 128)
+    want = min(steps, max(1, -(-264 // blocks)))
+    per = -(-steps // want)
+    return -(-steps // per)
+
+
 def fused_ablate_kernel(xh: torch.Tensor, words: torch.Tensor, K: int, variant: str,
                         bm: int = 16, bn: int = 256, bk: int = 256) -> torch.Tensor:
     """Launch csrc/probe_trellis.cu: xh (m, k) bf16, words (k/16, K, n/2)
@@ -131,7 +143,7 @@ def fused_ablate_kernel(xh: torch.Tensor, words: torch.Tensor, K: int, variant: 
                          f"{tuple(words.shape)}, K {K}, bk {bk}, bn {bn}")
     check_aligned("fused_ablate_kernel", xh, words)
     lib = library()
-    splits = split_count(m, k, n)
+    splits = _split_count(m, k, n)
     out = torch.empty((m, n), dtype=torch.float32, device=xh.device)
     scratch = (torch.empty((splits, m, n), dtype=torch.float32, device=xh.device)
                if splits > 1 else out)

@@ -1,8 +1,14 @@
 """Device resolution for the port's entry points: "cuda" by default, the CPU
-only when asked for. There is no silent fallback."""
+only when asked for. There is no silent fallback. Also what the kernels'
+launch sizing reads of a card (its SM count) and the arrival counters that
+the kernels which merge their splits in the launch share."""
 from __future__ import annotations
 
+import functools
+
 import torch
+
+H100_SMS = 132  # the SMs that sizing without a card assumes (the plain split versions)
 
 
 def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
@@ -14,3 +20,29 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def device_sms(device: torch.device) -> int:
+    """The SM count of a CUDA device, read once a device."""
+    return _sm_count(torch.cuda.current_device() if device.index is None else device.index)
+
+
+_COUNTERS: dict = {}
+
+
+def arrival_counters(device, n: int) -> torch.Tensor:
+    """int32 arrival counters for a kernel whose last block to arrive merges
+    the others' work (the split-key decode attention, the trellis GEMM):
+    zero at first and left zero by every launch, so one tensor a device
+    serves every call (it grows when a call needs more). Launches that share
+    it run one after another on one stream, as the model's steps do."""
+    c = _COUNTERS.get(device)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device] = c
+    return c

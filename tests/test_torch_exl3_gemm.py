@@ -1,7 +1,12 @@
 """The port's trellis-word layout, `fused` linear and plain trellis-decode
 product against the JAX package (its Pallas kernel in interpret mode), on the
-CPU. The CUDA kernel itself is held against `exl3_gemm_plain` on the card by
+CPU; the kernel's split arithmetic (exl3_gemm_split_plain) against the JAX
+kernel's core and the JAX reconstruct product, and its split sizing. The
+CUDA kernel itself is held against `exl3_gemm_plain` on the card by
 chip_smoke.py."""
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +19,7 @@ from exllamav3_tpu.model import Config as JConfig
 from exllamav3_tpu.model import InferParams as JInferParams
 from exllamav3_tpu.model import Model as JModel
 from exllamav3_tpu.ops import exl3_gemm as jgemm
+from exllamav3_tpu.quant.reconstruct import reconstruct_inner_jnp
 from exllamav3_tpu_torch.conversion.synth import tiny_llama_cfg, write_tiny_llama_exl3
 from exllamav3_tpu_torch.model import Config, InferParams, Model
 from exllamav3_tpu_torch.modules.multilinear import is_fused
@@ -105,10 +111,127 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 @pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (8, 4096, 1024), (128, 14336, 4096),
                                    (2048, 4096, 14336), (1, 128, 128), (5, 384, 32768)])
 def test_split_count_leaves_no_empty_split(m, k, n):
-    splits = pgemm.split_count(m, k, n)
-    steps = k // 128
-    per = -(-steps // splits)
-    assert 1 <= splits <= steps and (splits - 1) * per < steps
+    for K in (1, 2, 4, 8):
+        for sms in (114, 132):
+            splits = pgemm.split_count(m, k, n, K, sms)
+            steps = k // 128
+            per = -(-steps // splits)
+            assert 1 <= splits <= steps and (splits - 1) * per < steps
+            if m <= pgemm.DECODE_ROWS:  # a decode-size split stages its xh at once
+                assert per <= pgemm.XH_ONCE_STEPS
+
+
+@pytest.mark.parametrize("m,k,n,K,want", [
+    (8, 4096, 4096, 4, 8),      # q/o: 32 column tiles x 8 splits of 4 steps, 256 blocks
+    (1, 4096, 4096, 4, 8),
+    (8, 4096, 1024, 4, 16),     # k/v: 8 column tiles, 2 steps a split
+    (8, 4096, 14336, 4, 2),     # gate/up: 112 tiles x 2 splits of 16 steps
+    (8, 14336, 4096, 4, 8),     # down: 112 steps in 8 splits of 14
+    (8, 4096, 32768, 4, 2),     # lm_head: 16 steps a split, the most xh a block stages
+    (8, 4096, 4096, 1, 8),
+    (8, 4096, 4096, 8, 4),      # 16 KB of words a step: one block an SM keeps enough in flight
+    (40, 4096, 4096, 4, 8),     # speculative verify at batch 8: one 128-row block
+    (128, 4096, 4096, 4, 4),    # 128 rows: a block's step is 8 times the products
+    (128, 4096, 1024, 4, 16),
+    (128, 4096, 14336, 4, 1),
+    (2048, 4096, 4096, 4, 1),   # prefill: 512 blocks without a split
+])
+def test_split_count_at_llama_8b_shapes(m, k, n, K, want):
+    """The sizing at the capacity path's shapes on a card of 132 SMs: the
+    fewest k steps on the busiest SM, and of those the fewest splits that
+    keep IN_FLIGHT_PER_SM bytes in flight."""
+    assert pgemm.split_count(m, k, n, K, 132) == want
+
+
+def test_gemm_constants_match_the_kernel():
+    """The wrapper's limits are read from the kernel's source, where each is
+    defined once; the one device kernel a call is counted there."""
+    src = (Path(pgemm.__file__).resolve().parent.parent / "csrc" / "exl3_gemm.cu").read_text()
+    for name, value in (("GEMM_STAGES", pgemm._STAGES),
+                        ("PREFILL_STAGES", pgemm._PREFILL_STAGES),
+                        ("XH_ONCE_STEPS", pgemm.XH_ONCE_STEPS),
+                        ("DECODE_MB", pgemm.DECODE_ROWS // 16),
+                        ("PREFILL_MB", pgemm.BLOCK_ROWS // 16),
+                        ("KC", pgemm._KC), ("LDW", pgemm._LDW), ("LDA", pgemm._LDA),
+                        ("DECODE_BLOCKS", pgemm._DECODE_BLOCKS),
+                        ("PREFILL_BLOCKS", pgemm._PREFILL_BLOCKS)):
+        assert re.findall(rf"^constexpr int {name} = (\d+);", src, re.M) == [str(value)]
+    # the sizing's blocks an SM are the launch bounds these constants name
+    assert re.findall(r"__launch_bounds__\(([^)]*)\)", src) == [
+        "THREADS, MB == DECODE_MB ? DECODE_BLOCKS : PREFILL_BLOCKS"]
+    assert "exl3_gemm_reduce" not in src and src.count("<<<") == 1
+
+
+@pytest.mark.parametrize("m,k,n,want", [(1, 4096, 4096, 3), (8, 4096, 32768, 3),
+                                        (128, 4096, 4096, 2), (2048, 4096, 14336, 2)])
+def test_blocks_per_sm_as_the_card_reads_them(m, k, n, want):
+    """The sizing's blocks an SM (K = 4) at shapes where the H100 reported
+    them (exl3_gemm_blocks_per_sm, cudaOccupancyMaxActiveBlocksPerMultiprocessor):
+    three decode-size blocks whatever the split, two 128-row ones."""
+    splits = pgemm.split_count(m, k, n, 4, 132)
+    per = -(-(k // 128) // splits)
+    assert pgemm._blocks_per_sm(m, 4, per) == want
+
+
+def _jax_core(words: np.ndarray, x: np.ndarray, K: int, cb: int) -> np.ndarray:
+    """JAX's kernel core in interpret mode on rows x (m, k) bf16, in true
+    row and column order and scale: exl3_matmul_fused's orders (its permuted
+    Hadamards' kernel row and column order within a 16-wide tile, its k
+    lanes of 128-wide blocks, its output columns of one 256-wide n block)
+    undone around it, and decode_scale."""
+    m, k = x.shape
+    n = words.shape[2] * 2
+    bk, bn = 128, 256
+    xk = x[:, (np.arange(k) // 16) * 16 + jgemm._perm_within16_k()[np.arange(k) % 16]]
+    xp = xk.reshape(m, k // bk, bk // 16, 16).transpose(0, 1, 3, 2).reshape(m, k)
+    y = np.asarray(jgemm.exl3_gemm_core(jnp.asarray(xp, jnp.bfloat16), jnp.asarray(words), K, cb,
+                                        block_m=128, block_n=bn, block_k=bk, interpret=True))
+    y = y.reshape(m, n // bn, 2, bn // 16, 8).transpose(0, 1, 3, 4, 2).reshape(m, n)
+    out = np.empty_like(y)
+    out[:, (np.arange(n) // 16) * 16 + jgemm._perm_within16_n()[np.arange(n) % 16]] = y
+    return out * np.float32(jgemm.decode_scale(cb))
+
+
+@pytest.mark.parametrize("cb", [0, 1, 2], ids=["3inst", "mcg", "mul1"])
+@pytest.mark.parametrize("K", range(1, 9))
+def test_split_plain_matches_jax_core_and_plain(K, cb):
+    """exl3_gemm_split_plain (per-split f32 partial sums over whole 128-wide
+    k steps, added in split order) at one and two splits, against JAX's
+    reconstruct product (bf16 operands, f32 sums) and against JAX's kernel
+    core in interpret mode, each at 1e-4 of the largest output. The JAX core
+    rounds a decoded weight once from f32 to bf16, the format (and the port)
+    adds its two fp16 halves in fp16 first: the core's own weights, read by
+    running it on the identity, differ from the port's by at most one bf16
+    step on a few per cent of the weights, and the comparison adds xh times
+    that difference to the core's product (MUL1: the core's f32
+    multiply-add against the format's fp16 one, up to a tenth of them)."""
+    rng = np.random.default_rng(300 + 8 * cb + K)
+    m, k, n = 8, 256, 256
+    trellis = rng.integers(-32768, 32768, size=(k // 16, n // 16, 16 * K)).astype(np.int16)
+    words = jgemm.prepare_trellis_words(trellis)
+    x = (rng.standard_normal((m, k)) * 0.5).astype(np.float32)
+    xb = np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+    # one core call: the identity's rows give its weights, the last 128 (x
+    # padded) its product
+    rows = np.concatenate([np.eye(k, dtype=np.float32), xb, np.zeros((120, k), np.float32)])
+    y = _jax_core(words, rows, K, cb)
+    w_core, core = y[:k], y[k:k + m]
+    w_ref = np.asarray(reconstruct_inner_jnp(jnp.asarray(trellis), K, cb, dtype=jnp.bfloat16)
+                       .astype(jnp.float32))
+    plain = np.asarray(jnp.dot(jnp.asarray(xb, jnp.bfloat16), jnp.asarray(w_ref, jnp.bfloat16),
+                               preferred_element_type=jnp.float32))
+    w_port = pgemm.reconstruct_inner(torch.from_numpy(trellis), K, cb,
+                                     dtype=torch.bfloat16).float().numpy()
+    assert np.array_equal(w_port, w_ref)
+    assert np.mean(w_port != w_core) < 0.1
+    assert np.all(np.abs(w_port - w_core) <= 2.0 ** -7 * np.abs(w_port))
+    ref_core = core + xb @ (w_port - w_core)
+    xh = torch.from_numpy(x).to(torch.bfloat16)
+    for splits in (1, 2):
+        got = pgemm.exl3_gemm_split_plain(xh, torch.from_numpy(words), K, cb, splits).numpy()
+        tol = 1e-4 * np.abs(plain).max()
+        np.testing.assert_allclose(got, plain, rtol=0, atol=tol)
+        np.testing.assert_allclose(got, ref_core, rtol=0, atol=tol)
 
 
 @pytest.fixture(scope="module")

@@ -1,5 +1,5 @@
 """Compare two source trees of the PyTorch port, in turns, on one card, by one
-of four runs (`--run`):
+of seven runs (`--run`):
 
 - `paged_bf16` (the default): the bf16 paged attention kernel (row 3) at
   decode, batch 8, q positions 299-2047 (contexts 300 to 2048), 32 q / 8 kv
@@ -12,11 +12,21 @@ of four runs (`--run`):
   busy ms a traced step, the traced window's idle share and device
   operations a step, as that phase prints them;
 - `serve`: `chip_smoke.py --phases build,serve`, the int8 main path over the
-  bf16 paged cache (row 3 32 times a decode step), read as `serve_capacity`.
+  bf16 paged cache (row 3 32 times a decode step), read as `serve_capacity`;
+- `ring`: the ring decode kernel (row 8) at Gemma-3-27B decode, batch 8, q
+  positions 300-2048, window 1024 in rings of W = 1048 slots (9 rows, a
+  permuted slot table, stale speculative slots), 32 q / 16 kv heads of 128,
+  the shape `chip_smoke.py` reports for the kernel; the rings rotate past L2;
+- `exl3_gemm`: the trellis GEMM (row 9) at m = 8, q/o (4096 x 4096), K = 4,
+  3INST, over inputs rotated past L2;
+- `serve_gemma`: `chip_smoke.py --phases build,serve_gemma` (the 62-layer
+  Gemma-3-27B serve over SWA rings), read as `serve_capacity`.
 
     python3 tools/torch_attention_ab.py --trees build/parent,.   # parent, change
     python3 tools/torch_attention_ab.py --run serve_capacity --trees A,B --rounds 3
     python3 tools/torch_attention_ab.py --run serve --trees build/parent,. --rounds 1
+    python3 tools/torch_attention_ab.py --run ring --trees build/parent,.
+    python3 tools/torch_attention_ab.py --run exl3_gemm --trees build/parent,.
 
 Each tree runs in a process of its own (its own checkout of
 exllamav3_tpu_torch, its own kernel build and checkpoint under <tree>/build/),
@@ -24,7 +34,8 @@ in the order A, B, B, A for every round. A kernel run queues 200 launches
 behind a device spin, five times, over one input set (the trees are compared
 with each other, not with a bound), and gives the median device ms a call
 (CUDA events) and host µs a call (the host clock over the same 200
-enqueues). Each run's numbers are printed as they come; a run that fails is
+enqueues); `ring` and `exl3_gemm` cycle through input sets that together
+exceed twice the L2 cache. Each run's numbers are printed as they come; a run that fails is
 printed with its exit code and left out of the medians. The last line is
 one JSON object with each tree's medians and B / A. Needs CUDA.
 """
@@ -58,10 +69,36 @@ q = torch.randn((B, 1, Hq, D), generator=g, device=dev)
 bt = torch.as_tensor(perm, device=dev)
 qp = torch.as_tensor(total[:, None] - 1, device=dev)
 tl = torch.as_tensor(total, device=dev)
+from exllamav3_tpu_torch.util.timing import rotating
 if sys.argv[1] == "paged_bf16":
     k = torch.randn((P, PAGE_SIZE, Hk, D), generator=g, device=dev).to(torch.bfloat16)
     v = torch.randn((P, PAGE_SIZE, Hk, D), generator=g, device=dev).to(torch.bfloat16)
     fn = lambda: fa.paged_attention_kernel(q, k, v, bt, qp, tl, scale=D ** -0.5)
+elif sys.argv[1] == "ring":
+    Hq, Hk, N, window = 32, 16, 9, 1024
+    W = window + 17 + (-(window + 17)) % 8
+    qpos = np.linspace(300, 2048, 8).astype(np.int32)
+    slots = np.array([3, 7, 0, 5, 8, 1, 6, 2], np.int32)
+    pos = np.full((N, W), -1, np.int32)
+    for b, row in enumerate(slots):
+        p = int(qpos[b])
+        for t in range(max(0, p - W + 1), p + 1 + int(rng.integers(0, 4))):
+            pos[row, t % W] = t
+    q = torch.randn((B, 1, Hq, D), generator=g, device=dev)
+    pos, sl = torch.as_tensor(pos, device=dev), torch.as_tensor(slots, device=dev)
+    qp = torch.as_tensor(qpos[:, None], device=dev)
+    nxt = rotating(lambda i: [torch.randn((N, W, Hk, D), generator=g, device=dev)
+                              .to(torch.bfloat16) for _ in range(2)], 2 * N * W * Hk * D * 2)
+    fn = lambda: fa.ring_attention_kernel(q, *nxt(), pos, sl, qp, scale=168 ** -0.5,
+                                          sliding_window=window)
+elif sys.argv[1] == "exl3_gemm":
+    from exllamav3_tpu_torch.ops.exl3_gemm import exl3_gemm_kernel
+    m, k, n, K = 8, 4096, 4096, 4
+    nxt = rotating(lambda i: (torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16),
+                              torch.randint(-2**31, 2**31, (k // 16, K, n // 2), generator=g,
+                                            device=dev, dtype=torch.int64).to(torch.int32)),
+                   m * k * 2 + k * n * K // 8)
+    fn = lambda: exl3_gemm_kernel(*nxt(), K, 0)
 else:
     from exllamav3_tpu_torch.ops.kv_quant import quantize_kv_stored
     state = {}
@@ -93,7 +130,8 @@ SERVE = (r"^{}: 8 requests finished.*decode-only iterations \d+ tokens in [\d.]+
 PROFILE = re.compile(r"^profile: (\d+) decode steps \(batch 8\), window [\d.]+ ms, device busy "
                      r"([\d.]+) ms \([\d.]+ of the window, idle ([\d.]+)\), ([\d.]+) device ops "
                      r"per step", re.M)
-RUNS = ("paged_bf16", "paged_quant", "serve_capacity", "serve")
+RUNS = ("paged_bf16", "paged_quant", "serve_capacity", "serve", "ring", "exl3_gemm",
+        "serve_gemma")
 
 
 def run(tree: str, what: str) -> tuple[dict | None, str]:

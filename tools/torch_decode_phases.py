@@ -5,6 +5,7 @@ quantized or the bf16 cache (`--storage`).
     python3 tools/torch_decode_phases.py                 # (4, 4) and (5, 3), default splits
     python3 tools/torch_decode_phases.py --splits 64,128,256,512,1024,2048
     python3 tools/torch_decode_phases.py --storage bf16 --splits 64,128,256,512  # bf16 geometries
+    python3 tools/torch_decode_phases.py --ring --splits 128,256,512   # the Gemma-3-27B ring alone
 
 Writes a copy of the header into build/decode_phases/ with clock64() timers
 around the phases of the tile loop (the wait for the staged tile, the issue
@@ -25,11 +26,12 @@ the quantized cache the library's (exl3_linear_attention_quant called with
 that split), the sweep that chose decode_split_keys's sizing. Over the bf16
 cache it times four tile geometries, 32- and 64-key tiles in two and three
 stages, from a build of the unpatched header, at each split given to
---splits (or the one decode_split_keys gives) and at four shapes: the 8B
+--splits (or the one decode_split_keys gives) and at five shapes: the 8B
 linear decode above (also instrumented), the 8B paged decode (batch 8,
 contexts 300-2048), the Llama-3.2-1B draft's linear decode (batch 8, heads
-of 64, T = 2056) and the 8B linear decode at batch 1 (context 2048); the
-sweep that chose the header's launch_decode_bf16. It also prints each bf16
+of 64, T = 2056), the 8B linear decode at batch 1 (context 2048); the
+sweep that chose the header's launch_decode_bf16; and the Gemma-3-27B ring
+(batch 8, 16 kv heads, W = 1048, instrumented too). It also prints each bf16
 kernel's registers and spills. Every output is held against the plain
 version at chip_smoke.py's tolerance (3e-4 quantized, 2e-4 bf16, of the
 largest output), and the script fails if one misses. Needs CUDA.
@@ -135,23 +137,32 @@ extern "C" int phases_linear(const void* q, const void* kq, const void* ks, cons
 template <int D, class Rows>
 int bf16_variant(int variant, const void* q, Rows rows, const void* k, const void* v,
                  const void* qpos, const void* tl, void* out, void* ws, void* counters, int B,
-                 int Hq, int Hk, float scale, int split_keys, int key_limit, void* stream) {
+                 int Hq, int Hk, float scale, int split_keys, int key_limit, void* stream,
+                 int window = 0) {
     const Bf16KV<D> kv{(const __nv_bfloat16*)k, (const __nv_bfloat16*)v, Hk};
     cudaStream_t st = (cudaStream_t)stream;
     switch (variant) {
         case 1: return launch_decode<D, 32, 3>(q, rows, kv, qpos, tl, nullptr, out, ws, counters,
-                                               B, 1, Hq, Hk, scale, 0, 0.f, split_keys, key_limit,
-                                               st);
+                                               B, 1, Hq, Hk, scale, window, 0.f, split_keys,
+                                               key_limit, st);
         case 2: return launch_decode<D, 32, 2>(q, rows, kv, qpos, tl, nullptr, out, ws, counters,
-                                               B, 1, Hq, Hk, scale, 0, 0.f, split_keys, key_limit,
-                                               st);
+                                               B, 1, Hq, Hk, scale, window, 0.f, split_keys,
+                                               key_limit, st);
         case 3: return launch_decode<D, 64, 3>(q, rows, kv, qpos, tl, nullptr, out, ws, counters,
-                                               B, 1, Hq, Hk, scale, 0, 0.f, split_keys, key_limit,
-                                               st);
+                                               B, 1, Hq, Hk, scale, window, 0.f, split_keys,
+                                               key_limit, st);
         default: return launch_decode<D, 64, 2>(q, rows, kv, qpos, tl, nullptr, out, ws,
-                                                counters, B, 1, Hq, Hk, scale, 0, 0.f, split_keys,
-                                                key_limit, st);
+                                                counters, B, 1, Hq, Hk, scale, window, 0.f,
+                                                split_keys, key_limit, st);
     }
+}
+// the ring (D = 128): N rows of W slots with their positions, row slots[b]
+extern "C" int bf16_ring(int variant, const void* q, const void* k, const void* v,
+    const void* pos, const void* slots, const void* qpos, void* out, void* ws, void* counters,
+    int B, int Hq, int Hk, int N, int W, float scale, int window, int split_keys, void* stream) {
+    const RingRows rows{(const int*)slots, (const int*)pos, N, W};
+    return bf16_variant<128>(variant, q, rows, k, v, qpos, nullptr, out, ws, counters, B, Hq, Hk,
+                             scale, split_keys, W, stream, window);
 }
 // bt null: the linear layout (N rows of T slots); else paged (MP pages a table, P pages)
 extern "C" int bf16_decode(int variant, const void* q, const void* k, const void* v,
@@ -206,26 +217,30 @@ def print_registers(ptxas: str) -> None:
             print(f"ptxas:   {line.strip()}", flush=True)
 
 
-def build() -> tuple[ctypes.CDLL, ctypes.CDLL]:
-    """(the instrumented copy of the kernel, the unpatched one), built in
-    parallel into build/decode_phases/."""
+def build(csrc: Path = CSRC) -> tuple[ctypes.CDLL, ctypes.CDLL]:
+    """(the instrumented copy of the kernel, the unpatched one) from the
+    headers in `csrc`, built in parallel into build/decode_phases/ (a
+    subdirectory named after `csrc` for another directory)."""
     from exllamav3_tpu_torch.ops.build import NVCC_FLAGS, nvcc_path
 
-    src = (CSRC / "attention_decode.cuh").read_text()
+    out = OUT if csrc == CSRC else OUT / csrc.resolve().parent.name
+    src = (csrc / "attention_decode.cuh").read_text()
     for anchor, text in PATCHES:
         if src.count(anchor) != 1:
             raise SystemExit(f"the header changed: anchor not found once:\n{anchor}")
         src = src.replace(anchor, text)
-    OUT.mkdir(parents=True, exist_ok=True)
-    (OUT / "attention_decode.cuh").write_text(src)
-    (OUT / "attention_tiles.cuh").write_text((CSRC / "attention_tiles.cuh").read_text())
-    (OUT / "phases.cu").write_text(ENTRY + TIMERS)
-    (OUT / "plain").mkdir(exist_ok=True)  # apart from the patched copy, which "" would find
-    (OUT / "plain" / "plain.cu").write_text(ENTRY)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "attention_decode.cuh").write_text(src)
+    (out / "attention_tiles.cuh").write_text((csrc / "attention_tiles.cuh").read_text())
+    (out / "phases.cu").write_text(ENTRY + TIMERS)
+    (out / "plain").mkdir(exist_ok=True)  # apart from the patched copy, which "" would find
+    (out / "plain" / "plain.cu").write_text(ENTRY)
     flags = [f for f in NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    jobs = [[nvcc_path(), *flags, "-shared", str(OUT / "phases.cu"), "-o", str(OUT / "phases.so")],
-            [nvcc_path(), *flags, "-Xptxas", "-v", f"-I{CSRC}", "-shared",
-             str(OUT / "plain" / "plain.cu"), "-o", str(OUT / "plain.so")]]
+    # the copies' includes resolve beside them first, then in `csrc`
+    jobs = [[nvcc_path(), *flags, f"-I{csrc}", "-shared", str(out / "phases.cu"), "-o",
+             str(out / "phases.so")],
+            [nvcc_path(), *flags, "-Xptxas", "-v", f"-I{csrc}", "-shared",
+             str(out / "plain" / "plain.cu"), "-o", str(out / "plain.so")]]
     with ThreadPoolExecutor(2) as ex:
         runs = list(ex.map(lambda c: subprocess.run(c, capture_output=True, text=True), jobs))
     for r in runs:
@@ -233,10 +248,11 @@ def build() -> tuple[ctypes.CDLL, ctypes.CDLL]:
             raise SystemExit(r.stdout + r.stderr)
     print_registers(runs[1].stdout + runs[1].stderr)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    dlls = ctypes.CDLL(str(OUT / "phases.so")), ctypes.CDLL(str(OUT / "plain.so"))
+    dlls = ctypes.CDLL(str(out / "phases.so")), ctypes.CDLL(str(out / "plain.so"))
     for dll in dlls:
         dll.phases_linear.argtypes = [P] * 10 + [I] * 7 + [F, I, P]
         dll.bf16_decode.argtypes = [I] + [P] * 9 + [I] * 8 + [F, I, P]
+        dll.bf16_ring.argtypes = [I] + [P] * 9 + [I] * 5 + [F, I, I, P]
     dlls[0].phases_read.argtypes = [P, I, I]
     return dlls
 
@@ -251,6 +267,8 @@ def read_phases(dll, blocks: int) -> np.ndarray:
 
 def phase_line(buf: np.ndarray) -> str:
     tiles = buf[:, 5].sum()
+    if tiles == 0:  # the ring's split by warps (ring_split_warps) carries no timers
+        return "no timed tile loop"
     live = buf[:, 5] > 0
     busy = buf[live, 6]
     per_tile = ", ".join(f"{nm} {buf[:, k].sum() / tiles:.0f}"
@@ -344,12 +362,79 @@ def bf16_main(dll, plain_dll, splits: list) -> None:
                     raise SystemExit(f"{said}: rel err {rel:.2e} > {TOL['bf16']}")
         del kv, nxt
         torch.cuda.empty_cache()
+    ring_main(dll, plain_dll, splits)
+
+
+def ring_main(dll, plain_dll, splits: list) -> None:
+    """The ring at Gemma-3-27B decode (batch 8, q positions 300-2048, window
+    1024 in rings of W = 1048 slots, 9 rows, a permuted slot table, up to 3
+    stale slots, 32 q / 16 kv heads of 128), as chip_smoke.py's row 8: at
+    each split given (or decode_split_keys's) and each geometry, the
+    kernel's cycles a tile by phase and its time over rotated rings."""
+    from exllamav3_tpu_torch.ops.flash_attention import (decode_split_keys, device_sms,
+                                                          ring_attention_plain)
+    from exllamav3_tpu_torch.util.timing import rotating, time_ms
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    rng = np.random.default_rng(21)
+    B, Hq, Hk, D, N, window = 8, 32, 16, 128, 9, 1024
+    W = window + 17 + (-(window + 17)) % 8
+    qpos = np.linspace(300, 2048, 8).astype(np.int32)
+    slots = np.array([3, 7, 0, 5, 8, 1, 6, 2], np.int32)
+    pos = np.full((N, W), -1, np.int32)
+    for b, row in enumerate(slots):
+        p = int(qpos[b])
+        for t in range(max(0, p - W + 1), p + 1 + int(rng.integers(0, 4))):
+            pos[row, t % W] = t
+    pos, sl = torch.as_tensor(pos, device=dev), torch.as_tensor(slots, device=dev)
+    qp = torch.as_tensor(qpos[:, None], device=dev)
+    q = torch.randn((B, 1, Hq, D), generator=g, device=dev)
+
+    def make(i):
+        return {n: torch.randn((N, W, Hk, D), generator=g, device=dev).to(torch.bfloat16)
+                for n in ("k", "v")}
+    kv = make(0)
+    ref = ring_attention_plain(q, kv["k"], kv["v"], pos, sl, qp, scale=D ** -0.5,
+                               sliding_window=window)
+    nxt = rotating(lambda i: kv if i == 0 else make(i), 2 * kv["k"].numel() * 2)
+    counters = torch.zeros(B * Hk, dtype=torch.int32, device=dev)
+    out = torch.empty((B, 1, Hq, D), device=dev)
+    for split in (splits or [decode_split_keys(W, B, Hk, device_sms(dev))]):
+        ws = torch.empty(B * Hk * -(-W // split) * (Hq // Hk) * (D + 2), device=dev)
+        for variant, (tk, stages) in enumerate(GEOMETRIES):
+            def call(lib, st):
+                err = lib.bf16_ring(variant, q.data_ptr(), st["k"].data_ptr(), st["v"].data_ptr(),
+                                    pos.data_ptr(), sl.data_ptr(), qp.data_ptr(), out.data_ptr(),
+                                    ws.data_ptr(), counters.data_ptr(), B, Hq, Hk, N, W,
+                                    D ** -0.5, window, split,
+                                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"launch failed: {err}")
+            said = (f"ring Gemma-3-27B decode B=8 W={W}, {tk} keys a tile in {stages} stages, "
+                    f"split {split}")
+            dll.phases_clear()
+            call(dll, kv)
+            torch.cuda.synchronize()
+            rel = float((out - ref).abs().max() / ref.abs().max())
+            buf = read_phases(dll, -(-W // split) * Hk * B)
+            call(plain_dll, kv)
+            torch.cuda.synchronize()
+            rel = max(rel, float((out - ref).abs().max() / ref.abs().max()))
+            ms = time_ms(lambda: call(plain_dll, nxt()), 50)
+            print(f"{said}: {ms:.4f} ms over rotated rings, rel err {rel:.2e}; instrumented: "
+                  f"{phase_line(buf)}", flush=True)
+            if not rel <= TOL["bf16"]:
+                raise SystemExit(f"{said}: rel err {rel:.2e} > {TOL['bf16']}")
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--splits", default="", help="split sizes (keys); default: decode_split_keys")
     ap.add_argument("--storage", choices=("quant", "bf16"), default="quant")
+    ap.add_argument("--ring", action="store_true", help="the bf16 ring's shape alone")
+    ap.add_argument("--csrc", default=str(CSRC),
+                    help="directory of the headers to build (another tree's csrc/)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs CUDA")
@@ -359,7 +444,7 @@ def main():
     from exllamav3_tpu_torch.ops.kv_quant import merged_layout, quantize_kv_stored
     from exllamav3_tpu_torch.util.timing import rotating, time_ms
 
-    dll, plain_dll = build()
+    dll, plain_dll = build(Path(args.csrc))
     dev = torch.device("cuda")
     B, Hq, Hk, D, T = 8, 32, 8, 128, 2056
     ctx = np.linspace(300, 2056, 8).astype(np.int32)
@@ -372,6 +457,8 @@ def main():
     splits = given or [decode_split_keys(T, B, Hk, device_sms(dev))]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
+    if args.ring:
+        return ring_main(dll, plain_dll, given)
     if args.storage == "bf16":
         return bf16_main(dll, plain_dll, given)
     lib = library()
