@@ -42,7 +42,10 @@ Phases:
             yardstick, with the L2-warm times beside them and a sweep of the
             split size), int4_matmul, int4_matmul_a8, intb_matmul
             and intb_matmul_a8 (the packed-integer linears: also m = 128 and
-            the Llama-3.1-70B shapes at m = 8; int-B at B = 3, 4, 5, 6),
+            the Llama-3.1-70B shapes at m = 8; int-B at B = 3, 4, 5, 6, also
+            qkv at m = 13, each case held to the kernels the library counts
+            it launched and, up to 16 rows, to the blocks an SM the sizing
+            reckons with; int-B timed at every B at m = 8 qkv),
             moe_gemm (the selected-expert MLP at the Qwen3-30B-A3B,
             Qwen3-235B-A22B and Mixtral-8x7B expert shapes), linear_attention
             (the linear layout over a bf16 cache: Llama-3.2-1B draft decode,
@@ -1100,22 +1103,38 @@ SHAPES_70B = [(8192, 10240, "70B qkv"), (8192, 8192, "70B o_proj"), (8192, 57344
               (28672, 8192, "70B down")]
 
 
+def _intb_launches() -> tuple:
+    """The int-B library's launches so far: (products, row quantizers,
+    split-k reduce kernels), as csrc/intb_matmul.cu counts them."""
+    from exllamav3_tpu_torch.ops.build import library
+
+    return tuple(library().exl3_intb_launches(kind) for kind in range(3))
+
+
 def check_packed(table, dev, name: str):
     """One of the four packed-integer kernels against its plain version on the
     card: the 8B shapes at m = 1, 8, 128, 2048 and the 70B shapes at m = 8;
-    int-B at B = 3, 4, 5, 6. Timed: the int4 kernels everywhere, the int-B
-    kernels at B = 6 (the ladder's rung); the other widths are held to the
-    tolerance only. x is bf16, as the model's activations are."""
+    int-B at B = 3, 4, 5, 6, and qkv at m = 13 (ragged rows on both 8-row
+    tiles). Timed: the int4 kernels everywhere, the int-B kernels at B = 6
+    (the ladder's rung) and at every B at m = 8 qkv; the other widths are
+    held to the tolerance only. Every int-B case is also held to the kernels
+    it launched (the library's counts): up to 16 rows one product kernel a
+    call, after the row quantizer on the a8 route, and no split-k reduce
+    kernel; above, the product, the quantizer (a8) and the reduce where k
+    splits. Up to 16 rows the card's blocks an SM must equal the sizing's.
+    x is bf16, as the model's activations are."""
     import exllamav3_tpu_torch.ops.q_matmul as qm
+    from exllamav3_tpu_torch.ops.build import library
 
     a8 = name.endswith("_a8")
     kernel, plain = getattr(qm, name + "_kernel"), getattr(qm, name + "_plain")
     g = torch.Generator(device=dev).manual_seed(11)
     cases = [(m, *shape) for m in (1, 8, 128, 2048) for shape in SHAPES_8B]
     cases += [(8, *shape) for shape in SHAPES_70B]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for bits in ((None,) if name.startswith("int4") else (6, 3, 4, 5)):
         extra = () if bits is None else (bits,)
-        for m, k, n, what in cases:
+        for m, k, n, what in cases + ([] if bits is None else [(13, *SHAPES_8B[0])]):
             if bits is None:
                 prows, srows, dt, lo, hi = k // 2, k // 32, torch.int8, -128, 128
             else:
@@ -1129,7 +1148,7 @@ def check_packed(table, dev, name: str):
                 s = ((torch.rand((srows, n), generator=g, device=dev) + 0.5) * 0.01).to(torch.bfloat16)
                 return x, w, s
             nb = m * k * 2 + prows * n * (1 if bits is None else 4) + srows * n * 2 + m * n * 4
-            timed = bits in (None, 6)
+            timed = bits in (None, 6) or (m == 8 and what == "qkv")
             nxt = rotating(make, nb) if timed else (lambda made=make(0): made)
             x, w, s = nxt()
             ref = plain(x, w, s, *extra)
@@ -1142,6 +1161,29 @@ def check_packed(table, dev, name: str):
             tag = f"{name}{'' if bits is None else f' B={bits}'} m={m} {what} ({k}x{n})"
             if not rel <= TOL_PACKED:
                 raise AssertionError(f"{tag}: rel err {rel} > {TOL_PACKED}")
+            if bits is not None:
+                # the kernels one call launched, and at decode sizes the blocks an SM
+                before = _intb_launches()
+                kernel(x, w, s, *extra)
+                torch.cuda.synchronize()
+                took = tuple(b - a for a, b in zip(before, _intb_launches()))
+                if m <= qm.INTB_DECODE_ROWS:
+                    splits = qm.intb_split_count(m, k, n, bits, a8, sms)
+                    want = (1, int(a8), 0)
+                    per_sm = library().exl3_intb_blocks_per_sm(m, k, n, bits, int(a8), splits)
+                    model = qm._intb_blocks_per_sm(m, bits, a8, -(-(prows // 32) // splits))
+                    if per_sm != model:
+                        raise AssertionError(f"{tag}: the card holds {per_sm} blocks an SM, the "
+                                             f"sizing reckons with {model}")
+                    tag += f" [{splits} splits, {per_sm} blocks an SM]"
+                else:
+                    splits = qm._packed_splits(m, n, prows // 32, False, dev)
+                    want = (1, int(a8), int(splits > 1))
+                    tag += f" [{splits} splits]"
+                if took != want:
+                    raise AssertionError(f"{tag}: launched (products, quantizers, reduces) {took}, "
+                                         f"not {want}")
+                tag += f" launches a call {took}"
             if not timed:
                 log(f"{tag}: max_abs_err={err:.3e} rel={rel:.2e}")
                 table.add(name, err, None, None, None, None, "", main=False)
@@ -1161,7 +1203,7 @@ def check_packed(table, dev, name: str):
                 f"{lib:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]})")
             table.add(name, err, ms, plain_t, bnd, lib,
                       f"m={m} k={k} n={n}" + ("" if bits is None else f" B={bits}"),
-                      main=(m == 8 and what == "qkv"))
+                      main=(m == 8 and what == "qkv" and bits in (None, 6)))
             del x, w, s, ref, got, nxt, nxt_lib, wd
             torch.cuda.empty_cache()
     torch.cuda.empty_cache()
@@ -2662,6 +2704,18 @@ def phase_serve_packed() -> dict:
     return launches
 
 
+def phase_serve_packed_int6() -> dict:
+    """The int6 rung alone, all 8 requests of `serve` on 4 layers of the
+    8B-width checkpoint through the a8 int-B kernel, traced: the run that
+    tools/torch_attention_ab.py --run serve_packed_int6 compares (not in the
+    default phases; serve_packed serves int6 one request)."""
+    tag = "serve_packed int6"
+    counts = _serve(tag, _checkpoint(4), "int6", {}, "int6", _serve_prompts())
+    used = ("intb_matmul_a8", "paged_attention")
+    _require_launches(tag, counts, used)
+    return {n: counts[n] for n in used}
+
+
 def _moe_checkpoint(layers: int) -> str:
     """A synthetic Qwen3-MoE EXL3 checkpoint at Qwen3-30B-A3B width, K=4,
     one shard a layer, written once per machine."""
@@ -3365,8 +3419,8 @@ def main():
     args = ap.parse_args()
     phases = args.phases.split(",")
     known = {"build", "kernels", "parity", "parity_mla", "parity_gemma", "parity_dsv4", "serve",
-             "serve_capacity", "serve_packed", "serve_moe", "linear_decode", "serve_spec",
-             "serve_mla", "serve_gemma", "serve_dsv4", *CHECKS}
+             "serve_capacity", "serve_packed", "serve_packed_int6", "serve_moe", "linear_decode",
+             "serve_spec", "serve_mla", "serve_gemma", "serve_dsv4", *CHECKS}
     if set(phases) - known:
         ap.error(f"unknown phases {sorted(set(phases) - known)}")
 
@@ -3423,6 +3477,10 @@ def main():
         t0 = time.time()
         table.set_launches(phase_serve_packed())
         log(f"phase serve_packed: {time.time() - t0:.1f} s")
+    if "serve_packed_int6" in phases:
+        t0 = time.time()
+        table.set_launches(phase_serve_packed_int6())
+        log(f"phase serve_packed_int6: {time.time() - t0:.1f} s")
     if "serve_moe" in phases:
         t0 = time.time()
         table.set_launches(phase_serve_moe())

@@ -1,9 +1,10 @@
 // Asynchronous copies into shared memory, and a block's arrival at a counter
 // that its launch's blocks share: the helpers of the kernels that stage
-// tiles with cp.async and let the last block of a group add the group's
-// splits in the same launch (attention_decode.cuh, exl3_gemm.cu). Those
-// kernels share one per-device counter tensor (util/device.py), so they
-// share the protocol that leaves every counter at 0 after a launch.
+// tiles with cp.async and let the last block (or warp) of a group add the
+// group's splits in the same launch (attention_decode.cuh, exl3_gemm.cu,
+// intb_matmul.cu). Those kernels share one per-device counter tensor
+// (util/device.py), so they share the protocol that leaves every counter at
+// 0 after a launch.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -27,7 +28,8 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // A block's arrival at a counter that its launch's blocks share, made by
-// one thread after a block barrier: a release of the block's writes before
+// one thread after a block barrier (a warp's, after a warp barrier, where
+// each warp arrives for itself): a release of the block's writes before
 // the increment (fence.acq_rel at gpu scope, cumulative over what the
 // barrier ordered) and, for the last to arrive (the count it read was the
 // others'), an acquire after it, so that its block reads every other

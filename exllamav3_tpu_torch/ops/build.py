@@ -28,7 +28,7 @@ SOURCES = ("int8_matmul.cu", "fused_mlp.cu", "paged_attention.cu", "exl3_gemm.cu
            "latent_attention_quant.cu", "ring_attention.cu", "attention_stats.cu",
            "probe_dma.cu", "probe_trellis.cu", "probe_kv_dequant.cu", "probe_int4.cu")
 HEADERS = ("packed_matmul.cuh", "attention_tiles.cuh", "attention_decode.cuh",
-           "async_copy.cuh")  # included by sources; part of the digest
+           "async_copy.cuh", "intb_layout.cuh")  # included by sources; part of the digest
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -47,8 +47,8 @@ SIGNATURES = {
                                    _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _F, _I, _P],
     "exl3_int4_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "exl3_int4_matmul_a8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "exl3_intb_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "exl3_intb_matmul_a8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "exl3_intb_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "exl3_intb_matmul_a8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "exl3_moe_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "exl3_linear_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _F, _I, _F, _I, _P],
@@ -76,6 +76,11 @@ SIGNATURES = {
     # the kernel a product of these widths launches (csrc/exl3_gemm.cu)
     "exl3_gemm_launches": [],
     "exl3_gemm_blocks_per_sm": [_I, _I, _I, _I, _I, _I],
+    # the int-B library's launches so far by kernel (0 products, 1 row
+    # quantizers, 2 split-k reduces), and the blocks an SM holds of the staged
+    # body a product of these widths launches (csrc/intb_matmul.cu)
+    "exl3_intb_launches": [_I],
+    "exl3_intb_blocks_per_sm": [_I, _I, _I, _I, _I, _I],
 }
 
 _LIB = None

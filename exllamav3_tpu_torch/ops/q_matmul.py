@@ -24,11 +24,14 @@ raises; on a CPU tensor the dispatchers run the plain versions.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from ..util.device import H100_SMS, arrival_counters, device_sms
 from ..util.env import env_bool
-from .build import check_aligned, check_launch, library
+from .build import check_aligned, check_launch, header_constants, library
 
 SMALL_M = 16  # rows up to this take the decode tiling (16 x 128 x 128)
 
@@ -286,20 +289,64 @@ def intb_matmul_a8_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Te
     return _a8_product(x, _intb_codes(packed, bits), scales)
 
 
+def _intb_split_steps(steps: int, splits: int) -> list:
+    """The step runs [s * steps // splits, (s + 1) * steps // splits) of the
+    staged int-B kernel's splits: lengths differ by at most one step."""
+    return [(s * steps // splits, (s + 1) * steps // splits) for s in range(splits)]
+
+
+def intb_matmul_split_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                            bits: int, splits: int, a8: bool) -> torch.Tensor:
+    """The staged int-B kernel's arithmetic in plain torch (m <= 16): the
+    steps (32 packed rows, every plane) cut into `splits` runs as the kernel
+    cuts them, each run's partial sums in f32 (the a8 route: an exact integer
+    dot per 32-row group times its scale), the partials added in split order
+    from 0, and on the a8 route the row scale last. (m, n) f32."""
+    m, k = x.shape
+    W, kp, _ = intb_geometry(k, bits)
+    codes = _intb_codes(packed, bits)                   # (W * kp, n), pad rows included
+    if a8:
+        xq, xs = quantize_rows(x)
+        xin = xq
+    else:
+        xin = x.to(torch.bfloat16).float()
+        w = (codes.to(torch.float32) * scales.to(torch.float32).repeat_interleave(INTB_GROUP, 0)
+             ).to(torch.bfloat16).float()
+    out = torch.zeros((m, packed.shape[1]), dtype=torch.float32, device=x.device)
+    for s0, s1 in _intb_split_steps(kp // 32, splits):
+        # the split's weight rows in every plane, short of the pad rows
+        runs = [(j * kp + s0 * 32, min(j * kp + s1 * 32, k)) for j in range(W)
+                if j * kp + s0 * 32 < k]
+        rows = torch.cat([torch.arange(r0, r1, device=x.device) for r0, r1 in runs])
+        if a8:
+            groups = rows[::INTB_GROUP] // INTB_GROUP
+            xg = xin[:, rows].reshape(m, -1, INTB_GROUP).transpose(0, 1)   # (groups, m, 32)
+            cg = codes[rows].reshape(-1, INTB_GROUP, codes.shape[1]).to(torch.float32)
+            d = torch.bmm(xg, cg)                                            # exact integers
+            part = (d * scales[groups][:, None, :].to(torch.float32)).sum(dim=0)
+        else:
+            part = xin[:, rows] @ w[rows]
+        out = out + part
+    return out * xs if a8 else out
+
+
 # -- kernel wrappers -----------------------------------------------------------
 
-# the tilings of csrc/packed_matmul.cuh: up to DECODE_ROWS rows a block covers
-# 16 rows and 256 (int4) or 128 (int-B) columns, beyond that 64 rows and 128
-# columns; one step of its k loop is 32 packed rows
+# the tilings of csrc/packed_matmul.cuh, which the int4 kernels take at every
+# m and the int-B kernels above INTB_DECODE_ROWS rows (int-B at m <=
+# INTB_DECODE_ROWS is sized by intb_split_count below): up to DECODE_ROWS rows
+# a block covers 16 rows and 256 (int4) or 128 (int-B) columns, beyond that
+# 64 rows and 128 columns; one step of its k loop is 32 packed rows
 DECODE_ROWS = 16
 BLOCKS_PER_SM = 4
 MIN_STEPS = 4
 
 
 def _packed_splits(m: int, n: int, steps: int, nibble: bool, device) -> int:
-    """k splits of a packed kernel's grid: enough blocks to fill the card at
-    decode sizes, MIN_STEPS steps a split where there are that many, and no
-    split left empty."""
+    """k splits of a grid of packed_matmul.cuh (the int4 kernels; int-B
+    above INTB_DECODE_ROWS rows): enough blocks to fill the card at decode
+    sizes, MIN_STEPS steps a split where there are that many, and no split
+    left empty."""
     if m <= DECODE_ROWS:
         blocks = -(-n // (256 if nibble else 128))
     else:
@@ -308,6 +355,70 @@ def _packed_splits(m: int, n: int, steps: int, nibble: bool, device) -> int:
     want = max(1, min(steps // MIN_STEPS, -(-target // blocks)))
     per = -(-steps // want)
     return -(-steps // per)
+
+
+# the staged int-B kernel's limits and layout, read from csrc/intb_layout.cuh:
+# up to INTB_DECODE_ROWS rows, blocks of INTB_WARPS warps of 32 columns, each
+# warp staging INTB_STAGES steps of its words and scales; the launch bounds
+# promise INTB_BLOCKS blocks an SM; a block may ask for INTB_MAX_SMEM bytes;
+# the byte sizes of a block's shared memory (_intb_smem)
+_INTB_LAYOUT = ("INTB_WARPS", "INTB_STAGES", "INTB_BLOCKS", "INTB_DECODE_ROWS", "INTB_MAX_SMEM",
+                "INTB_WORD_STAGE", "INTB_SCALE_ROW", "INTB_X_ALIGN", "INTB_X_PAD_A8",
+                "INTB_X_PAD_BF16", "INTB_X_SUMS")
+(_INTB_WARPS, _INTB_STAGES, _INTB_BLOCKS, INTB_DECODE_ROWS, INTB_MAX_SMEM, _INTB_WORD_STAGE,
+ _INTB_SCALE_ROW, _INTB_X_ALIGN, _INTB_X_PAD_A8, _INTB_X_PAD_BF16, _INTB_X_SUMS) = header_constants(
+    "intb_layout.cuh", *_INTB_LAYOUT)
+_INTB_BN = 32 * _INTB_WARPS
+# an SM's shared memory for blocks, 1 KB of it reserved a block
+_SM_SHARED, _BLOCK_RESERVED = header_constants("attention_decode.cuh", "SM_SHARED",
+                                               "BLOCK_RESERVED")
+
+
+def _intb_smem(m: int, bits: int, a8: bool, per: int) -> int:
+    """Dynamic shared memory of a staged int-B block whose split holds `per`
+    steps, as csrc/intb_layout.cuh's intb_smem_bytes reckons it from the
+    same constants: each warp's stages of words and scales, 8 or 16 rows of
+    x over the split's groups in padded rows, and the a8 row sums.
+    tests/test_torch_intb_split.py holds it to the header, compiled."""
+    W = 32 // bits
+    x_ld = (-(-W * per * 32 * (1 if a8 else 2) // _INTB_X_ALIGN) * _INTB_X_ALIGN
+            + (_INTB_X_PAD_A8 if a8 else _INTB_X_PAD_BF16))
+    return (_INTB_WARPS * _INTB_STAGES * (_INTB_WORD_STAGE + W * _INTB_SCALE_ROW)
+            + (8 if m <= 8 else 16) * x_ld + (W * per * _INTB_X_SUMS if a8 else 0))
+
+
+def _intb_blocks_per_sm(m: int, bits: int, a8: bool, per: int) -> int:
+    """Blocks an SM holds of a staged int-B launch: the launch bounds, or
+    fewer where the shared memory does not fit. chip_smoke.py holds it to the
+    card's reading (exl3_intb_blocks_per_sm)."""
+    return min(_INTB_BLOCKS, _SM_SHARED // (_intb_smem(m, bits, a8, per) + _BLOCK_RESERVED))
+
+
+@functools.lru_cache(maxsize=None)  # a served step asks for a few widths hundreds of times
+def intb_split_count(m: int, k: int, n: int, bits: int, a8: bool, sms: int = H100_SMS) -> int:
+    """k splits of the staged int-B kernel on a card of `sms` SMs (m <=
+    INTB_DECODE_ROWS). A block's time is its steps, the card's that of its
+    busiest SM: the blocks it is given times their steps, ceil(tiles * splits
+    / sms) * ceil(steps / splits). Among the splits whose x fits a block's
+    shared memory and whose grid is resident at once (or, where none is, all
+    that fit), those that give the busiest SM the fewest steps are taken, and
+    of them the one whose SMs run the most blocks at once (warps that hide
+    each other's latency), then the fewest splits."""
+    W, kp, _ = intb_geometry(k, bits)
+    steps = kp // 32
+    tiles = -(-n // _INTB_BN)
+    fits, resident = [], []
+    for s in range(1, steps + 1):
+        per = -(-steps // s)
+        if _intb_smem(m, bits, a8, per) > INTB_MAX_SMEM:
+            continue
+        held = _intb_blocks_per_sm(m, bits, a8, per)
+        on_sm = -(-tiles * s // sms)  # blocks the busiest SM is given
+        cand = (on_sm * per, -min(on_sm, held), s)
+        fits.append(cand)
+        if s == 1 or on_sm <= held:
+            resident.append(cand)
+    return min(resident or fits)[2]
 
 
 def _check_packed(name: str, x, packed, scales, packed_dtype, a8: bool):
@@ -323,16 +434,18 @@ def _check_packed(name: str, x, packed, scales, packed_dtype, a8: bool):
     check_aligned(name, x, packed, scales)
 
 
-def _launch_packed(fn_name: str, x, packed, scales, a8: bool, steps: int, nibble: bool, extra: tuple):
+def _launch_packed(fn_name: str, x, packed, scales, a8: bool, splits: int, extra: tuple,
+                   counters: tuple = ()):
     """Allocate the output, the split-k workspace and, for a8, the int8 copy of
-    x with its row scales; launch `fn_name`; return y (m, n) f32."""
+    x with its row scales; launch `fn_name` with `splits` k splits (and the
+    arrival counters' pointer where the entry takes one); return y (m, n) f32."""
     m, k = x.shape
     n = packed.shape[1]
     dev = x.device
-    splits = _packed_splits(m, n, steps, nibble, dev)
     y = torch.empty((m, n), dtype=torch.float32, device=dev)
     ws = torch.empty((splits, m, n), dtype=torch.float32, device=dev) if splits > 1 else y
-    args = [x.data_ptr(), packed.data_ptr(), scales.data_ptr(), y.data_ptr(), ws.data_ptr()]
+    args = [x.data_ptr(), packed.data_ptr(), scales.data_ptr(), y.data_ptr(), ws.data_ptr(),
+            *counters]
     if a8:
         xq = torch.empty((m, k), dtype=torch.int8, device=dev)
         xs = torch.empty((m,), dtype=torch.float32, device=dev)
@@ -357,7 +470,8 @@ def int4_matmul_kernel(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tens
     int8, scales (k/32, n) bf16 -> (m, n) f32. Any m >= 1."""
     _check_packed("int4_matmul_kernel", x, packed, scales, torch.int8, a8=False)
     steps = _int4_shapes("int4_matmul_kernel", x, packed, scales)
-    y = _launch_packed("exl3_int4_matmul", x, packed, scales, False, steps, True, ())
+    splits = _packed_splits(x.shape[0], packed.shape[1], steps, True, x.device)
+    y = _launch_packed("exl3_int4_matmul", x, packed, scales, False, splits, ())
     int4_matmul_kernel.launches += 1
     return y
 
@@ -371,7 +485,8 @@ def int4_matmul_a8_kernel(x: torch.Tensor, packed: torch.Tensor,
     to int8 rows by the launch's first kernel; -> (m, n) f32. Any m >= 1."""
     _check_packed("int4_matmul_a8_kernel", x, packed, scales, torch.int8, a8=True)
     steps = _int4_shapes("int4_matmul_a8_kernel", x, packed, scales)
-    y = _launch_packed("exl3_int4_matmul_a8", x, packed, scales, True, steps, True, ())
+    splits = _packed_splits(x.shape[0], packed.shape[1], steps, True, x.device)
+    y = _launch_packed("exl3_int4_matmul_a8", x, packed, scales, True, splits, ())
     int4_matmul_a8_kernel.launches += 1
     return y
 
@@ -389,17 +504,31 @@ def _intb_shapes(name: str, x, packed, scales, bits: int):
         raise ValueError(f"{name}: shapes x {tuple(x.shape)}, packed {tuple(packed.shape)}, "
                          f"scales {tuple(scales.shape)}, bits {bits}: k % 32 == 0 and "
                          f"n % 32 == 0 are needed")
-    return kp // 32
+
+
+def _launch_intb(fn_name: str, x, packed, scales, bits: int, a8: bool):
+    """One int-B product: up to INTB_DECODE_ROWS rows the staged kernel with
+    intb_split_count's splits, added in the launch (the shared arrival
+    counters, one a 32-column tile); above, packed_matmul.cuh's tiling with
+    its split-k reduce."""
+    m, k = x.shape
+    kp, n = packed.shape
+    if m <= INTB_DECODE_ROWS:
+        splits = intb_split_count(m, k, n, bits, a8, device_sms(x.device))
+        counters = arrival_counters(x.device, n // 32).data_ptr()  # one a warp's columns
+    else:
+        splits, counters = _packed_splits(m, n, kp // 32, False, x.device), None
+    return _launch_packed(fn_name, x, packed, scales, a8, splits, (kp, bits), (counters,))
 
 
 def intb_matmul_kernel(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                        bits: int) -> torch.Tensor:
     """Launch csrc/intb_matmul.cu, bf16 route: x (m, k) bf16 (k unpadded),
-    packed (kp, n) int32, scales (W*kp/32, n) bf16 -> (m, n) f32. Any m >= 1."""
+    packed (kp, n) int32, scales (W*kp/32, n) bf16 -> (m, n) f32. Any m >= 1;
+    up to INTB_DECODE_ROWS rows one device kernel a call."""
     _check_packed("intb_matmul_kernel", x, packed, scales, torch.int32, a8=False)
-    steps = _intb_shapes("intb_matmul_kernel", x, packed, scales, bits)
-    y = _launch_packed("exl3_intb_matmul", x, packed, scales, False, steps, False,
-                       (packed.shape[0], bits))
+    _intb_shapes("intb_matmul_kernel", x, packed, scales, bits)
+    y = _launch_intb("exl3_intb_matmul", x, packed, scales, bits, False)
     intb_matmul_kernel.launches += 1
     return y
 
@@ -410,11 +539,11 @@ intb_matmul_kernel.launches = 0
 def intb_matmul_a8_kernel(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                           bits: int) -> torch.Tensor:
     """Launch csrc/intb_matmul.cu, a8 route: x (m, k) f32 or bf16, quantized
-    to int8 rows by the launch's first kernel; -> (m, n) f32. Any m >= 1."""
+    to int8 rows by the launch's first kernel; -> (m, n) f32. Any m >= 1; up
+    to INTB_DECODE_ROWS rows the quantizer and one product kernel a call."""
     _check_packed("intb_matmul_a8_kernel", x, packed, scales, torch.int32, a8=True)
-    steps = _intb_shapes("intb_matmul_a8_kernel", x, packed, scales, bits)
-    y = _launch_packed("exl3_intb_matmul_a8", x, packed, scales, True, steps, False,
-                       (packed.shape[0], bits))
+    _intb_shapes("intb_matmul_a8_kernel", x, packed, scales, bits)
+    y = _launch_intb("exl3_intb_matmul_a8", x, packed, scales, bits, True)
     intb_matmul_a8_kernel.launches += 1
     return y
 

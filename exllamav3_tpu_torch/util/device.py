@@ -37,7 +37,8 @@ _COUNTERS: dict = {}
 
 def arrival_counters(device, n: int) -> torch.Tensor:
     """int32 arrival counters for a kernel whose last block to arrive merges
-    the others' work (the split-key decode attention, the trellis GEMM):
+    the others' work (the split-key decode attention, the trellis GEMM, the
+    int-B matmul at decode sizes, one counter a warp's 32 columns):
     zero at first and left zero by every launch, so one tensor a device
     serves every call (it grows when a call needs more). Launches that share
     it run one after another on one stream, as the model's steps do."""

@@ -21,7 +21,7 @@ def _port_files():
             if n.endswith(".py"):
                 yield os.path.join(dirpath, n)
     yield os.path.join(ROOT, "chip_smoke.py")
-    for tool in ("torch_attention_ab.py", "torch_decode_phases.py"):
+    for tool in ("torch_attention_ab.py", "torch_decode_phases.py", "torch_packed_phases.py"):
         yield os.path.join(ROOT, "tools", tool)
 
 
@@ -48,7 +48,7 @@ def test_no_jax_imports_in_port_sources():
             "exllamav3_tpu_torch/modules/hyperconnections.py",
             "exllamav3_tpu_torch/architectures/deepseek_v4.py",
             "tools/torch_attention_ab.py", "tools/torch_decode_phases.py",
-            "exllamav3_tpu_torch/util/timing.py",
+            "tools/torch_packed_phases.py", "exllamav3_tpu_torch/util/timing.py",
             *(f"exllamav3_tpu_torch/probes/{name}.py" for name in
               ("__init__", "fused_ablate", "dequant_probe", "int4_sweep", "a8_ablate",
                "a8_diag_proto", "dma_floor"))} <= scanned

@@ -1,5 +1,5 @@
 """Compare two source trees of the PyTorch port, in turns, on one card, by one
-of seven runs (`--run`):
+of nine runs (`--run`):
 
 - `paged_bf16` (the default): the bf16 paged attention kernel (row 3) at
   decode, batch 8, q positions 299-2047 (contexts 300 to 2048), 32 q / 8 kv
@@ -20,13 +20,21 @@ of seven runs (`--run`):
 - `exl3_gemm`: the trellis GEMM (row 9) at m = 8, q/o (4096 x 4096), K = 4,
   3INST, over inputs rotated past L2;
 - `serve_gemma`: `chip_smoke.py --phases build,serve_gemma` (the 62-layer
-  Gemma-3-27B serve over SWA rings), read as `serve_capacity`.
+  Gemma-3-27B serve over SWA rings), read as `serve_capacity`;
+- `intb`: the int-B matmuls, row 13 (bf16) and row 14 (a8), at qkv (4096 x
+  6144), B = 6, m = 8, 128 and 2048, over inputs rotated past L2, one after
+  the other in each run;
+- `serve_packed_int6`: `chip_smoke.py --phases build,serve_packed_int6`
+  (the int6 tier on 4 layers of the 8B-width checkpoint, all 8 requests,
+  traced), read as `serve_capacity`.
 
     python3 tools/torch_attention_ab.py --trees build/parent,.   # parent, change
     python3 tools/torch_attention_ab.py --run serve_capacity --trees A,B --rounds 3
     python3 tools/torch_attention_ab.py --run serve --trees build/parent,. --rounds 1
     python3 tools/torch_attention_ab.py --run ring --trees build/parent,.
     python3 tools/torch_attention_ab.py --run exl3_gemm --trees build/parent,.
+    python3 tools/torch_attention_ab.py --run intb --trees build/parent,.
+    python3 tools/torch_attention_ab.py --run serve_packed_int6 --trees build/parent,. --smoke chip_smoke.py
 
 Each tree runs in a process of its own (its own checkout of
 exllamav3_tpu_torch, its own kernel build and checkpoint under <tree>/build/),
@@ -34,10 +42,14 @@ in the order A, B, B, A for every round. A kernel run queues 200 launches
 behind a device spin, five times, over one input set (the trees are compared
 with each other, not with a bound), and gives the median device ms a call
 (CUDA events) and host µs a call (the host clock over the same 200
-enqueues); `ring` and `exl3_gemm` cycle through input sets that together
-exceed twice the L2 cache. Each run's numbers are printed as they come; a run that fails is
+enqueues; `intb` gives both for each route); `ring`, `exl3_gemm` and `intb`
+cycle through input sets that together exceed twice the L2 cache. Each run's numbers are printed as they come; a run that fails is
 printed with its exit code and left out of the medians. The last line is
-one JSON object with each tree's medians and B / A. Needs CUDA.
+one JSON object with each tree's medians and B / A. A serve run drives each
+tree's own chip_smoke.py, or with `--smoke PATH` that one script in both trees
+(each its own package and kernels, one checkpoint under the script's build/;
+for a tree whose script lacks the phase, and so that both run the same code
+around the serve). Needs CUDA.
 """
 from __future__ import annotations
 
@@ -99,6 +111,20 @@ elif sys.argv[1] == "exl3_gemm":
                                             device=dev, dtype=torch.int64).to(torch.int32)),
                    m * k * 2 + k * n * K // 8)
     fn = lambda: exl3_gemm_kernel(*nxt(), K, 0)
+elif sys.argv[1] == "intb":
+    from exllamav3_tpu_torch.ops import q_matmul as qm
+    k, n, bits = 4096, 6144, 6
+    W, kp, k_pad = qm.intb_geometry(k, bits)
+    fns = {}
+    for m in (8, 128, 2048):
+        nxt = rotating(lambda i, m=m: (torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16),
+                                       torch.randint(-2**31, 2**31, (kp, n), generator=g, device=dev,
+                                                     dtype=torch.int64).to(torch.int32),
+                                       ((torch.rand((k_pad // 32, n), generator=g, device=dev) + 0.5)
+                                        * 0.01).to(torch.bfloat16)),
+                       m * k * 2 + kp * n * 4 + k_pad // 32 * n * 2)
+        fns[f"bf16_m{m}"] = lambda nxt=nxt: qm.intb_matmul_kernel(*nxt(), bits)
+        fns[f"a8_m{m}"] = lambda nxt=nxt: qm.intb_matmul_a8_kernel(*nxt(), bits)
 else:
     from exllamav3_tpu_torch.ops.kv_quant import quantize_kv_stored
     state = {}
@@ -106,23 +132,35 @@ else:
         x = torch.randn((P, PAGE_SIZE, Hk, D), generator=g, device=dev)
         state[nm + "_q"], state[nm + "_s"] = quantize_kv_stored(x, 4, True)
     fn = lambda: fa.paged_attention_quant_kernel(q, state, bt, qp, tl, 4, 4, scale=D ** -0.5)
-for _ in range(5):
-    fn()
-torch.cuda.synchronize()
-ms, host_us = [], []
-for _ in range(5):
-    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(35_000_000)
-    t0.record()
-    h0 = time.perf_counter()
-    for _ in range(200):
+
+
+def timed(fn):
+    for _ in range(5):
         fn()
-    h1 = time.perf_counter()
-    t1.record()
     torch.cuda.synchronize()
-    ms.append(t0.elapsed_time(t1) / 200)
-    host_us.append((h1 - h0) / 200 * 1e6)
-print(json.dumps({"ms": statistics.median(ms), "host_us": statistics.median(host_us)}))
+    ms, host_us = [], []
+    for _ in range(5):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(35_000_000)
+        t0.record()
+        h0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        h1 = time.perf_counter()
+        t1.record()
+        torch.cuda.synchronize()
+        ms.append(t0.elapsed_time(t1) / 200)
+        host_us.append((h1 - h0) / 200 * 1e6)
+    return statistics.median(ms), statistics.median(host_us)
+
+
+if sys.argv[1] == "intb":
+    res = {}
+    for route, f in fns.items():
+        res[f"ms_{route}"], res[f"host_us_{route}"] = timed(f)
+else:
+    res = dict(zip(("ms", "host_us"), timed(fn)))
+print(json.dumps(res))
 """
 
 SERVE = (r"^{}: 8 requests finished.*decode-only iterations \d+ tokens in [\d.]+ s "
@@ -131,16 +169,29 @@ PROFILE = re.compile(r"^profile: (\d+) decode steps \(batch 8\), window [\d.]+ m
                      r"([\d.]+) ms \([\d.]+ of the window, idle ([\d.]+)\), ([\d.]+) device ops "
                      r"per step", re.M)
 RUNS = ("paged_bf16", "paged_quant", "serve_capacity", "serve", "ring", "exl3_gemm",
-        "serve_gemma")
+        "serve_gemma", "intb", "serve_packed_int6")
 
 
-def run(tree: str, what: str) -> tuple[dict | None, str]:
+# a serve run's log tag, where it is not the run's name
+TAGS = {"serve_packed_int6": "serve_packed int6"}
+# runs the script named first with the arguments after it, as `python script`
+# would, but with the tree's checkout first on the path
+RUN_SCRIPT = ("import runpy, sys; sys.argv = sys.argv[1:]; "
+              "runpy.run_path(sys.argv[0], run_name='__main__')")
+
+
+def run(tree: str, what: str, smoke: str | None = None) -> tuple[dict | None, str]:
     """(the run's numbers, or None if it failed; what to print about it)."""
     tree = os.path.abspath(tree)
     env = dict(os.environ, PYTHONPATH=tree)
     serve = what.startswith("serve")
-    cmd = ([sys.executable, "chip_smoke.py", "--phases", f"build,{what}"] if serve
-           else [sys.executable, "-c", KERNEL_RUN, what])
+    tag = TAGS.get(what, what)
+    if serve and smoke:
+        cmd = [sys.executable, "-c", RUN_SCRIPT, smoke, "--phases", f"build,{what}"]
+    elif serve:
+        cmd = [sys.executable, "chip_smoke.py", "--phases", f"build,{what}"]
+    else:
+        cmd = [sys.executable, "-c", KERNEL_RUN, what]
     out = subprocess.run(cmd, cwd=tree, env=env, capture_output=True, text=True)
     if out.returncode != 0:
         tail = (out.stdout + out.stderr).strip().splitlines()[-1:]
@@ -149,7 +200,7 @@ def run(tree: str, what: str) -> tuple[dict | None, str]:
         res = json.loads(out.stdout.strip().splitlines()[-1])
     else:
         steps, busy, idle, ops = PROFILE.search(out.stdout).groups()
-        res = {"tok_s": float(re.search(SERVE.format(what), out.stdout, re.M).group(1)),
+        res = {"tok_s": float(re.search(SERVE.format(tag), out.stdout, re.M).group(1)),
                "busy_ms": float(busy) / int(steps), "idle": float(idle), "ops": float(ops)}
     return res, " ".join(f"{k}={v:.4f}" for k, v in res.items())
 
@@ -159,7 +210,11 @@ def main():
     ap.add_argument("--trees", required=True, help="A,B: two checkouts of the repository")
     ap.add_argument("--run", choices=RUNS, default="paged_bf16")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--smoke", default=None,
+                    help="the chip_smoke.py that drives a serve run in both trees (default: each "
+                         "tree's own)")
     args = ap.parse_args()
+    smoke = os.path.abspath(args.smoke) if args.smoke else None
     a, b = args.trees.split(",")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -167,7 +222,7 @@ def main():
     runs = {a: [], b: []}
     for r in range(args.rounds):
         for tree in (a, b, b, a):
-            res, said = run(tree, args.run)
+            res, said = run(tree, args.run, smoke)
             runs[tree].append(res)
             print(f"round {r} {tree}: {args.run} {said}", flush=True)
     medians = {tree: {k: statistics.median(x[k] for x in rs if x) for k in next(x for x in rs if x)}

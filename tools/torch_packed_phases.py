@@ -1,0 +1,488 @@
+"""Where a block's time goes in the int-B matmuls
+(exllamav3_tpu_torch/csrc/intb_matmul.cu, kernel rows 13 and 14), on one card.
+
+    python3 tools/torch_packed_phases.py                       # this tree's kernel
+    python3 tools/torch_packed_phases.py --tree build/parent   # another checkout's kernel
+    python3 tools/torch_packed_phases.py --splits 4,6,8,13     # and the staged body's time by split count
+    python3 tools/torch_packed_phases.py --stages 2 --blocks 4 # 2 stages a warp, launch bounds of 4 blocks an SM
+
+Copies the tree's intb_matmul.cu and the headers it includes into
+build/packed_phases/<tree name>/, puts clock64() timers around the phases of
+a block's life, builds it with nvcc as ops/build.py builds the kernels (and
+the unpatched copy beside it), and runs both routes, bf16 (row 13) and a8
+(row 14), at m = 8 over the five Llama-3.1-8B shapes at B = 6 (qkv 4096 x
+6144, o_proj 4096 x 4096, gate_up 4096 x 28672, down 14336 x 4096, lm_head
+4096 x 32768), qkv also at B = 3. Thread 0 of each block sums its cycles by
+phase over the block's k steps:
+
+- `stage`: the next step's copies. In the body of packed_matmul.cuh (the
+  tree before the redesign) the issue of the next step's word loads into
+  registers; in the staged body the wait for a step's `cp.async` group and
+  the issue of a later step's;
+- `reads`: the group scales and the A or B fragments of x (and, staged, the
+  words and the a8 row sums), each consumed by an instruction before the
+  timer reads the clock: from device memory in the old body, from shared
+  memory in the staged one;
+- `extract`: the codes made into MMA fragments;
+- `mma`: the tensor-core products and, on the a8 route, the group scales'
+  FMAs;
+- the block's life from its start to its k loop (the prologue), the loop,
+  and the epilogue: the partial sums' write and, in the staged body, the
+  arrival and, where the block's first warp arrives last for its 32
+  columns, its reduction of the splits. The row
+  quantizer, and the old body's split-k reduce, are kernels of their own,
+  timed alone by CUDA events.
+
+A timer reads the clock where the program reaches it, and the instrumented
+build makes each phase wait for its loads before the next begins: compare
+phases, and take kernel times from the unpatched build. The staged body is
+also built with its programmatic dependent launch off (a patch of the
+launch's attribute), and its a8 route timed both ways. Every output is held against the plain version
+at chip_smoke.py's TOL_PACKED (1e-4 of the largest output), and the script
+fails if one misses. Needs CUDA.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import re
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+TOL = 1e-4  # chip_smoke.py's TOL_PACKED
+SLOTS = 9   # stage, reads, extract, mma, steps, prologue, loop, epilogue, last-arriving
+SHAPES = [(4096, 6144, "qkv", 6), (4096, 6144, "qkv", 3), (4096, 4096, "o_proj", 6),
+          (4096, 28672, "gate_up", 6), (14336, 4096, "down", 6), (4096, 32768, "lm_head", 6)]
+M = 8
+TIMERS = (f"__device__ unsigned long long g_phase[65536 * {SLOTS}];\n"
+          "// an instruction that reads v, ordered with the clock reads: a timer after it\n"
+          "// counts the wait for v's load\n"
+          "__device__ __forceinline__ void touch(unsigned& sink, unsigned v) {\n"
+          "    asm volatile(\"xor.b32 %0, %0, %1;\" : \"+r\"(sink) : \"r\"(v));\n}\n")
+
+
+def read(symbol: str) -> str:
+    """C entries that read and clear the timers' buffer `symbol`."""
+    return r'''
+extern "C" int phases_read(void* dst, int blocks) {
+    return (int)cudaMemcpyFromSymbol(dst, %s, (size_t)blocks * %d * 8);
+}
+extern "C" int phases_clear() {
+    void* p;
+    cudaGetSymbolAddress(&p, %s);
+    return (int)cudaMemset(p, 0, sizeof(%s));
+}
+''' % (symbol, SLOTS, symbol, symbol)
+
+
+def record(last: str) -> str:
+    """Thread 0 writes its block's slots; `last`: 1 where its warp reduced."""
+    return ("    if (threadIdx.x == 0) {\n"
+            "        const size_t bi = ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x"
+            " + blockIdx.x;\n"
+            "        const unsigned long long rec[%d] = {ph[0], ph[1], ph[2], ph[3], "
+            "(unsigned long long)n_timed, (unsigned long long)(t_loop - t_entry), "
+            "(unsigned long long)(t_out - t_loop), (unsigned long long)(clock64() - t_out), "
+            "(unsigned long long)(%s)};\n"
+            "        for (int s = 0; s < %d; ++s) g_phase[bi * %d + s] = rec[s];\n"
+            "        if (sink == 0x9E3779B9u) g_phase[0] = sink;  // keeps the touches\n"
+            "    }\n") % (SLOTS, last, SLOTS, SLOTS)
+
+
+ENTRY = ("    const long long t_entry = clock64();\n"
+         "    unsigned long long ph[4] = {0, 0, 0, 0};\n    int n_timed = 0;\n"
+         "    unsigned sink = 0;\n")
+
+# -- the body of csrc/packed_matmul.cuh (words loaded to registers a step
+# ahead, scales and x read from device memory in the plane loop, a second
+# kernel for the split-k sum) --
+OLD_HEADER = "packed_matmul.cuh"
+OLD_PATCHES = [
+    ("namespace packed {\nnamespace {  // each source that includes this header gets its own copies\n",
+     "namespace packed {\nnamespace {  // each source that includes this header gets its own copies\n"
+     + TIMERS),
+    ("    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;\n    const int g = lane >> 2",
+     ENTRY + "    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;\n"
+     "    const int g = lane >> 2"),
+    ("    if (step0 < step1) load_step(step0, w);\n"
+     "    for (int step = step0; step < step1; ++step) {\n"
+     "        if (step + 1 < step1) load_step(step + 1, wn);  // in flight during the MMAs\n",
+     "    if (step0 < step1) load_step(step0, w);\n"
+     "    const long long t_loop = clock64();\n"
+     "    for (int step = step0; step < step1; ++step) {\n"
+     "        const long long t_top = clock64();\n        ++n_timed;\n"
+     "        if (step + 1 < step1) load_step(step + 1, wn);  // in flight during the MMAs\n"
+     "        ph[0] += clock64() - t_top;\n"),
+    ("            const int sh = FIELD * j;\n",
+     "            const int sh = FIELD * j;\n            const long long t_pl = clock64();\n"),
+    # a8: the scales of the lane's C columns and x, consumed
+    ("                load_bf16<2 * NT>(srow + ccol, sc);\n                uint32_t b[NT][2];\n",
+     "                load_bf16<2 * NT>(srow + ccol, sc);\n"
+     "                for (int q = 0; q < 2 * NT; ++q) touch(sink, __float_as_uint(sc[q]));\n"
+     "                for (int q = 0; q < 4; ++q) touch(sink, a[0][0][q]);\n"
+     "                const long long t_rd = clock64();\n                ph[1] += t_rd - t_pl;\n"
+     "                uint32_t b[NT][2];\n"),
+    ("#pragma unroll\n                for (int nt = 0; nt < NT; ++nt)\n#pragma unroll\n"
+     "                    for (int mt = 0; mt < MT; ++mt) {\n                        int d[4];\n",
+     "                for (int nt = 0; nt < NT; ++nt) touch(sink, b[nt][0] ^ b[nt][1]);\n"
+     "                const long long t_ex = clock64();\n                ph[2] += t_ex - t_rd;\n"
+     "#pragma unroll\n                for (int nt = 0; nt < NT; ++nt)\n#pragma unroll\n"
+     "                    for (int mt = 0; mt < MT; ++mt) {\n                        int d[4];\n"),
+    ("                        acc[mt][nt][3] = fmaf((float)d[3], sc[NT + nt], acc[mt][nt][3]);\n"
+     "                    }\n",
+     "                        acc[mt][nt][3] = fmaf((float)d[3], sc[NT + nt], acc[mt][nt][3]);\n"
+     "                    }\n"
+     "                for (int nt = 0; nt < NT; ++nt) touch(sink, __float_as_uint(acc[0][nt][0]));\n"
+     "                ph[3] += clock64() - t_ex;\n"),
+    # bf16: the scales of the lane's B columns and x, consumed; then per tile
+    # the extraction and its two MMAs
+    ("                load_bf16<NT>(srow + bcol, sc);\n",
+     "                load_bf16<NT>(srow + bcol, sc);\n"
+     "                for (int q = 0; q < NT; ++q) touch(sink, __float_as_uint(sc[q]));\n"
+     "                for (int q = 0; q < 4; ++q) touch(sink, a[0][0][q] ^ a[0][1][q]);\n"
+     "                long long t_c = clock64();\n                ph[1] += t_c - t_pl;\n"),
+    ("                    const uint32_t b1[2] = {pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7])};\n",
+     "                    const uint32_t b1[2] = {pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7])};\n"
+     "                    touch(sink, b0[0] ^ b0[1] ^ b1[0] ^ b1[1]);\n"
+     "                    const long long t_e = clock64();\n                    ph[2] += t_e - t_c;\n"),
+    ("                        mma_bf16(acc[mt][nt], a[mt][1], b1);\n                    }\n",
+     "                        mma_bf16(acc[mt][nt], a[mt][1], b1);\n                    }\n"
+     "                    touch(sink, __float_as_uint(acc[0][nt][0]));\n"
+     "                    t_c = clock64();\n                    ph[3] += t_c - t_e;\n"),
+    ("            for (int r = 0; r < NW; ++r) w[i][r] = wn[i][r];\n    }\n",
+     "            for (int r = 0; r < NW; ++r) w[i][r] = wn[i][r];\n    }\n"
+     "    const long long t_out = clock64();\n"),
+    ("                o[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);\n"
+     "        }\n}\n",
+     "                o[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);\n"
+     "        }\n" + record("0") + "}\n"),
+]
+# the old body's two other kernels, launched alone
+OLD_EXTRA = r'''
+extern "C" int phases_quantize(const void* x, void* xq, void* xs, int m, int k, void* stream) {
+    packed::quantize_rows_kernel<<<m, 256, 0, (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)x, (int8_t*)xq, (float*)xs, k);
+    return (int)cudaGetLastError();
+}
+extern "C" int phases_reduce(const void* ws, const void* xs, void* y, int m, int n, int splits,
+                             void* stream) {
+    const size_t total4 = (size_t)m * n / 4;
+    packed::splitk_reduce_kernel<<<(unsigned)((total4 + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+        (const float4*)ws, (const float*)xs, (float4*)y, m, n, splits);
+    return (int)cudaGetLastError();
+}
+'''
+
+# -- the staged body of csrc/intb_matmul.cu (its row quantizer launched alone) --
+NEW_EXTRA = r'''
+extern "C" int phases_quantize(const void* x, void* xq, void* xs, int m, int k, void* stream) {
+    intb_quantize_rows<<<m, QUANT_THREADS, 0, (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)x, (int8_t*)xq, (float*)xs, k);
+    return (int)cudaGetLastError();
+}
+'''
+NEW_PATCHES = [
+    ("namespace {\n\nconstexpr int THREADS", "namespace {\n" + TIMERS + "\nconstexpr int THREADS"),
+    ("    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;\n",
+     ENTRY + "    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;\n"),
+    ("    for (int i = 0; i < nst; ++i) {\n",
+     "    const long long t_loop = clock64();\n    for (int i = 0; i < nst; ++i) {\n"
+     "        const long long t_top = clock64();\n        ++n_timed;\n"),
+    ("        issue(i + INTB_STAGES - 1);\n",
+     "        issue(i + INTB_STAGES - 1);\n        ph[0] += clock64() - t_top;\n"),
+    ("        uint32_t w[8][4];  // packed rows",
+     "        const long long t_w = clock64();\n        uint32_t w[8][4];  // packed rows"),
+    ("            w[r][0] = v.x; w[r][1] = v.y; w[r][2] = v.z; w[r][3] = v.w;\n        }\n",
+     "            w[r][0] = v.x; w[r][1] = v.y; w[r][2] = v.z; w[r][3] = v.w;\n        }\n"
+     "        for (int r = 0; r < 8; ++r) touch(sink, w[r][0]);\n"
+     "        ph[1] += clock64() - t_w;\n"),
+    ("            const int gi = j * per + i;\n",
+     "            const int gi = j * per + i;\n            const long long t_pl = clock64();\n"),
+    # a8: scales, x and its row sums, consumed; then a tile's codes; its MMAs and FMAs
+    ("                    sx[rt] = *reinterpret_cast<const int2*>(Sx + gi * (INTB_X_SUMS / 4) + 8 * rt + 2 * t);\n"
+     "                }\n",
+     "                    sx[rt] = *reinterpret_cast<const int2*>(Sx + gi * (INTB_X_SUMS / 4) + 8 * rt + 2 * t);\n"
+     "                }\n"
+     "                touch(sink, sv.x ^ sv.y ^ xb[0].x ^ xb[0].y ^ (unsigned)(sx[0].x ^ sx[0].y));\n"
+     "                ph[1] += clock64() - t_pl;\n"),
+    ("                for (int tt = 0; tt < 2; ++tt) {\n                    const uint32_t a[4] = {\n",
+     "                for (int tt = 0; tt < 2; ++tt) {\n                    const long long t_x = clock64();\n"
+     "                    const uint32_t a[4] = {\n"),
+    ("                                     w[7][2 * tt + 1], j)};\n",
+     "                                     w[7][2 * tt + 1], j)};\n"
+     "                    touch(sink, a[0] ^ a[1] ^ a[2] ^ a[3]);\n"
+     "                    const long long t_m = clock64();\n                    ph[2] += t_m - t_x;\n"),
+    ("sc[2 * tt + 1], acc[rt][tt][3]);\n                    }\n",
+     "sc[2 * tt + 1], acc[rt][tt][3]);\n                    }\n"
+     "                    touch(sink, __float_as_uint(acc[0][tt][0]));\n"
+     "                    ph[3] += clock64() - t_m;\n"),
+    # bf16: scales and x, consumed; then each tile's and half's weights; its MMAs
+    ("                    xb[rt] = *reinterpret_cast<const uint4*>(Xs + (8 * rt + g) * xld + gi * 64 + 16 * t);\n",
+     "                    xb[rt] = *reinterpret_cast<const uint4*>(Xs + (8 * rt + g) * xld + gi * 64 + 16 * t);\n"
+     "                touch(sink, sv.x ^ sv.y ^ xb[0].x ^ xb[0].y ^ xb[0].z ^ xb[0].w);\n"
+     "                ph[1] += clock64() - t_pl;\n"),
+    ("                    for (int h = 0; h < 2; ++h) {  // packed rows 8t + 4h .. 8t + 4h + 3\n",
+     "                    for (int h = 0; h < 2; ++h) {  // packed rows 8t + 4h .. 8t + 4h + 3\n"
+     "                        const long long t_x = clock64();\n"),
+    ("                            weights2<BITS>(w[4 * h + 2][c1], w[4 * h + 3][c1], j, s2[c1])};\n",
+     "                            weights2<BITS>(w[4 * h + 2][c1], w[4 * h + 3][c1], j, s2[c1])};\n"
+     "                        touch(sink, a[0] ^ a[1] ^ a[2] ^ a[3]);\n"
+     "                        const long long t_m = clock64();\n                        ph[2] += t_m - t_x;\n"),
+    ("                            packed::mma_bf16(acc[rt][tt], a, b);\n                        }\n",
+     "                            packed::mma_bf16(acc[rt][tt], a, b);\n                        }\n"
+     "                        touch(sink, __float_as_uint(acc[0][tt][0]));\n"
+     "                        ph[3] += clock64() - t_m;\n"),
+    ("    // this lane's outputs: rows 8rt + 2t + h",
+     "    const long long t_out = clock64();\n    // this lane's outputs: rows 8rt + 2t + h"),
+    ("    if (splits == 1) return;\n\n    // the last split",
+     "    if (splits == 1) {\n" + record("0") + "        return;\n    }\n\n    // the last split"),
+    ("    if (!last) return;\n", "    if (!last) {\n" + record("0") + "        return;\n    }\n"),
+    ("    if (lane == 0) counters[tile] = 0;  // ready for the next launch\n}",
+     "    if (lane == 0) counters[tile] = 0;  // ready for the next launch\n" + record("1") + "}"),
+]
+
+
+def _version(src: str) -> str:
+    return "staged" if "intb_decode_kernel" in src else "packed_matmul.cuh"
+
+
+def _patch(text: str, patches) -> str:
+    for anchor, new in patches:
+        if text.count(anchor) != 1:
+            raise SystemExit(f"the kernel changed: anchor not found once:\n{anchor}")
+        text = text.replace(anchor, new)
+    return text
+
+
+def build(tree: Path, stages: int | None, blocks: int | None):
+    """(kernel version, the instrumented copy, the unpatched one, the
+    unpatched one without programmatic dependent launch or None); `stages`,
+    `blocks`: the staged body's INTB_STAGES and INTB_BLOCKS in every copy,
+    if given."""
+    from exllamav3_tpu_torch.ops.build import NVCC_FLAGS, nvcc_path
+
+    csrc = tree / "exllamav3_tpu_torch" / "csrc"
+    src = (csrc / "intb_matmul.cu").read_text()
+    version = _version(src)
+    out = ROOT / "build" / "packed_phases" / tree.resolve().name
+    for sub in ("phases", "plain", "nopdl"):
+        (out / sub).mkdir(parents=True, exist_ok=True)
+    if version == "staged":
+        # the staged body's limits, changed where asked, beside every copy
+        layout = (csrc / "intb_layout.cuh").read_text()
+        for name, value in (("INTB_STAGES", stages), ("INTB_BLOCKS", blocks)):
+            if value is not None:
+                layout = re.sub(rf"^constexpr int {name} = \d+;",
+                                f"constexpr int {name} = {value};", layout, count=1, flags=re.M)
+        for sub in ("phases", "plain", "nopdl"):
+            (out / sub / "intb_layout.cuh").write_text(layout)
+        (out / "phases" / "intb_matmul.cu").write_text(_patch(src, NEW_PATCHES) + read("g_phase")
+                                                        + NEW_EXTRA)
+        (out / "nopdl" / "intb_matmul.cu").write_text(
+            _patch(src, [("attr[0].val.programmaticStreamSerializationAllowed = 1;",
+                          "attr[0].val.programmaticStreamSerializationAllowed = 0;")]))
+    else:
+        header = (csrc / OLD_HEADER).read_text()
+        (out / "phases" / OLD_HEADER).write_text(_patch(header, OLD_PATCHES))
+        (out / "phases" / "intb_matmul.cu").write_text(src + read("packed::g_phase") + OLD_EXTRA)
+    (out / "plain" / "intb_matmul.cu").write_text(src)
+    # headers not copied beside a source are included from the tree's csrc/
+    flags = [f for f in NVCC_FLAGS if f not in ("-Xptxas", "-v")] + [f"-I{csrc}"]
+    subs = ("phases", "plain", "nopdl") if version == "staged" else ("phases", "plain")
+    jobs = [[nvcc_path(), *flags, *(["-Xptxas", "-v"] if s == "plain" else []), "-shared",
+             str(out / s / "intb_matmul.cu"), "-o", str(out / s / "lib.so")] for s in subs]
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        runs = list(ex.map(lambda c: subprocess.run(c, capture_output=True, text=True), jobs))
+    for r in runs:
+        if r.returncode:
+            raise SystemExit(r.stdout + r.stderr)
+    name = None  # the decode-size kernels' registers, shared memory and spills
+    for line in (runs[1].stdout + runs[1].stderr).splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            name = fn if ("intb_decode_kernel" in fn or "packed_matmul_kernel" in fn) else None
+        elif name and ("Used" in line or "spill" in line):
+            print(f"ptxas: {name}: {line.strip()}", flush=True)
+    dlls = [ctypes.CDLL(str(out / s / "lib.so")) for s in subs]
+    return version, dlls[0], dlls[1], dlls[2] if len(dlls) > 2 else None
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=str(ROOT), help="checkout whose kernel to time")
+    ap.add_argument("--splits", default="",
+                    help="split counts to time the staged body at, both routes, at m = 8 over "
+                         "qkv, o_proj and down at B = 6, besides its own sizing")
+    ap.add_argument("--stages", type=int, default=None,
+                    help="the staged body's INTB_STAGES (its sizing follows), instead of the "
+                         "source's")
+    ap.add_argument("--blocks", type=int, default=None,
+                    help="the staged body's INTB_BLOCKS, its launch bounds' blocks an SM (its "
+                         "sizing follows), instead of the source's")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs CUDA")
+    tree = Path(args.tree).resolve()
+    sys.path.insert(0, str(tree))  # that tree's wrapper: its sizing, signatures, plain versions
+    import numpy as np
+
+    from exllamav3_tpu_torch.ops import q_matmul as qm
+    from exllamav3_tpu_torch.ops.build import SIGNATURES
+    from exllamav3_tpu_torch.util.timing import rotating, time_ms
+
+    version, dll, plain, nopdl = build(tree, args.stages, args.blocks)
+    if version == "staged":
+        qm._INTB_STAGES = args.stages or qm._INTB_STAGES
+        qm._INTB_BLOCKS = args.blocks or qm._INTB_BLOCKS
+        qm.intb_split_count.cache_clear()
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for lib in (dll, plain, nopdl):
+        if lib is not None:
+            for fn in ("exl3_intb_matmul", "exl3_intb_matmul_a8"):
+                getattr(lib, fn).argtypes = SIGNATURES[fn]
+    dll.phases_read.argtypes = [P, I]
+    dll.phases_quantize.argtypes = [P, P, P, I, I, P]
+    if version != "staged":
+        dll.phases_reduce.argtypes = [P, P, P, I, I, I, P]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    print(f"{smi}; kernel: {version} ({tree})", flush=True)
+    dev = torch.device("cuda")
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def inputs(k, n, bits):
+        W, kp, k_pad = qm.intb_geometry(k, bits)
+
+        def make(i):
+            x = torch.randn((M, k), generator=g, device=dev).to(torch.bfloat16)
+            w = torch.randint(-2**31, 2**31, (kp, n), generator=g, device=dev,
+                              dtype=torch.int64).to(torch.int32)
+            s = ((torch.rand((k_pad // 32, n), generator=g, device=dev) + 0.5) * 0.01).to(
+                torch.bfloat16)
+            return x, w, s
+        return make, M * k * 2 + kp * n * 4 + k_pad // 32 * n * 2 + M * n * 4
+
+    def caller(k, n, bits, a8, splits):
+        """call(lib, x, w, s) -> y for one launch of the tree's entry."""
+        W, kp, _ = qm.intb_geometry(k, bits)
+        y = torch.empty((M, n), dtype=torch.float32, device=dev)
+        ws = torch.empty((max(splits, 1), M, n), dtype=torch.float32, device=dev)
+        xq = torch.empty((M, k), dtype=torch.int8, device=dev)
+        xs = torch.empty((M,), dtype=torch.float32, device=dev)
+        counters = None
+        if version == "staged":
+            from exllamav3_tpu_torch.util.device import arrival_counters
+            counters = arrival_counters(dev, n // 32)
+
+        def call(lib, x, w, s):
+            head = [x.data_ptr(), w.data_ptr(), s.data_ptr(), y.data_ptr(), ws.data_ptr()]
+            if counters is not None:
+                head.append(counters.data_ptr())
+            if a8:
+                err = lib.exl3_intb_matmul_a8(*head, xq.data_ptr(), xs.data_ptr(), 1, M, k, n,
+                                              kp, bits, splits, stream())
+            else:
+                err = lib.exl3_intb_matmul(*head, M, k, n, kp, bits, splits, stream())
+            if err:
+                raise RuntimeError(f"launch failed: {err}")
+            return y
+        return call, y, ws, xq, xs
+
+    def sizing(k, n, bits, a8):
+        W, kp, _ = qm.intb_geometry(k, bits)
+        if version == "staged":
+            return qm.intb_split_count(M, k, n, bits, a8, torch.cuda.get_device_properties(dev)
+                                       .multi_processor_count)
+        return qm._packed_splits(M, n, kp // 32, False, dev)
+
+    for k, n, what, bits in SHAPES:
+        make, nb = inputs(k, n, bits)
+        x, w, s = make(0)
+        W, kp, _ = qm.intb_geometry(k, bits)
+        steps = kp // 32
+        for a8 in (False, True):
+            route = "a8" if a8 else "bf16"
+            ref = (qm.intb_matmul_a8_plain if a8 else qm.intb_matmul_plain)(x, w, s, bits)
+            splits = sizing(k, n, bits, a8)
+            call, y, ws, xq, xs = caller(k, n, bits, a8, splits)
+            grid = -(-n // 128) * splits
+            said = f"{route} m={M} {what} ({k}x{n}) B={bits}: {steps} steps, {splits} splits, {grid} blocks"
+            dll.phases_clear()
+            call(dll, x, w, s)
+            torch.cuda.synchronize()
+            rel = float((y - ref).abs().max() / ref.abs().max())
+            buf = np.zeros(grid * SLOTS, np.uint64)
+            if dll.phases_read(buf.ctypes.data, grid):
+                raise RuntimeError("reading the timers failed")
+            buf = buf.reshape(grid, SLOTS).astype(np.float64)
+            n_steps = buf[:, 4].sum()
+            per_step = ", ".join(f"{nm} {buf[:, i].sum() / n_steps:.0f}"
+                                 for i, nm in enumerate(("stage", "reads", "extract", "mma")))
+            last = buf[:, 8] > 0
+            epi = f"epilogue {buf[~last, 7].mean():.0f}" + (
+                " (partial write and arrival)" if version == "staged" and splits > 1 else "")
+            if last.any():
+                epi += f", last-arriving epilogue with the reduction {buf[last, 7].mean():.0f}"
+            nxt = rotating(make, nb)
+            inst = time_ms(lambda: call(dll, *nxt()), 20)
+            call(plain, x, w, s)
+            torch.cuda.synchronize()
+            rel = max(rel, float((y - ref).abs().max() / ref.abs().max()))
+            ms = time_ms(lambda: call(plain, *nxt()), 20)
+            extra = ""
+            if nopdl is not None and a8:
+                call(nopdl, x, w, s)
+                torch.cuda.synchronize()
+                rel = max(rel, float((y - ref).abs().max() / ref.abs().max()))
+                extra = f"; without PDL {time_ms(lambda: call(nopdl, *nxt()), 20):.4f} ms"
+            if a8:
+                q_ms = time_ms(lambda: dll.phases_quantize(x.data_ptr(), xq.data_ptr(),
+                                                           xs.data_ptr(), M, k, stream()), 20)
+                extra += f"; the row quantizer alone {q_ms:.4f} ms"
+            if version != "staged":
+                if splits > 1:
+                    r_ms = time_ms(lambda: dll.phases_reduce(ws.data_ptr(),
+                                                             xs.data_ptr() if a8 else None,
+                                                             y.data_ptr(), M, n, splits,
+                                                             stream()), 20)
+                    extra += f"; the split-k reduce alone {r_ms:.4f} ms"
+            print(f"{said}, {n_steps / grid:.1f} steps a block; cycles a step: {per_step}; a "
+                  f"block: prologue {buf[:, 5].mean():.0f}, k loop mean {buf[:, 6].mean():.0f} "
+                  f"longest {buf[:, 6].max():.0f}, {epi}; instrumented {inst:.4f} ms, unpatched "
+                  f"{ms:.4f} ms over rotated inputs{extra}; rel err {rel:.2e}", flush=True)
+            if not rel <= TOL:
+                raise SystemExit(f"{said}: rel err {rel:.2e} > {TOL}")
+            del nxt
+        del x, w, s
+        torch.cuda.empty_cache()
+
+    sweep = [shape for shape in SHAPES if shape[2] in ("qkv", "o_proj", "down") and shape[3] == 6]
+    for k, n, what, bits in sweep if args.splits and version == "staged" else []:
+        make, nb = inputs(k, n, bits)
+        nxt = rotating(make, nb)
+        x, w, s = nxt()
+        steps = qm.intb_geometry(k, bits)[1] // 32
+        for a8 in (False, True):
+            ref = (qm.intb_matmul_a8_plain if a8 else qm.intb_matmul_plain)(x, w, s, bits)
+            for splits in (int(v) for v in args.splits.split(",")):
+                if splits > steps or qm._intb_smem(M, bits, a8, -(-steps // splits)) > qm.INTB_MAX_SMEM:
+                    continue
+                call, y, *_ = caller(k, n, bits, a8, splits)
+                call(plain, x, w, s)
+                torch.cuda.synchronize()
+                rel = float((y - ref).abs().max() / ref.abs().max())
+                ms = time_ms(lambda: call(plain, *nxt()), 20)
+                print(f"{'a8' if a8 else 'bf16'} m={M} {what} ({k}x{n}) B={bits} at {splits} "
+                      f"splits: {ms:.4f} ms over rotated inputs; rel err {rel:.2e}", flush=True)
+                if not rel <= TOL:
+                    raise SystemExit(f"{splits} splits: rel err {rel:.2e} > {TOL}")
+
+
+if __name__ == "__main__":
+    main()
