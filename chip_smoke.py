@@ -43,9 +43,12 @@ Phases:
             split size), int4_matmul, int4_matmul_a8, intb_matmul
             and intb_matmul_a8 (the packed-integer linears: also m = 128 and
             the Llama-3.1-70B shapes at m = 8; int-B at B = 3, 4, 5, 6, also
-            qkv at m = 13, each case held to the kernels the library counts
-            it launched and, up to 16 rows, to the blocks an SM the sizing
-            reckons with; int-B timed at every B at m = 8 qkv),
+            qkv at m = 13 (int4 a8 too), each case held to the kernels the
+            library counts it launched (up to 16 rows the int-B kernels and
+            the int4 a8 route run their staged bodies, the int4 bf16 route
+            and larger m packed_matmul.cuh's tiling) and, up to 16 rows, to
+            the blocks an SM the sizing reckons with; int-B timed at every B
+            at m = 8 qkv),
             moe_gemm (the selected-expert MLP at the Qwen3-30B-A3B,
             Qwen3-235B-A22B and Mixtral-8x7B expert shapes), linear_attention
             (the linear layout over a bf16 cache: Llama-3.2-1B draft decode,
@@ -59,7 +62,12 @@ Phases:
             latent_attention_quant (absorbed MLA over the latent cache at
             DeepSeek-V2-Lite's 16 heads and DeepSeek-V2/V3's 128: decode,
             verify, prefill, paged and linear at T = 2056 and 2052; (4),
-            (3) and (4) with the compander), ring_attention (decode over the
+            (3) and (4) with the compander; decode takes the split-key
+            kernel of csrc/latent_decode.cuh and verify and prefill the tile
+            loop, by the library's count of the split-key kernel's launches;
+            a decode case with a sequence of no keys and a split of no keys
+            among splits that see keys, held to the split arithmetic in
+            plain torch), ring_attention (decode over the
             SWA ring at Gemma-3-27B's shapes, batch 8, q positions 300-2048,
             rings wrapped and still filling, never-written and stale slots, a
             permuted slot table; D = 64 at groups 5 and 7; sinks and a softcap
@@ -1111,18 +1119,38 @@ def _intb_launches() -> tuple:
     return tuple(library().exl3_intb_launches(kind) for kind in range(3))
 
 
+def _int4_launches() -> tuple:
+    """The int4 library's launches so far: (packed_matmul.cuh's products, row
+    quantizers, split-k reduce kernels, staged products), as
+    csrc/int4_matmul.cu counts them."""
+    from exllamav3_tpu_torch.ops.build import library
+
+    return tuple(library().exl3_int4_launches(kind) for kind in range(4))
+
+
+def _packed_took(kernel, args) -> tuple:
+    """The kernels one call of kernel(*args) launched, by the library's counts
+    of its source (int-B or int4)."""
+    counts = _int4_launches if kernel.__name__.startswith("int4") else _intb_launches
+    before = counts()
+    kernel(*args)
+    torch.cuda.synchronize()
+    return tuple(b - a for a, b in zip(before, counts()))
+
+
 def check_packed(table, dev, name: str):
     """One of the four packed-integer kernels against its plain version on the
     card: the 8B shapes at m = 1, 8, 128, 2048 and the 70B shapes at m = 8;
     int-B at B = 3, 4, 5, 6, and qkv at m = 13 (ragged rows on both 8-row
-    tiles). Timed: the int4 kernels everywhere, the int-B kernels at B = 6
+    tiles; int4 a8 too). Timed: the int4 kernels everywhere, the int-B kernels at B = 6
     (the ladder's rung) and at every B at m = 8 qkv; the other widths are
-    held to the tolerance only. Every int-B case is also held to the kernels
-    it launched (the library's counts): up to 16 rows one product kernel a
-    call, after the row quantizer on the a8 route, and no split-k reduce
-    kernel; above, the product, the quantizer (a8) and the reduce where k
-    splits. Up to 16 rows the card's blocks an SM must equal the sizing's.
-    x is bf16, as the model's activations are."""
+    held to the tolerance only. Every case is also held to the kernels it
+    launched (the library's counts): int-B and the int4 a8 route up to 16
+    rows one staged product kernel a call, after the row quantizer on the a8
+    route, and no split-k reduce kernel; above, and the int4 bf16 route at
+    every m, packed_matmul.cuh's product, the quantizer (a8) and the reduce
+    where k splits. Up to 16 rows the card's blocks an SM of a staged body
+    must equal the sizing's. x is bf16, as the model's activations are."""
     import exllamav3_tpu_torch.ops.q_matmul as qm
     from exllamav3_tpu_torch.ops.build import library
 
@@ -1134,7 +1162,7 @@ def check_packed(table, dev, name: str):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for bits in ((None,) if name.startswith("int4") else (6, 3, 4, 5)):
         extra = () if bits is None else (bits,)
-        for m, k, n, what in cases + ([] if bits is None else [(13, *SHAPES_8B[0])]):
+        for m, k, n, what in cases + ([] if bits is None and not a8 else [(13, *SHAPES_8B[0])]):
             if bits is None:
                 prows, srows, dt, lo, hi = k // 2, k // 32, torch.int8, -128, 128
             else:
@@ -1148,7 +1176,7 @@ def check_packed(table, dev, name: str):
                 s = ((torch.rand((srows, n), generator=g, device=dev) + 0.5) * 0.01).to(torch.bfloat16)
                 return x, w, s
             nb = m * k * 2 + prows * n * (1 if bits is None else 4) + srows * n * 2 + m * n * 4
-            timed = bits in (None, 6) or (m == 8 and what == "qkv")
+            timed = (bits in (None, 6) and m != 13) or (m == 8 and what == "qkv")
             nxt = rotating(make, nb) if timed else (lambda made=make(0): made)
             x, w, s = nxt()
             ref = plain(x, w, s, *extra)
@@ -1161,12 +1189,27 @@ def check_packed(table, dev, name: str):
             tag = f"{name}{'' if bits is None else f' B={bits}'} m={m} {what} ({k}x{n})"
             if not rel <= TOL_PACKED:
                 raise AssertionError(f"{tag}: rel err {rel} > {TOL_PACKED}")
-            if bits is not None:
-                # the kernels one call launched, and at decode sizes the blocks an SM
-                before = _intb_launches()
-                kernel(x, w, s, *extra)
-                torch.cuda.synchronize()
-                took = tuple(b - a for a, b in zip(before, _intb_launches()))
+            # the kernels one call launched, and at decode sizes the blocks an SM
+            took = _packed_took(kernel, (x, w, s, *extra))
+            if bits is None:
+                if a8 and m <= qm.INT4_DECODE_ROWS:
+                    splits = qm.int4_split_count(m, k, n, sms)
+                    want = (0, 1, 0, 1)
+                    per_sm = library().exl3_int4_blocks_per_sm(m, k, n, splits)
+                    model = qm._int4_blocks_per_sm(m, -(-(k // 2 // qm.INT4_STEP_ROWS) // splits))
+                    if per_sm != model:
+                        raise AssertionError(f"{tag}: the card holds {per_sm} blocks an SM, the "
+                                             f"sizing reckons with {model}")
+                    tag += f" [{splits} splits, {per_sm} blocks an SM]"
+                else:
+                    splits = qm._packed_splits(m, n, k // 64, True, dev)
+                    want = (1, int(a8), int(splits > 1), 0)
+                    tag += f" [{splits} splits]"
+                if took != want:
+                    raise AssertionError(f"{tag}: launched (packed_matmul.cuh products, "
+                                         f"quantizers, reduces, staged products) {took}, not {want}")
+                tag += f" launches a call {took}"
+            else:
                 if m <= qm.INTB_DECODE_ROWS:
                     splits = qm.intb_split_count(m, k, n, bits, a8, sms)
                     want = (1, int(a8), 0)
@@ -1710,6 +1753,79 @@ def _sdpa_latent(q, k, qp, tl, scale):
         qt, kk, vv, attn_mask=mask[:, None], scale=scale, enable_gqa=True)
 
 
+def _latent_launches(fn) -> int:
+    """Launches of the latent split-key decode kernel (csrc/latent_decode.cuh)
+    that one call of fn() made, as the kernel library counts them where it
+    launches that kernel (the tile loop is not counted)."""
+    from exllamav3_tpu_torch.ops.build import library
+
+    n0 = library().exl3_latent_decode_launches()
+    fn()
+    torch.cuda.synchronize()
+    return library().exl3_latent_decode_launches() - n0
+
+
+def _latent_route(kind: str, name: str, S: int, fn) -> None:
+    """Decode (S = 1) takes the split-key kernel, longer chunks the tile loop,
+    by the library's count of the split-key kernel's launches."""
+    took = _latent_launches(fn)
+    if took != int(S == 1):
+        raise AssertionError(f"{kind} {name}: {took} launches of the latent decode kernel "
+                             f"at S = {S}")
+
+
+def _latent_gaps(rng, dev, B: int = 8):
+    """(q positions, total lengths, block tables, pages) of the latent decode
+    case whose splits include splits that see no key in the midst of ones
+    that do: sequence 2 holds no key (a row that sees none), and sequence 5's
+    pages 1 and 2 are out of range (-1), so the splits over keys 256-767 see
+    no key while its later ones do. Its reference is the split arithmetic in
+    plain torch (latent_attention_split_plain), which holds a page out of
+    range to no visible key, as the kernel does."""
+    total = _CTX.copy()
+    total[2] = 0
+    mp = int(math.ceil(total.max() / 256)) + 1
+    P = B * mp + 1
+    perm = rng.permutation(np.arange(1, P))[: B * mp].reshape(B, mp).astype(np.int32)
+    perm[:, -1] = 0
+    perm[5, 1:3] = -1
+    return total[:, None] - 1, total, torch.as_tensor(perm, device=dev), P
+
+
+def _latent_gap_check(kind: str, dev, q, state: dict, bits: int, a: float, scale: float, tol: float,
+                      kernel) -> float:
+    """The gap case (_latent_gaps) through `kernel` against
+    latent_attention_split_plain at the same split size; its rel err."""
+    from exllamav3_tpu_torch.ops.flash_attention import (device_sms, latent_attention_split_plain,
+                                                          latent_split_keys)
+
+    qpos, total, bt, _ = state.pop("_gaps")
+    qp = torch.as_tensor(qpos, device=dev)
+    tl = torch.as_tensor(total, device=dev)
+    B, _, Hq, _ = q.shape
+    split = latent_split_keys(bt.shape[1] * 256, B, Hq, device_sms(dev))
+    ref = latent_attention_split_plain(q, state, qp, tl, 512, bits, a, block_tables=bt,
+                                       scale=scale, split_keys=split)
+    if "kv" in state:
+        run = lambda: kernel(q, state["kv"], qp, tl, block_tables=bt, scale=scale)
+    else:
+        run = lambda: kernel(q, state, qp, tl, bits, a, block_tables=bt, scale=scale)
+    got = run()
+    torch.cuda.synchronize()
+    name = "decode B=8, a sequence of no keys and splits of no keys among ones that see keys"
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{kind} {name}: non-finite output")
+    if got[2].abs().max() != 0:
+        raise AssertionError(f"{kind} {name}: the sequence of no keys gave no 0")
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    if not rel <= tol:
+        raise AssertionError(f"{kind} {name}: rel err {rel} > {tol}")
+    _latent_route(kind, name, 1, run)
+    log(f"{kind} {name} (Hq={Hq}, paged, split {split}): rel={rel:.2e} against the split "
+        "arithmetic in plain torch; one launch of the split-key kernel")
+    return float((got - ref).abs().max())
+
+
 def check_latent_attention(table, dev):
     from exllamav3_tpu_torch.ops.flash_attention import (latent_attention_kernel,
                                                           latent_attention_plain)
@@ -1735,6 +1851,8 @@ def check_latent_attention(table, dev):
         rel = err / float(ref.abs().max())
         if not rel <= TOL_ATTN:
             raise AssertionError(f"latent_attention {name}: rel err {rel} > {TOL_ATTN}")
+        _latent_route("latent_attention", name, S,
+                      lambda: latent_attention_kernel(q, kv, qp, tl, **args))
         ms = time_ms(lambda: latent_attention_kernel(q, kv, qp, tl, **args), 10)
         plain = time_ms(lambda: latent_attention_plain(q, kv, qp, tl, 512, **args), 2)
         k = kv[bt.long()].reshape(B, -1, 576) if bt is not None else (
@@ -1747,6 +1865,14 @@ def check_latent_attention(table, dev):
         table.add("latent_attention", err, ms, plain, bnd, lib, f"{name}: B={B} S={S} Hq={Hq}",
                   main=main)
         del q, kv, ref, got, k
+    qpos, total, bt, P = _latent_gaps(rng, dev)
+    g = torch.Generator(device=dev).manual_seed(25)
+    q = (torch.randn((8, 1, 16, 576), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    state = {"kv": torch.randn((P, 256, 1, 576), generator=g, device=dev).to(torch.bfloat16),
+             "_gaps": (qpos, total, bt, P)}
+    err = _latent_gap_check("latent_attention", dev, q, state, 0, 0.0, scale, TOL_ATTN,
+                            latent_attention_kernel)
+    table.add("latent_attention", err, None, None, None, None, "", main=False)
     torch.cuda.empty_cache()
 
 
@@ -1784,6 +1910,8 @@ def check_latent_attention_quant(table, dev):
         rel = err / float(ref.abs().max())
         if not rel <= TOL_ATTN_Q:
             raise AssertionError(f"latent_attention_quant {name}: rel err {rel} > {TOL_ATTN_Q}")
+        _latent_route("latent_attention_quant", name, S,
+                      lambda: latent_attention_quant_kernel(q, state, qp, tl, bits, a, **args))
         ms = time_ms(lambda: latent_attention_quant_kernel(q, state, qp, tl, bits, a, **args), 10)
         plain = time_ms(lambda: latent_attention_quant_plain(q, state, qp, tl, bits, a, **args), 2)
         # yardstick: SDPA over the gathered latent, dequantized to bf16
@@ -1801,6 +1929,16 @@ def check_latent_attention_quant(table, dev):
                   f"{name}: B={B} S={S} Hq={Hq}", main=main)
         del q, state, ref, got, lat, k
         torch.cuda.empty_cache()
+    qpos, total, bt, P = _latent_gaps(rng, dev)
+    g = torch.Generator(device=dev).manual_seed(26)
+    q = (torch.randn((8, 1, 16, 576), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    raw = torch.randn((P, 256, 1, 576), generator=g, device=dev)
+    kq, ks = quantize_kv(raw[..., :512], 4, 0.0)
+    state = {"kv_q": kq, "kv_s": ks, "k_pe": raw[..., 512:].to(torch.bfloat16).contiguous(),
+             "_gaps": (qpos, total, bt, P)}
+    err = _latent_gap_check("latent_attention_quant", dev, q, state, 4, 0.0, scale, TOL_ATTN_Q,
+                            latent_attention_quant_kernel)
+    table.add("latent_attention_quant", err, None, None, None, None, "", main=False)
     torch.cuda.empty_cache()
 
 

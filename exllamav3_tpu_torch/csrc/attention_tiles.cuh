@@ -8,13 +8,12 @@
 // The kernel is templated three times over:
 //   * Geo: the block's geometry. HeadGeo<D> (per-head K/V of D channels, 64
 //     score rows, 64-key tiles, f32 q entering as hi + lo bf16 pairs) and
-//     the latent ones (one latent K row of 576 channels whose leading 512
-//     are V, bf16 q): LatentGeo, 32 score rows and 32-key tiles, and
-//     LatentDecodeGeo, 16 rows (one token's heads) and 64-key tiles, half
-//     the tiles a decode block walks; HeadDecodeGeo<D>, HeadGeo's tiles with
-//     16 score rows, for one decode token's group of heads; KvRowDecodeGeo,
-//     DeepSeek-V4's one 512-wide row that is K and V alike (bf16 q, no rope
-//     tail), 16 rows and 64-key tiles.
+//     the latent one (one latent K row of 576 channels whose leading 512
+//     are V, bf16 q): LatentGeo, 32 score rows and 32-key tiles;
+//     HeadDecodeGeo<D>, HeadGeo's tiles with 16 score rows, for one decode
+//     token's group of heads; KvRowDecodeGeo, DeepSeek-V4's one 512-wide
+//     row that is K and V alike (bf16 q, no rope tail), 16 rows and 64-key
+//     tiles.
 //   * Rows: where a key tile's rows lie. PagedRows looks the page up in the
 //     block table (256-token pages, so a tile never crosses a page and every
 //     tile is full); LinearRows reads slot `key` of row b (or of the row the
@@ -62,9 +61,10 @@
 // are walked by one block. The bf16 and quantized entries over the paged and
 // the linear cache send decode and verify (S * G <= 32 rows a kv head) to
 // attention_decode.cuh instead, which splits the keys across blocks and
-// merges them, and so does the ring entry for groups of up to 32 heads;
-// their prefill chunks, the ring's wider groups and the other entries
-// (latent, stats) take this loop.
+// merges them, and so does the ring entry for groups of up to 32 heads; the
+// latent entries send decode (S = 1) to latent_decode.cuh, which splits the
+// keys alike; their prefill chunks, the ring's wider groups, the latent
+// entries' verify and prefill and the stats entries take this loop.
 //
 // Warps: the 4 warps split the R rows into R/16 row groups; with R = 32 two
 // warps (with R = 16 all four) share a row group and split its key subtiles
@@ -111,7 +111,6 @@ using HeadDecodeGeo = Geo<D, D, 16, 64, true, false>;
 // DeepSeek's latent row: kv_lora_rank 512 + qk_rope_head_dim 64
 constexpr int LATENT = 512, ROPE = 64;
 using LatentGeo = Geo<LATENT + ROPE, LATENT, 32, 32, false, true>;
-using LatentDecodeGeo = Geo<LATENT + ROPE, LATENT, 16, 64, false, true>;
 // DeepSeek-V4's shared K = V row (head_dim 512, the rope on its trailing 64)
 constexpr int KV_ROW = 512;
 using KvRowDecodeGeo = Geo<KV_ROW, KV_ROW, 16, 64, false, true>;
@@ -125,10 +124,6 @@ using KvRowDecodeGeo = Geo<KV_ROW, KV_ROW, 16, 64, false, true>;
 //     32 x 36 f32 (4,608), P hi + lo 2 x 32 x 40 bf16 (5,120), output
 //     32 x 516 f32 (66,048), row state 520: 151,048 bytes bf16, 188,424
 //     quantized, of the 232,448 a block may have.
-//   LatentDecodeGeo: q 16 x 584 bf16 (18,688), one K tile 64 x 584 bf16
-//     (74,752; quantized 149,504), scores 16 x 68 f32 (4,352), P hi + lo
-//     2 x 16 x 72 bf16 (4,608), output 16 x 516 f32 (33,024), row state 264:
-//     135,688 bytes bf16, 210,440 quantized.
 //   HeadDecodeGeo<128> over a ring: q hi + lo 2 x 16 x 136 bf16, K and V
 //     64 x 136 bf16 each, scores 16 x 68 f32, P hi + lo 2 x 16 x 72 bf16,
 //     output 16 x 132 f32, row state 264, and the tile's 64 slot positions

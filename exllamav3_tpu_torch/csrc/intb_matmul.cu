@@ -19,7 +19,9 @@
 // Design:   up to INTB_DECODE_ROWS rows (decode), the staged body below; more
 //           rows take the 64-row tiling of csrc/packed_matmul.cuh, which the
 //           int4 tier shares (x read through L1, a split-k reduce kernel),
-//           launched from here after this file's row quantizer.
+//           launched from here after the row quantizer, whose kernel
+//           (packed_matmul.cuh's quantize_rows_dependents) the int4 a8 route's
+//           staged body shares.
 //
 //           The staged body. A block of INTB_WARPS warps owns 128 output
 //           columns, a warp 32 of them, and a run of k steps (32 packed rows
@@ -380,65 +382,6 @@ intb_decode_kernel(const void* __restrict__ xv, const uint32_t* __restrict__ wor
     if (lane == 0) counters[tile] = 0;  // ready for the next launch
 }
 
-// 8 consecutive elements of x as f32 (one or two 16-byte loads)
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[8]) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const uint32_t u[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        f[2 * i] = __uint_as_float(u[i] << 16);
-        f[2 * i + 1] = __uint_as_float(u[i] & 0xFFFF0000u);
-    }
-}
-__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
-    const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
-    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-}
-
-constexpr int QUANT_THREADS = 1024;  // a row's threads: few divisions each
-
-// The a8 route's row quantizer at every m, one block a row: xs = max|x| / 127
-// + 1e-12, xq = clip(rint(x / xs), +-127), IEEE division and round half to
-// even, as the plain version computes them. It lets a dependent product start
-// at once (the staged body waits for it before it reads x; a product launched
-// without the programmatic attribute starts after it as usual).
-template <typename T>
-__global__ void __launch_bounds__(QUANT_THREADS)
-intb_quantize_rows(const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ xs, int k) {
-    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-    __shared__ float part[QUANT_THREADS / 32];
-    const T* xr = x + (size_t)blockIdx.x * k;
-    float amax = 0.0f;
-    for (int c = 8 * threadIdx.x; c < k; c += 8 * QUANT_THREADS) {  // k % 32 == 0
-        float f[8];
-        load8(xr + c, f);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(f[i]));
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xFFFFFFFFu, amax, o));
-    if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = amax;
-    __syncthreads();
-    amax = part[threadIdx.x & 31];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xFFFFFFFFu, amax, o));
-    const float s = __fadd_rn(__fdiv_rn(amax, 127.0f), 1e-12f);
-    int8_t* qr = xq + (size_t)blockIdx.x * k;
-    for (int c = 8 * threadIdx.x; c < k; c += 8 * QUANT_THREADS) {
-        float f[8];
-        load8(xr + c, f);
-        uint32_t q[2] = {0u, 0u};
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-            const float v = rintf(__fdiv_rn(f[i], s));
-            q[i / 4] |= (uint32_t)((int)fminf(fmaxf(v, -127.0f), 127.0f) & 0xFF) << (8 * (i % 4));
-        }
-        *reinterpret_cast<uint2*>(qr + c) = make_uint2(q[0], q[1]);
-    }
-    if (threadIdx.x == 0) xs[blockIdx.x] = s;
-}
-
 template <int BITS, bool A8, int NR>
 int prepare() {  // the largest shared memory a launch of this body may ask for
     static int err = -1;
@@ -451,13 +394,12 @@ int prepare() {  // the largest shared memory a launch of this body may ask for
 // the a8 route's first kernel: x (f32 or bf16) into xq, xs
 int quantize(const void* x, void* xq, void* xs, int x_is_bf16, int m, int k, cudaStream_t st) {
     if (x_is_bf16)
-        intb_quantize_rows<<<m, QUANT_THREADS, 0, st>>>(static_cast<const __nv_bfloat16*>(x),
-                                                        static_cast<int8_t*>(xq),
-                                                        static_cast<float*>(xs), k);
+        packed::quantize_rows_dependents<<<m, packed::QUANT_THREADS, 0, st>>>(
+            static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(xq), static_cast<float*>(xs),
+            k);
     else
-        intb_quantize_rows<<<m, QUANT_THREADS, 0, st>>>(static_cast<const float*>(x),
-                                                        static_cast<int8_t*>(xq),
-                                                        static_cast<float*>(xs), k);
+        packed::quantize_rows_dependents<<<m, packed::QUANT_THREADS, 0, st>>>(
+            static_cast<const float*>(x), static_cast<int8_t*>(xq), static_cast<float*>(xs), k);
     const int err = (int)cudaGetLastError();
     if (err == 0) ++intb_launch_count[1];
     return err;

@@ -18,31 +18,38 @@
 //           for all heads (bytes over 3.35 TB/s); a long prefill chunk is
 //           bound by its 2*(576 + 512) operations per visible (query head,
 //           key) pair at the bf16 tensor-core rate.
-// Design:   attention_tiles.cuh with LatentKV, V read from the K tile
-//           already in shared memory. Decode (S = 1) takes LatentDecodeGeo:
-//           a block holds 16 heads of one token (Hq / 16 head slices a
-//           sequence) and walks 64-key tiles (135,688 bytes a block); longer
-//           chunks take LatentGeo: 32 (token, head) rows and 32-key tiles
-//           (151,048 bytes). q is bf16, so the scores take one MMA; P enters
-//           as hi + lo bf16 as in the other entries.
-#include "attention_tiles.cuh"
+// Design:   decode (S = 1) takes the split-key kernel of latent_decode.cuh
+//           (a block holds one token's 16 heads over a split of the keys,
+//           tiles staged by cp.async, scores and P.V on the tensor cores, the
+//           splits merged in the launch). Longer chunks take the tile loop of
+//           attention_tiles.cuh with LatentKV and LatentGeo: 32 (token, head)
+//           rows and 32-key tiles (151,048 bytes), V read from the K tile
+//           already in shared memory; q is bf16, so the scores take one MMA;
+//           P enters as hi + lo bf16 as in the other entries.
+#include "latent_decode.cuh"
 
-// paged: bt (B, MP), MP, P pages; linear: bt null, rows (B,) or null, N, T
+// paged: bt (B, MP), MP, P pages; linear: bt null, rows (B,) or null, N, T.
+// Decode (S = 1) needs ws, counters and split_keys (latent_decode.cuh), the
+// tile loop none of them.
 extern "C" int exl3_latent_attention(const void* q, const void* kv, const void* bt,
                                      const void* rows_, const void* qpos, const void* total_lens,
-                                     void* out, int B, int S, int Hq, int MP, int P, int N, int T,
-                                     float scale, void* stream) {
+                                     void* out, void* ws, void* counters, int B, int S, int Hq,
+                                     int MP, int P, int N, int T, float scale, int split_keys,
+                                     void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const LatentKV lkv{static_cast<const __nv_bfloat16*>(kv)};
     if (bt == nullptr && T <= 0) return (int)cudaErrorInvalidValue;
     const PagedRows paged{static_cast<const int*>(bt), MP, P};
     const LinearRows linear{static_cast<const int*>(rows_), N, T};
-    // decode: one token's heads a block, 64-key tiles; else 32 rows, 32-key tiles
-#define EXL3_LAUNCH(GEO, ROWS) launch_attention<GEO>(q, ROWS, lkv, qpos, total_lens, nullptr, out, \
-                                                     B, S, Hq, 1, scale, 0, 0.0f, st)
-    if (S == 1)
-        return bt != nullptr ? EXL3_LAUNCH(LatentDecodeGeo, paged)
-                             : EXL3_LAUNCH(LatentDecodeGeo, linear);
-    return bt != nullptr ? EXL3_LAUNCH(LatentGeo, paged) : EXL3_LAUNCH(LatentGeo, linear);
+    if (S == 1) {
+        const LatentBf16Rows lkv{static_cast<const __nv_bfloat16*>(kv)};
+        return bt != nullptr ? launch_latent_decode(q, paged, lkv, qpos, total_lens, out, ws,
+                                                    counters, B, Hq, scale, split_keys, MP * PAGE, st)
+                             : launch_latent_decode(q, linear, lkv, qpos, total_lens, out, ws,
+                                                    counters, B, Hq, scale, split_keys, T, st);
+    }
+    const LatentKV lkv{static_cast<const __nv_bfloat16*>(kv)};
+#define EXL3_LAUNCH(ROWS) launch_attention<LatentGeo>(q, ROWS, lkv, qpos, total_lens, nullptr, out, \
+                                                      B, S, Hq, 1, scale, 0, 0.0f, st)
+    return bt != nullptr ? EXL3_LAUNCH(paged) : EXL3_LAUNCH(linear);
 #undef EXL3_LAUNCH
 }

@@ -5,49 +5,61 @@
 // Replaces: exllamav3_tpu/ops/flash_attention.py::_flash_kernel in its MLA
 //           form with k_bits > 0 (`latent`, v_from_k, d_extra = the rope
 //           key's width), its pallas_call at :999, paged and linear.
-// Inputs:   q (B, S, Hq, 576) bf16: the latent part already rotated by the
-//           per-32-channel Hadamard (and rounded to bf16, as the JAX package
-//           rounds its rotated q), the rope part as it is; kv_q int32
+// Inputs:   q (B, S, Hq, 576) bf16: at S = 1 as the module hands it over; at
+//           S > 1 the latent part already rotated by the per-32-channel
+//           Hadamard (and rounded to bf16, as the JAX package rounds its
+//           rotated q), the rope part as it is; kv_q int32
 //           (., ., 1, 16 * bits) words, kv_s bf16 (., ., 1, 16) scales, k_pe
 //           bf16 (., ., 1, 64), paged (P, 256, ...) or linear (N, T, ...);
 //           block_tables, rows, q_positions and total_lens as in
 //           latent_attention.cu; bits in 2..8 (odd widths as bit planes);
 //           compand_a > 0 selects the cubic compander.
-// Output:   (B, S, Hq, 512) f32 in the latent's rotated basis (the caller
-//           rotates it back), with the visibility rule of latent_attention.cu.
+// Output:   (B, S, Hq, 512) f32, at S > 1 in the latent's rotated basis (the
+//           caller rotates it back), with the visibility rule of
+//           latent_attention.cu.
 // Bound:    decode reads each visible token's packed latent, scales and rope
 //           key once (64 * bits + 32 + 128 bytes; bytes over 3.35 TB/s).
-// Design:   attention_tiles.cuh with LatentQuantKV and the geometries of
-//           latent_attention.cu (LatentDecodeGeo at S = 1, 210,440 bytes a
-//           block; LatentGeo otherwise, 188,424): the latent unpacks into hi +
-//           lo bf16 columns (exact), the rope key copies in beside it with a
-//           lo term of 0, and the scores take two MMAs (q against hi and lo),
-//           P times V three. The
-//           JAX kernel folds its channel permutation and group rotation into
-//           q and the output; here each field goes to its true channel and
-//           only the rotation stays outside.
-#include "attention_tiles.cuh"
+// Design:   decode (S = 1) takes the split-key kernel of latent_decode.cuh
+//           over LatentQuantRows: each split stages its tiles' packed words,
+//           scales and rope keys by bulk copies and unpacks a tile in shared
+//           memory into hi + lo bf16 columns (exact), the rope key beside them
+//           with a lo term of 0; the scores take two MMAs (q against hi and
+//           lo), P times V three; q is rotated as it is loaded and the output
+//           in the merge. Longer chunks take the tile loop of
+//           attention_tiles.cuh with LatentQuantKV and LatentGeo (188,424
+//           bytes a block), the same unpack read from device memory. The JAX
+//           kernel folds its channel permutation and group rotation into q
+//           and the output; here each field goes to its true channel and only
+//           the rotation stays outside.
+#include "latent_decode.cuh"
 
 // compand_a = 0 selects the midpoint grid; compand_b is 1 - compand_a.
-// paged: bt (B, MP), MP, P pages; linear: bt null, rows (B,) or null, N, T
+// paged: bt (B, MP), MP, P pages; linear: bt null, rows (B,) or null, N, T.
+// Decode (S = 1) needs ws, counters and split_keys (latent_decode.cuh), the
+// tile loop none of them.
 extern "C" int exl3_latent_attention_quant(
     const void* q, const void* kq, const void* ks, const void* kpe, const void* bt,
-    const void* rows_, const void* qpos, const void* total_lens, void* out, int B, int S, int Hq,
-    int MP, int P, int N, int T, int bits, float compand_a, float compand_b, float scale,
-    void* stream) {
+    const void* rows_, const void* qpos, const void* total_lens, void* out, void* ws,
+    void* counters, int B, int S, int Hq, int MP, int P, int N, int T, int bits, float compand_a,
+    float compand_b, float scale, int split_keys, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (bits < 2 || bits > 8) return (int)cudaErrorInvalidValue;
-    const LatentQuantKV lkv{static_cast<const uint32_t*>(kq), static_cast<const __nv_bfloat16*>(ks),
-                            static_cast<const __nv_bfloat16*>(kpe), bits, compand_a, compand_b};
     if (bt == nullptr && T <= 0) return (int)cudaErrorInvalidValue;
     const PagedRows paged{static_cast<const int*>(bt), MP, P};
     const LinearRows linear{static_cast<const int*>(rows_), N, T};
-    // decode: one token's heads a block, 64-key tiles; else 32 rows, 32-key tiles
-#define EXL3_LAUNCH(GEO, ROWS) launch_attention<GEO>(q, ROWS, lkv, qpos, total_lens, nullptr, out, \
-                                                     B, S, Hq, 1, scale, 0, 0.0f, st)
-    if (S == 1)
-        return bt != nullptr ? EXL3_LAUNCH(LatentDecodeGeo, paged)
-                             : EXL3_LAUNCH(LatentDecodeGeo, linear);
-    return bt != nullptr ? EXL3_LAUNCH(LatentGeo, paged) : EXL3_LAUNCH(LatentGeo, linear);
+    const auto* words = static_cast<const uint32_t*>(kq);
+    const auto* scales = static_cast<const __nv_bfloat16*>(ks);
+    const auto* rope = static_cast<const __nv_bfloat16*>(kpe);
+    if (S == 1) {
+        const LatentQuantRows lkv{words, scales, rope, bits, compand_a, compand_b};
+        return bt != nullptr ? launch_latent_decode(q, paged, lkv, qpos, total_lens, out, ws,
+                                                    counters, B, Hq, scale, split_keys, MP * PAGE, st)
+                             : launch_latent_decode(q, linear, lkv, qpos, total_lens, out, ws,
+                                                    counters, B, Hq, scale, split_keys, T, st);
+    }
+    const LatentQuantKV lkv{words, scales, rope, bits, compand_a, compand_b};
+#define EXL3_LAUNCH(ROWS) launch_attention<LatentGeo>(q, ROWS, lkv, qpos, total_lens, nullptr, out, \
+                                                      B, S, Hq, 1, scale, 0, 0.0f, st)
+    return bt != nullptr ? EXL3_LAUNCH(paged) : EXL3_LAUNCH(linear);
 #undef EXL3_LAUNCH
 }

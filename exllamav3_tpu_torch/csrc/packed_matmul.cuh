@@ -332,13 +332,74 @@ quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq, float* __
     if (threadIdx.x == 0) xs[blockIdx.x] = s;
 }
 
+// 8 consecutive elements of x as f32 (one or two 16-byte loads)
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[8]) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        f[2 * i] = __uint_as_float(u[i] << 16);
+        f[2 * i + 1] = __uint_as_float(u[i] & 0xFFFF0000u);
+    }
+}
+__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
+    const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
+    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+
+constexpr int QUANT_THREADS = 1024;  // a row's threads: few divisions each
+
+// The staged bodies' row quantizer (intb_matmul.cu at every m, int4_matmul.cu
+// up to INT4_DECODE_ROWS rows), one block a row: quantize_rows_kernel's
+// function, 8-wide loads, and it lets a dependent product start at once (the
+// staged bodies wait for it before they read x; a product launched without
+// the programmatic attribute starts after it as usual).
+template <typename T>
+__global__ void __launch_bounds__(QUANT_THREADS)
+quantize_rows_dependents(const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ xs, int k) {
+    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+    __shared__ float part[QUANT_THREADS / 32];
+    const T* xr = x + (size_t)blockIdx.x * k;
+    float amax = 0.0f;
+    for (int c = 8 * threadIdx.x; c < k; c += 8 * QUANT_THREADS) {  // k % 32 == 0
+        float f[8];
+        load8(xr + c, f);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(f[i]));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xFFFFFFFFu, amax, o));
+    if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = amax;
+    __syncthreads();
+    amax = part[threadIdx.x & 31];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xFFFFFFFFu, amax, o));
+    const float s = __fadd_rn(__fdiv_rn(amax, 127.0f), 1e-12f);
+    int8_t* qr = xq + (size_t)blockIdx.x * k;
+    for (int c = 8 * threadIdx.x; c < k; c += 8 * QUANT_THREADS) {
+        float f[8];
+        load8(xr + c, f);
+        uint32_t q[2] = {0u, 0u};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            const float v = rintf(__fdiv_rn(f[i], s));
+            q[i / 4] |= (uint32_t)((int)fminf(fmaxf(v, -127.0f), 127.0f) & 0xFF) << (8 * (i % 4));
+        }
+        *reinterpret_cast<uint2*>(qr + c) = make_uint2(q[0], q[1]);
+    }
+    if (threadIdx.x == 0) xs[blockIdx.x] = s;
+}
+
 // Launch one product. x is bf16 for the bf16 route; for a8 it is f32 or bf16
 // and is quantized into xq / xs first. `steps` = prows / 32 and `splits` must
-// leave no split without a step.
+// leave no split without a step. counts: the caller's launches by kernel,
+// each added to where it is made: [0] products, [1] row quantizers, [2]
+// split-k reduce kernels.
 template <int BITS, bool A8>
 int launch(const void* x, const void* packed, const void* scales, void* y, void* ws, void* xq,
            void* xs, int x_is_bf16, int m, int k, int n, int prows, int splits,
-           cudaStream_t st) {
+           cudaStream_t st, int* counts) {
     constexpr bool NIB = BITS == 0;
     const int steps = prows / 32;
     if (m < 1 || k % 32 || prows % 32 || n % (NIB ? 64 : 32) || splits < 1 || splits > steps)
@@ -357,6 +418,7 @@ int launch(const void* x, const void* packed, const void* scales, void* y, void*
                                                      static_cast<float*>(xs), k);
         int err = (int)cudaGetLastError();
         if (err != 0) return err;
+        ++counts[1];
         xin = xq;
     }
     const float* row_scale = A8 ? static_cast<const float*>(xs) : nullptr;
@@ -374,11 +436,15 @@ int launch(const void* x, const void* packed, const void* scales, void* y, void*
             xin, pk, sc, dst, splits > 1 ? nullptr : row_scale, m, k, n, prows, per, steps);
     }
     int err = (int)cudaGetLastError();
-    if (err != 0 || splits == 1) return err;
+    if (err != 0) return err;
+    ++counts[0];
+    if (splits == 1) return 0;
     const size_t total4 = (size_t)m * n / 4;
     splitk_reduce_kernel<<<(unsigned)((total4 + 255) / 256), 256, 0, st>>>(
         static_cast<const float4*>(ws), row_scale, static_cast<float4*>(y), m, n, splits);
-    return (int)cudaGetLastError();
+    err = (int)cudaGetLastError();
+    if (err == 0) ++counts[2];
+    return err;
 }
 
 }  // namespace

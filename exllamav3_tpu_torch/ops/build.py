@@ -28,7 +28,7 @@ SOURCES = ("int8_matmul.cu", "fused_mlp.cu", "paged_attention.cu", "exl3_gemm.cu
            "latent_attention_quant.cu", "ring_attention.cu", "attention_stats.cu",
            "probe_dma.cu", "probe_trellis.cu", "probe_kv_dequant.cu", "probe_int4.cu")
 HEADERS = ("packed_matmul.cuh", "attention_tiles.cuh", "attention_decode.cuh",
-           "async_copy.cuh", "intb_layout.cuh")  # included by sources; part of the digest
+           "async_copy.cuh", "intb_layout.cuh", "int4_layout.cuh", "latent_decode.cuh")  # included by sources; part of the digest
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -46,7 +46,7 @@ SIGNATURES = {
     "exl3_paged_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _F, _I, _P],
     "exl3_int4_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "exl3_int4_matmul_a8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "exl3_int4_matmul_a8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "exl3_intb_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "exl3_intb_matmul_a8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "exl3_moe_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
@@ -54,9 +54,10 @@ SIGNATURES = {
                               _I, _F, _I, _F, _I, _P],
     "exl3_linear_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _F, _I, _P],
-    "exl3_latent_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    "exl3_latent_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                    _I, _I, _F, _F, _F, _P],
+    "exl3_latent_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _F, _I, _P],
+    "exl3_latent_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _I, _I, _I, _F, _F, _F, _I, _P],
     "exl3_ring_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                             _I, _F, _I, _P],
     "exl3_ring_attention_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
@@ -81,6 +82,14 @@ SIGNATURES = {
     # body a product of these widths launches (csrc/intb_matmul.cu)
     "exl3_intb_launches": [_I],
     "exl3_intb_blocks_per_sm": [_I, _I, _I, _I, _I, _I],
+    # the int4 library's launches so far by kernel (0 packed_matmul.cuh's
+    # products, 1 row quantizers, 2 split-k reduces, 3 staged products), and
+    # the blocks an SM holds of the staged a8 body a product of these widths
+    # launches (csrc/int4_matmul.cu)
+    "exl3_int4_launches": [_I],
+    "exl3_int4_blocks_per_sm": [_I, _I, _I, _I],
+    # the latent split-key decode kernel's launches so far (csrc/latent_decode.cuh)
+    "exl3_latent_decode_launches": [],
 }
 
 _LIB = None

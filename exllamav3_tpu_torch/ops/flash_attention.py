@@ -22,6 +22,10 @@ its sequences. csrc/latent_attention.cu and csrc/latent_attention_quant.cu
 serve the absorbed MLA form over DeepSeek's latent cache, paged or linear:
 one kv head whose 576-channel row is the latent (512) and the rope key (64),
 V the latent itself; bf16, or the latent packed with the rope key in bf16.
+Their decode (S = 1) goes through the split-key kernel of
+csrc/latent_decode.cuh (splits sized by latent_split_keys, merged in the
+launch; its plain split arithmetic: latent_attention_split_plain), verify and
+prefill through the tile loop.
 csrc/ring_attention.cu serves decode (S = 1) over a sliding-window layer's
 ring (`ring_attention`): each sequence's ring row holds W slots of bf16 K/V
 beside the position each slot holds, and the positions decide visibility.
@@ -568,6 +572,81 @@ def _latent_dense(q, k, latent: int, q_positions, total_lens, scale: float) -> t
     return o * valid[:, :, None, None].to(o.dtype)
 
 
+# The latent decode kernel (csrc/latent_decode.cuh) serves S = 1: a block holds
+# LATENT_ROWS heads of one token over a split of the keys, a power of two from
+# LATENT_TILE keys, at most LATENT_MAX_SPLITS splits a (sequence, head slice),
+# so that the grid (splits, head slices, B) holds about LATENT_BLOCKS_PER_SM
+# blocks for each of the card's SMs. The three limits are the header's own.
+LATENT_ROWS, LATENT_TILE, LATENT_MAX_SPLITS = header_constants(
+    "latent_decode.cuh", "LAT_ROWS", "LAT_TILE", "LAT_MAX_SPLITS")
+LATENT_BLOCKS_PER_SM = 4
+
+
+@functools.lru_cache(maxsize=None)  # a served step asks for a few widths hundreds of times
+def latent_split_keys(width: int, B: int, Hq: int, sms: int = H100_SMS) -> int:
+    """Keys a split of the latent decode kernel covers, from widths the host
+    knows: the layout's keys a sequence (the block table's width times 256,
+    or the linear cache's T), the batch, the q heads and the card's SM count.
+    Below a page it divides the page; above, it holds whole pages."""
+    slices = -(-Hq // LATENT_ROWS)
+    want = min(LATENT_MAX_SPLITS, max(1, -(-LATENT_BLOCKS_PER_SM * sms // (B * slices))))
+    split = LATENT_TILE
+    while -(-width // split) > want:
+        split *= 2
+    return split
+
+
+def _latent_decode_launch(q, width: int, sms: int) -> tuple:
+    """(workspace, counters, split_keys) of a latent launch: decode (S = 1)
+    takes a workspace of (acc, m, l) for each split of latent_split_keys's
+    size and the arrival counters; the tile loop none of them."""
+    B, S, Hq, _ = q.shape
+    if S != 1:
+        return None, None, 0
+    split_keys = latent_split_keys(width, B, Hq, sms)
+    slices = -(-Hq // LATENT_ROWS)
+    ws = torch.empty(B * slices * -(-width // split_keys) * LATENT_ROWS * (LATENT + 2),
+                     dtype=torch.float32, device=q.device)
+    return ws, arrival_counters(q.device, B * slices), split_keys
+
+
+def latent_attention_split_plain(q, layer_state: dict, q_positions, total_lens, latent: int,
+                                 k_bits: int = 0, compand_a: float = 0.0, block_tables=None,
+                                 rows=None, scale: float = 1.0,
+                                 split_keys: int | None = None) -> torch.Tensor:
+    """(B, 1, Hq, latent) f32: the latent decode kernel's arithmetic in plain
+    torch (attention_split_plain with V = the leading `latent` channels of each
+    key row), over a latent cache paged (with block_tables; pages out of range
+    hold no visible key) or linear (rows, or rows 0..B-1), {"kv"} bf16 or
+    {"kv_q", "kv_s", "k_pe"} quantized: the latter's q rotated as the kernel
+    takes it (rotate_latent_q), its latent dequantized to f32 in the rotated
+    basis beside the rope key, and the output rotated back. The keys are cut
+    by latent_split_keys at H100_SMS unless split_keys is given."""
+    B, _, Hq, _ = q.shape
+    quant = "kv_q" in layer_state
+    names = ("kv_q", "kv_s", "k_pe") if quant else ("kv",)
+    page_ok = None
+    if block_tables is not None:
+        ok = (block_tables >= 0) & (block_tables < layer_state[names[0]].shape[0])
+        block_tables = torch.where(ok, block_tables, torch.zeros_like(block_tables))
+        page_ok = ok.repeat_interleave(PAGE_SIZE, dim=1)
+    parts = [_latent_rows(layer_state[n], B, block_tables, rows) for n in names]
+    if quant:
+        k = torch.cat([dequantize_rotated(parts[0], parts[1], k_bits, compand_a),
+                       parts[2].float()], dim=-1)
+        qq = rotate_latent_q(q, latent).float()
+    else:
+        k, qq = parts[0].float(), q.float()
+    k = k[:, :, 0]  # (B, T, D): one row every head reads
+    T = k.shape[1]
+    vis = _causal_visible(q_positions, total_lens, T, q.device)
+    if page_ok is not None:
+        vis = vis & page_ok[:, None, :]
+    o = attention_split_plain(qq, k, k[..., :latent], vis,
+                              split_keys or latent_split_keys(T, B, Hq), scale, rotate=False)
+    return rotate_groups(o) if quant else o
+
+
 def latent_attention_plain(q, kv, q_positions, total_lens, latent: int, block_tables=None,
                            rows=None, scale: float = 1.0) -> torch.Tensor:
     """(B, S, Hq, latent) f32 over a bf16 latent cache kv, paged
@@ -608,16 +687,19 @@ def latent_attention_kernel(q, kv, q_positions, total_lens, block_tables=None, r
     """Launch csrc/latent_attention.cu. q (B, S, Hq, 576) bf16; kv bf16,
     paged (P, 256, 1, 576) with block_tables (B, MP) int32, or linear
     (N, T, 1, 576) with rows (B,) int32 or None; q_positions (B, S) and
-    total_lens (B,) int32; any Hq. -> (B, S, Hq, 512) f32."""
+    total_lens (B,) int32; any Hq. -> (B, S, Hq, 512) f32. Decode (S = 1)
+    runs the split-key kernel (splits sized by latent_split_keys for this
+    card), a longer chunk the tile loop."""
     B, S, Hq, _ = q.shape
     if kv.dtype != torch.bfloat16 or kv.shape[-1] != LATENT + ROPE:
         raise TypeError("latent_attention_kernel: expected a bf16 (., ., 1, 576) latent cache")
     bt, rp, MP, P, N, T = _latent_args("latent_attention_kernel", q, (kv,), block_tables, rows,
                                        q_positions, total_lens)
+    ws, counters, split_keys = _latent_decode_launch(q, MP * PAGE_SIZE or T, device_sms(q.device))
     out = torch.empty((B, S, Hq, LATENT), dtype=torch.float32, device=q.device)
     err = library().exl3_latent_attention(
         q.data_ptr(), kv.data_ptr(), bt, rp, q_positions.data_ptr(), total_lens.data_ptr(),
-        out.data_ptr(), B, S, Hq, MP, P, N, T, float(scale),
+        out.data_ptr(), _ptr(ws), _ptr(counters), B, S, Hq, MP, P, N, T, float(scale), split_keys,
         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("exl3_latent_attention", err)
     latent_attention_kernel.launches += 1
@@ -659,8 +741,10 @@ def latent_attention_quant_kernel(q, layer_state: dict, q_positions, total_lens,
     """Launch csrc/latent_attention_quant.cu. q (B, S, Hq, 576) bf16;
     layer_state {kv_q (., ., 1, 16 * k_bits) int32, kv_s (., ., 1, 16) bf16,
     k_pe (., ., 1, 64) bf16}, paged with block_tables or linear with rows, as
-    latent_attention_kernel; k_bits in 2..8. q's latent is rotated per
-    32-channel group before the launch and the output rotated back after it."""
+    latent_attention_kernel; k_bits in 2..8. Decode (S = 1) runs the
+    split-key kernel, which rotates q's latent per 32-channel group (and
+    rounds it to bf16) and the output back itself; a longer chunk takes the
+    tile loop, q rotated before the launch and the output after it."""
     B, S, Hq, _ = q.shape
     kq, ks, kpe = (layer_state[n] for n in ("kv_q", "kv_s", "k_pe"))
     lead = kq.shape[:3]
@@ -670,18 +754,19 @@ def latent_attention_quant_kernel(q, layer_state: dict, q_positions, total_lens,
         raise ValueError(f"latent_attention_quant_kernel: unsupported state "
                          f"kv_q {tuple(kq.shape)} {kq.dtype}, k_pe {tuple(kpe.shape)}, "
                          f"bits {k_bits}")
-    qr = rotate_latent_q(q, LATENT)
+    qr = q if S == 1 else rotate_latent_q(q, LATENT)
     bt, rp, MP, P, N, T = _latent_args("latent_attention_quant_kernel", qr, (kq, ks, kpe),
                                        block_tables, rows, q_positions, total_lens)
+    ws, counters, split_keys = _latent_decode_launch(q, MP * PAGE_SIZE or T, device_sms(q.device))
     out = torch.empty((B, S, Hq, LATENT), dtype=torch.float32, device=q.device)
     err = library().exl3_latent_attention_quant(
         qr.data_ptr(), kq.data_ptr(), ks.data_ptr(), kpe.data_ptr(), bt, rp,
-        q_positions.data_ptr(), total_lens.data_ptr(), out.data_ptr(), B, S, Hq, MP, P, N, T,
-        int(k_bits), float(compand_a), float(1.0 - compand_a), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        q_positions.data_ptr(), total_lens.data_ptr(), out.data_ptr(), _ptr(ws), _ptr(counters),
+        B, S, Hq, MP, P, N, T, int(k_bits), float(compand_a), float(1.0 - compand_a),
+        float(scale), split_keys, torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("exl3_latent_attention_quant", err)
     latent_attention_quant_kernel.launches += 1
-    return rotate_groups(out)
+    return out if S == 1 else rotate_groups(out)
 
 
 latent_attention_quant_kernel.launches = 0

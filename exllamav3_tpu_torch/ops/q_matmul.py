@@ -3,7 +3,8 @@
 
   * int8: y = (x @ W_q) * scale[col], 1 byte a weight (csrc/int8_matmul.cu);
   * int4: grouped 4-bit codes, two a byte along k, one bf16 scale per 32 rows
-    and column: 0.5625 bytes a weight (csrc/int4_matmul.cu);
+    and column: 0.5625 bytes a weight (csrc/int4_matmul.cu; its a8 route at
+    m <= 16 a staged body, int4_matmul_a8_split_plain its arithmetic);
   * int-B (B = 3, 4, 5, 6): 32 // B codes in an int32 word, plane-major along
     k, the same group scales (csrc/intb_matmul.cu). B = 4 in this layout
     holds the conversion-time `.sq` tensors only; the load-time int4 tier
@@ -330,23 +331,47 @@ def intb_matmul_split_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch
     return out * xs if a8 else out
 
 
+def int4_matmul_a8_split_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                               splits: int) -> torch.Tensor:
+    """The staged int4 a8 kernel's arithmetic in plain torch (m <= 16): the
+    steps (INT4_STEP_ROWS packed rows, both planes; the last may be short)
+    cut into `splits` runs as the kernel cuts them, each run's partial sums in
+    f32 (an exact integer dot per 32-row group times its scale), the partials
+    added in split order from 0, and the row scale last. (m, n) f32."""
+    m, k = x.shape
+    kh = k // 2
+    codes = _int4_codes(packed)                          # (k, n): plane 0 rows, then plane 1
+    xq, xs = quantize_rows(x)
+    out = torch.zeros((m, packed.shape[1]), dtype=torch.float32, device=x.device)
+    for s0, s1 in _intb_split_steps(-(-kh // INT4_STEP_ROWS), splits):
+        r0, r1 = s0 * INT4_STEP_ROWS, min(s1 * INT4_STEP_ROWS, kh)
+        rows = torch.cat([torch.arange(j * kh + r0, j * kh + r1, device=x.device) for j in (0, 1)])
+        groups = rows[::INT4_GROUP] // INT4_GROUP
+        xg = xq[:, rows].reshape(m, -1, INT4_GROUP).transpose(0, 1)      # (groups, m, 32)
+        cg = codes[rows].reshape(-1, INT4_GROUP, codes.shape[1]).to(torch.float32)
+        d = torch.bmm(xg, cg)                                             # exact integers
+        out = out + (d * scales[groups][:, None, :].to(torch.float32)).sum(dim=0)
+    return out * xs
+
+
 # -- kernel wrappers -----------------------------------------------------------
 
-# the tilings of csrc/packed_matmul.cuh, which the int4 kernels take at every
-# m and the int-B kernels above INTB_DECODE_ROWS rows (int-B at m <=
-# INTB_DECODE_ROWS is sized by intb_split_count below): up to DECODE_ROWS rows
-# a block covers 16 rows and 256 (int4) or 128 (int-B) columns, beyond that
-# 64 rows and 128 columns; one step of its k loop is 32 packed rows
+# the tilings of csrc/packed_matmul.cuh, which the int4 bf16 kernel takes at
+# every m, the int4 a8 kernel above INT4_DECODE_ROWS rows and the int-B
+# kernels above INTB_DECODE_ROWS rows (the staged bodies below those are sized
+# by int4_split_count and intb_split_count below): up to DECODE_ROWS rows a
+# block covers 16 rows and 256 (int4) or 128 (int-B) columns, beyond that 64
+# rows and 128 columns; one step of its k loop is 32 packed rows
 DECODE_ROWS = 16
 BLOCKS_PER_SM = 4
 MIN_STEPS = 4
 
 
 def _packed_splits(m: int, n: int, steps: int, nibble: bool, device) -> int:
-    """k splits of a grid of packed_matmul.cuh (the int4 kernels; int-B
-    above INTB_DECODE_ROWS rows): enough blocks to fill the card at decode
-    sizes, MIN_STEPS steps a split where there are that many, and no split
-    left empty."""
+    """k splits of a grid of packed_matmul.cuh (the int4 bf16 kernel; the
+    int4 a8 and int-B kernels above 16 rows): enough blocks to fill the card
+    at decode sizes, MIN_STEPS steps a split where there are that many, and
+    no split left empty."""
     if m <= DECODE_ROWS:
         blocks = -(-n // (256 if nibble else 128))
     else:
@@ -397,28 +422,82 @@ def _intb_blocks_per_sm(m: int, bits: int, a8: bool, per: int) -> int:
 @functools.lru_cache(maxsize=None)  # a served step asks for a few widths hundreds of times
 def intb_split_count(m: int, k: int, n: int, bits: int, a8: bool, sms: int = H100_SMS) -> int:
     """k splits of the staged int-B kernel on a card of `sms` SMs (m <=
-    INTB_DECODE_ROWS). A block's time is its steps, the card's that of its
-    busiest SM: the blocks it is given times their steps, ceil(tiles * splits
-    / sms) * ceil(steps / splits). Among the splits whose x fits a block's
-    shared memory and whose grid is resident at once (or, where none is, all
+    INTB_DECODE_ROWS), by the busiest SM's steps (_busiest_sm_splits)."""
+    return _busiest_sm_splits(intb_geometry(k, bits)[1] // 32, -(-n // _INTB_BN), sms,
+                              lambda per: _intb_smem(m, bits, a8, per),
+                              lambda per: _intb_blocks_per_sm(m, bits, a8, per), INTB_MAX_SMEM)
+
+
+# the staged int4 a8 kernel's limits and layout, read from csrc/int4_layout.cuh:
+# up to INT4_DECODE_ROWS rows, blocks of INT4_WARPS warps of 32 columns, a k
+# step of INT4_STEP_ROWS packed rows, each warp staging INT4_STAGES steps of
+# its bytes and scales; the launch bounds promise INT4_BLOCKS blocks an SM; a
+# block may ask for INT4_MAX_SMEM bytes; the byte sizes of a block's shared
+# memory (_int4_smem)
+_INT4_LAYOUT = ("INT4_WARPS", "INT4_STEP_ROWS", "INT4_STAGES", "INT4_BLOCKS", "INT4_DECODE_ROWS",
+                "INT4_MAX_SMEM", "INT4_BYTE_STAGE", "INT4_SCALE_STAGE", "INT4_X_ALIGN",
+                "INT4_X_PAD", "INT4_X_SUMS")
+(_INT4_WARPS, INT4_STEP_ROWS, _INT4_STAGES, _INT4_BLOCKS, INT4_DECODE_ROWS, INT4_MAX_SMEM,
+ _INT4_BYTE_STAGE, _INT4_SCALE_STAGE, _INT4_X_ALIGN, _INT4_X_PAD, _INT4_X_SUMS) = header_constants(
+    "int4_layout.cuh", *_INT4_LAYOUT)
+_INT4_BN = 32 * _INT4_WARPS
+# the last warp of a 32-column tile reads every split's partial sums: at most
+# this many splits keeps its reads within 32 KB at 16 rows
+INT4_MAX_SPLITS = 16
+
+
+def _int4_smem(m: int, per: int) -> int:
+    """Dynamic shared memory of a staged int4 a8 block whose split holds
+    `per` steps, as csrc/int4_layout.cuh's int4_smem_bytes reckons it from the
+    same constants: each warp's stages of bytes and scales, 8 or 16 int8 rows
+    of x over the split's steps of both planes in padded rows, and the row
+    sums of each group. tests/test_torch_int4_split.py holds it to the header,
+    compiled."""
+    x_ld = -(-2 * per * INT4_STEP_ROWS // _INT4_X_ALIGN) * _INT4_X_ALIGN + _INT4_X_PAD
+    return (_INT4_WARPS * _INT4_STAGES * (_INT4_BYTE_STAGE + _INT4_SCALE_STAGE)
+            + (8 if m <= 8 else 16) * x_ld + 2 * per * 4 * _INT4_X_SUMS)
+
+
+def _int4_blocks_per_sm(m: int, per: int) -> int:
+    """Blocks an SM holds of a staged int4 a8 launch: the launch bounds, or
+    fewer where the shared memory does not fit. chip_smoke.py holds it to the
+    card's reading (exl3_int4_blocks_per_sm)."""
+    return min(_INT4_BLOCKS, _SM_SHARED // (_int4_smem(m, per) + _BLOCK_RESERVED))
+
+
+def _busiest_sm_splits(steps: int, tiles: int, sms: int, smem, blocks_per_sm,
+                       max_smem: int, max_splits: int | None = None) -> int:
+    """The split count of a staged packed kernel (int-B, int4 a8): a block's
+    time is its steps, the card's that of its busiest SM: the blocks it is
+    given times their steps, ceil(tiles * splits / sms) * ceil(steps /
+    splits). Among the splits whose x fits a block's shared memory (smem(per)
+    <= max_smem) and whose grid is resident at once (or, where none is, all
     that fit), those that give the busiest SM the fewest steps are taken, and
     of them the one whose SMs run the most blocks at once (warps that hide
-    each other's latency), then the fewest splits."""
-    W, kp, _ = intb_geometry(k, bits)
-    steps = kp // 32
-    tiles = -(-n // _INTB_BN)
+    each other's latency), then the fewest splits; at most max_splits."""
     fits, resident = [], []
-    for s in range(1, steps + 1):
+    for s in range(1, min(steps, max_splits or steps) + 1):
         per = -(-steps // s)
-        if _intb_smem(m, bits, a8, per) > INTB_MAX_SMEM:
+        if smem(per) > max_smem:
             continue
-        held = _intb_blocks_per_sm(m, bits, a8, per)
+        held = blocks_per_sm(per)
         on_sm = -(-tiles * s // sms)  # blocks the busiest SM is given
         cand = (on_sm * per, -min(on_sm, held), s)
         fits.append(cand)
         if s == 1 or on_sm <= held:
             resident.append(cand)
     return min(resident or fits)[2]
+
+
+@functools.lru_cache(maxsize=None)  # a served step asks for a few widths hundreds of times
+def int4_split_count(m: int, k: int, n: int, sms: int = H100_SMS) -> int:
+    """k splits of the staged int4 a8 kernel on a card of `sms` SMs (m <=
+    INT4_DECODE_ROWS), by the busiest SM's steps (_busiest_sm_splits), at
+    most INT4_MAX_SPLITS."""
+    return _busiest_sm_splits(-(-k // 2 // INT4_STEP_ROWS), -(-n // _INT4_BN), sms,
+                              lambda per: _int4_smem(m, per),
+                              lambda per: _int4_blocks_per_sm(m, per), INT4_MAX_SMEM,
+                              INT4_MAX_SPLITS)
 
 
 def _check_packed(name: str, x, packed, scales, packed_dtype, a8: bool):
@@ -482,11 +561,20 @@ int4_matmul_kernel.launches = 0
 def int4_matmul_a8_kernel(x: torch.Tensor, packed: torch.Tensor,
                           scales: torch.Tensor) -> torch.Tensor:
     """Launch csrc/int4_matmul.cu, a8 route: x (m, k) f32 or bf16 is quantized
-    to int8 rows by the launch's first kernel; -> (m, n) f32. Any m >= 1."""
+    to int8 rows by the launch's first kernel; -> (m, n) f32. Any m >= 1; up
+    to INT4_DECODE_ROWS rows the quantizer and one staged product kernel a
+    call, its splits sized by int4_split_count and added in the launch (the
+    shared arrival counters, one a 32-column tile); above, packed_matmul.cuh's
+    tiling with its split-k reduce."""
     _check_packed("int4_matmul_a8_kernel", x, packed, scales, torch.int8, a8=True)
     steps = _int4_shapes("int4_matmul_a8_kernel", x, packed, scales)
-    splits = _packed_splits(x.shape[0], packed.shape[1], steps, True, x.device)
-    y = _launch_packed("exl3_int4_matmul_a8", x, packed, scales, True, splits, ())
+    m, n = x.shape[0], packed.shape[1]
+    if m <= INT4_DECODE_ROWS:
+        splits = int4_split_count(m, x.shape[1], n, device_sms(x.device))
+        counters = arrival_counters(x.device, n // 32).data_ptr()  # one a warp's columns
+    else:
+        splits, counters = _packed_splits(m, n, steps, True, x.device), None
+    y = _launch_packed("exl3_int4_matmul_a8", x, packed, scales, True, splits, (), (counters,))
     int4_matmul_a8_kernel.launches += 1
     return y
 

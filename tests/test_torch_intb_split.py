@@ -125,7 +125,10 @@ def test_intb_constants_match_the_kernel():
         assert header_constants("intb_layout.cuh", name) == (value,)
         assert not re.search(rf"constexpr int {name}\b", src)
     assert '#include "intb_layout.cuh"' in src
-    assert re.findall(r"__launch_bounds__\(([^)]*)\)", src) == ["THREADS, INTB_BLOCKS", "QUANT_THREADS"]
+    assert re.findall(r"__launch_bounds__\(([^)]*)\)", src) == ["THREADS, INTB_BLOCKS"]
+    # the row quantizer the staged bodies share lives in packed_matmul.cuh
+    header = (CSRC / "packed_matmul.cuh").read_text()
+    assert "__launch_bounds__(QUANT_THREADS)\nquantize_rows_dependents(" in header
     assert P._INTB_BN == 128 and P.INTB_DECODE_ROWS == P.SMALL_M
 
 
@@ -177,11 +180,14 @@ def test_intb_counts_every_kernel_where_it_launches():
     library's count beside the launch: the row quantizer (two element types,
     one count), the staged product, the tiled product above
     INTB_DECODE_ROWS rows, and its split-k reduce. No launch goes through
-    packed_matmul.cuh's launcher, which counts nothing, or its quantizer."""
+    packed_matmul.cuh's launcher or its 256-thread quantizer; the row
+    quantizer is packed_matmul.cuh's quantize_rows_dependents, which the
+    int4 a8 route's staged body shares."""
     src = (CSRC / "intb_matmul.cu").read_text()
     assert "packed::launch" not in src and "quantize_rows_kernel" not in src
     launches = re.findall(r"([\w:]+(?:<[^<>]*>)?)<<<|cudaLaunchKernelEx\(\s*&cfg, (\w+)", src)
     names = sorted(a.split("<")[0] or b for a, b in launches)
-    assert names == ["intb_decode_kernel", "intb_quantize_rows", "intb_quantize_rows",
-                     "packed::packed_matmul_kernel", "packed::splitk_reduce_kernel"]
+    assert names == ["intb_decode_kernel", "packed::packed_matmul_kernel",
+                     "packed::quantize_rows_dependents", "packed::quantize_rows_dependents",
+                     "packed::splitk_reduce_kernel"]
     assert sorted(re.findall(r"\+\+intb_launch_count\[(\d)\]", src)) == ["0", "0", "1", "2"]

@@ -1,5 +1,5 @@
 """Compare two source trees of the PyTorch port, in turns, on one card, by one
-of nine runs (`--run`):
+of thirteen runs (`--run`):
 
 - `paged_bf16` (the default): the bf16 paged attention kernel (row 3) at
   decode, batch 8, q positions 299-2047 (contexts 300 to 2048), 32 q / 8 kv
@@ -26,7 +26,20 @@ of nine runs (`--run`):
   the other in each run;
 - `serve_packed_int6`: `chip_smoke.py --phases build,serve_packed_int6`
   (the int6 tier on 4 layers of the 8B-width checkpoint, all 8 requests,
-  traced), read as `serve_capacity`.
+  traced), read as `serve_capacity`;
+- `int4`: the int4 matmuls, row 11 (bf16) and row 12 (a8), at qkv (4096 x
+  6144), m = 8, 128 and 2048, over inputs rotated past L2, one after the
+  other in each run;
+- `latent`: the latent (MLA) attention, row 6a, at decode (DeepSeek-V2-Lite:
+  batch 8, 16 heads, contexts 300-2048 over a paged cache with a shuffled
+  block table, chip_smoke.py's main latent shape), over a bf16 and a (4)-bit
+  latent cache, each rotated past L2, through the wrappers a model calls;
+- `serve_mla`: `chip_smoke.py --phases build,serve_mla` (the 27-layer
+  DeepSeek-V2-Lite serve over a bf16 latent cache, then one (4)-bit
+  request), read as `serve_capacity`;
+- `serve_packed`: `chip_smoke.py --phases build,serve_packed` (the 32-layer
+  int4 a8 serve, then the other packed tiers on 4 layers and the ladder),
+  its traced int4 run read as `serve_capacity`.
 
     python3 tools/torch_attention_ab.py --trees build/parent,.   # parent, change
     python3 tools/torch_attention_ab.py --run serve_capacity --trees A,B --rounds 3
@@ -35,6 +48,9 @@ of nine runs (`--run`):
     python3 tools/torch_attention_ab.py --run exl3_gemm --trees build/parent,.
     python3 tools/torch_attention_ab.py --run intb --trees build/parent,.
     python3 tools/torch_attention_ab.py --run serve_packed_int6 --trees build/parent,. --smoke chip_smoke.py
+    python3 tools/torch_attention_ab.py --run int4 --trees build/parent,.
+    python3 tools/torch_attention_ab.py --run latent --trees build/parent,.
+    python3 tools/torch_attention_ab.py --run serve_mla --trees build/parent,. --smoke chip_smoke.py --rounds 1
 
 Each tree runs in a process of its own (its own checkout of
 exllamav3_tpu_torch, its own kernel build and checkpoint under <tree>/build/),
@@ -42,8 +58,9 @@ in the order A, B, B, A for every round. A kernel run queues 200 launches
 behind a device spin, five times, over one input set (the trees are compared
 with each other, not with a bound), and gives the median device ms a call
 (CUDA events) and host µs a call (the host clock over the same 200
-enqueues; `intb` gives both for each route); `ring`, `exl3_gemm` and `intb`
-cycle through input sets that together exceed twice the L2 cache. Each run's numbers are printed as they come; a run that fails is
+enqueues; `intb`, `int4` and `latent` give both for each route); `ring`,
+`exl3_gemm`, `intb`, `int4` and `latent` cycle through input sets that
+together exceed twice the L2 cache. Each run's numbers are printed as they come; a run that fails is
 printed with its exit code and left out of the medians. The last line is
 one JSON object with each tree's medians and B / A. A serve run drives each
 tree's own chip_smoke.py, or with `--smoke PATH` that one script in both trees
@@ -125,6 +142,35 @@ elif sys.argv[1] == "intb":
                        m * k * 2 + kp * n * 4 + k_pad // 32 * n * 2)
         fns[f"bf16_m{m}"] = lambda nxt=nxt: qm.intb_matmul_kernel(*nxt(), bits)
         fns[f"a8_m{m}"] = lambda nxt=nxt: qm.intb_matmul_a8_kernel(*nxt(), bits)
+elif sys.argv[1] == "int4":
+    from exllamav3_tpu_torch.ops import q_matmul as qm
+    k, n = 4096, 6144
+    fns = {}
+    for m in (8, 128, 2048):
+        nxt = rotating(lambda i, m=m: (torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16),
+                                       torch.randint(-128, 128, (k // 2, n), generator=g, device=dev,
+                                                     dtype=torch.int64).to(torch.int8),
+                                       ((torch.rand((k // 32, n), generator=g, device=dev) + 0.5)
+                                        * 0.01).to(torch.bfloat16)),
+                       m * k * 2 + k // 2 * n + k // 32 * n * 2)
+        fns[f"bf16_m{m}"] = lambda nxt=nxt: qm.int4_matmul_kernel(*nxt())
+        fns[f"a8_m{m}"] = lambda nxt=nxt: qm.int4_matmul_a8_kernel(*nxt())
+elif sys.argv[1] == "latent":
+    from exllamav3_tpu_torch.ops.kv_quant import quantize_kv
+    Hq = 16
+    q = (torch.randn((B, 1, Hq, 576), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    bf16 = rotating(lambda i: torch.randn((P, PAGE_SIZE, 1, 576), generator=g, device=dev)
+                    .to(torch.bfloat16), P * PAGE_SIZE * 576 * 2)
+
+    def quant(i):
+        raw = torch.randn((P, PAGE_SIZE, 1, 576), generator=g, device=dev)
+        kq, ks = quantize_kv(raw[..., :512], 4, 0.0)
+        return {"kv_q": kq, "kv_s": ks, "k_pe": raw[..., 512:].to(torch.bfloat16).contiguous()}
+    q4 = rotating(quant, P * PAGE_SIZE * (256 + 32 + 128))
+    fns = {"bf16": lambda: fa.latent_attention_kernel(q, bf16(), qp, tl, block_tables=bt,
+                                                      scale=192 ** -0.5),
+           "q4": lambda: fa.latent_attention_quant_kernel(q, q4(), qp, tl, 4, 0.0, block_tables=bt,
+                                                          scale=192 ** -0.5)}
 else:
     from exllamav3_tpu_torch.ops.kv_quant import quantize_kv_stored
     state = {}
@@ -154,7 +200,7 @@ def timed(fn):
     return statistics.median(ms), statistics.median(host_us)
 
 
-if sys.argv[1] == "intb":
+if sys.argv[1] in ("intb", "int4", "latent"):
     res = {}
     for route, f in fns.items():
         res[f"ms_{route}"], res[f"host_us_{route}"] = timed(f)
@@ -169,11 +215,11 @@ PROFILE = re.compile(r"^profile: (\d+) decode steps \(batch 8\), window [\d.]+ m
                      r"([\d.]+) ms \([\d.]+ of the window, idle ([\d.]+)\), ([\d.]+) device ops "
                      r"per step", re.M)
 RUNS = ("paged_bf16", "paged_quant", "serve_capacity", "serve", "ring", "exl3_gemm",
-        "serve_gemma", "intb", "serve_packed_int6")
+        "serve_gemma", "intb", "serve_packed_int6", "int4", "latent", "serve_mla", "serve_packed")
 
 
 # a serve run's log tag, where it is not the run's name
-TAGS = {"serve_packed_int6": "serve_packed int6"}
+TAGS = {"serve_packed_int6": "serve_packed int6", "serve_packed": "serve_packed int4"}
 # runs the script named first with the arguments after it, as `python script`
 # would, but with the tree's checkout first on the path
 RUN_SCRIPT = ("import runpy, sys; sys.argv = sys.argv[1:]; "

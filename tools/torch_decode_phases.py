@@ -1,11 +1,25 @@
 """Where a tile's time goes in the decode kernel
 (exllamav3_tpu_torch/csrc/attention_decode.cuh), on one card, over the
-quantized or the bf16 cache (`--storage`).
+quantized or the bf16 cache (`--storage`); with --latent in the latent (MLA)
+decode kernel (csrc/latent_decode.cuh, kernel row 6a).
 
     python3 tools/torch_decode_phases.py                 # (4, 4) and (5, 3), default splits
     python3 tools/torch_decode_phases.py --splits 64,128,256,512,1024,2048
     python3 tools/torch_decode_phases.py --storage bf16 --splits 64,128,256,512  # bf16 geometries
     python3 tools/torch_decode_phases.py --ring --splits 128,256,512   # the Gemma-3-27B ring alone
+    python3 tools/torch_decode_phases.py --latent --splits 64,128,256 --geometries 32x2,32x3,64x2
+
+With --latent: a copy of latent_decode.cuh with clock64() timers around the
+phases of its tile loop (the wait for the staged tile, the issue of the next
+tile's copies, the quantized storage's unpack, the scores, the softmax, P.V)
+and the block's life, run at chip_smoke.py's main latent shape
+(DeepSeek-V2-Lite decode, batch 8, 16 heads, contexts 300-2048 over a paged
+cache with a shuffled block table) and at 128 heads, over the bf16 latent
+and the (4)-bit one: cycles a tile by phase, and at each split size given to
+--splits (or latent_split_keys's) the uninstrumented kernel's time over
+caches rotated past L2 in each tile geometry given to --geometries (keys a
+tile x stages, bf16 and quantized alike; default the header's), each held
+to chip_smoke.py's TOL_ATTN (2e-4) or TOL_ATTN_Q (3e-4) of the largest output.
 
 Writes a copy of the header into build/decode_phases/ with clock64() timers
 around the phases of the tile loop (the wait for the staged tile, the issue
@@ -194,6 +208,265 @@ extern "C" int phases_clear() {
     return (int)cudaMemset(p, 0, sizeof(g_phase));
 }
 '''
+
+# -- --latent: csrc/latent_decode.cuh --------------------------------------------
+LATENT_SLOTS = 11
+LATENT_PHASES = ("wait", "issue", "unpack", "scores", "softmax", "P.V")
+LATENT_PATCHES = [
+    ("namespace {\n\nconstexpr int LAT_ROWS",
+     f"namespace {{\n__device__ unsigned long long g_phase[65536 * {LATENT_SLOTS}];\n"
+     "constexpr int LAT_ROWS"),
+    ("    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;\n",
+     "    const long long t_entry = clock64();\n"
+     "    const size_t bi = ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x"
+     " + blockIdx.x;\n"
+     "    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;\n"),
+    ("        for (int i = 0; i < ntiles; ++i) {\n            issue(i + STAGES - 1);",
+     "        unsigned long long ph[6] = {0, 0, 0, 0, 0, 0};\n"
+     "        const long long t_block = clock64();\n"
+     "        for (int i = 0; i < ntiles; ++i) {\n"
+     "            const long long t_top = clock64();\n"
+     "            issue(i + STAGES - 1);"),
+    ("            mbar_wait(bars + i % STAGES, (parity >> (i % STAGES)) & 1u);\n",
+     "            const long long t_issued = clock64();\n"
+     "            mbar_wait(bars + i % STAGES, (parity >> (i % STAGES)) & 1u);\n"
+     "            const long long t_ready = clock64();\n"
+     "            ph[0] += t_ready - t_issued;\n            ph[1] += t_issued - t_top;\n"),
+    ("            const __nv_bfloat16* Kt = reinterpret_cast<const __nv_bfloat16*>(st);\n",
+     "            const __nv_bfloat16* Kt = reinterpret_cast<const __nv_bfloat16*>(st);\n"
+     "            long long t_sc = clock64();\n"),
+    ("                Kt = Khi;\n",
+     "                Kt = Khi;\n"
+     "                const long long t_u = clock64();\n                ph[2] += t_u - t_sc;\n"
+     "                t_sc = t_u;\n"),
+    ("            __syncthreads();\n\n            // online softmax",
+     "            __syncthreads();\n            const long long t_scored = clock64();\n"
+     "            ph[3] += t_scored - t_sc;\n\n            // online softmax"),
+    ("            __syncthreads();\n\n            // acc = alpha acc + P V",
+     "            __syncthreads();\n            const long long t_soft = clock64();\n"
+     "            ph[4] += t_soft - t_scored;\n\n            // acc = alpha acc + P V"),
+    ("            __syncthreads();  // the stage, the unpacked tile, the scores and P are rewritten next\n"
+     "        }\n",
+     "            ph[5] += clock64() - t_soft;\n"
+     "            __syncthreads();  // the stage, the unpacked tile, the scores and P are rewritten next\n"
+     "        }\n"
+     "        if (tid == 0) {\n"
+     f"            for (int k = 0; k < 6; ++k) g_phase[bi * {LATENT_SLOTS} + k] = ph[k];\n"
+     f"            g_phase[bi * {LATENT_SLOTS} + 6] = ntiles;\n"
+     f"            g_phase[bi * {LATENT_SLOTS} + 7] = clock64() - t_block;\n"
+     f"            g_phase[bi * {LATENT_SLOTS} + 8] = t_block - t_entry;\n"
+     "        }\n"),
+    ("    if (!*flag) return;",
+     f"    if (tid == 0) g_phase[bi * {LATENT_SLOTS} + 9] = clock64() - t_entry;\n"
+     "    if (!*flag) return;"),
+    ("    if (tid == 0) counters[b * NH + slice] = 0;  // ready for the next launch",
+     f"    if (tid == 0) g_phase[bi * {LATENT_SLOTS} + 10] = clock64() - t_entry;\n"
+     "    if (tid == 0) counters[b * NH + slice] = 0;  // ready for the next launch"),
+]
+# the latent decode kernel over a paged cache (bt) or a linear one (bt null)
+LATENT_ENTRY = r'''
+#include "latent_decode.cuh"
+extern "C" int latent_bf16(const void* q, const void* kv, const void* bt, const void* qpos,
+    const void* tl, void* out, void* ws, void* counters, int B, int Hq, int MP, int P, int N,
+    int T, float scale, int split_keys, void* stream) {
+    const LatentBf16Rows lkv{(const __nv_bfloat16*)kv};
+    cudaStream_t st = (cudaStream_t)stream;
+    if (bt != nullptr)
+        return launch_latent_decode(q, PagedRows{(const int*)bt, MP, P}, lkv, qpos, tl, out, ws,
+                                    counters, B, Hq, scale, split_keys, MP * PAGE, st);
+    return launch_latent_decode(q, LinearRows{nullptr, N, T}, lkv, qpos, tl, out, ws, counters,
+                                B, Hq, scale, split_keys, T, st);
+}
+extern "C" int latent_quant(const void* q, const void* kq, const void* ks, const void* kpe,
+    const void* bt, const void* qpos, const void* tl, void* out, void* ws, void* counters, int B,
+    int Hq, int MP, int P, int N, int T, int bits, float scale, int split_keys, void* stream) {
+    const LatentQuantRows lkv{(const uint32_t*)kq, (const __nv_bfloat16*)ks,
+                              (const __nv_bfloat16*)kpe, bits, 0.f, 1.f};
+    cudaStream_t st = (cudaStream_t)stream;
+    if (bt != nullptr)
+        return launch_latent_decode(q, PagedRows{(const int*)bt, MP, P}, lkv, qpos, tl, out, ws,
+                                    counters, B, Hq, scale, split_keys, MP * PAGE, st);
+    return launch_latent_decode(q, LinearRows{nullptr, N, T}, lkv, qpos, tl, out, ws, counters,
+                                B, Hq, scale, split_keys, T, st);
+}
+'''
+
+
+def latent_quant_fits(tk: int, stages: int) -> bool:
+    """Whether the quantized storage's layout at 8 bits (latent_decode.cuh's
+    LatentLayout: stages, the hi + lo tile, q, scores, P, rows) fits a block;
+    a geometry that does not is timed over bf16 rows alone."""
+    stage = -(-tk * (132 * 4 + 32 + 128) // 128) * 128
+    return (stages * stage + 2 * tk * 584 * 2 + 16 * 584 * 2 + 4 * 16 * (tk + 4) * 4
+            + 2 * 16 * (tk + 8) * 2 + 256) <= 232448
+
+
+def latent_build(csrc: Path, geometries: list) -> tuple:
+    """(the instrumented copy of latent_decode.cuh in the header's geometry,
+    [(tk, stages, an unpatched copy in that geometry, for bf16 and quantized
+    rows alike)]), built in parallel into build/decode_phases/latent/."""
+    from exllamav3_tpu_torch.ops.build import NVCC_FLAGS, nvcc_path
+
+    src = (csrc / "latent_decode.cuh").read_text()
+    patched = src
+    for anchor, text in LATENT_PATCHES:
+        if patched.count(anchor) != 1:
+            raise SystemExit(f"the header changed: anchor not found once:\n{anchor}")
+        patched = patched.replace(anchor, text)
+    out = OUT / "latent"
+    dirs = {"phases": patched}
+    for tk, stages in geometries:
+        geo = src
+        for name, value in (("TK", tk), ("STAGES", stages)):
+            for storage in (("BF16", "BF16_SLICES", "QUANT") if latent_quant_fits(tk, stages)
+                            else ("BF16", "BF16_SLICES")):
+                geo = re.sub(rf"^constexpr int LAT_{name}_{storage} = \d+;",
+                             f"constexpr int LAT_{name}_{storage} = {value};", geo, count=1,
+                             flags=re.M)
+        dirs[f"tk{tk}_s{stages}"] = geo
+    for sub, text in dirs.items():
+        (out / sub).mkdir(parents=True, exist_ok=True)
+        (out / sub / "latent_decode.cuh").write_text(text)
+        (out / sub / "entry.cu").write_text(LATENT_ENTRY + (TIMERS if sub == "phases" else ""))
+    flags = [f for f in NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    jobs = [[nvcc_path(), *flags, *(["-Xptxas", "-v"] if sub != "phases" else []), f"-I{csrc}",
+             "-shared", str(out / sub / "entry.cu"), "-o", str(out / sub / "lib.so")]
+            for sub in dirs]
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        runs = list(ex.map(lambda c: subprocess.run(c, capture_output=True, text=True), jobs))
+    for r in runs:
+        if r.returncode:
+            raise SystemExit(r.stdout + r.stderr)
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    libs = []
+    for sub, r in zip(dirs, runs):
+        lib = ctypes.CDLL(str(out / sub / "lib.so"))
+        lib.latent_bf16.argtypes = [P] * 8 + [I] * 6 + [F, I, P]
+        lib.latent_quant.argtypes = [P] * 10 + [I] * 7 + [F, I, P]
+        libs.append(lib)
+        for line in (r.stdout + r.stderr).splitlines():
+            if "Used" in line and "registers" in line:
+                print(f"ptxas {sub}: {line.split(':', 1)[1].strip()}", flush=True)
+    libs[0].phases_read.argtypes = [P, I, I]
+    return libs[0], [(tk, st, lib) for (tk, st), lib in zip(geometries, libs[1:])]
+
+
+def latent_main(csrc: Path, splits: list, geometries: list) -> None:
+    """The latent decode kernel at chip_smoke.py's main latent shape and at
+    128 heads, bf16 and (4): cycles a tile by phase (the header's geometry,
+    latent_split_keys's split), then each split and geometry's time."""
+    from exllamav3_tpu_torch.constants import PAGE_SIZE
+    from exllamav3_tpu_torch.ops.flash_attention import (LATENT_MAX_SPLITS, device_sms,
+                                                          latent_attention_plain,
+                                                          latent_attention_quant_plain,
+                                                          latent_split_keys)
+    from exllamav3_tpu_torch.ops.kv_quant import quantize_kv
+    from exllamav3_tpu_torch.util.timing import rotating, time_ms
+
+    own = re.findall(r"^constexpr int LAT_(?:TK|STAGES)_BF16 = (\d+);",
+                     (csrc / "latent_decode.cuh").read_text(), re.M)
+    geometries = geometries or [(int(own[0]), int(own[1]))]
+    phases_dll, libs = latent_build(csrc, geometries)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(22)
+    rng = np.random.default_rng(21)
+    B, D, scale = 8, 576, 192 ** -0.5
+    ctx = np.linspace(300, 2048, 8).astype(np.int32)
+    qp = torch.as_tensor(ctx[:, None] - 1, device=dev)
+    tl = torch.as_tensor(ctx, device=dev)
+    MP = int(math.ceil(ctx.max() / PAGE_SIZE)) + 1
+    P = B * MP + 1
+    perm = rng.permutation(np.arange(1, P))[: B * MP].reshape(B, MP).astype(np.int32)
+    perm[:, -1] = 0
+    bt = torch.as_tensor(perm, device=dev)
+    width = MP * PAGE_SIZE
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    for Hq in (16, 128):
+        q = (torch.randn((B, 1, Hq, D), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+        slices = -(-Hq // 16)
+        counters = torch.zeros(B * slices, dtype=torch.int32, device=dev)
+        out = torch.empty((B, 1, Hq, 512), device=dev)
+        for storage in ("bf16", "(4)"):
+            raw = torch.randn((P, PAGE_SIZE, 1, D), generator=g, device=dev)
+            if storage == "bf16":
+                state = {"kv": raw.to(torch.bfloat16)}
+                ref = latent_attention_plain(q, state["kv"], qp, tl, 512, block_tables=bt,
+                                             scale=scale)
+                qk, tol = q, TOL["bf16"]
+            else:
+                kq, ks = quantize_kv(raw[..., :512], 4, 0.0)
+                state = {"kv_q": kq, "kv_s": ks, "k_pe": raw[..., 512:].to(torch.bfloat16).contiguous()}
+                ref = latent_attention_quant_plain(q, state, qp, tl, 4, 0.0, block_tables=bt,
+                                                   scale=scale)
+                qk, tol = q, TOL["quant"]  # the kernel rotates q and the output itself
+            del raw
+            nbytes = sum(t.numel() * t.element_size() for t in state.values())
+            nxt = rotating(lambda i: state if i == 0 else {n: t.clone() for n, t in state.items()},
+                           nbytes)
+
+            def call(lib, st, split, ws):
+                if storage == "bf16":
+                    err = lib.latent_bf16(qk.data_ptr(), st["kv"].data_ptr(), bt.data_ptr(),
+                                          qp.data_ptr(), tl.data_ptr(), out.data_ptr(),
+                                          ws.data_ptr(), counters.data_ptr(), B, Hq, MP, P, 0, 0,
+                                          scale, split, stream())
+                else:
+                    err = lib.latent_quant(qk.data_ptr(), st["kv_q"].data_ptr(),
+                                           st["kv_s"].data_ptr(), st["k_pe"].data_ptr(),
+                                           bt.data_ptr(), qp.data_ptr(), tl.data_ptr(),
+                                           out.data_ptr(), ws.data_ptr(), counters.data_ptr(), B,
+                                           Hq, MP, P, 0, 0, 4, scale, split, stream())
+                if err:
+                    raise RuntimeError(f"launch failed: {err}")
+
+            def rel_err():
+                return float((out - ref).abs().max() / ref.abs().max())
+
+            own_split = latent_split_keys(width, B, Hq, device_sms(dev))
+            for split in splits or [own_split]:
+                ns = -(-width // split)
+                if ns > LATENT_MAX_SPLITS:
+                    print(f"split {split}: {ns} splits, more than the kernel's {LATENT_MAX_SPLITS}")
+                    continue
+                ws = torch.empty(B * slices * ns * 16 * 514, device=dev)
+                said = f"latent {storage} decode B=8 Hq={Hq} ctx 300-2048 paged, split {split} ({ns} splits)"
+                if split == own_split or not splits:
+                    phases_dll.phases_clear()
+                    call(phases_dll, state, split, ws)
+                    torch.cuda.synchronize()
+                    rel = rel_err()
+                    buf = np.zeros(ns * slices * B * LATENT_SLOTS, np.uint64)
+                    if phases_dll.phases_read(buf.ctypes.data, ns * slices * B, LATENT_SLOTS):
+                        raise RuntimeError("reading the timers failed")
+                    buf = buf.reshape(-1, LATENT_SLOTS).astype(np.float64)
+                    live = buf[:, 6] > 0
+                    tiles = buf[:, 6].sum()
+                    per_tile = ", ".join(f"{nm} {buf[:, k].sum() / tiles:.0f}"
+                                         for k, nm in enumerate(LATENT_PHASES))
+                    merged = buf[buf[:, 10] > 0]
+                    print(f"{said}, the header's geometry: instrumented, rel err {rel:.2e}; "
+                          f"{int(tiles)} tiles in {int(live.sum())} blocks that see keys; cycles a "
+                          f"tile: {per_tile}; a block's tile loop: mean {buf[live, 7].mean():.0f}, "
+                          f"longest {buf[live, 7].max():.0f}; start to loop "
+                          f"{buf[live, 8].mean():.0f}, to its arrival {buf[live, 9].mean():.0f}; the "
+                          f"merge after the arrival {(merged[:, 10] - merged[:, 9]).mean():.0f} "
+                          f"({len(merged)} merges)", flush=True)
+                    if not rel <= tol:
+                        raise SystemExit(f"{said}: rel err {rel:.2e} > {tol}")
+                for tk, stages, lib in libs:
+                    if storage != "bf16" and not latent_quant_fits(tk, stages):
+                        continue
+                    call(lib, state, split, ws)
+                    torch.cuda.synchronize()
+                    rel = rel_err()
+                    ms = time_ms(lambda: call(lib, nxt(), split, ws), 50)
+                    warm = time_ms(lambda: call(lib, state, split, ws), 50)
+                    print(f"{said}, {tk} keys a tile in {stages} stages: {ms:.4f} ms over rotated "
+                          f"caches (L2-warm {warm:.4f}), rel err {rel:.2e}", flush=True)
+                    if not rel <= tol:
+                        raise SystemExit(f"{said}: rel err {rel:.2e} > {tol}")
+            del state, nxt
+            torch.cuda.empty_cache()
 
 
 def print_registers(ptxas: str) -> None:
@@ -435,9 +708,20 @@ def main():
     ap.add_argument("--ring", action="store_true", help="the bf16 ring's shape alone")
     ap.add_argument("--csrc", default=str(CSRC),
                     help="directory of the headers to build (another tree's csrc/)")
+    ap.add_argument("--latent", action="store_true",
+                    help="the latent (MLA) decode kernel, csrc/latent_decode.cuh")
+    ap.add_argument("--geometries", default="",
+                    help="with --latent: keys a tile x stages to time, e.g. 32x2,32x3,64x2")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs CUDA")
+    if args.latent:
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
+        geometries = [tuple(int(v) for v in gs.split("x")) for gs in args.geometries.split(",") if gs]
+        return latent_main(Path(args.csrc),
+                           [int(v) for v in args.splits.split(",")] if args.splits else [],
+                           geometries)
     from exllamav3_tpu_torch.ops.build import library
     from exllamav3_tpu_torch.ops.flash_attention import (decode_split_keys, device_sms,
                                                           linear_attention_quant_plain)

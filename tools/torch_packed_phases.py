@@ -1,10 +1,12 @@
 """Where a block's time goes in the int-B matmuls
-(exllamav3_tpu_torch/csrc/intb_matmul.cu, kernel rows 13 and 14), on one card.
+(exllamav3_tpu_torch/csrc/intb_matmul.cu, kernel rows 13 and 14), or with
+--int4 in the int4 a8 matmul (csrc/int4_matmul.cu, kernel row 12), on one card.
 
     python3 tools/torch_packed_phases.py                       # this tree's kernel
     python3 tools/torch_packed_phases.py --tree build/parent   # another checkout's kernel
     python3 tools/torch_packed_phases.py --splits 4,6,8,13     # and the staged body's time by split count
     python3 tools/torch_packed_phases.py --stages 2 --blocks 4 # 2 stages a warp, launch bounds of 4 blocks an SM
+    python3 tools/torch_packed_phases.py --int4 --splits 2,4,8,16   # row 12 alike (--tree, --stages, --blocks too)
 
 Copies the tree's intb_matmul.cu and the headers it includes into
 build/packed_phases/<tree name>/, puts clock64() timers around the phases of
@@ -12,8 +14,10 @@ a block's life, builds it with nvcc as ops/build.py builds the kernels (and
 the unpatched copy beside it), and runs both routes, bf16 (row 13) and a8
 (row 14), at m = 8 over the five Llama-3.1-8B shapes at B = 6 (qkv 4096 x
 6144, o_proj 4096 x 4096, gate_up 4096 x 28672, down 14336 x 4096, lm_head
-4096 x 32768), qkv also at B = 3. Thread 0 of each block sums its cycles by
-phase over the block's k steps:
+4096 x 32768), qkv also at B = 3. With --int4: int4_matmul.cu, the a8 route
+(row 12) alone, over the same five shapes (byte pairs; a staged step is 128
+packed rows, 4 scale groups of both planes). Thread 0 of each block sums its
+cycles by phase over the block's k steps:
 
 - `stage`: the next step's copies. In the body of packed_matmul.cuh (the
   tree before the redesign) the issue of the next step's word loads into
@@ -23,7 +27,9 @@ phase over the block's k steps:
   words and the a8 row sums), each consumed by an instruction before the
   timer reads the clock: from device memory in the old body, from shared
   memory in the staged one;
-- `extract`: the codes made into MMA fragments;
+- `extract`: the codes made into MMA fragments (the staged int4 body: the
+  byte transposes, once a group for both planes; a plane's mask is counted
+  with its MMAs);
 - `mma`: the tensor-core products and, on the a8 route, the group scales'
   FMAs;
 - the block's life from its start to its k loop (the prologue), the loop,
@@ -246,9 +252,47 @@ NEW_PATCHES = [
      "    if (lane == 0) counters[tile] = 0;  // ready for the next launch\n" + record("1") + "}"),
 ]
 
+# -- the staged body of csrc/int4_matmul.cu (the a8 route up to 16 rows) --
+INT4_EXTRA = r'''
+extern "C" int phases_quantize(const void* x, void* xq, void* xs, int m, int k, void* stream) {
+    packed::quantize_rows_dependents<<<m, packed::QUANT_THREADS, 0, (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)x, (int8_t*)xq, (float*)xs, k);
+    return (int)cudaGetLastError();
+}
+'''
+INT4_PATCHES = NEW_PATCHES[:3] + [
+    ("        issue(i + INT4_STAGES - 1);\n",
+     "        issue(i + INT4_STAGES - 1);\n        ph[0] += clock64() - t_top;\n"),
+    ("            uint32_t w[8];  // packed rows",
+     "            const long long t_w = clock64();\n            uint32_t w[8];  // packed rows"),
+    ("                w[r] = *reinterpret_cast<const uint32_t*>(wt + stage_row(u * 32 + 8 * t + r) * 32 + 4 * g);\n",
+     "                w[r] = *reinterpret_cast<const uint32_t*>(wt + stage_row(u * 32 + 8 * t + r) * 32 + 4 * g);\n"
+     "            for (int r = 0; r < 8; ++r) touch(sink, w[r]);\n"
+     "            const long long t_x = clock64();\n            ph[1] += t_x - t_w;\n"),
+    ("            transpose4(w[4], w[5], w[6], w[7], hi4);\n",
+     "            transpose4(w[4], w[5], w[6], w[7], hi4);\n"
+     "            touch(sink, lo4[0] ^ lo4[1] ^ lo4[2] ^ lo4[3] ^ hi4[0] ^ hi4[1] ^ hi4[2] ^ hi4[3]);\n"
+     "            ph[2] += clock64() - t_x;\n"),
+    ("                const int gi = (j * per + i) * 4 + u;\n",
+     "                const int gi = (j * per + i) * 4 + u;\n                const long long t_pl = clock64();\n"),
+    ("                    sx[rt] = *reinterpret_cast<const int2*>(Sx + gi * (INT4_X_SUMS / 4) + 8 * rt + 2 * t);\n"
+     "                }\n",
+     "                    sx[rt] = *reinterpret_cast<const int2*>(Sx + gi * (INT4_X_SUMS / 4) + 8 * rt + 2 * t);\n"
+     "                }\n"
+     "                touch(sink, sv.x ^ sv.y ^ xb[0].x ^ xb[0].y ^ (unsigned)(sx[0].x ^ sx[0].y));\n"
+     "                const long long t_m = clock64();\n                ph[1] += t_m - t_pl;\n"),
+    ("sc[2 * tt + 1], acc[rt][tt][3]);\n                    }\n                }\n",
+     "sc[2 * tt + 1], acc[rt][tt][3]);\n                    }\n                }\n"
+     "                touch(sink, __float_as_uint(acc[0][0][0]) ^ __float_as_uint(acc[0][1][0]));\n"
+     "                ph[3] += clock64() - t_m;\n"),
+] + NEW_PATCHES[-4:]
+# what --int4 times: int4_matmul.cu's a8 route over the 8B shapes (bits None)
+INT4_SHAPES = [(k, n, what, None) for k, n, what, bits in SHAPES if bits == 6]
 
-def _version(src: str) -> str:
-    return "staged" if "intb_decode_kernel" in src else "packed_matmul.cuh"
+
+def _version(src: str, int4: bool = False) -> str:
+    staged = "int4_decode_kernel" if int4 else "intb_decode_kernel"
+    return "staged" if staged in src else "packed_matmul.cuh"
 
 
 def _patch(text: str, patches) -> str:
@@ -259,55 +303,60 @@ def _patch(text: str, patches) -> str:
     return text
 
 
-def build(tree: Path, stages: int | None, blocks: int | None):
+def build(tree: Path, stages: int | None, blocks: int | None, int4: bool = False):
     """(kernel version, the instrumented copy, the unpatched one, the
     unpatched one without programmatic dependent launch or None); `stages`,
-    `blocks`: the staged body's INTB_STAGES and INTB_BLOCKS in every copy,
-    if given."""
+    `blocks`: the staged body's INTB_STAGES and INTB_BLOCKS (INT4_STAGES and
+    INT4_BLOCKS with `int4`) in every copy, if given."""
     from exllamav3_tpu_torch.ops.build import NVCC_FLAGS, nvcc_path
 
     csrc = tree / "exllamav3_tpu_torch" / "csrc"
-    src = (csrc / "intb_matmul.cu").read_text()
-    version = _version(src)
-    out = ROOT / "build" / "packed_phases" / tree.resolve().name
+    name, layout_name, pre = (("int4_matmul.cu", "int4_layout.cuh", "INT4") if int4 else
+                              ("intb_matmul.cu", "intb_layout.cuh", "INTB"))
+    src = (csrc / name).read_text()
+    version = _version(src, int4)
+    out = ROOT / "build" / "packed_phases" / (tree.resolve().name + ("_int4" if int4 else ""))
     for sub in ("phases", "plain", "nopdl"):
         (out / sub).mkdir(parents=True, exist_ok=True)
     if version == "staged":
         # the staged body's limits, changed where asked, beside every copy
-        layout = (csrc / "intb_layout.cuh").read_text()
-        for name, value in (("INTB_STAGES", stages), ("INTB_BLOCKS", blocks)):
+        layout = (csrc / layout_name).read_text()
+        for const, value in ((f"{pre}_STAGES", stages), (f"{pre}_BLOCKS", blocks)):
             if value is not None:
-                layout = re.sub(rf"^constexpr int {name} = \d+;",
-                                f"constexpr int {name} = {value};", layout, count=1, flags=re.M)
+                layout = re.sub(rf"^constexpr int {const} = \d+;",
+                                f"constexpr int {const} = {value};", layout, count=1, flags=re.M)
         for sub in ("phases", "plain", "nopdl"):
-            (out / sub / "intb_layout.cuh").write_text(layout)
-        (out / "phases" / "intb_matmul.cu").write_text(_patch(src, NEW_PATCHES) + read("g_phase")
-                                                        + NEW_EXTRA)
-        (out / "nopdl" / "intb_matmul.cu").write_text(
+            (out / sub / layout_name).write_text(layout)
+        # the tree's own quantizer: intb_matmul.cu's before it moved to packed_matmul.cuh
+        extra = (INT4_EXTRA if int4 or "intb_quantize_rows" not in src
+                 else NEW_EXTRA)
+        (out / "phases" / name).write_text(_patch(src, INT4_PATCHES if int4 else NEW_PATCHES)
+                                           + read("g_phase") + extra)
+        (out / "nopdl" / name).write_text(
             _patch(src, [("attr[0].val.programmaticStreamSerializationAllowed = 1;",
                           "attr[0].val.programmaticStreamSerializationAllowed = 0;")]))
     else:
         header = (csrc / OLD_HEADER).read_text()
         (out / "phases" / OLD_HEADER).write_text(_patch(header, OLD_PATCHES))
-        (out / "phases" / "intb_matmul.cu").write_text(src + read("packed::g_phase") + OLD_EXTRA)
-    (out / "plain" / "intb_matmul.cu").write_text(src)
+        (out / "phases" / name).write_text(src + read("packed::g_phase") + OLD_EXTRA)
+    (out / "plain" / name).write_text(src)
     # headers not copied beside a source are included from the tree's csrc/
     flags = [f for f in NVCC_FLAGS if f not in ("-Xptxas", "-v")] + [f"-I{csrc}"]
     subs = ("phases", "plain", "nopdl") if version == "staged" else ("phases", "plain")
     jobs = [[nvcc_path(), *flags, *(["-Xptxas", "-v"] if s == "plain" else []), "-shared",
-             str(out / s / "intb_matmul.cu"), "-o", str(out / s / "lib.so")] for s in subs]
+             str(out / s / name), "-o", str(out / s / "lib.so")] for s in subs]
     with ThreadPoolExecutor(len(jobs)) as ex:
         runs = list(ex.map(lambda c: subprocess.run(c, capture_output=True, text=True), jobs))
     for r in runs:
         if r.returncode:
             raise SystemExit(r.stdout + r.stderr)
-    name = None  # the decode-size kernels' registers, shared memory and spills
+    kname = None  # the decode-size kernels' registers, shared memory and spills
     for line in (runs[1].stdout + runs[1].stderr).splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1]
-            name = fn if ("intb_decode_kernel" in fn or "packed_matmul_kernel" in fn) else None
-        elif name and ("Used" in line or "spill" in line):
-            print(f"ptxas: {name}: {line.strip()}", flush=True)
+            kname = fn if ("decode_kernel" in fn or "packed_matmul_kernel" in fn) else None
+        elif kname and ("Used" in line or "spill" in line):
+            print(f"ptxas: {kname}: {line.strip()}", flush=True)
     dlls = [ctypes.CDLL(str(out / s / "lib.so")) for s in subs]
     return version, dlls[0], dlls[1], dlls[2] if len(dlls) > 2 else None
 
@@ -324,7 +373,10 @@ def main():
     ap.add_argument("--blocks", type=int, default=None,
                     help="the staged body's INTB_BLOCKS, its launch bounds' blocks an SM (its "
                          "sizing follows), instead of the source's")
+    ap.add_argument("--int4", action="store_true",
+                    help="the int4 a8 matmul (row 12, int4_matmul.cu) instead of the int-B ones")
     args = ap.parse_args()
+    int4 = args.int4
     if not torch.cuda.is_available():
         raise SystemExit("needs CUDA")
     tree = Path(args.tree).resolve()
@@ -335,15 +387,20 @@ def main():
     from exllamav3_tpu_torch.ops.build import SIGNATURES
     from exllamav3_tpu_torch.util.timing import rotating, time_ms
 
-    version, dll, plain, nopdl = build(tree, args.stages, args.blocks)
-    if version == "staged":
+    version, dll, plain, nopdl = build(tree, args.stages, args.blocks, int4)
+    if version == "staged" and int4:
+        qm._INT4_STAGES = args.stages or qm._INT4_STAGES
+        qm._INT4_BLOCKS = args.blocks or qm._INT4_BLOCKS
+        qm.int4_split_count.cache_clear()
+    elif version == "staged":
         qm._INTB_STAGES = args.stages or qm._INTB_STAGES
         qm._INTB_BLOCKS = args.blocks or qm._INTB_BLOCKS
         qm.intb_split_count.cache_clear()
     P, I = ctypes.c_void_p, ctypes.c_int
+    entries = ("exl3_int4_matmul_a8",) if int4 else ("exl3_intb_matmul", "exl3_intb_matmul_a8")
     for lib in (dll, plain, nopdl):
         if lib is not None:
-            for fn in ("exl3_intb_matmul", "exl3_intb_matmul_a8"):
+            for fn in entries:
                 getattr(lib, fn).argtypes = SIGNATURES[fn]
     dll.phases_read.argtypes = [P, I]
     dll.phases_quantize.argtypes = [P, P, P, I, I, P]
@@ -357,6 +414,15 @@ def main():
     g = torch.Generator(device=dev).manual_seed(11)
 
     def inputs(k, n, bits):
+        if int4:  # byte pairs: (k/2, n) int8 and (k/32, n) scales
+            def make(i):
+                x = torch.randn((M, k), generator=g, device=dev).to(torch.bfloat16)
+                w = torch.randint(-128, 128, (k // 2, n), generator=g, device=dev,
+                                  dtype=torch.int64).to(torch.int8)
+                s = ((torch.rand((k // 32, n), generator=g, device=dev) + 0.5) * 0.01).to(
+                    torch.bfloat16)
+                return x, w, s
+            return make, M * k * 2 + k // 2 * n + k // 32 * n * 2 + M * n * 4
         W, kp, k_pad = qm.intb_geometry(k, bits)
 
         def make(i):
@@ -370,7 +436,7 @@ def main():
 
     def caller(k, n, bits, a8, splits):
         """call(lib, x, w, s) -> y for one launch of the tree's entry."""
-        W, kp, _ = qm.intb_geometry(k, bits)
+        kp = k // 2 if int4 else qm.intb_geometry(k, bits)[1]
         y = torch.empty((M, n), dtype=torch.float32, device=dev)
         ws = torch.empty((max(splits, 1), M, n), dtype=torch.float32, device=dev)
         xq = torch.empty((M, k), dtype=torch.int8, device=dev)
@@ -384,7 +450,10 @@ def main():
             head = [x.data_ptr(), w.data_ptr(), s.data_ptr(), y.data_ptr(), ws.data_ptr()]
             if counters is not None:
                 head.append(counters.data_ptr())
-            if a8:
+            if int4:
+                err = lib.exl3_int4_matmul_a8(*head, xq.data_ptr(), xs.data_ptr(), 1, M, k, n,
+                                              splits, stream())
+            elif a8:
                 err = lib.exl3_intb_matmul_a8(*head, xq.data_ptr(), xs.data_ptr(), 1, M, k, n,
                                               kp, bits, splits, stream())
             else:
@@ -394,25 +463,49 @@ def main():
             return y
         return call, y, ws, xq, xs
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def steps_of(k, bits):  # the k steps a split count divides
+        if int4:
+            return -(-k // 2 // qm.INT4_STEP_ROWS) if version == "staged" else k // 64
+        return qm.intb_geometry(k, bits)[1] // 32
+
+    def fits(k, bits, a8, splits):
+        steps = steps_of(k, bits)
+        if splits > steps:
+            return False
+        if int4:
+            return qm._int4_smem(M, -(-steps // splits)) <= qm.INT4_MAX_SMEM
+        return qm._intb_smem(M, bits, a8, -(-steps // splits)) <= qm.INTB_MAX_SMEM
+
+    def plain_of(a8):
+        if int4:
+            return lambda x, w, s, bits: qm.int4_matmul_a8_plain(x, w, s)
+        return qm.intb_matmul_a8_plain if a8 else qm.intb_matmul_plain
+
     def sizing(k, n, bits, a8):
+        if int4:
+            return (qm.int4_split_count(M, k, n, sms) if version == "staged"
+                    else qm._packed_splits(M, n, k // 64, True, dev))
         W, kp, _ = qm.intb_geometry(k, bits)
         if version == "staged":
             return qm.intb_split_count(M, k, n, bits, a8, torch.cuda.get_device_properties(dev)
                                        .multi_processor_count)
         return qm._packed_splits(M, n, kp // 32, False, dev)
 
-    for k, n, what, bits in SHAPES:
+    for k, n, what, bits in INT4_SHAPES if int4 else SHAPES:
         make, nb = inputs(k, n, bits)
         x, w, s = make(0)
-        W, kp, _ = qm.intb_geometry(k, bits)
-        steps = kp // 32
-        for a8 in (False, True):
-            route = "a8" if a8 else "bf16"
-            ref = (qm.intb_matmul_a8_plain if a8 else qm.intb_matmul_plain)(x, w, s, bits)
+        steps = steps_of(k, bits)
+        for a8 in (True,) if int4 else (False, True):
+            route = "int4 a8" if int4 else "a8" if a8 else "bf16"
+            ref = plain_of(a8)(x, w, s, bits)
             splits = sizing(k, n, bits, a8)
             call, y, ws, xq, xs = caller(k, n, bits, a8, splits)
-            grid = -(-n // 128) * splits
-            said = f"{route} m={M} {what} ({k}x{n}) B={bits}: {steps} steps, {splits} splits, {grid} blocks"
+            # the old body's int4 grid is 256 columns a block at m <= 16
+            grid = -(-n // (256 if int4 and version != "staged" else 128)) * splits
+            said = (f"{route} m={M} {what} ({k}x{n})" + ("" if int4 else f" B={bits}")
+                    + f": {steps} steps, {splits} splits, {grid} blocks")
             dll.phases_clear()
             call(dll, x, w, s)
             torch.cuda.synchronize()
@@ -462,24 +555,26 @@ def main():
         del x, w, s
         torch.cuda.empty_cache()
 
-    sweep = [shape for shape in SHAPES if shape[2] in ("qkv", "o_proj", "down") and shape[3] == 6]
+    sweep = [shape for shape in (INT4_SHAPES if int4 else SHAPES)
+             if shape[2] in ("qkv", "o_proj", "down") and shape[3] in (6, None)]
     for k, n, what, bits in sweep if args.splits and version == "staged" else []:
         make, nb = inputs(k, n, bits)
         nxt = rotating(make, nb)
         x, w, s = nxt()
-        steps = qm.intb_geometry(k, bits)[1] // 32
-        for a8 in (False, True):
-            ref = (qm.intb_matmul_a8_plain if a8 else qm.intb_matmul_plain)(x, w, s, bits)
+        for a8 in (True,) if int4 else (False, True):
+            ref = plain_of(a8)(x, w, s, bits)
             for splits in (int(v) for v in args.splits.split(",")):
-                if splits > steps or qm._intb_smem(M, bits, a8, -(-steps // splits)) > qm.INTB_MAX_SMEM:
+                if not fits(k, bits, a8, splits):
                     continue
                 call, y, *_ = caller(k, n, bits, a8, splits)
                 call(plain, x, w, s)
                 torch.cuda.synchronize()
                 rel = float((y - ref).abs().max() / ref.abs().max())
                 ms = time_ms(lambda: call(plain, *nxt()), 20)
-                print(f"{'a8' if a8 else 'bf16'} m={M} {what} ({k}x{n}) B={bits} at {splits} "
-                      f"splits: {ms:.4f} ms over rotated inputs; rel err {rel:.2e}", flush=True)
+                tag = "int4 a8" if int4 else f"{'a8' if a8 else 'bf16'}"
+                print(f"{tag} m={M} {what} ({k}x{n})" + ("" if int4 else f" B={bits}")
+                      + f" at {splits} splits: {ms:.4f} ms over rotated inputs; rel err {rel:.2e}",
+                      flush=True)
                 if not rel <= TOL:
                     raise SystemExit(f"{splits} splits: rel err {rel:.2e} > {TOL}")
 
