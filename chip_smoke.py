@@ -138,7 +138,7 @@ Phases:
             the four packed kernels serves a run of its own; then the ladder:
             linear_mode="auto" on a device just large enough for int8, int6,
             int4 and none of them loads and runs on every rung
-  serve_moe a synthetic Qwen3-MoE checkpoint at Qwen3-30B-A3B width, 24 of its
+  serve_moe a synthetic Qwen3-MoE checkpoint at Qwen3-30B-A3B width, 16 of its
             48 layers (128 experts, top 8, vocab 151936) loaded with
             linear_mode="auto" (int8 on an 80 GB card; the experts serve as
             bf16 stacks) over a bf16 cache, the same traffic: prefill chunks
@@ -186,7 +186,7 @@ others not at all.
 The second-to-last line is the kernel table as JSON and the last line is
 {"ok": true, "device": {...}}. Any failed phase raises and exits non-zero
 without that line. Needs CUDA; writes its checkpoints under build/chip_smoke/
-(the 24-layer MoE one is ~7.5 GB, the 27-layer DeepSeek-V2-Lite one ~8 GB,
+(the 16-layer MoE one is ~5 GB, the 27-layer DeepSeek-V2-Lite one ~8 GB,
 the 62-layer Gemma-3-27B one ~15 GB and the 2-layer DeepSeek-V4 one ~13 GB,
 one shard a layer).
 """
@@ -261,9 +261,10 @@ TOL_A8_PATH = 6e-2
 # int8 path, held to the same limit
 TOL_MOE_PATH = 2e-2
 MIN_EXPERT_AGREEMENT = 0.9   # share of (token, layer) expert sets alike on both devices
-# depth of the MoE serve: 24 of Qwen3-30B-A3B's 48 layers, so that the whole
-# script stays within half its time limit with the linear-cache phases
-MOE_SERVE_LAYERS = 24
+# depth of the MoE serve: 16 of Qwen3-30B-A3B's 48 layers (24 until the whole
+# call reached 1057 s of its 1200 s limit on an H100 host), so that the whole
+# script keeps a margin within its time limit
+MOE_SERVE_LAYERS = 16
 # depth of the parity phase's two checkpoints (8B and Qwen3-30B-A3B width),
 # cut from 2 to 1 when the probes (rows 15-20) joined the default call: their
 # CPU side runs the plain versions of whole full-width layers
@@ -366,8 +367,47 @@ class KernelTable:
 
 # -- phase: kernels -------------------------------------------------------------
 
+def _int8_launches() -> tuple:
+    """The int8 library's launches so far: (staged products, tiled products,
+    split-k reduce kernels), and the fused MLP's (first phases, second
+    phases), as csrc/int8_matmul.cu and csrc/fused_mlp.cu count them."""
+    from exllamav3_tpu_torch.ops.build import library
+
+    lib = library()
+    return (tuple(lib.exl3_int8_launches(kind) for kind in range(3)),
+            tuple(lib.exl3_fused_mlp_launches(kind) for kind in range(2)))
+
+
+def _int8_took(fn, args) -> tuple:
+    """The kernels one call of fn(*args) launched, by the two libraries'
+    counts (_int8_launches), and its output."""
+    before = _int8_launches()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    after = _int8_launches()
+    return tuple(tuple(b - a for a, b in zip(x, y)) for x, y in zip(before, after)), out
+
+
+def _same_twice(tag: str, fn, args, first) -> None:
+    """A second call on the same inputs gives the same bits: the splits are
+    added in split order whatever the order in which they arrive."""
+    again = fn(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(again, first):
+        raise AssertionError(f"{tag}: two calls on the same inputs differ by "
+                             f"{float((again - first).abs().max()):.3e}")
+
+
 def check_int8(table, dev):
-    from exllamav3_tpu_torch.ops.q_matmul import int8_matmul_kernel, int8_matmul_plain
+    """The int8 matmul against its plain version: the 8B, Qwen3-30B-A3B and
+    DeepSeek-V2-Lite shapes (k or n multiples of 64 only) at m = 1, 8, 12,
+    16 and 2048 (12 and 16 untimed). Every case is held to the kernels it
+    launched (the library's counts): up to 16 rows one staged product, above
+    the tiled product and a reduce where k splits; up to 16 rows also to the
+    blocks an SM the sizing reckons with, and a second call must give the
+    same bits."""
+    import exllamav3_tpu_torch.ops.q_matmul as qm
+    from exllamav3_tpu_torch.ops.build import library
 
     shapes = [(4096, 6144, "qkv"), (4096, 4096, "o_proj"), (4096, 28672, "gate_up"),
               (14336, 4096, "down"), (4096, 32768, "lm_head")]
@@ -378,7 +418,8 @@ def check_int8(table, dev):
     # DeepSeek-V2-Lite's kv_a projection and its dense down projection
     ds = [(2048, 576, "DeepSeek-V2-Lite kv_a"), (10944, 2048, "DeepSeek-V2-Lite dense down")]
     g = torch.Generator(device=dev).manual_seed(1)
-    for m in (1, 8, 2048):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for m in (1, 8, 12, 16, 2048):
         for k, n, what in shapes + (q3 if m < 2048 else q3[:2]) + ds:
             def make(i, k=k, n=n, m=m):
                 x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
@@ -386,25 +427,49 @@ def check_int8(table, dev):
                 s = (torch.rand(n, generator=g, device=dev) + 0.5) * 0.01
                 return x, w, s
             nb = m * k * 2 + k * n + n * 4 + m * n * 4
-            nxt = rotating(make, nb)
+            timed = m in (1, 8, 2048)
+            nxt = rotating(make, nb) if timed else (lambda made=make(0): made)
             x, w, s = nxt()
-            ref = int8_matmul_plain(x, w, s)
-            got = int8_matmul_kernel(x, w, s)
-            torch.cuda.synchronize()
+            ref = qm.int8_matmul_plain(x, w, s)
+            took, got = _int8_took(qm.int8_matmul_kernel, (x, w, s))
             err = float((got - ref).abs().max())
             rel = err / float(ref.abs().max())
+            tag = f"int8_matmul m={m} {what} ({k}x{n})"
+            if not rel <= TOL_INT8:
+                raise AssertionError(f"{tag}: rel err {rel} > {TOL_INT8}")
+            if m <= qm.INT8_DECODE_ROWS:
+                splits = qm.int8_split_count(m, k, n, sms)
+                want = ((1, 0, 0), (0, 0))
+                per_sm = library().exl3_int8_blocks_per_sm(m, k, n, splits)
+                steps = -(-k // qm.INT8_STEP_ROWS)
+                model = qm._int8_blocks_per_sm(m, -(-steps // splits))
+                if per_sm != model:
+                    raise AssertionError(f"{tag}: the card holds {per_sm} blocks an SM, the "
+                                         f"sizing reckons with {model}")
+                _same_twice(tag, qm.int8_matmul_kernel, (x, w, s), got)
+                tag += f" [{splits} splits, {per_sm} blocks an SM, bitwise stable]"
+            else:
+                splits = qm._split_k(-(-n // 128) * -(-m // 128), k // 32, dev)
+                want = ((0, 1, int(splits > 1)), (0, 0))
+                tag += f" [{splits} splits]"
+            if took != want:
+                raise AssertionError(f"{tag}: launched ((staged, tiled, reduces), (MLP phases)) "
+                                     f"{took}, not {want}")
+            if not timed:
+                log(f"{tag}: max_abs_err={err:.3e} rel={rel:.2e}")
+                table.add("int8_matmul", err, None, None, None, None, "", main=False)
+                del x, w, s, ref, got, nxt
+                continue
             calls = 5 if m == 2048 else 20
-            ms = time_ms(lambda: int8_matmul_kernel(*nxt()), calls)
-            plain = time_ms(lambda: int8_matmul_plain(*nxt()), 3)
+            ms = time_ms(lambda: qm.int8_matmul_kernel(*nxt()), calls)
+            plain = time_ms(lambda: qm.int8_matmul_plain(*nxt()), 3)
             # yardstick: cuBLAS bf16 GEMM on a dequantized copy (2 bytes/weight)
             nxt_lib = rotating(lambda i: (x, w.to(torch.bfloat16)), m * k * 2 + k * n * 2 + m * n * 2)
             lib = time_ms(lambda: torch.matmul(*nxt_lib()), calls)
             bnd = bound_ms(nb, 2.0 * m * k * n)
-            log(f"int8_matmul m={m} {what} ({k}x{n}): max_abs_err={err:.3e} rel={rel:.2e} "
+            log(f"{tag}: max_abs_err={err:.3e} rel={rel:.2e} "
                 f"kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms(torch.matmul bf16)={lib:.4f} "
                 f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
-            if not rel <= TOL_INT8:
-                raise AssertionError(f"int8_matmul m={m} {what}: rel err {rel} > {TOL_INT8}")
             table.add("int8_matmul", err, ms, plain, bnd, lib, f"m={m} k={k} n={n}",
                       main=(m == 8 and what == "qkv"))
             del x, w, s, ref, got, nxt, nxt_lib
@@ -412,9 +477,16 @@ def check_int8(table, dev):
 
 
 def check_fused_mlp(table, dev):
-    from exllamav3_tpu_torch.ops.fused_mlp import fused_mlp_int8_kernel, fused_mlp_int8_plain
+    """The fused MLP against its plain version at the served shapes, each case
+    held to the two kernels it launched (the library's counts) and to the same
+    bits from a second call; at 8B m = 8 also with the down scale and a bias
+    in the kernel, which must give the bits of the caller's own multiply and
+    add."""
+    from exllamav3_tpu_torch.ops.fused_mlp import (fused_mlp_int8_kernel, fused_mlp_int8_plain,
+                                                   fused_mlp_splits)
 
     g = torch.Generator(device=dev).manual_seed(2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # Llama-3.1-8B; DeepSeek-V2-Lite's two shared experts (one gated MLP of 2 x 1408);
     # Gemma-3-27B's gelu_pytorch_tanh MLP; DeepSeek-V4's shared expert (h 7168, i 2048)
     # at its swiglu_limit of 10, and at a limit of 1 that clips about a fifth of the
@@ -435,23 +507,36 @@ def check_fused_mlp(table, dev):
         nxt = rotating(make, nb)
         args = nxt()
         ref = fused_mlp_int8_plain(*args, act, clamp)
-        got = fused_mlp_int8_kernel(*args, act, clamp)
-        torch.cuda.synchronize()
+        took, got = _int8_took(fused_mlp_int8_kernel, (*args, act, clamp))
         err = float((got - ref).abs().max())
         rel = err / float(ref.abs().max())
-        ms = time_ms(lambda: fused_mlp_int8_kernel(*nxt(), act, clamp), 20)
-        plain = time_ms(lambda: fused_mlp_int8_plain(*nxt(), act, clamp), 3)
-        bnd = bound_ms(nb, 6.0 * m * h * inter)
         what = f"{act}{f' clamp {clamp:g}' if clamp else ''} m={m} h={h} i={inter}"
         if clamp:
             x, gu, gs, _ = args
             gate = (x.float() @ gu[:, :inter].float()) * gs[:inter]
             what += f" ({float((gate.abs() > clamp).float().mean()):.3f} of gate values clipped)"
-        log(f"fused_mlp {what}: max_abs_err={err:.3e} rel={rel:.2e} "
-            f"kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms=null "
-            f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
+        if took != ((0, 0, 0), (1, 1)):
+            raise AssertionError(f"fused_mlp {what}: launched ((int8 kernels), (first, second "
+                                 f"phases)) {took}, not ((0, 0, 0), (1, 1))")
+        _same_twice(f"fused_mlp {what}", fused_mlp_int8_kernel, (*args, act, clamp), got)
+        what += " [splits {} and {}, two kernels, bitwise stable]".format(
+            *fused_mlp_splits(m, h, inter, sms))
+        if m == 8 and h == 4096:  # the down scale and a bias inside the second phase
+            ds = (torch.rand(h, generator=g, device=dev) + 0.5) * 0.01
+            db = torch.randn(h, generator=g, device=dev)
+            folded = fused_mlp_int8_kernel(*args, act, clamp, ds, db)
+            if not torch.equal(folded, got * ds + db):
+                raise AssertionError(f"fused_mlp {what}: the down scale and bias in the kernel "
+                                     f"differ from the caller's multiply and add")
+            what += " [down scale and bias in the kernel: the same bits]"
+        log(f"fused_mlp {what}: max_abs_err={err:.3e} rel={rel:.2e}")
         if not rel <= TOL_MLP:
             raise AssertionError(f"fused_mlp {what}: rel err {rel} > {TOL_MLP}")
+        ms = time_ms(lambda: fused_mlp_int8_kernel(*nxt(), act, clamp), 20)
+        plain = time_ms(lambda: fused_mlp_int8_plain(*nxt(), act, clamp), 3)
+        bnd = bound_ms(nb, 6.0 * m * h * inter)
+        log(f"fused_mlp {what}: kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms=null "
+            f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
         table.add("fused_mlp", err, ms, plain, bnd, None, what, main=(m == 8 and h == 4096))
         del args, ref, got, nxt
     torch.cuda.empty_cache()

@@ -5,28 +5,36 @@
 //           int8_matmul.
 // Inputs:   x (m, k) bf16 row-major, W_q (k, n) int8 row-major,
 //           scale (n,) f32; k % 64 == 0, n % 64 == 0 (checked by the
-//           Python wrapper): the last column tile and the last k tile are
-//           cut at n and k (DeepSeek-V2-Lite's kv_a projection has n = 576,
+//           Python wrapper; DeepSeek-V2-Lite's kv_a projection has n = 576,
 //           its dense down projection k = 10944).
 // Bound:    at decode (m <= 16) the weight bytes: 1 byte per weight over
 //           3.35 TB/s; at prefill (m up to 2048) the bf16 tensor-core rate,
 //           2*m*k*n operations over 989 TFLOP/s.
-// Design:   W_q crosses device memory once as int8 and becomes bf16 only
-//           in shared memory, so the bytes read are the int8 bytes. Tiles
-//           are multiplied with warp-level bf16 MMA (WMMA -> mma.sync),
-//           accumulating in f32. The next k tile is fetched into registers
-//           while the current one is multiplied. Decode rows (m <= 16) use
-//           16 x 128 x 128 tiles and split k across blocks so that a few
-//           column tiles still fill the card; the partial sums go to a
-//           workspace and a second kernel adds them in a fixed order
-//           (deterministic) and applies the scale. Prefill uses
-//           128 x 128 x 32 tiles. No TMA, wgmma or persistent scheduling yet.
+// Design:   up to INT8_DECODE_ROWS rows (decode), the staged int8 body of
+//           csrc/int8_staged.cuh with the column scale as its epilogue: each
+//           warp stages its own columns' int8 rows by cp.async, x is staged
+//           once a block, the weights become bf16 in registers and enter the
+//           MMAs as the A operand, and k splits (ops/q_matmul.py::
+//           int8_split_count) are added by the last warp of a tile to arrive,
+//           so that a product is one launch. Above, 128 x 128 x 32 tiles:
+//           W_q crosses device memory once as int8 and becomes bf16 in
+//           shared memory; warp-level bf16 MMA (WMMA) with f32 sums; the next
+//           k tile is fetched into registers while the current one is
+//           multiplied; k splits write a workspace that a second kernel adds
+//           in split order and scales.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include "int8_staged.cuh"
+
 using namespace nvcuda;
+
+// int8 kernel launches in this library, counted where they are made, for a
+// caller that checks which kernels a product took (read through
+// exl3_int8_launches): staged products, tiled products, split-k reduces
+static int int8_launch_count[3] = {0, 0, 0};
 
 namespace {
 
@@ -183,28 +191,51 @@ __global__ void splitk_reduce_kernel(const float4* __restrict__ ws, const float*
 
 }  // namespace
 
+// Up to INT8_DECODE_ROWS rows the staged body: `splits` must leave no split
+// without a step of INT8_STEP_ROWS rows, and counters (one int32 a 32-column
+// tile, 0 before the launch, left 0 after it) serve the arrival of the
+// splits. Above, the tiling, whose splits take whole k tiles of 32 rows. ws
+// (splits, m, n) f32 and counters may be null for one split.
 extern "C" int exl3_int8_matmul(const void* x, const void* w, const void* scale, void* y, void* ws,
-                                int m, int k, int n, int splits, void* stream) {
+                                void* counters, int m, int k, int n, int splits, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (m < 1 || k % 64 || n % 64 || splits < 1) return (int)cudaErrorInvalidValue;
+    const auto* sp = static_cast<const float*>(scale);
+    if (m <= INT8_DECODE_ROWS) {
+        const int err = int8s::launch<int8s::SCALED, false>(
+            x, w, sp, nullptr, y, ws, counters, m, k, n, 0, splits, 0, 0.0f, false, st);
+        if (err == 0) ++int8_launch_count[0];
+        return err;
+    }
+    if (k % (32 * splits) || (splits > 1 && ws == nullptr)) return (int)cudaErrorInvalidValue;
     const int k_per_split = k / splits;
     float* dst = splits > 1 ? static_cast<float*>(ws) : static_cast<float*>(y);
-    const auto* xp = static_cast<const __nv_bfloat16*>(x);
-    const auto* wp = static_cast<const int8_t*>(w);
-    const auto* sp = static_cast<const float*>(scale);
-    if (m <= 16) {
-        dim3 grid((n + 127) / 128, (m + 15) / 16, splits);
-        int8_matmul_kernel<16, 128, 128, 1, 8><<<grid, THREADS, 0, st>>>(
-            xp, wp, sp, dst, m, k, n, k_per_split, splits);
-    } else {
-        dim3 grid((n + 127) / 128, (m + 127) / 128, splits);
-        int8_matmul_kernel<128, 128, 32, 2, 4><<<grid, THREADS, 0, st>>>(
-            xp, wp, sp, dst, m, k, n, k_per_split, splits);
-    }
-    if (splits > 1) {
-        const size_t total4 = (size_t)m * n / 4;
-        const int blocks = (int)((total4 + 255) / 256);
-        splitk_reduce_kernel<<<blocks, 256, 0, st>>>(
-            static_cast<const float4*>(ws), sp, static_cast<float4*>(y), m, n, splits);
-    }
-    return (int)cudaGetLastError();
+    dim3 grid((n + 127) / 128, (m + 127) / 128, splits);
+    int8_matmul_kernel<128, 128, 32, 2, 4><<<grid, THREADS, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w), sp, dst, m, k, n,
+        k_per_split, splits);
+    int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    ++int8_launch_count[1];
+    if (splits == 1) return 0;
+    const size_t total4 = (size_t)m * n / 4;
+    splitk_reduce_kernel<<<(unsigned)((total4 + 255) / 256), 256, 0, st>>>(
+        static_cast<const float4*>(ws), sp, static_cast<float4*>(y), m, n, splits);
+    err = (int)cudaGetLastError();
+    if (err == 0) ++int8_launch_count[2];
+    return err;
+}
+
+// int8 launches so far by kernel: 0 staged products, 1 tiled products, 2
+// split-k reduce kernels; -1 for another kind
+extern "C" int exl3_int8_launches(int kind) {
+    return kind >= 0 && kind < 3 ? int8_launch_count[kind] : -1;
+}
+
+// Blocks an SM holds of the staged body a product of these widths launches
+// at m <= INT8_DECODE_ROWS (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// or a negative CUDA error.
+extern "C" int exl3_int8_blocks_per_sm(int m, int k, int n, int splits) {
+    if (n % 64 || k % 64) return -(int)cudaErrorInvalidValue;
+    return int8s::blocks_per_sm(m, k, splits);
 }

@@ -28,7 +28,8 @@ SOURCES = ("int8_matmul.cu", "fused_mlp.cu", "paged_attention.cu", "exl3_gemm.cu
            "latent_attention_quant.cu", "ring_attention.cu", "attention_stats.cu",
            "probe_dma.cu", "probe_trellis.cu", "probe_kv_dequant.cu", "probe_int4.cu")
 HEADERS = ("packed_matmul.cuh", "attention_tiles.cuh", "attention_decode.cuh",
-           "async_copy.cuh", "intb_layout.cuh", "int4_layout.cuh", "latent_decode.cuh")  # included by sources; part of the digest
+           "async_copy.cuh", "intb_layout.cuh", "int4_layout.cuh", "latent_decode.cuh",
+           "int8_layout.cuh", "int8_staged.cuh")  # included by sources; part of the digest
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -38,8 +39,8 @@ _F = ctypes.c_float
 # C signatures: every pointer and the stream are c_void_p; all return an int,
 # the launch's cudaGetLastError() where the entry launches a kernel
 SIGNATURES = {
-    "exl3_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "exl3_fused_mlp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "exl3_int8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "exl3_fused_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     "exl3_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _F, _I, _F, _I, _P],
     "exl3_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -88,6 +89,13 @@ SIGNATURES = {
     # launches (csrc/int4_matmul.cu)
     "exl3_int4_launches": [_I],
     "exl3_int4_blocks_per_sm": [_I, _I, _I, _I],
+    # the int8 library's launches so far by kernel (0 staged products, 1 tiled
+    # products, 2 split-k reduces), the blocks an SM holds of the staged body a
+    # product of these widths launches (csrc/int8_matmul.cu), and the fused
+    # MLP's launches by phase (csrc/fused_mlp.cu)
+    "exl3_int8_launches": [_I],
+    "exl3_int8_blocks_per_sm": [_I, _I, _I, _I],
+    "exl3_fused_mlp_launches": [_I],
     # the latent split-key decode kernel's launches so far (csrc/latent_decode.cuh)
     "exl3_latent_decode_launches": [],
 }

@@ -1,7 +1,9 @@
 """Quantized-weight matmuls of the materialized linear modes
 (counterpart of exllamav3_tpu/ops/q_matmul.py).
 
-  * int8: y = (x @ W_q) * scale[col], 1 byte a weight (csrc/int8_matmul.cu);
+  * int8: y = (x @ W_q) * scale[col], 1 byte a weight (csrc/int8_matmul.cu; at
+    m <= 16 the staged body of csrc/int8_staged.cuh, int8_matmul_split_plain
+    its arithmetic);
   * int4: grouped 4-bit codes, two a byte along k, one bf16 scale per 32 rows
     and column: 0.5625 bytes a weight (csrc/int4_matmul.cu; its a8 route at
     m <= 16 a staged body, int4_matmul_a8_split_plain its arithmetic);
@@ -30,11 +32,11 @@ import functools
 import numpy as np
 import torch
 
-from ..util.device import H100_SMS, arrival_counters, device_sms
+from ..util.device import H100_SMS, arrival_counters, device_sms, scratch
 from ..util.env import env_bool
 from .build import check_aligned, check_launch, header_constants, library
 
-SMALL_M = 16  # rows up to this take the decode tiling (16 x 128 x 128)
+SMALL_M = 16  # rows up to this take the staged bodies (int8, int4 a8, int-B)
 
 
 def int8_matmul_plain(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -44,9 +46,27 @@ def int8_matmul_plain(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -
     return y * scale[None, :].to(torch.float32)
 
 
+def int8_matmul_split_plain(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor | None,
+                            splits: int) -> torch.Tensor:
+    """The staged int8 body's arithmetic in plain torch (m <= 16,
+    csrc/int8_staged.cuh): the k steps (INT8_STEP_ROWS rows; the last may be
+    short) cut into `splits` runs as the kernel cuts them, each run's partial
+    sums of bf16 x times the bf16-exact weights in f32, the partials added in
+    split order from 0, then times the column scale (none where scale is
+    None). (m, n) f32."""
+    m, k = x.shape
+    xf, wf = x.to(torch.bfloat16).float(), w_q.float()
+    out = torch.zeros((m, w_q.shape[1]), dtype=torch.float32, device=x.device)
+    for s0, s1 in _intb_split_steps(-(-k // INT8_STEP_ROWS), splits):
+        r0, r1 = s0 * INT8_STEP_ROWS, min(s1 * INT8_STEP_ROWS, k)
+        out = out + xf[:, r0:r1] @ wf[r0:r1]
+    return out if scale is None else out * scale[None, :].to(torch.float32)
+
+
 def _split_k(tiles: int, k_tiles: int, device) -> int:
-    """Split the k loop until the grid has about two blocks per SM, keeping
-    at least two k tiles per split."""
+    """The tiled kernel's k splits (above INT8_DECODE_ROWS rows): split the k
+    loop until the grid has about two blocks per SM, keeping at least two k
+    tiles per split."""
     target = 2 * torch.cuda.get_device_properties(device).multi_processor_count
     s = 1
     while tiles * s < target and k_tiles % (2 * s) == 0 and k_tiles // (2 * s) >= 2:
@@ -56,8 +76,11 @@ def _split_k(tiles: int, k_tiles: int, device) -> int:
 
 def int8_matmul_kernel(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Launch csrc/int8_matmul.cu: x (m, k) bf16, w_q (k, n) int8, scale (n,)
-    f32, all contiguous on one CUDA device; k % 64 == 0, n % 64 == 0 (the
-    kernel cuts its last column and k tiles at n and k)."""
+    f32, all contiguous on one CUDA device; k % 64 == 0, n % 64 == 0. Up to
+    INT8_DECODE_ROWS rows one staged product kernel a call, its splits sized
+    by int8_split_count and added in the launch (the shared arrival counters,
+    one a 32-column tile); above, 128 x 128 x 32 tiles with a split-k reduce.
+    The partial sums go to the device's scratch buffer."""
     m, k = x.shape
     n = w_q.shape[1]
     if not (x.is_cuda and w_q.device == x.device and scale.device == x.device):
@@ -69,13 +92,15 @@ def int8_matmul_kernel(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) 
     if not (x.is_contiguous() and w_q.is_contiguous() and scale.is_contiguous()):
         raise ValueError("int8_matmul_kernel: tensors must be contiguous")
     check_aligned("int8_matmul_kernel", x, w_q, scale)
-    bm, bk = (16, 128) if m <= SMALL_M else (128, 32)
-    # k splits only into whole k tiles
-    splits = _split_k(-(-n // 128) * -(-m // bm), k // bk if k % bk == 0 else 1, x.device)
+    if m <= INT8_DECODE_ROWS:
+        splits = int8_split_count(m, k, n, device_sms(x.device))
+        counters = arrival_counters(x.device, n // 32).data_ptr()  # one a warp's columns
+    else:
+        splits, counters = _split_k(-(-n // 128) * -(-m // 128), k // 32, x.device), None
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    ws = torch.empty((splits, m, n), dtype=torch.float32, device=x.device) if splits > 1 else y
+    ws = scratch(x.device, splits * m * n * 4).data_ptr() if splits > 1 else None
     err = library().exl3_int8_matmul(
-        x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), y.data_ptr(), ws.data_ptr(),
+        x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), y.data_ptr(), ws, counters,
         m, k, n, splits, torch.cuda.current_stream(x.device).cuda_stream)
     check_launch("exl3_int8_matmul", err)
     int8_matmul_kernel.launches += 1
@@ -466,15 +491,19 @@ def _int4_blocks_per_sm(m: int, per: int) -> int:
 
 
 def _busiest_sm_splits(steps: int, tiles: int, sms: int, smem, blocks_per_sm,
-                       max_smem: int, max_splits: int | None = None) -> int:
-    """The split count of a staged packed kernel (int-B, int4 a8): a block's
+                       max_smem: int, max_splits: int | None = None,
+                       one_resident: bool = True) -> int:
+    """The split count of a staged kernel (int-B, int4 a8, int8): a block's
     time is its steps, the card's that of its busiest SM: the blocks it is
     given times their steps, ceil(tiles * splits / sms) * ceil(steps /
     splits). Among the splits whose x fits a block's shared memory (smem(per)
     <= max_smem) and whose grid is resident at once (or, where none is, all
     that fit), those that give the busiest SM the fewest steps are taken, and
     of them the one whose SMs run the most blocks at once (warps that hide
-    each other's latency), then the fewest splits; at most max_splits."""
+    each other's latency), then the fewest splits; at most max_splits. One
+    split counts as resident whatever its grid unless one_resident is False:
+    then a single split whose blocks an SM cannot hold at once competes with
+    the others on steps."""
     fits, resident = [], []
     for s in range(1, min(steps, max_splits or steps) + 1):
         per = -(-steps // s)
@@ -484,7 +513,7 @@ def _busiest_sm_splits(steps: int, tiles: int, sms: int, smem, blocks_per_sm,
         on_sm = -(-tiles * s // sms)  # blocks the busiest SM is given
         cand = (on_sm * per, -min(on_sm, held), s)
         fits.append(cand)
-        if s == 1 or on_sm <= held:
+        if (s == 1 and one_resident) or on_sm <= held:
             resident.append(cand)
     return min(resident or fits)[2]
 
@@ -498,6 +527,51 @@ def int4_split_count(m: int, k: int, n: int, sms: int = H100_SMS) -> int:
                               lambda per: _int4_smem(m, per),
                               lambda per: _int4_blocks_per_sm(m, per), INT4_MAX_SMEM,
                               INT4_MAX_SPLITS)
+
+
+# the staged int8 body's limits and layout, read from csrc/int8_layout.cuh:
+# up to INT8_DECODE_ROWS rows, blocks of INT8_WARPS warps of 32 columns, a k
+# step of INT8_STEP_ROWS rows, each warp staging INT8_STAGES steps; the launch
+# bounds promise INT8_BLOCKS blocks an SM; a block may ask for INT8_MAX_SMEM
+# bytes; at most INT8_MAX_SPLITS splits; the byte sizes of a block's shared
+# memory (_int8_smem)
+_INT8_LAYOUT = ("INT8_WARPS", "INT8_STEP_ROWS", "INT8_STAGES", "INT8_BLOCKS", "INT8_DECODE_ROWS",
+                "INT8_MAX_SMEM", "INT8_MAX_SPLITS", "INT8_BYTE_STAGE", "INT8_X_PAD")
+(_INT8_WARPS, INT8_STEP_ROWS, _INT8_STAGES, _INT8_BLOCKS, INT8_DECODE_ROWS, INT8_MAX_SMEM,
+ INT8_MAX_SPLITS, _INT8_BYTE_STAGE, _INT8_X_PAD) = header_constants("int8_layout.cuh", *_INT8_LAYOUT)
+_INT8_BN = 32 * _INT8_WARPS
+
+
+def _int8_smem(m: int, per: int) -> int:
+    """Dynamic shared memory of a staged int8 block whose split holds `per`
+    steps, as csrc/int8_layout.cuh's int8_smem_bytes reckons it from the same
+    constants: each warp's stages of weights, then 8 or 16 bf16 rows of x
+    over the split's steps in padded rows. tests/test_torch_int8_split.py
+    holds it to the header, compiled."""
+    return (_INT8_WARPS * _INT8_STAGES * _INT8_BYTE_STAGE
+            + (8 if m <= 8 else 16) * (per * INT8_STEP_ROWS * 2 + _INT8_X_PAD))
+
+
+def _int8_blocks_per_sm(m: int, per: int) -> int:
+    """Blocks an SM holds of a staged int8 launch: the launch bounds, or fewer
+    where the shared memory does not fit. chip_smoke.py holds it to the
+    card's reading (exl3_int8_blocks_per_sm)."""
+    return min(_INT8_BLOCKS, _SM_SHARED // (_int8_smem(m, per) + _BLOCK_RESERVED))
+
+
+@functools.lru_cache(maxsize=None)  # a served step asks for a few widths hundreds of times
+def int8_split_count(m: int, k: int, n: int, sms: int = H100_SMS) -> int:
+    """k splits of the staged int8 body on a card of `sms` SMs (m <=
+    INT8_DECODE_ROWS; the int8 matmul, and each phase of the fused MLP with n
+    its staged columns), by the busiest SM's steps (_busiest_sm_splits), at
+    most INT8_MAX_SPLITS. A single split whose grid is not resident at once
+    competes with the others (measured on an H100: Gemma-3-27B's first MLP
+    phase, 336 tiles of 42 steps at one block an SM; 7 splits took the MLP
+    from 0.2151-0.2278 to 0.2075-0.2089 ms, PERF.md)."""
+    return _busiest_sm_splits(-(-k // INT8_STEP_ROWS), -(-n // _INT8_BN), sms,
+                              lambda per: _int8_smem(m, per),
+                              lambda per: _int8_blocks_per_sm(m, per), INT8_MAX_SMEM,
+                              INT8_MAX_SPLITS, one_resident=False)
 
 
 def _check_packed(name: str, x, packed, scales, packed_dtype, a8: bool):

@@ -1,7 +1,8 @@
 """Device resolution for the port's entry points: "cuda" by default, the CPU
 only when asked for. There is no silent fallback. Also what the kernels'
-launch sizing reads of a card (its SM count) and the arrival counters that
-the kernels which merge their splits in the launch share."""
+launch sizing reads of a card (its SM count), the arrival counters that
+the kernels which merge their splits in the launch share, and the scratch
+buffer of the kernels whose workspace lives only within their launches."""
 from __future__ import annotations
 
 import functools
@@ -47,3 +48,20 @@ def arrival_counters(device, n: int) -> torch.Tensor:
         c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _COUNTERS[device] = c
     return c
+
+
+_SCRATCH: dict = {}
+
+
+def scratch(device, nbytes: int) -> torch.Tensor:
+    """A per-device uint8 buffer of at least `nbytes` for workspace that a
+    call's own launches write and read and nothing reads after them (the
+    int8 matmul's split-k partial sums, the fused MLP's intermediate
+    activation and partial sums), so that such a call allocates nothing but
+    its output. It grows when a call needs more; calls that share it run one
+    after another on one stream, as the model's steps do."""
+    buf = _SCRATCH.get(device)
+    if buf is None or buf.numel() < nbytes:
+        buf = torch.empty(max(nbytes, 1 << 20), dtype=torch.uint8, device=device)
+        _SCRATCH[device] = buf
+    return buf

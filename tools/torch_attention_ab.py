@@ -1,5 +1,5 @@
 """Compare two source trees of the PyTorch port, in turns, on one card, by one
-of thirteen runs (`--run`):
+of fifteen runs (`--run`):
 
 - `paged_bf16` (the default): the bf16 paged attention kernel (row 3) at
   decode, batch 8, q positions 299-2047 (contexts 300 to 2048), 32 q / 8 kv
@@ -39,7 +39,15 @@ of thirteen runs (`--run`):
   request), read as `serve_capacity`;
 - `serve_packed`: `chip_smoke.py --phases build,serve_packed` (the 32-layer
   int4 a8 serve, then the other packed tiers on 4 layers and the ladder),
-  its traced int4 run read as `serve_capacity`.
+  its traced int4 run read as `serve_capacity`;
+- `int8`: the int8 matmul, row 1, at the Llama-3.1-8B qkv (4096 x 6144),
+  o_proj (4096 x 4096), down (14336 x 4096) and lm_head (4096 x 32768), m = 1,
+  8, 16 and 2048, over inputs rotated past L2, one after the other in each
+  run;
+- `fused_mlp`: the fused MLP, row 2, at Llama-3.1-8B (silu, h 4096, i 14336),
+  Gemma-3-27B (gelu_pytorch_tanh, 5376, 21504) and DeepSeek-V4's shared expert
+  (silu clamped at 10, 7168, 2048), m = 1, 8 and 16, over inputs rotated past
+  L2, one after the other in each run.
 
     python3 tools/torch_attention_ab.py --trees build/parent,.   # parent, change
     python3 tools/torch_attention_ab.py --run serve_capacity --trees A,B --rounds 3
@@ -51,6 +59,8 @@ of thirteen runs (`--run`):
     python3 tools/torch_attention_ab.py --run int4 --trees build/parent,.
     python3 tools/torch_attention_ab.py --run latent --trees build/parent,.
     python3 tools/torch_attention_ab.py --run serve_mla --trees build/parent,. --smoke chip_smoke.py --rounds 1
+    python3 tools/torch_attention_ab.py --run int8 --trees build/parent,.
+    python3 tools/torch_attention_ab.py --run fused_mlp --trees build/parent,.
 
 Each tree runs in a process of its own (its own checkout of
 exllamav3_tpu_torch, its own kernel build and checkpoint under <tree>/build/),
@@ -58,8 +68,9 @@ in the order A, B, B, A for every round. A kernel run queues 200 launches
 behind a device spin, five times, over one input set (the trees are compared
 with each other, not with a bound), and gives the median device ms a call
 (CUDA events) and host µs a call (the host clock over the same 200
-enqueues; `intb`, `int4` and `latent` give both for each route); `ring`,
-`exl3_gemm`, `intb`, `int4` and `latent` cycle through input sets that
+enqueues; `intb`, `int4`, `latent`, `int8` and `fused_mlp` give both for each
+route or shape); `ring`, `exl3_gemm`, `intb`, `int4`, `latent`, `int8` and
+`fused_mlp` cycle through input sets that
 together exceed twice the L2 cache. Each run's numbers are printed as they come; a run that fails is
 printed with its exit code and left out of the medians. The last line is
 one JSON object with each tree's medians and B / A. A serve run drives each
@@ -171,6 +182,32 @@ elif sys.argv[1] == "latent":
                                                       scale=192 ** -0.5),
            "q4": lambda: fa.latent_attention_quant_kernel(q, q4(), qp, tl, 4, 0.0, block_tables=bt,
                                                           scale=192 ** -0.5)}
+elif sys.argv[1] == "int8":
+    from exllamav3_tpu_torch.ops import q_matmul as qm
+    fns = {}
+    for m in (1, 8, 16, 2048):
+        for k, n, what in ((4096, 6144, "qkv"), (4096, 4096, "o_proj"), (14336, 4096, "down"),
+                           (4096, 32768, "lm_head")):
+            nxt = rotating(lambda i, m=m, k=k, n=n: (
+                torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16),
+                torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8),
+                (torch.rand(n, generator=g, device=dev) + 0.5) * 0.01), m * k * 2 + k * n + n * 4)
+            fns[f"{what}_m{m}"] = lambda nxt=nxt: qm.int8_matmul_kernel(*nxt())
+elif sys.argv[1] == "fused_mlp":
+    from exllamav3_tpu_torch.ops.fused_mlp import fused_mlp_int8_kernel
+    fns = {}
+    for m in (1, 8, 16):
+        for name, h, inter, act, clamp in (("8B", 4096, 14336, "silu", 0.0),
+                                           ("gemma", 5376, 21504, "gelu_pytorch_tanh", 0.0),
+                                           ("dsv4", 7168, 2048, "silu", 10.0)):
+            nxt = rotating(lambda i, m=m, h=h, inter=inter: (
+                torch.randn((m, h), generator=g, device=dev).to(torch.bfloat16),
+                torch.randint(-127, 128, (h, 2 * inter), generator=g, device=dev, dtype=torch.int8),
+                torch.full((2 * inter,), 1.0 / (73.0 * math.sqrt(h)), device=dev),
+                torch.randint(-127, 128, (inter, h), generator=g, device=dev, dtype=torch.int8)),
+                m * h * 2 + 3 * h * inter + 2 * inter * 4)
+            fns[f"{name}_m{m}"] = lambda nxt=nxt, act=act, clamp=clamp: fused_mlp_int8_kernel(
+                *nxt(), act, clamp)
 else:
     from exllamav3_tpu_torch.ops.kv_quant import quantize_kv_stored
     state = {}
@@ -200,7 +237,7 @@ def timed(fn):
     return statistics.median(ms), statistics.median(host_us)
 
 
-if sys.argv[1] in ("intb", "int4", "latent"):
+if sys.argv[1] in ("intb", "int4", "latent", "int8", "fused_mlp"):
     res = {}
     for route, f in fns.items():
         res[f"ms_{route}"], res[f"host_us_{route}"] = timed(f)
@@ -215,7 +252,8 @@ PROFILE = re.compile(r"^profile: (\d+) decode steps \(batch 8\), window [\d.]+ m
                      r"([\d.]+) ms \([\d.]+ of the window, idle ([\d.]+)\), ([\d.]+) device ops "
                      r"per step", re.M)
 RUNS = ("paged_bf16", "paged_quant", "serve_capacity", "serve", "ring", "exl3_gemm",
-        "serve_gemma", "intb", "serve_packed_int6", "int4", "latent", "serve_mla", "serve_packed")
+        "serve_gemma", "intb", "serve_packed_int6", "int4", "latent", "serve_mla", "serve_packed",
+        "int8", "fused_mlp")
 
 
 # a serve run's log tag, where it is not the run's name

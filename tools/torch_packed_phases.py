@@ -1,12 +1,16 @@
 """Where a block's time goes in the int-B matmuls
 (exllamav3_tpu_torch/csrc/intb_matmul.cu, kernel rows 13 and 14), or with
---int4 in the int4 a8 matmul (csrc/int4_matmul.cu, kernel row 12), on one card.
+--int4 in the int4 a8 matmul (csrc/int4_matmul.cu, kernel row 12), or with
+--int8 / --mlp in the staged int8 body (csrc/int8_staged.cuh) of the int8
+matmul (row 1) / the fused MLP's two phases (row 2), on one card.
 
     python3 tools/torch_packed_phases.py                       # this tree's kernel
     python3 tools/torch_packed_phases.py --tree build/parent   # another checkout's kernel
     python3 tools/torch_packed_phases.py --splits 4,6,8,13     # and the staged body's time by split count
     python3 tools/torch_packed_phases.py --stages 2 --blocks 4 # 2 stages a warp, launch bounds of 4 blocks an SM
     python3 tools/torch_packed_phases.py --int4 --splits 2,4,8,16   # row 12 alike (--tree, --stages, --blocks too)
+    python3 tools/torch_packed_phases.py --int8 --splits 4,8,12,16  # row 1 at m = 8 (--stages, --blocks too)
+    python3 tools/torch_packed_phases.py --mlp --splits 2,4,8        # row 2's phases, with and without PDL
 
 Copies the tree's intb_matmul.cu and the headers it includes into
 build/packed_phases/<tree name>/, puts clock64() timers around the phases of
@@ -45,7 +49,20 @@ phases, and take kernel times from the unpatched build. The staged body is
 also built with its programmatic dependent launch off (a patch of the
 launch's attribute), and its a8 route timed both ways. Every output is held against the plain version
 at chip_smoke.py's TOL_PACKED (1e-4 of the largest output), and the script
-fails if one misses. Needs CUDA.
+fails if one misses.
+
+--int8 times int8_matmul.cu's staged body at m = 8 over the five 8B shapes,
+--mlp fused_mlp.cu at m = 8 over Llama-3.1-8B, Gemma-3-27B and DeepSeek-V4's
+shared expert, each phase by phase: `stage` and `reads` as above (the
+weights' words and x's fragments from shared memory), `convert` (the int8
+pairs made into bf16 A fragments), `mma`, and a block's prologue, loop and
+epilogue: the partial sums' write and arrival, or where its first warp
+arrives last its reduction and epilogue (the column scale; the first phase's
+activation). The MLP is also built with its second phase launched in stream
+order and as a programmatic dependent at every width (INT8_MLP_PDL_MIN_K past
+any i, and 0) and timed all three ways; --splits times each phase at
+the given split counts with the other at its sizing. Held to chip_smoke.py's
+TOL_INT8 (1e-4) and TOL_MLP (2e-3). Needs CUDA.
 """
 from __future__ import annotations
 
@@ -361,6 +378,295 @@ def build(tree: Path, stages: int | None, blocks: int | None, int4: bool = False
     return version, dlls[0], dlls[1], dlls[2] if len(dlls) > 2 else None
 
 
+# -- the staged int8 body of csrc/int8_staged.cuh (--int8, --mlp): each
+# phase's records at 32768 * EPI + the block's index, so that the MLP's two
+# launches keep theirs apart --
+INT8_SHAPES = [(4096, 6144, "qkv"), (4096, 4096, "o_proj"), (4096, 28672, "gate_up"),
+               (14336, 4096, "down"), (4096, 32768, "lm_head")]
+MLP_SHAPES = [(4096, 14336, "silu", 0.0, "8B"), (5376, 21504, "gelu_pytorch_tanh", 0.0, "Gemma-3-27B"),
+              (7168, 2048, "silu", 10.0, "DeepSeek-V4")]
+PHASE_STRIDE = 32768
+READ_AT = r"""
+extern "C" int phases_read_at(void* dst, int first, int blocks) {
+    return (int)cudaMemcpyFromSymbol(dst, int8s::g_phase, (size_t)blocks * %d * 8,
+                                     (size_t)first * %d * 8);
+}
+""" % (SLOTS, SLOTS)
+
+
+def record8(last: str) -> str:
+    """record(), at the phase's own run of slots."""
+    return record(last).replace("        const size_t bi = (", "        const size_t bi = (size_t)EPI * %d + ("
+                                % PHASE_STRIDE)
+
+
+INT8_PATCHES = [
+    ("namespace int8s {\nnamespace {  // each source that includes this header gets its own copies\n",
+     "namespace int8s {\nnamespace {  // each source that includes this header gets its own copies\n"
+     + TIMERS),
+    ("    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;\n",
+     ENTRY + "    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;\n"),
+    ("    for (int i = 0; i < nst; ++i) {\n",
+     "    const long long t_loop = clock64();\n    for (int i = 0; i < nst; ++i) {\n"
+     "        const long long t_top = clock64();\n        ++n_timed;\n"),
+    ("        issue(i + INT8_STAGES - 1);\n",
+     "        issue(i + INT8_STAGES - 1);\n        ph[0] += clock64() - t_top;\n"),
+    ("        load(0, wr[0], xb[0]);\n",
+     "        const long long t_w0 = clock64();\n        load(0, wr[0], xb[0]);\n"
+     "        for (int r = 0; r < 8; ++r) touch(sink, wr[0][r]);\n"
+     "        touch(sink, xb[0][0].x ^ xb[0][0].y ^ xb[0][0].z ^ xb[0][0].w);\n"
+     "        ph[1] += clock64() - t_w0;\n"),
+    ("            if (u + 1 < gs) load(u + 1, wr[(u + 1) & 1], xb[(u + 1) & 1]);\n",
+     "            if (u + 1 < gs) {\n                const long long t_w = clock64();\n"
+     "                load(u + 1, wr[(u + 1) & 1], xb[(u + 1) & 1]);\n"
+     "                for (int r = 0; r < 8; ++r) touch(sink, wr[(u + 1) & 1][r]);\n"
+     "                touch(sink, xb[(u + 1) & 1][0].x ^ xb[(u + 1) & 1][0].w);\n"
+     "                ph[1] += clock64() - t_w;\n            }\n"),
+    ("                    const uint32_t a[4] = {\n",
+     "                    const long long t_x = clock64();\n                    const uint32_t a[4] = {\n"),
+    ("                        bf16_pair(w8[4 * hh + 2], w8[4 * hh + 3], col_sel(2 * tt + 1))};\n",
+     "                        bf16_pair(w8[4 * hh + 2], w8[4 * hh + 3], col_sel(2 * tt + 1))};\n"
+     "                    touch(sink, a[0] ^ a[1] ^ a[2] ^ a[3]);\n"
+     "                    const long long t_m = clock64();\n                    ph[2] += t_m - t_x;\n"),
+    ("                        mma_bf16(acc[rt][tt], a, b);\n                    }\n",
+     "                        mma_bf16(acc[rt][tt], a, b);\n                    }\n"
+     "                    touch(sink, __float_as_uint(acc[0][tt][0]));\n"
+     "                    ph[3] += clock64() - t_m;\n"),
+    ("    if (!live) return;\n\n    if (splits == 1) {",
+     "    const long long t_out = clock64();\n    if (!live) return;\n\n    if (splits == 1) {"),
+    ("        return;\n    }\n\n    // this lane's partial sums",
+     record8("0") + "        return;\n    }\n\n    // this lane's partial sums"),
+    ("    if (!last) return;\n", "    if (!last) {\n" + record8("0") + "        return;\n    }\n"),
+    ("    if (lane == 0) counters[tile] = 0;  // ready for the next launch\n}",
+     "    if (lane == 0) counters[tile] = 0;  // ready for the next launch\n" + record8("1") + "}"),
+]
+
+
+def build_int8(tree: Path, mlp: bool, stages: int | None, blocks: int | None, warps: int | None):
+    """(the instrumented library, the unpatched one, and with --mlp the
+    unpatched one with its second phase in stream order and as a
+    programmatic dependent at every width) of the tree's int8_matmul.cu or
+    fused_mlp.cu, INT8_STAGES, INT8_BLOCKS and INT8_WARPS changed where asked."""
+    from exllamav3_tpu_torch.ops.build import NVCC_FLAGS, nvcc_path
+
+    csrc = tree / "exllamav3_tpu_torch" / "csrc"
+    name = "fused_mlp.cu" if mlp else "int8_matmul.cu"
+    out = ROOT / "build" / "packed_phases" / (tree.resolve().name + ("_mlp" if mlp else "_int8"))
+    layout = (csrc / "int8_layout.cuh").read_text()
+    for const, value in (("INT8_STAGES", stages), ("INT8_BLOCKS", blocks), ("INT8_WARPS", warps)):
+        if value is not None:
+            layout = re.sub(rf"^constexpr int {const} = \d+;", f"constexpr int {const} = {value};",
+                            layout, count=1, flags=re.M)
+    pdl_min = {"nopdl": "1 << 30", "pdl": "0"}  # the second phase's PDL from this i up
+    body = (csrc / "int8_staged.cuh").read_text()
+    src = (csrc / name).read_text()
+    subs = ("phases", "plain", "nopdl", "pdl") if mlp else ("phases", "plain")
+    for sub in subs:
+        (out / sub).mkdir(parents=True, exist_ok=True)
+        (out / sub / "int8_layout.cuh").write_text(
+            re.sub(r"^constexpr int INT8_MLP_PDL_MIN_K = \d+;",
+                   f"constexpr int INT8_MLP_PDL_MIN_K = {pdl_min[sub]};", layout, count=1,
+                   flags=re.M) if sub in pdl_min else layout)
+        (out / sub / "int8_staged.cuh").write_text(_patch(body, INT8_PATCHES) if sub == "phases"
+                                                   else body)
+        (out / sub / name).write_text(src + (read("int8s::g_phase") + READ_AT
+                                             if sub == "phases" else ""))
+    flags = [f for f in NVCC_FLAGS if f not in ("-Xptxas", "-v")] + [f"-I{csrc}"]
+    jobs = [[nvcc_path(), *flags, *(["-Xptxas", "-v"] if s == "plain" else []), "-shared",
+             str(out / s / name), "-o", str(out / s / "lib.so")] for s in subs]
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        runs = list(ex.map(lambda c: subprocess.run(c, capture_output=True, text=True), jobs))
+    for r in runs:
+        if r.returncode:
+            raise SystemExit(r.stdout + r.stderr)
+    kname = None  # the staged body's registers, shared memory and spills
+    for line in (runs[1].stdout + runs[1].stderr).splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            kname = fn if "int8_decode_kernel" in fn else None
+        elif kname and ("Used" in line or "spill" in line):
+            print(f"ptxas: {kname}: {line.strip()}", flush=True)
+    return [ctypes.CDLL(str(out / s / "lib.so")) for s in subs] + [None] * (4 - len(subs))
+
+
+def _phase_line(buf, grid: int, splits: int) -> str:
+    """One phase's records (grid blocks) as cycles a step by part and a
+    block's prologue, loop and epilogue."""
+    n_steps = buf[:, 4].sum()
+    per_step = ", ".join(f"{nm} {buf[:, i].sum() / n_steps:.0f}"
+                         for i, nm in enumerate(("stage", "reads", "convert", "mma")))
+    last = buf[:, 8] > 0
+    epi = f"epilogue {buf[~last, 7].mean():.0f}" + (
+        " (partial write and arrival)" if splits > 1 else " (in place)")
+    if last.any():
+        epi += f", last-arriving epilogue with the reduction {buf[last, 7].mean():.0f}"
+    return (f"{n_steps / grid:.1f} steps a block; cycles a step: {per_step}; a block: prologue "
+            f"{buf[:, 5].mean():.0f}, k loop mean {buf[:, 6].mean():.0f} longest "
+            f"{buf[:, 6].max():.0f}, {epi}")
+
+
+def main_int8(args, tree: Path):
+    """--int8 and --mlp."""
+    import numpy as np
+
+    from exllamav3_tpu_torch.ops import fused_mlp as fm
+    from exllamav3_tpu_torch.ops import q_matmul as qm
+    from exllamav3_tpu_torch.ops.build import SIGNATURES
+    from exllamav3_tpu_torch.util.device import arrival_counters
+    from exllamav3_tpu_torch.util.timing import rotating, time_ms
+
+    mlp = args.mlp
+    dll, plain, nopdl, pdl = build_int8(tree, mlp, args.stages, args.blocks, args.warps)
+    qm._INT8_STAGES = args.stages or qm._INT8_STAGES
+    qm._INT8_BLOCKS = args.blocks or qm._INT8_BLOCKS
+    qm._INT8_WARPS = args.warps or qm._INT8_WARPS
+    qm._INT8_BN = 32 * qm._INT8_WARPS
+    bn = qm._INT8_BN
+    qm.int8_split_count.cache_clear()
+    entry = "exl3_fused_mlp" if mlp else "exl3_int8_matmul"
+    for lib in (dll, plain, nopdl, pdl):
+        if lib is not None:
+            getattr(lib, entry).argtypes = SIGNATURES[entry]
+    P, I = ctypes.c_void_p, ctypes.c_int
+    dll.phases_read_at.argtypes = [P, I, I]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    print(f"{smi}; kernel: staged int8 ({tree})", flush=True)
+    dev = torch.device("cuda")
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    g = torch.Generator(device=dev).manual_seed(11)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def records(epi: int, grid: int):
+        buf = np.zeros(grid * SLOTS, np.uint64)
+        if dll.phases_read_at(buf.ctypes.data, epi * PHASE_STRIDE, grid):
+            raise RuntimeError("reading the timers failed")
+        return buf.reshape(grid, SLOTS).astype(np.float64)
+
+    def rel_err(y, ref):
+        return float((y - ref).abs().max() / ref.abs().max())
+
+    if not mlp:
+        def caller(k, n, splits):
+            y = torch.empty((M, n), dtype=torch.float32, device=dev)
+            ws = torch.empty((max(splits, 1), M, n), dtype=torch.float32, device=dev)
+            counters = arrival_counters(dev, n // 32)
+
+            def call(lib, x, w, s):
+                err = lib.exl3_int8_matmul(x.data_ptr(), w.data_ptr(), s.data_ptr(), y.data_ptr(),
+                                           ws.data_ptr(), counters.data_ptr(), M, k, n, splits,
+                                           stream())
+                if err:
+                    raise RuntimeError(f"launch failed: {err}")
+                return y
+            return call
+
+        def make_of(k, n):
+            return (lambda i: (torch.randn((M, k), generator=g, device=dev).to(torch.bfloat16),
+                               torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                                             dtype=torch.int8),
+                               (torch.rand(n, generator=g, device=dev) + 0.5) * 0.01),
+                    M * k * 2 + k * n + n * 4 + M * n * 4)
+
+        for k, n, what in INT8_SHAPES:
+            make, nb = make_of(k, n)
+            x, w, s = make(0)
+            ref = qm.int8_matmul_plain(x, w, s)
+            splits = qm.int8_split_count(M, k, n, sms)
+            call = caller(k, n, splits)
+            grid = -(-n // bn) * splits
+            dll.phases_clear()
+            rel = rel_err(call(dll, x, w, s), ref)
+            torch.cuda.synchronize()
+            line = _phase_line(records(0, grid), grid, splits)
+            nxt = rotating(make, nb)
+            inst = time_ms(lambda: call(dll, *nxt()), 20)
+            rel = max(rel, rel_err(call(plain, x, w, s), ref))
+            ms = time_ms(lambda: call(plain, *nxt()), 20)
+            print(f"int8 m={M} {what} ({k}x{n}): {-(-k // 128)} steps, {splits} splits, {grid} "
+                  f"blocks, {line}; instrumented {inst:.4f} ms, unpatched {ms:.4f} ms over rotated "
+                  f"inputs; rel err {rel:.2e}", flush=True)
+            if not rel <= 1e-4:
+                raise SystemExit(f"int8 {what}: rel err {rel:.2e} > 1e-4")
+            for sp in (int(v) for v in args.splits.split(",")) if args.splits else ():
+                steps = -(-k // 128)
+                if sp > min(steps, qm.INT8_MAX_SPLITS) or qm._int8_smem(M, -(-steps // sp)) > qm.INT8_MAX_SMEM:
+                    continue
+                c = caller(k, n, sp)
+                rel = rel_err(c(plain, x, w, s), ref)
+                ms = time_ms(lambda: c(plain, *nxt()), 20)
+                print(f"int8 m={M} {what} at {sp} splits: {ms:.4f} ms over rotated inputs; rel err "
+                      f"{rel:.2e}", flush=True)
+                if not rel <= 1e-4:
+                    raise SystemExit(f"int8 {what} at {sp} splits: rel err {rel:.2e} > 1e-4")
+            del nxt, x, w, s
+            torch.cuda.empty_cache()
+        return
+
+    def caller(h, inter, act, clamp, s1, s2):
+        a = torch.empty((M, inter), dtype=torch.bfloat16, device=dev)
+        out = torch.empty((M, h), dtype=torch.float32, device=dev)
+        ws = torch.empty((M * max(s1 * 2 * inter, s2 * h),), dtype=torch.float32, device=dev)
+        counters = arrival_counters(dev, max(2 * inter, h) // 32)
+
+        def call(lib, x, gu, gs, d):
+            err = lib.exl3_fused_mlp(x.data_ptr(), gu.data_ptr(), gs.data_ptr(), d.data_ptr(), None,
+                                     None, a.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                                     counters.data_ptr(), M, h, inter, fm.ACTIVATIONS[act],
+                                     float(clamp), s1, s2, stream())
+            if err:
+                raise RuntimeError(f"launch failed: {err}")
+            return out
+        return call
+
+    for h, inter, act, clamp, what in MLP_SHAPES:
+        def make(i, h=h, inter=inter):
+            return (torch.randn((M, h), generator=g, device=dev).to(torch.bfloat16),
+                    torch.randint(-127, 128, (h, 2 * inter), generator=g, device=dev, dtype=torch.int8),
+                    torch.full((2 * inter,), 1.0 / (73.0 * np.sqrt(h)), device=dev),
+                    torch.randint(-127, 128, (inter, h), generator=g, device=dev, dtype=torch.int8))
+        nb = M * h * 2 + 3 * h * inter + 2 * inter * 4 + M * h * 4
+        args_ = make(0)
+        ref = fm.fused_mlp_int8_plain(*args_, act, clamp)
+        s1, s2 = fm.fused_mlp_splits(M, h, inter, sms)
+        call = caller(h, inter, act, clamp, s1, s2)
+        grids = (-(-2 * inter // bn) * s1, -(-h // bn) * s2)
+        dll.phases_clear()
+        rel = rel_err(call(dll, *args_), ref)
+        torch.cuda.synchronize()
+        lines = [_phase_line(records(epi, grid), grid, sp)
+                 for epi, grid, sp in ((1, grids[0], s1), (0, grids[1], s2))]
+        nxt = rotating(make, nb)
+        inst = time_ms(lambda: call(dll, *nxt()), 20)
+        rel = max(rel, rel_err(call(plain, *args_), ref), rel_err(call(nopdl, *args_), ref),
+                  rel_err(call(pdl, *args_), ref))
+        ms = time_ms(lambda: call(plain, *nxt()), 20)
+        ms_nopdl = time_ms(lambda: call(nopdl, *nxt()), 20)
+        ms_pdl = time_ms(lambda: call(pdl, *nxt()), 20)
+        print(f"fused_mlp m={M} {what} ({act}{f' clamp {clamp:g}' if clamp else ''}, h {h}, i {inter}):"
+              f" first phase {-(-h // 128)} steps, {s1} splits, {grids[0]} blocks, {lines[0]}; second"
+              f" phase {-(-inter // 128)} steps, {s2} splits, {grids[1]} blocks, {lines[1]}; "
+              f"instrumented {inst:.4f} ms, unpatched {ms:.4f} ms, second phase in stream order "
+              f"{ms_nopdl:.4f} ms, as a programmatic dependent {ms_pdl:.4f} ms, over rotated inputs; "
+              f"rel err {rel:.2e}", flush=True)
+        if not rel <= 2e-3:
+            raise SystemExit(f"fused_mlp {what}: rel err {rel:.2e} > 2e-3")
+        for sp in (int(v) for v in args.splits.split(",")) if args.splits else ():
+            for k, pair in ((h, (sp, s2)), (inter, (s1, sp))):
+                steps = -(-k // 128)
+                if sp > min(steps, qm.INT8_MAX_SPLITS) or qm._int8_smem(M, -(-steps // sp)) > qm.INT8_MAX_SMEM:
+                    continue
+                c = caller(h, inter, act, clamp, *pair)
+                rel = rel_err(c(plain, *args_), ref)
+                ms = time_ms(lambda: c(plain, *nxt()), 20)
+                print(f"fused_mlp m={M} {what} at splits {pair[0]} and {pair[1]}: {ms:.4f} ms over "
+                      f"rotated inputs; rel err {rel:.2e}", flush=True)
+                if not rel <= 2e-3:
+                    raise SystemExit(f"fused_mlp {what} at {pair}: rel err {rel:.2e} > 2e-3")
+        del nxt, args_
+        torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(ROOT), help="checkout whose kernel to time")
@@ -373,14 +679,23 @@ def main():
     ap.add_argument("--blocks", type=int, default=None,
                     help="the staged body's INTB_BLOCKS, its launch bounds' blocks an SM (its "
                          "sizing follows), instead of the source's")
+    ap.add_argument("--warps", type=int, default=None,
+                    help="--int8 / --mlp: the staged int8 body's INT8_WARPS, 32 columns each (its "
+                         "sizing follows), instead of the source's")
     ap.add_argument("--int4", action="store_true",
                     help="the int4 a8 matmul (row 12, int4_matmul.cu) instead of the int-B ones")
+    ap.add_argument("--int8", action="store_true",
+                    help="the int8 matmul's staged body (row 1, int8_matmul.cu)")
+    ap.add_argument("--mlp", action="store_true",
+                    help="the fused MLP's two phases of the staged int8 body (row 2, fused_mlp.cu)")
     args = ap.parse_args()
     int4 = args.int4
     if not torch.cuda.is_available():
         raise SystemExit("needs CUDA")
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))  # that tree's wrapper: its sizing, signatures, plain versions
+    if args.int8 or args.mlp:
+        return main_int8(args, tree)
     import numpy as np
 
     from exllamav3_tpu_torch.ops import q_matmul as qm
