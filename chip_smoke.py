@@ -21,13 +21,16 @@ Phases:
             operations over their peak rate, whichever is larger). In place
             of `kernels`, one check's name runs that check alone:
             int8_matmul, fused_mlp, paged_attention (decode and verify take
-            the split-key kernel of csrc/attention_decode.cuh, prefill the
-            tile loop: seven sequences at 300 beside one at 8192, a block
-            table four times wider than the longest sequence, batch 1 at
-            2048 and 8192, 64-wide heads, groups 1 and 2 (the two-row body),
-            and verify chunks at group 8 of 32 and 40 rows; the kernel
-            library's count of decode-kernel launches must show each case on
-            the decode kernel or the tile loop;
+            the split-key kernel of csrc/attention_decode.cuh, chunks of more
+            than 32 rows a kv head the prefill body of
+            csrc/attention_prefill.cuh: seven sequences at 300 beside one at
+            8192, a block table four times wider than the longest sequence,
+            batch 1 at 2048 and 8192, 64-wide heads, groups 1 and 2 (the
+            two-row body), and verify chunks at group 8 of 32 and 40 rows;
+            prefill untimed at 64-wide heads, groups 1, 2, 5 and 7, 33 rows
+            at group 1 and three sequences of unequal length whose chunks
+            start mid-page; the kernel library's counts of decode-kernel and
+            prefill-body launches must show each case on its body;
             decode and verify timed over inputs rotated past the
             50 MB L2, as is their SDPA yardstick, the L2-warm times beside
             them), exl3_gemm (all K and
@@ -54,7 +57,8 @@ Phases:
             (the linear layout over a bf16 cache: Llama-3.2-1B draft decode,
             8B decode at batch 1 and 8, a 2048-token prefill, named cache
             rows, window / softcap / sinks, a last tile cut at T = 2056;
-            timed as paged_attention) and
+            prefill untimed over T = 2052 as paged_attention's; timed as
+            paged_attention) and
             linear_attention_quant ((4, 4) merged and (5, 3) per-head storage
             at T = 2056, compander, features, prefill; batch 1 at 2048 and
             8192, (2, 2) and (8, 8), 64-wide heads; timed as
@@ -292,6 +296,12 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "moe_gemm": ("exllamav3_tpu_torch/csrc/moe_gemm.cu", "exllamav3_tpu/ops/moe_gemm.py:48"),
     "linear_attention": ("exllamav3_tpu_torch/csrc/linear_attention.cu",
                          "exllamav3_tpu/ops/flash_attention.py:253"),
+    # the prefill forms of rows 3 and 4 (chunks of more than 32 rows a kv
+    # head), launched by the two entries above
+    "paged_attention_prefill": ("exllamav3_tpu_torch/csrc/attention_prefill.cuh",
+                                "exllamav3_tpu/ops/flash_attention.py:253"),
+    "linear_attention_prefill": ("exllamav3_tpu_torch/csrc/attention_prefill.cuh",
+                                 "exllamav3_tpu/ops/flash_attention.py:253"),
     "linear_attention_quant_merged": ("exllamav3_tpu_torch/csrc/linear_attention_quant.cu",
                                       "exllamav3_tpu/ops/flash_attention.py:419"),
     "linear_attention_quant_per_head": ("exllamav3_tpu_torch/csrc/linear_attention_quant.cu",
@@ -564,10 +574,13 @@ def _attn_work(qpos, total, Hq, Hk, D, window):
     return nbytes, 4.0 * pairs * Hq * D
 
 
-def _route(S, Hq, Hk) -> str:
-    """The kernel a bf16 or quantized entry launches for these widths."""
-    from exllamav3_tpu_torch.ops.flash_attention import DECODE_ROWS
-    return "decode kernel" if S * (Hq // Hk) <= DECODE_ROWS else "tile loop"
+def _route(S, Hq, Hk, storage: str = "bf16") -> str:
+    """The body an entry launches for these widths: the decode kernel, or
+    past DECODE_ROWS rows a kv head the bf16 prefill body (storage "bf16") or
+    the tile loop ("quant"; "ring" for the ring's wide groups)."""
+    from exllamav3_tpu_torch.ops.flash_attention import attention_route
+    route = attention_route(S, Hq, Hk, quantized=storage != "bf16")
+    return {"decode": "decode kernel", "prefill": "prefill body", "tiles": "tile loop"}[route]
 
 
 def _ms(ms, warm) -> str:
@@ -578,17 +591,29 @@ def _ms(ms, warm) -> str:
     return f"{ms:.4f}" + ("" if warm is None else f" (L2-warm {warm:.4f})")
 
 
-def _decode_kernel_launches(fn) -> int:
-    """Launches of the split-key decode kernel that one call of fn() made, as
-    the kernel library counts them where it launches that kernel (the tile
-    loop is not counted). Needs no profiler, which a host may not allow."""
+def _body_launches(fn) -> tuple[int, int]:
+    """Launches of the split-key decode kernel and of the bf16 prefill body
+    that one call of fn() made, as the kernel library counts them where it
+    launches each (the tile loop is not counted). Needs no profiler, which a
+    host may not allow."""
     from exllamav3_tpu_torch.ops.build import library
 
     lib = library()
-    n0 = lib.exl3_decode_launches()
+    n0 = (lib.exl3_decode_launches(), lib.exl3_prefill_launches())
     fn()
     torch.cuda.synchronize()
-    return lib.exl3_decode_launches() - n0
+    return lib.exl3_decode_launches() - n0[0], lib.exl3_prefill_launches() - n0[1]
+
+
+def _check_route(tag: str, rows: int, route: str, fn) -> tuple[int, int]:
+    """The library's counts show that one call of fn() took `route`: one
+    launch of the decode kernel or of the prefill body, or of neither (the
+    tile loop)."""
+    n = _body_launches(fn)
+    if n != (int(route == "decode kernel"), int(route == "prefill body")):
+        raise AssertionError(f"{tag}: {rows} rows a kv head made {n[0]} decode-kernel and "
+                             f"{n[1]} prefill-body launches, not the {route}'s")
+    return n
 
 
 def check_attention(table, dev):
@@ -639,7 +664,23 @@ def check_attention(table, dev):
                   (512 + np.arange(2048, dtype=np.int32))[None], np.array([2560], np.int32),
                   {"kv_heads": 4}, False))
     cases.append(("prefill S=2048 on 512 cached", (512 + np.arange(2048, dtype=np.int32))[None],
-                  np.array([2560], np.int32), {}, False))
+                  np.array([2560], np.int32), {}, True))
+    # the prefill body, untimed: the 1B draft's 64-wide heads, GQA groups 1,
+    # 2, 5 and 7, a chunk of 33 rows at group 1 (one past the decode route),
+    # and three sequences of unequal length whose chunks start mid-page
+    cases.append(("Llama-3.2-1B heads (D=64) prefill S=300 on 100 cached",
+                  (100 + np.arange(300, dtype=np.int32))[None], np.array([400], np.int32),
+                  {"head_dim": 64, "untimed": True}, False))
+    for hq, hk in ((32, 32), (32, 16), (40, 8), (28, 4)):
+        cases.append((f"prefill S=100 on 400 cached, group {hq // hk}",
+                      (400 + np.arange(100, dtype=np.int32))[None], np.array([500], np.int32),
+                      {"q_heads": hq, "kv_heads": hk, "untimed": True}, False))
+    cases.append(("prefill S=33 from 0, group 1", np.arange(33, dtype=np.int32)[None],
+                  np.array([33], np.int32), {"kv_heads": 32, "untimed": True}, False))
+    three = np.array([500, 900, 1300], np.int32)
+    cases.append(("prefill B=3 S=200, sequences of 500, 900 and 1300 (chunks from 300, 700, "
+                  "1100)", three[:, None] - 200 + np.arange(200, dtype=np.int32), three,
+                  {"untimed": True}, False))
     cases.append(("decode + sliding window 512", ctx[:, None] - 1, ctx,
                   {"sliding_window": 512}, False))
     cases.append(("decode + softcap 30", ctx[:, None] - 1, ctx, {"logit_softcap": 30.0}, False))
@@ -653,6 +694,7 @@ def check_attention(table, dev):
         Hk = kw.pop("kv_heads", 8)
         Hq = kw.pop("q_heads", 32)
         D = kw.pop("head_dim", 128)
+        untimed = kw.pop("untimed", False)
         mp = kw.pop("table_pages", int(math.ceil(total.max() / PAGE_SIZE)) + 1)
         P = B * mp + 1
         perm = rng.permutation(np.arange(1, P))[: B * mp].reshape(B, mp).astype(np.int32)
@@ -675,13 +717,20 @@ def check_attention(table, dev):
         err = float((got - ref).abs().max())
         rel = err / float(ref.abs().max())
         route = _route(S, Hq, Hk)
-        # the library's count shows which kernel the rows took
-        n = _decode_kernel_launches(lambda: paged_attention_kernel(q, k, v, bt, qp, tl, **args))
-        if n != (route == "decode kernel"):
-            raise AssertionError(f"paged_attention {name}: {S * Hq // Hk} rows made {n} "
-                                 f"decode-kernel launches, not the {route}'s")
+        # the library's counts show which body the rows took
+        n = _check_route(f"paged_attention {name}", S * Hq // Hk, route,
+                         lambda: paged_attention_kernel(q, k, v, bt, qp, tl, **args))
         log(f"paged_attention {name}: {S * Hq // Hk} rows a kv head ran the {route} "
-            f"({n} decode-kernel launch)")
+            f"({n[0]} decode-kernel, {n[1]} prefill-body launch)")
+        row = "paged_attention_prefill" if route == "prefill body" else "paged_attention"
+        if untimed:
+            if not rel <= TOL_ATTN:
+                raise AssertionError(f"paged_attention {name}: rel err {rel} > {TOL_ATTN}")
+            log(f"paged_attention {name} (Hq={Hq} Hk={Hk} D={D}, {route}): max_abs_err={err:.3e} "
+                f"rel={rel:.2e}")
+            table.add(row, err, None, None, None, None, "", main=False)
+            del q, k, v, ref, got
+            continue
         # decode and verify (the decode kernel) over K/V rotated past L2, as
         # the main path reads its cache, the L2-warm time beside; prefill warm
         kern = lambda kv: paged_attention_kernel(q, kv["k"], kv["v"], bt, qp, tl, **args)
@@ -714,7 +763,7 @@ def check_attention(table, dev):
             f"library_ms(sdpa)={_ms(lib, lib_warm)} bound_ms={bnd[0]:.4f} ({bnd[1]})")
         if not rel <= TOL_ATTN:
             raise AssertionError(f"paged_attention {name}: rel err {rel} > {TOL_ATTN}")
-        table.add("paged_attention", err, ms, plain, bnd, lib,
+        table.add(row, err, ms, plain, bnd, lib,
                   f"{name}: B={B} S={S} Hq={Hq} Hk={Hk} D={D}", main=main, warm_ms=warm,
                   library_warm_ms=lib_warm)
         del q, k, v, ref, got
@@ -808,11 +857,9 @@ def check_ring_attention(table, dev):
         if not rel <= TOL_ATTN:
             raise AssertionError(f"ring_attention {name}: rel err {rel} > {TOL_ATTN}")
         # the library's count shows which kernel the group took
-        route = _route(1, Hq, Hk)
-        n = _decode_kernel_launches(lambda: ring_attention_kernel(q, k, v, pos, sl, qp, **args))
-        if n != (route == "decode kernel"):
-            raise AssertionError(f"ring_attention {name}: a group of {Hq // Hk} made {n} "
-                                 f"decode-kernel launches, not the {route}'s")
+        route = _route(1, Hq, Hk, "ring")
+        n = _check_route(f"ring_attention {name}", Hq // Hk, route,
+                         lambda: ring_attention_kernel(q, k, v, pos, sl, qp, **args))
         kern = lambda kv: ring_attention_kernel(q, kv["k"], kv["v"], pos, sl, qp, **args)
         if main:
             ms, warm = _cold_warm(kern, {"k": k, "v": v})
@@ -834,7 +881,7 @@ def check_ring_attention(table, dev):
                 lib = time_ms(lambda: sdpa({"k": kc, "v": vc}), 20)
             del kc, vc
         bnd = bound_ms(*_ring_work(pos_np, slots, qpos, Hq, Hk, D, window))
-        log(f"ring_attention {name} (Hq={Hq} Hk={Hk} D={D} N={N} W={W}, {route}: {n} "
+        log(f"ring_attention {name} (Hq={Hq} Hk={Hk} D={D} N={N} W={W}, {route}: {n[0]} "
             f"decode-kernel launch): max_abs_err={err:.3e} rel={rel:.2e} "
             f"kernel_ms={_ms(ms, warm)} plain_ms={plain:.4f} library_ms(sdpa on the gathered "
             f"rings)={_ms(lib, lib_warm)} bound_ms={bnd[0]:.4f} ({bnd[1]})")
@@ -1611,7 +1658,7 @@ def check_linear_attention(table, dev):
          np.array([2048], np.int32), None, {}, False),
         ("Llama-3.1-8B decode B=8 ctx 300-2056 (tail tile)", g8b, 8, 2056, _CTX_T[:, None] - 1,
          _CTX_T, None, {}, False),
-        ("Llama-3.1-8B prefill S=2048 on 512 cached", g8b, 1, 2560, *_PREFILL, None, {}, False),
+        ("Llama-3.1-8B prefill S=2048 on 512 cached", g8b, 1, 2560, *_PREFILL, None, {}, True),
         ("Llama-3.2-1B verify-shaped S=5 B=8 ctx 300-2056", g1b, 8, 2056,
          _CTX_T[:, None] - 5 + np.arange(5, dtype=np.int32)[None], _CTX_T, None, {}, False),
         ("Llama-3.1-8B decode + window 512 + softcap 30 + sinks, T=2056", g8b, 8, 2056,
@@ -1631,8 +1678,26 @@ def check_linear_attention(table, dev):
     # the two-row body: Gemma-3-27B's global-layer heads (group 2) and a group of 1
     cases += [(f"decode B=8 ctx 300-2056 (tail tile), group {32 // hk}", (32, hk, 128), 8, 2056,
                _CTX_T[:, None] - 1, _CTX_T, None, {}, False) for hk in (16, 32)]
+    # the prefill body, untimed, over T = 2052 (its last tile 4 keys wide): the
+    # 1B draft's 64-wide heads, GQA groups 1, 2, 5 and 7, a chunk of 33 rows at
+    # group 1 (one past the decode route), and three sequences of unequal
+    # length in named rows whose chunks start mid-page
+    tail = (1752 + np.arange(300, dtype=np.int32))[None], np.array([2052], np.int32)
+    cases.append(("Llama-3.2-1B draft prefill S=300 on 1752 cached, T=2052", g1b, 1, 2052, *tail,
+                  None, {"untimed": True}, False))
+    cases += [(f"prefill S=300 on 1752 cached, group {hq // hk}, T=2052", (hq, hk, 128), 1, 2052,
+               *tail, None, {"untimed": True}, False)
+              for hq, hk in ((32, 32), (32, 16), (40, 8), (28, 4))]
+    cases.append(("prefill S=33 from 0, group 1, T=2052", (32, 32, 128), 1, 2052,
+                  np.arange(33, dtype=np.int32)[None], np.array([33], np.int32), None,
+                  {"untimed": True}, False))
+    three = np.array([500, 900, 2052], np.int32)
+    cases.append(("prefill B=3 S=200, sequences of 500, 900 and 2052 in rows 4, 0, 2 of 5, "
+                  "T=2052", g8b, 5, 2052, three[:, None] - 200 + np.arange(200, dtype=np.int32),
+                  three, np.array([4, 0, 2], np.int32), {"untimed": True}, False))
     for name, (Hq, Hk, D), N, T, qpos, total, rows, kw, main in cases:
         B, S = qpos.shape
+        untimed = kw.pop("untimed", False)
         g = torch.Generator(device=dev).manual_seed(15)
         q = torch.randn((B, S, Hq, D), generator=g, device=dev)
         k = torch.randn((N, T, Hk, D), generator=g, device=dev).to(torch.bfloat16)
@@ -1653,10 +1718,15 @@ def check_linear_attention(table, dev):
         if not rel <= TOL_ATTN:
             raise AssertionError(f"linear_attention {name}: rel err {rel} > {TOL_ATTN}")
         route = _route(S, Hq, Hk)
-        n = _decode_kernel_launches(lambda: linear_attention_kernel(q, k, v, qp, tl, **args))
-        if n != (route == "decode kernel"):
-            raise AssertionError(f"linear_attention {name}: {S * Hq // Hk} rows made {n} "
-                                 f"decode-kernel launches, not the {route}'s")
+        n = _check_route(f"linear_attention {name}", S * Hq // Hk, route,
+                         lambda: linear_attention_kernel(q, k, v, qp, tl, **args))
+        row = "linear_attention_prefill" if route == "prefill body" else "linear_attention"
+        if untimed:
+            log(f"linear_attention {name} (Hq={Hq} Hk={Hk} D={D} N={N} T={T}, {route}: "
+                f"{n[1]} prefill-body launch): max_abs_err={err:.3e} rel={rel:.2e}")
+            table.add(row, err, None, None, None, None, "", main=False)
+            del q, k, v, ref, got
+            continue
         # decode and verify (the decode kernel) over caches rotated past L2,
         # the L2-warm time beside, and SDPA alike; prefill warm
         kern = lambda kv: linear_attention_kernel(q, kv["k"], kv["v"], qp, tl, **args)
@@ -1677,12 +1747,12 @@ def check_linear_attention(table, dev):
                 lib = time_ms(sdpa, 10)
             del sdpa
         bnd = bound_ms(*_attn_work(qpos, total, Hq, Hk, D, args["sliding_window"]))
-        log(f"linear_attention {name} (Hq={Hq} Hk={Hk} D={D} N={N} T={T}, {route}: {n} "
-            f"decode-kernel launch): "
+        log(f"linear_attention {name} (Hq={Hq} Hk={Hk} D={D} N={N} T={T}, {route}: {n[0]} "
+            f"decode-kernel, {n[1]} prefill-body launch): "
             f"max_abs_err={err:.3e} rel={rel:.2e} kernel_ms={_ms(ms, warm)} "
             f"plain_ms={plain:.4f} library_ms(sdpa on the live slice)={_ms(lib, lib_warm)} "
             f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
-        table.add("linear_attention", err, ms, plain, bnd, lib,
+        table.add(row, err, ms, plain, bnd, lib,
                   f"{name}: B={B} S={S} Hq={Hq} Hk={Hk} D={D} T={T}", main=main, warm_ms=warm,
                   library_warm_ms=lib_warm)
         del q, k, v, ref, got
@@ -2429,8 +2499,10 @@ def _wrappers() -> dict:
     from exllamav3_tpu_torch.ops.flash_attention import (latent_attention_kernel,
                                                           latent_attention_quant_kernel,
                                                           linear_attention_kernel,
+                                                          linear_attention_prefill,
                                                           linear_attention_quant_kernel,
                                                           paged_attention_kernel,
+                                                          paged_attention_prefill,
                                                           paged_attention_quant_kernel,
                                                           pool_attention_stats_kernel,
                                                           ring_attention_kernel,
@@ -2449,6 +2521,9 @@ def _wrappers() -> dict:
             **{name: getattr(qm, name + "_kernel") for name in PACKED},
             "moe_gemm": selected_expert_mlp_kernel,
             "linear_attention": linear_attention_kernel,
+            # of the two entries' launches, those of the prefill body
+            "paged_attention_prefill": paged_attention_prefill,
+            "linear_attention_prefill": linear_attention_prefill,
             "linear_attention_quant": linear_attention_quant_kernel,
             "latent_attention": latent_attention_kernel,
             "latent_attention_quant": latent_attention_quant_kernel,
@@ -2831,7 +2906,7 @@ def _require_launches(tag: str, counts: dict, used: tuple):
 def phase_serve() -> dict:
     """The int8 path: linear_mode="auto" on an 80 GB card, bf16 cache."""
     counts = _serve("serve", _checkpoint(32), "auto", {}, "int8", _serve_prompts())
-    used = ("int8_matmul", "fused_mlp", "paged_attention")
+    used = ("int8_matmul", "fused_mlp", "paged_attention", "paged_attention_prefill")
     _require_launches("serve", counts, used)
     return {n: counts[n] for n in used}
 
@@ -2890,7 +2965,7 @@ def phase_serve_packed() -> dict:
     for tag, layers, mode, kernel, env, prompts, trace in runs:
         with environ(**env):
             counts = _serve(tag, _checkpoint(layers), mode, {}, mode, prompts, trace=trace)
-        _require_launches(tag, counts, (kernel, "paged_attention"))
+        _require_launches(tag, counts, (kernel, "paged_attention", "paged_attention_prefill"))
         launches[kernel] = counts[kernel]
 
     # the ladder: a device just large enough for each rung, and one too small
@@ -2934,7 +3009,7 @@ def phase_serve_packed_int6() -> dict:
     default phases; serve_packed serves int6 one request)."""
     tag = "serve_packed int6"
     counts = _serve(tag, _checkpoint(4), "int6", {}, "int6", _serve_prompts())
-    used = ("intb_matmul_a8", "paged_attention")
+    used = ("intb_matmul_a8", "paged_attention", "paged_attention_prefill")
     _require_launches(tag, counts, used)
     return {n: counts[n] for n in used}
 
@@ -2958,7 +3033,7 @@ def _moe_checkpoint(layers: int) -> str:
 def phase_serve_moe() -> dict:
     """The MoE path: Qwen3-MoE at Qwen3-30B-A3B width, linear_mode="auto"
     (int8 attention and head, bf16 expert stacks), bf16 cache."""
-    used = ("int8_matmul", "paged_attention", "moe_gemm")
+    used = ("int8_matmul", "paged_attention", "paged_attention_prefill", "moe_gemm")
     gc.collect()
     torch.cuda.empty_cache()
     log(f"serve_moe: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before the load")
@@ -3194,7 +3269,8 @@ def phase_serve_gemma() -> dict:
     a sliding layer and the paged kernel once a global layer."""
     from exllamav3_tpu_torch.model import Config
 
-    used = ("int8_matmul", "fused_mlp", "paged_attention", "ring_attention")
+    used = ("int8_matmul", "fused_mlp", "paged_attention", "paged_attention_prefill",
+            "ring_attention")
     gc.collect()
     torch.cuda.empty_cache()
     ckpt = _gemma_checkpoint(GEMMA_SERVE_LAYERS)
@@ -3384,7 +3460,7 @@ def _linear_decode(tag: str, model, B: int, spec_kw: dict, S: int = 512, steps: 
     full = np.concatenate([ids, first_tok], axis=1)
     with uncounted():
         # the same prefill and step over a paged cache of the same widths: the
-        # same tile loop walks the same keys, so the logits should not move
+        # same bodies walk the same keys, so the logits should not move
         pages = -(-(S + 1) // 256)
         pcache = Cache(model, CacheSpec(num_pages=B * pages + 1, **spec_kw))
         bt = np.concatenate([np.arange(1, B * pages + 1, dtype=np.int32).reshape(B, pages),
@@ -3457,7 +3533,8 @@ def phase_linear_decode() -> dict:
     counts = _read_counts()
     log(f"linear_decode int8: kernel launches {json.dumps(counts)}")
     _require_launches("linear_decode int8", counts, ("int8_matmul", "fused_mlp",
-                                                     "linear_attention"))
+                                                     "linear_attention",
+                                                     "linear_attention_prefill"))
     c1 = Cache(model, CacheSpec(layout="linear", batch_size=1, max_len=64))
     model.forward(ids[:, :8], c1, pos[:, :8], np.zeros(1, np.int32))
     _reset_counts()
@@ -3596,10 +3673,12 @@ def phase_serve_spec() -> dict:
         f"({len(jobs) * 128 / wall:.2f} tok/s overall), decode-only iterations {dec_tok} tokens "
         f"in {dec_s:.3f} s ({dec_tok / max(dec_s, 1e-9):.2f} tok/s; each step also takes the "
         f"top-2 gap of its logits)")
-    _require_launches("serve_spec plain", counts, ("int8_matmul", "fused_mlp", "paged_attention"))
+    _require_launches("serve_spec plain", counts, ("int8_matmul", "fused_mlp", "paged_attention",
+                                                   "paged_attention_prefill"))
     del gen
     _free()
-    used = ("int8_matmul", "fused_mlp", "paged_attention", "linear_attention")
+    used = ("int8_matmul", "fused_mlp", "paged_attention", "paged_attention_prefill",
+            "linear_attention", "linear_attention_prefill")
     counts_a, _ = _spec_run("serve_spec (a) 1B draft", target, draft, prompts, plain, gap_rows)
     _require_launches("serve_spec (a) 1B draft", counts_a, used)
     counts_b, rate_b = _spec_run("serve_spec (b) self-draft", target, target, prompts, plain,
@@ -3616,7 +3695,7 @@ def phase_serve_spec() -> dict:
         log(f"serve_spec: launches per {tag} step " + json.dumps(_read_counts()))
     del target, draft
     _free()
-    return {"linear_attention": counts_a["linear_attention"]}
+    return {n: counts_a[n] for n in ("linear_attention", "linear_attention_prefill")}
 
 
 CHECKS = {"int8_matmul": check_int8, "fused_mlp": check_fused_mlp,

@@ -3,8 +3,9 @@
 // paged_attention_quant.cu and linear_attention_quant.cu launch when a
 // (sequence, kv head) has S * G <= DECODE_ROWS query rows (G the GQA group),
 // and ring_attention.cu for a decode token's group of G <= DECODE_ROWS heads
-// over a sliding-window ring. Longer chunks take the tile loop of
-// attention_tiles.cuh.
+// over a sliding-window ring. Longer chunks take the prefill body of
+// attention_prefill.cuh over the bf16 cache and the tile loop of
+// attention_tiles.cuh otherwise.
 //
 // Function: the tile loop's (the JAX kernels _flash_kernel, bf16 or with
 // k_bits / v_bits > 0, and _flash_kernel_merged): scores scale * q.k in

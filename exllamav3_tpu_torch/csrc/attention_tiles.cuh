@@ -1,9 +1,10 @@
-// The flash-attention tile loop shared by the port's ten attention entries:
-// paged_attention.cu, paged_attention_quant.cu, linear_attention.cu,
+// The flash-attention tile loop of paged_attention_quant.cu,
 // linear_attention_quant.cu, latent_attention.cu and
 // latent_attention_quant.cu (absorbed MLA), ring_attention.cu (decode over a
 // sliding-window ring), and attention_stats.cu's three DeepSeek-V4 decode
-// entries, which return the unnormalised online-softmax state.
+// entries, which return the unnormalised online-softmax state; and the key
+// layouts (Rows) and storages (KV) that the decode and prefill bodies of
+// attention_decode.cuh and attention_prefill.cuh share with it.
 //
 // The kernel is templated three times over:
 //   * Geo: the block's geometry. HeadGeo<D> (per-head K/V of D channels, 64
@@ -63,8 +64,10 @@
 // attention_decode.cuh instead, which splits the keys across blocks and
 // merges them, and so does the ring entry for groups of up to 32 heads; the
 // latent entries send decode (S = 1) to latent_decode.cuh, which splits the
-// keys alike; their prefill chunks, the ring's wider groups, the latent
-// entries' verify and prefill and the stats entries take this loop.
+// keys alike. The bf16 entries send their longer chunks to
+// attention_prefill.cuh (128 rows a block on warpgroup MMAs); the quantized
+// entries' prefill chunks, the ring's wider groups, the latent entries'
+// verify and prefill and the stats entries take this loop.
 //
 // Warps: the 4 warps split the R rows into R/16 row groups; with R = 32 two
 // warps (with R = 16 all four) share a row group and split its key subtiles

@@ -14,20 +14,21 @@
 //           window, j > p - window).
 // Dispatch: as paged_attention.cu: S * G <= DECODE_ROWS launches the
 //           split-key decode kernel (ws, counters and split_keys as there), a
-//           longer chunk the tile loop.
+//           longer chunk the prefill body of attention_prefill.cuh.
 // Bound:    as paged_attention.cu: decode reads every visible K/V byte once
 //           (bytes over 3.35 TB/s); a long prefill chunk is bound by its 4*D
 //           operations per visible (query, key) pair at the bf16 rate.
 // Design:   decode: attention_decode.cuh with LinearRows and Bf16KV (a split
 //           covers split_keys slots of the row; the last tile is cut at T).
-//           Prefill: attention_tiles.cuh, with the tile's rows at row*T + key
-//           (LinearRows). The TPU kernel tiles T by the largest of 256..8
-//           that divides it (and the JAX package takes a dense path for
-//           other T); here the tile stays 64 keys wide and the last one is
-//           cut at T, whatever T is: its loads stop at T (never the next
+//           Prefill: attention_prefill.cuh, with the tile's rows at row*T +
+//           key (LinearRows). The TPU kernel tiles T by the largest of
+//           256..8 that divides it (and the JAX package takes a dense path
+//           for other T); here the tile stays 64 keys wide and the last one
+//           is cut at T, whatever T is: its copies stop at T (never the next
 //           sequence's row, never past the allocation), its other rows are
-//           zero and masked.
+//           zero-filled and masked.
 #include "attention_decode.cuh"
+#include "attention_prefill.cuh"
 
 // rows: (B,) int32 cache row of each sequence, or null for row b.
 extern "C" int exl3_linear_attention(const void* q, const void* k, const void* v, const void* rows_,
@@ -47,8 +48,8 @@ extern "C" int exl3_linear_attention(const void* q, const void* k, const void* v
             return launch_decode_bf16(q, rows, kv, qpos, total_lens, sinks, out, ws, counters,
                                       B, S, Hq, Hk, scale, window, softcap, split_keys, T,
                                       st);
-        return launch_attention<HeadGeo<128>>(q, rows, kv, qpos, total_lens, sinks, out, B, S, Hq,
-                                              Hk, scale, window, softcap, st);
+        return launch_prefill<128>(q, rows, kv, qpos, total_lens, sinks, out, B, S, Hq, Hk,
+                                   scale, window, softcap, st);
     }
     if (D == 64) {
         const Bf16KV<64> kv{kb, vb, Hk};
@@ -56,8 +57,8 @@ extern "C" int exl3_linear_attention(const void* q, const void* k, const void* v
             return launch_decode_bf16(q, rows, kv, qpos, total_lens, sinks, out, ws, counters,
                                       B, S, Hq, Hk, scale, window, softcap, split_keys, T,
                                       st);
-        return launch_attention<HeadGeo<64>>(q, rows, kv, qpos, total_lens, sinks, out, B, S, Hq,
-                                             Hk, scale, window, softcap, st);
+        return launch_prefill<64>(q, rows, kv, qpos, total_lens, sinks, out, B, S, Hq, Hk,
+                                  scale, window, softcap, st);
     }
     return (int)cudaErrorInvalidValue;
 }

@@ -29,7 +29,7 @@ SOURCES = ("int8_matmul.cu", "fused_mlp.cu", "paged_attention.cu", "exl3_gemm.cu
            "probe_dma.cu", "probe_trellis.cu", "probe_kv_dequant.cu", "probe_int4.cu")
 HEADERS = ("packed_matmul.cuh", "attention_tiles.cuh", "attention_decode.cuh",
            "async_copy.cuh", "intb_layout.cuh", "int4_layout.cuh", "latent_decode.cuh",
-           "int8_layout.cuh", "int8_staged.cuh")  # included by sources; part of the digest
+           "int8_layout.cuh", "int8_staged.cuh", "attention_prefill.cuh")  # included by sources; part of the digest
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -74,6 +74,9 @@ SIGNATURES = {
     # the split-key decode kernel's launches so far (csrc/attention_decode.cuh),
     # which tell a check the kernel an attention entry chose
     "exl3_decode_launches": [],
+    # the bf16 prefill body's launches so far (csrc/attention_prefill.cuh),
+    # which tell a check that a paged or linear bf16 chunk took it
+    "exl3_prefill_launches": [],
     # the trellis GEMM's kernel launches so far, and the blocks an SM holds of
     # the kernel a product of these widths launches (csrc/exl3_gemm.cu)
     "exl3_gemm_launches": [],

@@ -3,17 +3,22 @@
 block_tables for the paged layout and without for the linear one, with
 `latent` for MLA, and with `return_stats` for DeepSeek-V4).
 
-Ten CUDA entries share one tile loop (csrc/attention_tiles.cuh):
-csrc/paged_attention.cu and csrc/linear_attention.cu serve the bf16 cache,
-csrc/paged_attention_quant.cu and csrc/linear_attention_quant.cu the
-quantized one (packed 2..8-bit words with bf16 group scales, merged-head or
-per-head storage, unpacked in the kernel). These four send decode and
-verify (S * G <= DECODE_ROWS) to csrc/attention_decode.cuh, which splits
-each sequence's keys across blocks (decode_split_keys sizes the splits from
-host widths) and merges the splits in the same launch; its plain split
-arithmetic is paged_attention_split_plain and linear_attention_split_plain
-(bf16), paged_attention_quant_split_plain and
-linear_attention_quant_split_plain (quantized). Each serves decode, prefill
+Ten CUDA entries share the key layouts and storages of
+csrc/attention_tiles.cuh: csrc/paged_attention.cu and
+csrc/linear_attention.cu serve the bf16 cache, csrc/paged_attention_quant.cu
+and csrc/linear_attention_quant.cu the quantized one (packed 2..8-bit words
+with bf16 group scales, merged-head or per-head storage, unpacked in the
+kernel). These four send decode and verify (S * G <= DECODE_ROWS) to
+csrc/attention_decode.cuh, which splits each sequence's keys across blocks
+(decode_split_keys sizes the splits from host widths) and merges the splits
+in the same launch; its plain split arithmetic is paged_attention_split_plain
+and linear_attention_split_plain (bf16), paged_attention_quant_split_plain
+and linear_attention_quant_split_plain (quantized). The two bf16 entries send
+every longer chunk to csrc/attention_prefill.cuh (128 rows a block, q and P
+as hi + lo bf16 pairs into Hopper's warpgroup MMAs; its plain arithmetic:
+paged_attention_prefill_plain and linear_attention_prefill_plain over
+attention_prefill_plain), the quantized ones to the tile loop;
+attention_route names the body a chunk takes. Each serves decode, prefill
 chunks and padded rows: causal by absolute position against total_lens, any
 GQA group, optional sliding window, logit softcap and per-head sinks. A row that
 sees no valid key gives 0. The linear layout holds one row of T slots per
@@ -88,7 +93,8 @@ def paged_attention_kernel(q, k_pages, v_pages, block_tables, q_positions, total
     total_lens (B,) int32; sinks (Hq,) f32 or None; D in {64, 128}, any GQA
     group. With S * G <= DECODE_ROWS the split-key decode kernel runs
     (splits sized by decode_split_keys for this card), a longer chunk the
-    tile loop."""
+    prefill body of csrc/attention_prefill.cuh (attention_route), whose
+    launches paged_attention_prefill also counts."""
     B, S, Hq, D = q.shape
     P, PS, Hk, Dk = k_pages.shape
     ints = (block_tables, q_positions, total_lens)
@@ -121,6 +127,8 @@ def paged_attention_kernel(q, k_pages, v_pages, block_tables, q_positions, total
         float(logit_softcap), split_keys, torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("exl3_paged_attention", err)
     paged_attention_kernel.launches += 1
+    if ws is None:
+        paged_attention_prefill.launches += 1
     return out
 
 
@@ -171,17 +179,143 @@ def _decode_launch(q, Hk: int, width: int, sms: int, rotate: bool) -> tuple:
     """(q as the launch takes it, workspace, counters, split_keys) for the
     four entries over the paged and the linear cache: the decode kernel
     takes q as it is, a workspace of (acc, m, l) for each split of
-    decode_split_keys's size and the arrival counters; the tile loop takes
-    none of them, and q rotated per 32-channel group when `rotate` (the
-    quantized storage: its tile loop scores in the stored, rotated basis)."""
+    decode_split_keys's size and the arrival counters; the prefill body and
+    the tile loop take none of them, the tile loop q rotated per 32-channel
+    group when `rotate` (the quantized storage: its tile loop scores in the
+    stored, rotated basis)."""
     B, S, Hq, D = q.shape
-    if S * (Hq // Hk) > DECODE_ROWS:
+    if attention_route(S, Hq, Hk) != "decode":
         return rotate_groups(q) if rotate else q, None, None, 0
     split_keys = decode_split_keys(width, B, Hk, sms)
     splits = -(-width // split_keys)
     ws = torch.empty(B * Hk * splits * S * (Hq // Hk) * (D + 2), dtype=torch.float32,
                      device=q.device)
     return q, ws, arrival_counters(q.device, B * Hk), split_keys
+
+
+# The bf16 prefill body (csrc/attention_prefill.cuh) serves every longer chunk
+# of the bf16 entries over the paged and the linear cache: a block holds
+# PREFILL_ROWS (token, head-in-group) rows and walks PREFILL_TILE-key tiles.
+# The two widths are the header's own.
+PREFILL_ROWS, PREFILL_TILE = header_constants("attention_prefill.cuh", "PF_ROWS", "PF_TK")
+
+
+def attention_route(S: int, Hq: int, Hk: int, quantized: bool = False) -> str:
+    """The body an entry over the paged or the linear cache launches for a
+    chunk of S tokens: "decode" (csrc/attention_decode.cuh) while a (sequence,
+    kv head) has at most DECODE_ROWS query rows (S * G), else "prefill"
+    (csrc/attention_prefill.cuh) over the bf16 cache and "tiles" (the tile
+    loop of csrc/attention_tiles.cuh) over the quantized one. The C entries
+    choose by the same rule."""
+    if S * (Hq // Hk) <= DECODE_ROWS:
+        return "decode"
+    return "tiles" if quantized else "prefill"
+
+
+class LaunchCount:
+    """The launches of one body of an entry whose wrapper counts all of them
+    (the prefill body's of paged_attention_kernel and linear_attention_kernel)."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+paged_attention_prefill = LaunchCount()
+linear_attention_prefill = LaunchCount()
+
+
+def attention_prefill_plain(q, k, v, visible, scale: float = 1.0, logit_softcap: float = 0.0,
+                            sinks=None) -> torch.Tensor:
+    """(B, S, Hq, D) f32: the prefill body's arithmetic in plain torch. q
+    (B, S, Hq, D) f32; k, v (B, T, Hk, D), each sequence's keys in order
+    (bf16 values); visible (B, S, T) bool. As the kernel, the walk goes by q
+    blocks of PREFILL_ROWS (token, head-in-group) rows (min(G, PREFILL_ROWS)
+    heads, PREFILL_ROWS // that tokens; here every head of a token at once,
+    which computes the same rows) and, in each, by PREFILL_TILE-key tiles
+    from the first key a row of the block sees to the last. q and P enter the
+    products as hi + lo bf16 pairs; scores are scale * (q_hi.k + q_lo.k),
+    then the softcap, then the mask; the online softmax keeps its running max
+    m, sum l (of P in f32) and output in f32, m starting at the head's sink
+    (l at 1) where there are sinks; the output is divided by max(l, 1e-30),
+    so a row that sees no key gives 0."""
+    B, S, Hq, D = q.shape
+    T, Hk = k.shape[1], k.shape[2]
+    G = Hq // Hk
+    QT = PREFILL_ROWS // min(G, PREFILL_ROWS)  # tokens a block
+    qf = q.float()
+    q_hi = qf.to(torch.bfloat16).float()
+    q_lo = (qf - q_hi).to(torch.bfloat16).float()
+    # (B, Hk, S * G, D): row (s, g) of kv head hk is q head hk * G + g at token s
+    q_hi, q_lo = (t.reshape(B, S, Hk, G, D).permute(0, 2, 1, 3, 4) for t in (q_hi, q_lo))
+    kf = k.float().permute(0, 2, 1, 3)  # (B, Hk, T, D)
+    vf = v.float().permute(0, 2, 1, 3)
+    if sinks is not None:
+        m0 = sinks.float().reshape(1, Hk, 1, G).to(q.device)
+    out = torch.zeros(B, Hk, S, G, D, dtype=torch.float32, device=q.device)
+    for s0 in range(0, S, QT):
+        s1 = min(S, s0 + QT)
+        n = (s1 - s0) * G
+        vis = visible[:, s0:s1]  # (B, nt, T)
+        seen = vis.any(dim=1).any(dim=0).nonzero()
+        if seen.numel() == 0:
+            continue
+        lo, hi = int(seen.min()), int(seen.max())
+        qh = q_hi[:, :, s0:s1].reshape(B, Hk, n, D)
+        ql = q_lo[:, :, s0:s1].reshape(B, Hk, n, D)
+        # (B, 1, nt * G, T): the mask of row (s, g) is token s's
+        mask = vis[:, None, :, None, :].expand(B, 1, s1 - s0, G, T).reshape(B, 1, n, T)
+        if sinks is None:
+            m = torch.full((B, Hk, n), -torch.inf, device=q.device)
+            l = torch.zeros((B, Hk, n), device=q.device)
+        else:
+            m = m0.expand(B, Hk, s1 - s0, G).reshape(B, Hk, n).clone()
+            l = torch.ones((B, Hk, n), device=q.device)
+        o = torch.zeros((B, Hk, n, D), device=q.device)
+        for key0 in range(lo // PREFILL_TILE * PREFILL_TILE, hi + 1, PREFILL_TILE):
+            kt = kf[:, :, key0:key0 + PREFILL_TILE]
+            vt = vf[:, :, key0:key0 + PREFILL_TILE]
+            sc = (qh @ kt.transpose(-1, -2) + ql @ kt.transpose(-1, -2)) * scale
+            if logit_softcap > 0.0:
+                sc = torch.tanh(sc / logit_softcap) * logit_softcap
+            sc = sc.masked_fill(~mask[..., key0:key0 + PREFILL_TILE], -torch.inf)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            alpha = torch.where(m == -torch.inf, torch.zeros_like(m), torch.exp(m - m_new))
+            base = torch.where(m_new == -torch.inf, torch.zeros_like(m_new), m_new)
+            p = torch.exp(sc - base[..., None])
+            p_hi = p.to(torch.bfloat16).float()
+            p_lo = (p - p_hi).to(torch.bfloat16).float()
+            l = l * alpha + p.sum(dim=-1)
+            o = o * alpha[..., None] + p_hi @ vt + p_lo @ vt
+            m = m_new
+        o = o / torch.clamp(l, min=1e-30)[..., None]
+        out[:, :, s0:s1] = o.reshape(B, Hk, s1 - s0, G, D)
+    return out.permute(0, 2, 1, 3, 4).reshape(B, S, Hq, D)
+
+
+def paged_attention_prefill_plain(q, k_pages, v_pages, block_tables, q_positions, total_lens,
+                                  scale: float = 1.0, sliding_window: int = 0,
+                                  logit_softcap: float = 0.0, sinks=None) -> torch.Tensor:
+    """(B, S, Hq, D) f32 over the paged bf16 cache by the prefill body's
+    arithmetic (attention_prefill_plain over each sequence's pages in table
+    order); pages out of range hold no visible key."""
+    B = q.shape[0]
+    ok = (block_tables >= 0) & (block_tables < k_pages.shape[0])
+    bt = torch.where(ok, block_tables, torch.zeros_like(block_tables)).long()
+    T = bt.shape[1] * PAGE_SIZE
+    k, v = (t[bt].reshape(B, T, *t.shape[2:]) for t in (k_pages, v_pages))
+    vis = (_causal_visible(q_positions, total_lens, T, q.device, sliding_window)
+           & ok.repeat_interleave(PAGE_SIZE, dim=1)[:, None, :])
+    return attention_prefill_plain(q, k, v, vis, scale, logit_softcap, sinks)
+
+
+def linear_attention_prefill_plain(q, k, v, q_positions, total_lens, rows=None,
+                                   scale: float = 1.0, sliding_window: int = 0,
+                                   logit_softcap: float = 0.0, sinks=None) -> torch.Tensor:
+    """(B, S, Hq, D) f32 over the linear bf16 cache k, v (N, T, Hk, D) (row
+    b, or rows[b]) by the prefill body's arithmetic."""
+    pick = slice(0, q.shape[0]) if rows is None else rows.long()
+    vis = _causal_visible(q_positions, total_lens, k.shape[1], q.device, sliding_window)
+    return attention_prefill_plain(q, k[pick], v[pick], vis, scale, logit_softcap, sinks)
 
 
 def _ptr(t):
@@ -427,7 +561,8 @@ def linear_attention_kernel(q, k, v, q_positions, total_lens, rows=None, scale: 
     bf16, any T; rows (B,) int32 or None (rows 0..B-1); q_positions (B, S)
     and total_lens (B,) int32; sinks (Hq,) f32 or None; D in {64, 128}, any
     GQA group. Decode and verify (S * G <= DECODE_ROWS) run the split-key
-    kernel, a longer chunk the tile loop, as paged_attention_kernel."""
+    kernel, a longer chunk the prefill body (counted by
+    linear_attention_prefill too), as paged_attention_kernel."""
     B, S, Hq, D = q.shape
     N, T, Hk, Dk = k.shape
     ints = (q_positions, total_lens)
@@ -457,6 +592,8 @@ def linear_attention_kernel(q, k, v, q_positions, total_lens, rows=None, scale: 
         float(logit_softcap), split_keys, torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("exl3_linear_attention", err)
     linear_attention_kernel.launches += 1
+    if ws is None:
+        linear_attention_prefill.launches += 1
     return out
 
 

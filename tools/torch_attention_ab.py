@@ -1,5 +1,5 @@
 """Compare two source trees of the PyTorch port, in turns, on one card, by one
-of fifteen runs (`--run`):
+of eighteen runs (`--run`):
 
 - `paged_bf16` (the default): the bf16 paged attention kernel (row 3) at
   decode, batch 8, q positions 299-2047 (contexts 300 to 2048), 32 q / 8 kv
@@ -47,7 +47,17 @@ of fifteen runs (`--run`):
 - `fused_mlp`: the fused MLP, row 2, at Llama-3.1-8B (silu, h 4096, i 14336),
   Gemma-3-27B (gelu_pytorch_tanh, 5376, 21504) and DeepSeek-V4's shared expert
   (silu clamped at 10, 7168, 2048), m = 1, 8 and 16, over inputs rotated past
-  L2, one after the other in each run.
+  L2, one after the other in each run;
+- `paged_prefill`: the bf16 paged attention (row 3) on chunks of more than 32
+  rows a kv head, one after the other in each run: prefill S = 2048 on 512
+  cached, 32 q heads of 128 at groups 4 and 8 (chip_smoke.py's prefill
+  shapes), and the verify chunk of 40 rows (S = 5, batch 8, contexts
+  300-2048, group 8), L2-warm as chip_smoke.py times them;
+- `linear_prefill`: the bf16 linear attention (row 4) at prefill S = 2048 on
+  512 cached (T = 2560), groups 4 and 8;
+- `linear_decode`: `chip_smoke.py --phases build,linear_decode` in the tree:
+  the int8 32-layer model's 2048-token prefill over a linear cache, tok/s
+  (best of 3), and its decode-only tok/s at batch 8.
 
     python3 tools/torch_attention_ab.py --trees build/parent,.   # parent, change
     python3 tools/torch_attention_ab.py --run serve_capacity --trees A,B --rounds 3
@@ -61,6 +71,9 @@ of fifteen runs (`--run`):
     python3 tools/torch_attention_ab.py --run serve_mla --trees build/parent,. --smoke chip_smoke.py --rounds 1
     python3 tools/torch_attention_ab.py --run int8 --trees build/parent,.
     python3 tools/torch_attention_ab.py --run fused_mlp --trees build/parent,.
+    python3 tools/torch_attention_ab.py --run paged_prefill --trees build/parent,.
+    python3 tools/torch_attention_ab.py --run linear_prefill --trees build/parent,.
+    python3 tools/torch_attention_ab.py --run linear_decode --trees build/parent,. --rounds 1
 
 Each tree runs in a process of its own (its own checkout of
 exllamav3_tpu_torch, its own kernel build and checkpoint under <tree>/build/),
@@ -68,10 +81,11 @@ in the order A, B, B, A for every round. A kernel run queues 200 launches
 behind a device spin, five times, over one input set (the trees are compared
 with each other, not with a bound), and gives the median device ms a call
 (CUDA events) and host µs a call (the host clock over the same 200
-enqueues; `intb`, `int4`, `latent`, `int8` and `fused_mlp` give both for each
-route or shape); `ring`, `exl3_gemm`, `intb`, `int4`, `latent`, `int8` and
-`fused_mlp` cycle through input sets that
-together exceed twice the L2 cache. Each run's numbers are printed as they come; a run that fails is
+enqueues; `intb`, `int4`, `latent`, `int8`, `fused_mlp`, `paged_prefill` and
+`linear_prefill` give both for each route or shape); `ring`, `exl3_gemm`,
+`intb`, `int4`, `latent`, `int8` and `fused_mlp` cycle through input sets that
+together exceed twice the L2 cache. A serve run also reports the first
+request's TTFT and prefill seconds. Each run's numbers are printed as they come; a run that fails is
 printed with its exit code and left out of the medians. The last line is
 one JSON object with each tree's medians and B / A. A serve run drives each
 tree's own chip_smoke.py, or with `--smoke PATH` that one script in both trees
@@ -208,6 +222,36 @@ elif sys.argv[1] == "fused_mlp":
                 m * h * 2 + 3 * h * inter + 2 * inter * 4)
             fns[f"{name}_m{m}"] = lambda nxt=nxt, act=act, clamp=clamp: fused_mlp_int8_kernel(
                 *nxt(), act, clamp)
+elif sys.argv[1] in ("paged_prefill", "linear_prefill"):
+    fns = {}
+    S, pre = 2048, 512
+    qpos = torch.arange(pre, pre + S, dtype=torch.int32, device=dev)[None]
+    tot = torch.tensor([pre + S], dtype=torch.int32, device=dev)
+    for hk in (8, 4):
+        qq = torch.randn((1, S, Hq, D), generator=g, device=dev)
+        if sys.argv[1] == "paged_prefill":
+            pages = (pre + S) // PAGE_SIZE + 1
+            tbl = torch.as_tensor(rng.permutation(np.arange(pages))[None].astype(np.int32),
+                                  device=dev)
+            kk, vv = (torch.randn((pages, PAGE_SIZE, hk, D), generator=g, device=dev)
+                      .to(torch.bfloat16) for _ in range(2))
+            fns[f"prefill_g{Hq // hk}"] = (
+                lambda qq=qq, kk=kk, vv=vv, tbl=tbl: fa.paged_attention_kernel(
+                    qq, kk, vv, tbl, qpos, tot, scale=D ** -0.5))
+        else:
+            kk, vv = (torch.randn((1, pre + S, hk, D), generator=g, device=dev)
+                      .to(torch.bfloat16) for _ in range(2))
+            fns[f"prefill_g{Hq // hk}"] = (
+                lambda qq=qq, kk=kk, vv=vv: fa.linear_attention_kernel(
+                    qq, kk, vv, qpos, tot, scale=D ** -0.5))
+    if sys.argv[1] == "paged_prefill":  # verify S = 5 at group 8: 40 rows a kv head
+        Sv, hk = 5, 4
+        qv = torch.randn((B, Sv, Hq, D), generator=g, device=dev)
+        kv4, vv4 = (torch.randn((P, PAGE_SIZE, hk, D), generator=g, device=dev)
+                    .to(torch.bfloat16) for _ in range(2))
+        qpv = torch.as_tensor(total[:, None] - Sv + np.arange(Sv, dtype=np.int32), device=dev)
+        fns["verify_s5_g8"] = lambda: fa.paged_attention_kernel(qv, kv4, vv4, bt, qpv, tl,
+                                                                scale=D ** -0.5)
 else:
     from exllamav3_tpu_torch.ops.kv_quant import quantize_kv_stored
     state = {}
@@ -237,7 +281,8 @@ def timed(fn):
     return statistics.median(ms), statistics.median(host_us)
 
 
-if sys.argv[1] in ("intb", "int4", "latent", "int8", "fused_mlp"):
+if sys.argv[1] in ("intb", "int4", "latent", "int8", "fused_mlp", "paged_prefill",
+                   "linear_prefill"):
     res = {}
     for route, f in fns.items():
         res[f"ms_{route}"], res[f"host_us_{route}"] = timed(f)
@@ -251,9 +296,14 @@ SERVE = (r"^{}: 8 requests finished.*decode-only iterations \d+ tokens in [\d.]+
 PROFILE = re.compile(r"^profile: (\d+) decode steps \(batch 8\), window [\d.]+ ms, device busy "
                      r"([\d.]+) ms \([\d.]+ of the window, idle ([\d.]+)\), ([\d.]+) device ops "
                      r"per step", re.M)
+FIRST = (r"^{}: request prompt=\d+ cached_tokens=\d+ ttft_s=([\d.]+) "
+         r"prefill_s=([\d.]+)")  # the first request's line, formatted with the phase's tag
+LINEAR_PREFILL = re.compile(r"^linear_decode int8: prefill \d+ tokens in [\d.]+ ms \(best of 3\): "
+                            r"([\d.]+) tok/s", re.M)
+LINEAR_DECODE = re.compile(r"^linear_decode int8: decode batch 8 after .*?: ([\d.]+) tok/s", re.M)
 RUNS = ("paged_bf16", "paged_quant", "serve_capacity", "serve", "ring", "exl3_gemm",
         "serve_gemma", "intb", "serve_packed_int6", "int4", "latent", "serve_mla", "serve_packed",
-        "int8", "fused_mlp")
+        "int8", "fused_mlp", "paged_prefill", "linear_prefill", "linear_decode")
 
 
 # a serve run's log tag, where it is not the run's name
@@ -268,7 +318,7 @@ def run(tree: str, what: str, smoke: str | None = None) -> tuple[dict | None, st
     """(the run's numbers, or None if it failed; what to print about it)."""
     tree = os.path.abspath(tree)
     env = dict(os.environ, PYTHONPATH=tree)
-    serve = what.startswith("serve")
+    serve = what.startswith("serve") or what == "linear_decode"
     tag = TAGS.get(what, what)
     if serve and smoke:
         cmd = [sys.executable, "-c", RUN_SCRIPT, smoke, "--phases", f"build,{what}"]
@@ -282,10 +332,15 @@ def run(tree: str, what: str, smoke: str | None = None) -> tuple[dict | None, st
         return None, f"failed (rc {out.returncode}): {' '.join(tail)}"
     if not serve:
         res = json.loads(out.stdout.strip().splitlines()[-1])
+    elif what == "linear_decode":
+        res = {"prefill_tok_s": float(LINEAR_PREFILL.search(out.stdout).group(1)),
+               "decode_b8_tok_s": float(LINEAR_DECODE.search(out.stdout).group(1))}
     else:
         steps, busy, idle, ops = PROFILE.search(out.stdout).groups()
+        ttft, prefill = re.search(FIRST.format(tag), out.stdout, re.M).groups()
         res = {"tok_s": float(re.search(SERVE.format(tag), out.stdout, re.M).group(1)),
-               "busy_ms": float(busy) / int(steps), "idle": float(idle), "ops": float(ops)}
+               "busy_ms": float(busy) / int(steps), "idle": float(idle), "ops": float(ops),
+               "first_ttft_s": float(ttft), "first_prefill_s": float(prefill)}
     return res, " ".join(f"{k}={v:.4f}" for k, v in res.items())
 
 
