@@ -40,10 +40,15 @@ Phases:
             without the compander; verify S = 5, seven sequences at 300
             beside one at 8192, a block table four times wider than the
             longest sequence; decode and verify take the split-key kernel of
-            csrc/attention_decode.cuh, prefill the tile loop; the decode rows
-            are timed over inputs rotated past the 50 MB L2, as is their SDPA
-            yardstick, with the L2-warm times beside them and a sweep of the
-            split size), int4_matmul, int4_matmul_a8, intb_matmul
+            csrc/attention_decode.cuh, chunks of more than 32 rows a kv head
+            the prefill body of csrc/attention_prefill.cuh over the packed
+            words: prefill at (4, 4) and (5, 3) timed, untimed at (2, 2),
+            (8, 8), (3, 7), the compander, window + softcap + sinks with a
+            padded tail, groups 5 and 8, 64-wide heads, and the 40-row verify
+            chunk; the library's counts must show each case on its body; the
+            decode rows are timed over inputs rotated past the 50 MB L2, as
+            is their SDPA yardstick, with the L2-warm times beside them),
+            int4_matmul, int4_matmul_a8, intb_matmul
             and intb_matmul_a8 (the packed-integer linears: also m = 128 and
             the Llama-3.1-70B shapes at m = 8; int-B at B = 3, 4, 5, 6, also
             qkv at m = 13 (int4 a8 too), each case held to the kernels the
@@ -61,8 +66,10 @@ Phases:
             paged_attention) and
             linear_attention_quant ((4, 4) merged and (5, 3) per-head storage
             at T = 2056, compander, features, prefill; batch 1 at 2048 and
-            8192, (2, 2) and (8, 8), 64-wide heads; timed as
-            paged_attention_quant), latent_attention and
+            8192, (2, 2) and (8, 8), 64-wide heads; the prefill body untimed
+            over T = 2052 at (2, 2), (8, 8), (3, 7), the compander, window +
+            softcap + sinks, groups 5 and 8 and 64-wide heads; timed and
+            routed as paged_attention_quant), latent_attention and
             latent_attention_quant (absorbed MLA over the latent cache at
             DeepSeek-V2-Lite's 16 heads and DeepSeek-V2/V3's 128: decode,
             verify, prefill, paged and linear at T = 2056 and 2052; (4),
@@ -306,6 +313,16 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                                       "exllamav3_tpu/ops/flash_attention.py:419"),
     "linear_attention_quant_per_head": ("exllamav3_tpu_torch/csrc/linear_attention_quant.cu",
                                         "exllamav3_tpu/ops/flash_attention.py:253"),
+    # the prefill forms of rows 7 and 5 (chunks of more than 32 rows a kv
+    # head over the quantized cache), launched by the four entries above
+    "paged_attention_quant_prefill_merged": ("exllamav3_tpu_torch/csrc/attention_prefill.cuh",
+                                             "exllamav3_tpu/ops/flash_attention.py:419"),
+    "paged_attention_quant_prefill_per_head": ("exllamav3_tpu_torch/csrc/attention_prefill.cuh",
+                                               "exllamav3_tpu/ops/flash_attention.py:253"),
+    "linear_attention_quant_prefill_merged": ("exllamav3_tpu_torch/csrc/attention_prefill.cuh",
+                                              "exllamav3_tpu/ops/flash_attention.py:419"),
+    "linear_attention_quant_prefill_per_head": ("exllamav3_tpu_torch/csrc/attention_prefill.cuh",
+                                                "exllamav3_tpu/ops/flash_attention.py:253"),
     "latent_attention": ("exllamav3_tpu_torch/csrc/latent_attention.cu",
                          "exllamav3_tpu/ops/flash_attention.py:253"),
     "latent_attention_quant": ("exllamav3_tpu_torch/csrc/latent_attention_quant.cu",
@@ -574,13 +591,15 @@ def _attn_work(qpos, total, Hq, Hk, D, window):
     return nbytes, 4.0 * pairs * Hq * D
 
 
-def _route(S, Hq, Hk, storage: str = "bf16") -> str:
+def _route(S, Hq, Hk, ring: bool = False) -> str:
     """The body an entry launches for these widths: the decode kernel, or
-    past DECODE_ROWS rows a kv head the bf16 prefill body (storage "bf16") or
-    the tile loop ("quant"; "ring" for the ring's wide groups)."""
+    past DECODE_ROWS rows a kv head the prefill body (the paged and the
+    linear cache, bf16 or quantized) or the tile loop (the ring's wide
+    groups)."""
     from exllamav3_tpu_torch.ops.flash_attention import attention_route
-    route = attention_route(S, Hq, Hk, quantized=storage != "bf16")
-    return {"decode": "decode kernel", "prefill": "prefill body", "tiles": "tile loop"}[route]
+    if attention_route(S, Hq, Hk) == "decode":
+        return "decode kernel"
+    return "tile loop" if ring else "prefill body"
 
 
 def _ms(ms, warm) -> str:
@@ -592,7 +611,7 @@ def _ms(ms, warm) -> str:
 
 
 def _body_launches(fn) -> tuple[int, int]:
-    """Launches of the split-key decode kernel and of the bf16 prefill body
+    """Launches of the split-key decode kernel and of the prefill body
     that one call of fn() made, as the kernel library counts them where it
     launches each (the tile loop is not counted). Needs no profiler, which a
     host may not allow."""
@@ -857,7 +876,7 @@ def check_ring_attention(table, dev):
         if not rel <= TOL_ATTN:
             raise AssertionError(f"ring_attention {name}: rel err {rel} > {TOL_ATTN}")
         # the library's count shows which kernel the group took
-        route = _route(1, Hq, Hk, "ring")
+        route = _route(1, Hq, Hk, ring=True)
         n = _check_route(f"ring_attention {name}", Hq // Hk, route,
                          lambda: ring_attention_kernel(q, k, v, pos, sl, qp, **args))
         kern = lambda kv: ring_attention_kernel(q, kv["k"], kv["v"], pos, sl, qp, **args)
@@ -1522,7 +1541,6 @@ def check_attention_quant(table, dev):
     from exllamav3_tpu_torch.ops.kv_quant import (dequantize_kv_stored, merged_layout,
                                                    quantize_kv_stored)
 
-    D = 128
     rng = np.random.default_rng(8)
     ctx = np.linspace(300, 2048, 8).astype(np.int32)
     decode = (ctx[:, None] - 1, ctx)
@@ -1537,8 +1555,32 @@ def check_attention_quant(table, dev):
         for a in (0.0, 0.65):
             cases.append((f"decode B=8 ctx 300-2048 bits={bits} compand_a={a}", *decode, bits, a,
                           {}, a == 0.0 and bits in ((4, 4), (5, 3))))
+    # the prefill body: timed at (4, 4) and (5, 3), the main shape of rows 7p
+    # and 5p; untimed at the other widths, the compander, the features with a
+    # padded tail, groups 5 and 8, 64-wide heads (Llama-3.2-1B) and the verify
+    # chunk of 40 rows (S = 5 at group 8)
     for bits in [(4, 4), (5, 3)]:
-        cases.append((f"prefill S=2048 on 512 cached bits={bits}", *prefill, bits, 0.0, {}, False))
+        cases.append((f"prefill S=2048 on 512 cached bits={bits}", *prefill, bits, 0.0, {}, True))
+    short = ((400 + np.arange(100, dtype=np.int32))[None], np.array([500], np.int32))
+    for bits in [(2, 2), (8, 8), (3, 7)]:
+        cases.append((f"prefill S=100 on 400 cached bits={bits}", *short, bits, 0.0,
+                      {"untimed": True}, False))
+    cases.append(("prefill S=100 on 400 cached bits=(4, 4) compand_a=0.65", *short, (4, 4), 0.65,
+                  {"untimed": True}, False))
+    cases.append(("prefill S=256 + window 128 + softcap + sinks, padded tail, bits=(5, 3)",
+                  np.concatenate([700 + np.arange(200), np.full(56, 4096)]).astype(np.int32)[None],
+                  np.array([900], np.int32), (5, 3), 0.0,
+                  {"sliding_window": 128, "logit_softcap": 20.0, "sinks": True, "untimed": True},
+                  False))
+    for hq, hk in ((40, 8), (32, 4)):
+        cases.append((f"prefill S=100 on 400 cached bits=(4, 4), group {hq // hk}", *short,
+                      (4, 4), 0.0, {"q_heads": hq, "kv_heads": hk, "untimed": True}, False))
+    cases.append(("Llama-3.2-1B heads (D=64) prefill S=300 on 100 cached bits=(5, 3)",
+                  (100 + np.arange(300, dtype=np.int32))[None], np.array([400], np.int32), (5, 3),
+                  0.0, {"head_dim": 64, "untimed": True}, False))
+    cases.append(("verify S=5 B=8, group 8, bits=(4, 4)",
+                  ctx[:, None] - 5 + np.arange(5, dtype=np.int32), ctx, (4, 4), 0.0,
+                  {"kv_heads": 4, "untimed": True}, False))
     cases.append(("decode + sliding window 512 bits=(4, 4)", *decode, (4, 4), 0.0,
                   {"sliding_window": 512}, False))
     cases.append(("decode + softcap 30 bits=(4, 4)", *decode, (4, 4), 0.0,
@@ -1557,6 +1599,8 @@ def check_attention_quant(table, dev):
     for name, qpos, total, (kb, vb), a, kw, main in cases:
         B, S = qpos.shape
         Hq, Hk = kw.pop("q_heads", 32), kw.pop("kv_heads", 8)
+        D = kw.pop("head_dim", 128)
+        untimed = kw.pop("untimed", False)
         mp = kw.pop("table_pages", int(math.ceil(total.max() / PAGE_SIZE)) + 1)
         P = B * mp + 1
         perm = rng.permutation(np.arange(1, P))[: B * mp].reshape(B, mp).astype(np.int32)
@@ -1583,14 +1627,21 @@ def check_attention_quant(table, dev):
         err = float((got - ref).abs().max())
         rel = err / float(ref.abs().max())
         storage = "merged" if merged else "per_head"
-        row = f"paged_attention_quant_{storage}"
         if not rel <= TOL_ATTN_Q:
             raise AssertionError(f"paged_attention_quant {name}: rel err {rel} > {TOL_ATTN_Q}")
-        timed = main or name.startswith("prefill") or kw.get("timed")
+        # the library's counts show which body the rows took
+        route = _route(S, Hq, Hk)
+        n = _check_route(f"paged_attention_quant {name}", S * Hq // Hk, route,
+                         lambda: paged_attention_quant_kernel(q, state, bt, qp, tl, kb, vb, a,
+                                                              **args))
+        prefill_row = route == "prefill body"
+        row = f"paged_attention_quant_{'prefill_' if prefill_row else ''}{storage}"
+        timed = main or (prefill_row and not untimed) or kw.get("timed")
         if not timed:
-            log(f"paged_attention_quant {name} ({storage} storage): max_abs_err={err:.3e} "
-                f"rel={rel:.2e}")
+            log(f"paged_attention_quant {name} ({storage} storage, D={D}, {route}, {n[0]} "
+                f"decode-kernel, {n[1]} prefill-body launch): max_abs_err={err:.3e} rel={rel:.2e}")
             table.add(row, err, None, None, None, None, "", main=False)
+            del q, state, ref, got
             continue
         kern = lambda st: paged_attention_quant_kernel(q, st, bt, qp, tl, kb, vb, a, **args)
         ms, warm = _cold_warm(kern, state)
@@ -1609,7 +1660,7 @@ def check_attention_quant(table, dev):
             qt, kv["k"], kv["v"], attn_mask=mask[:, None], scale=D ** -0.5, enable_gqa=True),
             {"k": kc, "v": vc})
         bnd = bound_ms(*_quant_attn_work(qpos, total, Hq, Hk, D, args["sliding_window"], kb, vb))
-        log(f"paged_attention_quant {name} ({storage} storage): max_abs_err={err:.3e} "
+        log(f"paged_attention_quant {name} ({storage} storage, {route}): max_abs_err={err:.3e} "
             f"rel={rel:.2e} kernel_ms={ms:.4f} (L2-warm {warm:.4f}) plain_ms={plain:.4f} "
             f"library_ms(sdpa on dequantized bf16)={lib:.4f} (L2-warm {lib_warm:.4f}) "
             f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
@@ -1789,7 +1840,26 @@ def check_linear_attention_quant(table, dev):
                _CTX_T[:, None] - 5 + np.arange(5, dtype=np.int32)[None], _CTX_T, None, (5, 3),
                0.0, {}, False)]
     cases += [(f"prefill S=2048 on 512 cached bits={bits}", 1, 2560, *_PREFILL, None, bits, 0.0,
-               {}, False) for bits in ((4, 4), (5, 3))]
+               {}, True) for bits in ((4, 4), (5, 3))]
+    # the prefill body, untimed, over T = 2052 (its last tile 4 keys wide): the
+    # other widths, the compander, the features with a padded tail, groups 5
+    # and 8, 64-wide heads
+    tail = ((1752 + np.arange(300, dtype=np.int32))[None], np.array([2052], np.int32))
+    cases += [(f"prefill S=300 on 1752 cached, T=2052 bits={bits}", 1, 2052, *tail, None, bits,
+               0.0, {"untimed": True}, False) for bits in ((2, 2), (8, 8), (3, 7))]
+    cases.append(("prefill S=300 on 1752 cached, T=2052 bits=(4, 4) compand_a=0.65", 1, 2052,
+                  *tail, None, (4, 4), 0.65, {"untimed": True}, False))
+    cases.append(("prefill S=256 + window 128 + softcap + sinks, padded tail, T=2052, "
+                  "bits=(5, 3)", 1, 2052,
+                  np.concatenate([1800 + np.arange(200), np.full(56, 4096)]).astype(np.int32)[None],
+                  np.array([2000], np.int32), None, (5, 3), 0.0,
+                  {"sliding_window": 128, "logit_softcap": 20.0, "sinks": True, "untimed": True},
+                  False))
+    cases += [(f"prefill S=300 on 1752 cached, T=2052 bits=(4, 4), group {hq // hk}", 1, 2052,
+               *tail, None, (4, 4), 0.0, {"q_heads": hq, "kv_heads": hk, "untimed": True}, False)
+              for hq, hk in ((40, 8), (32, 4))]
+    cases.append(("Llama-3.2-1B heads (D=64) prefill S=300 on 1752 cached, T=2052 bits=(5, 3)",
+                  1, 2052, *tail, None, (5, 3), 0.0, {"head_dim": 64, "untimed": True}, False))
     # GQA groups 7 and 5 over a cache of T = 2052 slots (no multiple of 8)
     ctx52 = np.minimum(_CTX_T, 2052)
     cases += [(f"decode B=8 ctx 300-2052 T=2052 bits={bits}, group {hq // hk}", 8, 2052,
@@ -1798,6 +1868,7 @@ def check_linear_attention_quant(table, dev):
     for name, N, T_, qpos, total, rows, (kb, vb), a, kw, main in cases:
         B, S = qpos.shape
         Hq, Hk, D = kw.pop("q_heads", 32), kw.pop("kv_heads", 8), kw.pop("head_dim", 128)
+        untimed = kw.pop("untimed", False)
         g = torch.Generator(device=dev).manual_seed(16)
         q = torch.randn((B, S, Hq, D), generator=g, device=dev)
         merged = merged_layout(kb, vb)
@@ -1820,13 +1891,19 @@ def check_linear_attention_quant(table, dev):
         err = float((got - ref).abs().max())
         rel = err / float(ref.abs().max())
         storage = "merged" if merged else "per_head"
-        row = f"linear_attention_quant_{storage}"
         if not rel <= TOL_ATTN_Q:
             raise AssertionError(f"linear_attention_quant {name}: rel err {rel} > {TOL_ATTN_Q}")
-        timed = main or name.startswith("prefill") or kw.get("timed")
+        # the library's counts show which body the rows took
+        route = _route(S, Hq, Hk)
+        n = _check_route(f"linear_attention_quant {name}", S * Hq // Hk, route,
+                         lambda: linear_attention_quant_kernel(q, state, qp, tl, kb, vb, a,
+                                                               **args))
+        prefill_row = route == "prefill body"
+        row = f"linear_attention_quant_{'prefill_' if prefill_row else ''}{storage}"
+        timed = main or (prefill_row and not untimed) or kw.get("timed")
         if not timed:
-            log(f"linear_attention_quant {name} ({storage} storage): max_abs_err={err:.3e} "
-                f"rel={rel:.2e}")
+            log(f"linear_attention_quant {name} ({storage} storage, D={D}, {route}, {n[0]} "
+                f"decode-kernel, {n[1]} prefill-body launch): max_abs_err={err:.3e} rel={rel:.2e}")
             table.add(row, err, None, None, None, None, "", main=False)
             del q, state, ref, got
             continue
@@ -1842,7 +1919,7 @@ def check_linear_attention_quant(table, dev):
             make=lambda i: sdpa if i == 0 else _sdpa_linear(q, kd, vd, qp, tl, rw, D),
             nbytes=2 * q.shape[0] * int(tl.max()) * Hk * D * 2)
         bnd = bound_ms(*_quant_attn_work(qpos, total, Hq, Hk, D, args["sliding_window"], kb, vb))
-        log(f"linear_attention_quant {name} ({storage} storage): max_abs_err={err:.3e} "
+        log(f"linear_attention_quant {name} ({storage} storage, {route}): max_abs_err={err:.3e} "
             f"rel={rel:.2e} kernel_ms={ms:.4f} (L2-warm {warm:.4f}) plain_ms={plain:.4f} "
             f"library_ms(sdpa on the dequantized bf16 live slice)={lib:.4f} (L2-warm "
             f"{lib_warm:.4f}) bound_ms={bnd[0]:.4f} ({bnd[1]})")
@@ -2501,9 +2578,11 @@ def _wrappers() -> dict:
                                                           linear_attention_kernel,
                                                           linear_attention_prefill,
                                                           linear_attention_quant_kernel,
+                                                          linear_attention_quant_prefill,
                                                           paged_attention_kernel,
                                                           paged_attention_prefill,
                                                           paged_attention_quant_kernel,
+                                                          paged_attention_quant_prefill,
                                                           pool_attention_stats_kernel,
                                                           ring_attention_kernel,
                                                           ring_attention_stats_kernel,
@@ -2521,9 +2600,11 @@ def _wrappers() -> dict:
             **{name: getattr(qm, name + "_kernel") for name in PACKED},
             "moe_gemm": selected_expert_mlp_kernel,
             "linear_attention": linear_attention_kernel,
-            # of the two entries' launches, those of the prefill body
+            # of the four entries' launches, those of the prefill body
             "paged_attention_prefill": paged_attention_prefill,
             "linear_attention_prefill": linear_attention_prefill,
+            "paged_attention_quant_prefill": paged_attention_quant_prefill,
+            "linear_attention_quant_prefill": linear_attention_quant_prefill,
             "linear_attention_quant": linear_attention_quant_kernel,
             "latent_attention": latent_attention_kernel,
             "latent_attention_quant": latent_attention_quant_kernel,
@@ -2916,10 +2997,11 @@ def phase_serve_capacity() -> dict:
     with a (4, 4) cache (merged storage), then one request on 4 layers with a
     (5, 3) cache so that the per-head storage runs on a served path too. The
     cache's widths fix its storage, so each run's count of the quantized
-    attention kernel belongs to that storage's row of the table."""
+    attention kernel (and of its prefill body) belongs to that storage's
+    row of the table."""
     from exllamav3_tpu_torch.ops.kv_quant import merged_layout
 
-    used = ("exl3_gemm", "paged_attention_quant")
+    used = ("exl3_gemm", "paged_attention_quant", "paged_attention_quant_prefill")
     counts = _serve("serve_capacity", _checkpoint(32), "fused", dict(k_bits=4, v_bits=4), "fused",
                     _serve_prompts())
     _require_launches("serve_capacity", counts, used)
@@ -2930,7 +3012,9 @@ def phase_serve_capacity() -> dict:
         raise AssertionError("serve_capacity: the two runs did not use the two storages")
     return {"exl3_gemm": counts["exl3_gemm"],
             "paged_attention_quant_merged": counts["paged_attention_quant"],
-            "paged_attention_quant_per_head": odd["paged_attention_quant"]}
+            "paged_attention_quant_per_head": odd["paged_attention_quant"],
+            "paged_attention_quant_prefill_merged": counts["paged_attention_quant_prefill"],
+            "paged_attention_quant_prefill_per_head": odd["paged_attention_quant_prefill"]}
 
 
 @contextlib.contextmanager
@@ -3554,9 +3638,12 @@ def phase_linear_decode() -> dict:
         _linear_decode(tag, model, 8, spec_kw)
         counts = _read_counts()
         log(f"{tag}: kernel launches {json.dumps(counts)}")
-        _require_launches(tag, counts, ("exl3_gemm", "linear_attention_quant"))
+        _require_launches(tag, counts, ("exl3_gemm", "linear_attention_quant",
+                                        "linear_attention_quant_prefill"))
         storage = "merged" if bits == (4, 4) else "per_head"
         launches[f"linear_attention_quant_{storage}"] = counts["linear_attention_quant"]
+        launches[f"linear_attention_quant_prefill_{storage}"] = counts[
+            "linear_attention_quant_prefill"]
         del model
         _free()
     return launches
@@ -3744,7 +3831,8 @@ def main():
     log(f"build: {kbuild.BUILD_LOG.get('seconds', 0.0):.1f} s (cached={kbuild.BUILD_LOG.get('cached')})")
     for name in kbuild.SOURCES:
         for line in (kbuild.BUILD_LOG.get(name) or "").splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if ("registers" in line or "spill" in line or "error" in line.lower()
+                    or "warning" in line.lower()):
                 log(f"  {name}: {line.strip()}")
     log(f"phase build: {time.time() - t0:.1f} s")
 

@@ -3,9 +3,9 @@
 // paged_attention_quant.cu and linear_attention_quant.cu launch when a
 // (sequence, kv head) has S * G <= DECODE_ROWS query rows (G the GQA group),
 // and ring_attention.cu for a decode token's group of G <= DECODE_ROWS heads
-// over a sliding-window ring. Longer chunks take the prefill body of
-// attention_prefill.cuh over the bf16 cache and the tile loop of
-// attention_tiles.cuh otherwise.
+// over a sliding-window ring. Longer chunks over the paged and the linear
+// cache, bf16 or quantized, take the prefill body of attention_prefill.cuh;
+// the ring's wider groups the tile loop of attention_tiles.cuh.
 //
 // Function: the tile loop's (the JAX kernels _flash_kernel, bf16 or with
 // k_bits / v_bits > 0, and _flash_kernel_merged): scores scale * q.k in
@@ -229,7 +229,9 @@ struct DecodeBlocks {
 };
 
 // The streams that stage one tile. Quantized: packed K and V words and
-// their rows of scales, four threads a key row.
+// their rows of scales, four threads a key row (DEC_THREADS threads; the
+// prefill body of attention_prefill.cuh, of as many, stages K and V of
+// different tiles through issue_k and issue_v).
 template <int D, int TK, class KV>
 struct TileStreams;
 template <int D, int TK>
@@ -238,17 +240,29 @@ struct TileStreams<D, TK, QuantKV<D>> {
     static constexpr int VW = D == 128 ? 16 : 8;  // bytes a copy of a word row
     StageStream<VW, DEC_PARTS> k, v;
     StageStream<D / 16, DEC_PARTS> ks, vs;
-    __device__ TileStreams(const QuantKV<D>& kv, const DecodeLayout& L, int hk, int tid)
-        : k(kv.kq, L.wk * 4, kv.Hk, hk, L.ldk * 4, tid),
-          v(kv.vq, L.wv * 4, kv.Hk, hk, L.ldv * 4, tid),
+    // ldk, ldv: words from one staged key row to the next
+    __device__ TileStreams(const QuantKV<D>& kv, int ldk, int ldv, int hk, int tid)
+        : k(kv.kq, D * kv.k_bits / 8, kv.Hk, hk, ldk * 4, tid),
+          v(kv.vq, D * kv.v_bits / 8, kv.Hk, hk, ldv * 4, tid),
           ks(kv.ks, D / 32 * 2, kv.Hk, hk, D / 32 * 2, tid),
           vs(kv.vs, D / 32 * 2, kv.Hk, hk, D / 32 * 2, tid) {}
+    __device__ TileStreams(const QuantKV<D>& kv, const DecodeLayout& L, int hk, int tid)
+        : TileStreams(kv, L.ldk, L.ldv, hk, tid) {}
+    // K's words and scale rows of the n keys from token row tok0
+    __device__ __forceinline__ void issue_k(size_t tok0, int n, int Hk, unsigned char* words,
+                                            unsigned char* scales) const {
+        k.issue(tok0, n, Hk, words);
+        ks.issue(tok0, n, Hk, scales);
+    }
+    __device__ __forceinline__ void issue_v(size_t tok0, int n, int Hk, unsigned char* words,
+                                            unsigned char* scales) const {
+        v.issue(tok0, n, Hk, words);
+        vs.issue(tok0, n, Hk, scales);
+    }
     __device__ __forceinline__ void issue(size_t tok0, int n, int Hk, unsigned char* st,
                                           const DecodeLayout& L) const {
-        k.issue(tok0, n, Hk, st);
-        v.issue(tok0, n, Hk, st + L.off_vw);
-        ks.issue(tok0, n, Hk, st + L.off_ks);
-        vs.issue(tok0, n, Hk, st + L.off_vs);
+        issue_k(tok0, n, Hk, st, st + L.off_ks);
+        issue_v(tok0, n, Hk, st + L.off_vw, st + L.off_vs);
     }
 };
 // bf16: K and V rows of 2 * D bytes, 16 bytes a copy, 256 / TK threads a row

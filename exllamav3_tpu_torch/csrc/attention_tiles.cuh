@@ -1,20 +1,19 @@
-// The flash-attention tile loop of paged_attention_quant.cu,
-// linear_attention_quant.cu, latent_attention.cu and
-// latent_attention_quant.cu (absorbed MLA), ring_attention.cu (decode over a
-// sliding-window ring), and attention_stats.cu's three DeepSeek-V4 decode
-// entries, which return the unnormalised online-softmax state; and the key
-// layouts (Rows) and storages (KV) that the decode and prefill bodies of
+// The flash-attention tile loop of latent_attention.cu and
+// latent_attention_quant.cu (absorbed MLA: verify and prefill),
+// ring_attention.cu (decode over a sliding-window ring, groups of more than
+// 32 heads), and attention_stats.cu's three DeepSeek-V4 decode entries, which
+// return the unnormalised online-softmax state; and the key layouts (Rows)
+// and storages (KV) that the decode and prefill bodies of
 // attention_decode.cuh and attention_prefill.cuh share with it.
 //
 // The kernel is templated three times over:
-//   * Geo: the block's geometry. HeadGeo<D> (per-head K/V of D channels, 64
-//     score rows, 64-key tiles, f32 q entering as hi + lo bf16 pairs) and
-//     the latent one (one latent K row of 576 channels whose leading 512
-//     are V, bf16 q): LatentGeo, 32 score rows and 32-key tiles;
-//     HeadDecodeGeo<D>, HeadGeo's tiles with 16 score rows, for one decode
-//     token's group of heads; KvRowDecodeGeo, DeepSeek-V4's one 512-wide
-//     row that is K and V alike (bf16 q, no rope tail), 16 rows and 64-key
-//     tiles.
+//   * Geo: the block's geometry. HeadDecodeGeo<D> (per-head K/V of D
+//     channels, 16 score rows for one decode token's group of heads, 64-key
+//     tiles, f32 q entering as hi + lo bf16 pairs); the latent one (one
+//     latent K row of 576 channels whose leading 512 are V, bf16 q):
+//     LatentGeo, 32 score rows and 32-key tiles; KvRowDecodeGeo,
+//     DeepSeek-V4's one 512-wide row that is K and V alike (bf16 q, no rope
+//     tail), 16 rows and 64-key tiles.
 //   * Rows: where a key tile's rows lie. PagedRows looks the page up in the
 //     block table (256-token pages, so a tile never crosses a page and every
 //     tile is full); LinearRows reads slot `key` of row b (or of the row the
@@ -30,13 +29,14 @@
 //     64-key tile spans many pages: it is the one policy that GATHERs, each
 //     tile staging the pool row of each of its keys into shared memory
 //     (-1 for a page out of range, which the mask then hides).
-//   * KV: how a tile is stored. Bf16KV copies bf16 rows; QuantKV unpacks
-//     packed 2..8-bit words with one bf16 scale per 32 channels (merged-head
-//     and per-head storage address head h of a token alike, at word
-//     (token * Hk + h) * D*bits/32) into hi + lo bf16 pairs; LatentKV copies
-//     a bf16 latent row; LatentQuantKV unpacks the packed latent into hi + lo
-//     pairs and copies the bf16 rope key beside it (its lo term is 0);
-//     RowKV<W> is LatentKV at any row width W (DeepSeek-V4: 512).
+//   * KV: how a tile is stored. Bf16KV copies bf16 rows; LatentKV copies a
+//     bf16 latent row; LatentQuantKV unpacks the packed latent into hi + lo
+//     bf16 pairs and copies the bf16 rope key beside it (its lo term is 0);
+//     RowKV<W> is LatentKV at any row width W (DeepSeek-V4: 512). QuantKV
+//     (packed 2..8-bit words with one bf16 scale per 32 channels;
+//     merged-head and per-head storage address head h of a token alike, at
+//     word (token * Hk + h) * D*bits/32) is defined here for the decode and
+//     prefill bodies, which stage and unpack it themselves.
 //   * STATS, a flag: the epilogue writes the output unnormalised beside each
 //     row's running max m and sum l (the JAX kernel's return_stats), for a
 //     caller that merges several key sources with one softmax. A row that
@@ -55,19 +55,17 @@
 // in f32 in shared memory. The TPU kernel multiplies q and P in f32, so each
 // f32 operand enters as two bf16 terms, hi = bf16(x) and lo = bf16(x - hi),
 // one MMA each: the pair holds x to about 2^-16 relative (a bf16 q, as MLA
-// hands it over, needs no lo term). A dequantized K/V value (a grid value
+// hands it over, needs no lo term). A dequantized latent value (a grid value
 // times a bf16 scale, at most 16 significant bits) is also stored as hi +
 // lo, exactly; a product then takes three MMAs (hi.hi, lo.hi, hi.lo). The
 // row sum adds P in f32. Decode fills few of the rows, and a sequence's keys
-// are walked by one block. The bf16 and quantized entries over the paged and
-// the linear cache send decode and verify (S * G <= 32 rows a kv head) to
-// attention_decode.cuh instead, which splits the keys across blocks and
-// merges them, and so does the ring entry for groups of up to 32 heads; the
-// latent entries send decode (S = 1) to latent_decode.cuh, which splits the
-// keys alike. The bf16 entries send their longer chunks to
-// attention_prefill.cuh (128 rows a block on warpgroup MMAs); the quantized
-// entries' prefill chunks, the ring's wider groups, the latent entries'
-// verify and prefill and the stats entries take this loop.
+// are walked by one block. The ring entry sends groups of up to 32 heads to
+// attention_decode.cuh, which splits the keys across blocks and merges them;
+// the latent entries send decode (S = 1) to latent_decode.cuh, which splits
+// the keys alike. The paged and linear entries, bf16 and quantized, take
+// attention_decode.cuh and attention_prefill.cuh (128 rows a block on
+// warpgroup MMAs) and not this loop; the ring's wider groups, the latent
+// entries' verify and prefill and the stats entries take it.
 //
 // Warps: the 4 warps split the R rows into R/16 row groups; with R = 32 two
 // warps (with R = 16 all four) share a row group and split its key subtiles
@@ -108,8 +106,6 @@ struct Geo {
     static constexpr bool Q_SPLIT = Q_SPLIT_, V_FROM_K = V_FROM_K_;
 };
 template <int D>
-using HeadGeo = Geo<D, D, 64, 64, true, false>;
-template <int D>
 using HeadDecodeGeo = Geo<D, D, 16, 64, true, false>;
 // DeepSeek's latent row: kv_lora_rank 512 + qk_rope_head_dim 64
 constexpr int LATENT = 512, ROPE = 64;
@@ -119,9 +115,6 @@ constexpr int KV_ROW = 512;
 using KvRowDecodeGeo = Geo<KV_ROW, KV_ROW, 16, 64, false, true>;
 
 // Shared memory of one block. SPLIT: K and V tiles carry a lo term too.
-//   HeadGeo<128>: q hi + lo 2 x 64 x 136 bf16, K and V 64 x 136 bf16 each
-//     (hi + lo: twice), scores 64 x 68 f32, P hi + lo 2 x 64 x 72 bf16, output
-//     64 x 132 f32: 140,296 bytes bf16, 175,112 quantized.
 //   LatentGeo: q 32 x 584 bf16 (37,376), one K tile 32 x 584 bf16 (37,376;
 //     quantized: hi + lo, 74,752; V is its leading 512 columns), scores
 //     32 x 36 f32 (4,608), P hi + lo 2 x 32 x 40 bf16 (5,120), output
@@ -378,21 +371,17 @@ __device__ __forceinline__ void unpack_any(int bits, const uint32_t* __restrict_
 #undef EXL3_UNPACK
 }
 
+// K and V of D channels as packed 2..8-bit words with one bf16 scale per 32
+// channels, staged and unpacked by attention_decode.cuh and
+// attention_prefill.cuh (not by this loop)
 template <int D>
 struct QuantKV {
-    static constexpr bool SPLIT = true;
     const uint32_t* kq;
     const __nv_bfloat16* ks;
     const uint32_t* vq;
     const __nv_bfloat16* vs;
     int Hk, k_bits, v_bits;
     float ca, cb;  // compander a and 1 - a; ca = 0 selects the midpoint grid
-    template <int LD, int TKT>
-    __device__ void load(size_t tok0, int n, int hk, __nv_bfloat16* Ks, __nv_bfloat16* Kls,
-                         __nv_bfloat16* Vs, __nv_bfloat16* Vls, int tid) const {
-        unpack_any<D, LD, TKT>(k_bits, kq, ks, tok0, n, Hk, hk, ca, cb, Ks, Kls, tid);
-        unpack_any<D, LD, TKT>(v_bits, vq, vs, tok0, n, Hk, hk, ca, cb, Vs, Vls, tid);
-    }
 };
 
 // bf16 rows of W channels, one per token, that are K and V alike: MLA's

@@ -16,16 +16,21 @@
 //           linear_attention.cu.
 // Dispatch: as paged_attention_quant.cu: S * G <= DECODE_ROWS launches the
 //           split-key decode kernel (q unrotated, the output in the caller's
-//           basis, ws and counters as there), a longer chunk the tile loop
-//           (q rotated, the output in V's rotated basis).
+//           basis, ws and counters as there), a longer chunk the prefill body
+//           of attention_prefill.cuh (q rotated, the output in V's rotated
+//           basis).
 // Bound:    as paged_attention_quant.cu: decode reads every visible packed
-//           K/V byte and scale once (bytes over 3.35 TB/s).
+//           K/V byte and scale once (bytes over 3.35 TB/s); a long prefill
+//           chunk is bound by its 4*D operations per visible (query, key)
+//           pair at the bf16 rate.
 // Design:   decode: attention_decode.cuh with LinearRows (a split covers
 //           split_keys slots of the row; the last tile is cut at T). Prefill:
-//           attention_tiles.cuh with LinearRows and QuantKV. The JAX package
-//           dequantizes a whole merged pool for tall chunks (S > 32); this
-//           entry takes any S.
+//           attention_prefill.cuh with LinearRows and QuantKV (as
+//           paged_attention_quant.cu; a tile's keys past T are not copied and
+//           unpack as zeros, masked). The JAX package dequantizes a whole
+//           merged pool for tall chunks (S > 32); this entry takes any S.
 #include "attention_decode.cuh"
+#include "attention_prefill.cuh"
 
 // compand_a = 0 selects the midpoint grid; compand_b is 1 - compand_a.
 // rows: (B,) int32 cache row of each sequence, or null for row b.
@@ -50,8 +55,8 @@ extern "C" int exl3_linear_attention_quant(
             return launch_decode<128>(q, rows, kv, qpos, total_lens, sinks, out, ws,
                                       counters, B, S, Hq, Hk, scale, window, softcap,
                                       split_keys, T, st);
-        return launch_attention<HeadGeo<128>>(q, rows, kv, qpos, total_lens, sinks, out, B, S, Hq,
-                                              Hk, scale, window, softcap, st);
+        return launch_prefill<128>(q, rows, kv, qpos, total_lens, sinks, out, B, S, Hq, Hk,
+                                   scale, window, softcap, st);
     }
     if (D == 64) {
         const QuantKV<64> kv{kw, kscale, vw, vscale, Hk, k_bits, v_bits, compand_a, compand_b};
@@ -59,8 +64,8 @@ extern "C" int exl3_linear_attention_quant(
             return launch_decode<64>(q, rows, kv, qpos, total_lens, sinks, out, ws,
                                      counters, B, S, Hq, Hk, scale, window, softcap,
                                      split_keys, T, st);
-        return launch_attention<HeadGeo<64>>(q, rows, kv, qpos, total_lens, sinks, out, B, S, Hq,
-                                             Hk, scale, window, softcap, st);
+        return launch_prefill<64>(q, rows, kv, qpos, total_lens, sinks, out, B, S, Hq, Hk,
+                                  scale, window, softcap, st);
     }
     return (int)cudaErrorInvalidValue;
 }

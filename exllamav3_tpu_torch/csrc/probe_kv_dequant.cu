@@ -14,7 +14,9 @@
 //           v1, v2 and v5 are one fused multiply-add, fma(2^23 + field,
 //           scale, scale * c), as XLA computes the tool's expression.
 // Bound:    bytes: the packed words and scales (or bf16 K) once, q once.
-// Design:   csrc/attention_tiles.cuh's quantized tile loop, so that the
+// Design:   the quantized tile loop's design (an unpack of 8 lanes a
+//           thread from device memory into hi + lo bf16 pairs in shared
+//           memory, wmma-sized products), so that the
 //           variants split its time: one block of 4 warps per kv head (per
 //           128-lane slice, merged) walks all the keys in 64-key tiles; a
 //           thread unpacks 8 consecutive lanes of one key, reading each

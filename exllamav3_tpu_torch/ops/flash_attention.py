@@ -13,11 +13,13 @@ csrc/attention_decode.cuh, which splits each sequence's keys across blocks
 (decode_split_keys sizes the splits from host widths) and merges the splits
 in the same launch; its plain split arithmetic is paged_attention_split_plain
 and linear_attention_split_plain (bf16), paged_attention_quant_split_plain
-and linear_attention_quant_split_plain (quantized). The two bf16 entries send
-every longer chunk to csrc/attention_prefill.cuh (128 rows a block, q and P
-as hi + lo bf16 pairs into Hopper's warpgroup MMAs; its plain arithmetic:
-paged_attention_prefill_plain and linear_attention_prefill_plain over
-attention_prefill_plain), the quantized ones to the tile loop;
+and linear_attention_quant_split_plain (quantized). All four send every
+longer chunk to csrc/attention_prefill.cuh (128 rows a block, q and P as hi +
+lo bf16 pairs into Hopper's warpgroup MMAs, the quantized K/V unpacked in the
+block into hi + lo pairs too; its plain arithmetic: paged_attention_prefill_plain
+and linear_attention_prefill_plain over the bf16 cache,
+paged_attention_quant_prefill_plain and linear_attention_quant_prefill_plain
+over the quantized one, all over attention_prefill_plain);
 attention_route names the body a chunk takes. Each serves decode, prefill
 chunks and padded rows: causal by absolute position against total_lens, any
 GQA group, optional sliding window, logit softcap and per-head sinks. A row that
@@ -179,10 +181,10 @@ def _decode_launch(q, Hk: int, width: int, sms: int, rotate: bool) -> tuple:
     """(q as the launch takes it, workspace, counters, split_keys) for the
     four entries over the paged and the linear cache: the decode kernel
     takes q as it is, a workspace of (acc, m, l) for each split of
-    decode_split_keys's size and the arrival counters; the prefill body and
-    the tile loop take none of them, the tile loop q rotated per 32-channel
-    group when `rotate` (the quantized storage: its tile loop scores in the
-    stored, rotated basis)."""
+    decode_split_keys's size and the arrival counters; the prefill body takes
+    none of them, and q rotated per 32-channel group when `rotate` (the
+    quantized storage: the prefill body scores in the stored, rotated
+    basis)."""
     B, S, Hq, D = q.shape
     if attention_route(S, Hq, Hk) != "decode":
         return rotate_groups(q) if rotate else q, None, None, 0
@@ -193,28 +195,26 @@ def _decode_launch(q, Hk: int, width: int, sms: int, rotate: bool) -> tuple:
     return q, ws, arrival_counters(q.device, B * Hk), split_keys
 
 
-# The bf16 prefill body (csrc/attention_prefill.cuh) serves every longer chunk
-# of the bf16 entries over the paged and the linear cache: a block holds
-# PREFILL_ROWS (token, head-in-group) rows and walks PREFILL_TILE-key tiles.
-# The two widths are the header's own.
+# The prefill body (csrc/attention_prefill.cuh) serves every longer chunk of
+# the bf16 and the quantized entries over the paged and the linear cache: a
+# block holds PREFILL_ROWS (token, head-in-group) rows and walks
+# PREFILL_TILE-key tiles. The two widths are the header's own.
 PREFILL_ROWS, PREFILL_TILE = header_constants("attention_prefill.cuh", "PF_ROWS", "PF_TK")
 
 
-def attention_route(S: int, Hq: int, Hk: int, quantized: bool = False) -> str:
-    """The body an entry over the paged or the linear cache launches for a
-    chunk of S tokens: "decode" (csrc/attention_decode.cuh) while a (sequence,
-    kv head) has at most DECODE_ROWS query rows (S * G), else "prefill"
-    (csrc/attention_prefill.cuh) over the bf16 cache and "tiles" (the tile
-    loop of csrc/attention_tiles.cuh) over the quantized one. The C entries
-    choose by the same rule."""
-    if S * (Hq // Hk) <= DECODE_ROWS:
-        return "decode"
-    return "tiles" if quantized else "prefill"
+def attention_route(S: int, Hq: int, Hk: int) -> str:
+    """The body an entry over the paged or the linear cache, bf16 or
+    quantized, launches for a chunk of S tokens: "decode"
+    (csrc/attention_decode.cuh) while a (sequence, kv head) has at most
+    DECODE_ROWS query rows (S * G), else "prefill"
+    (csrc/attention_prefill.cuh). The C entries choose by the same rule."""
+    return "decode" if S * (Hq // Hk) <= DECODE_ROWS else "prefill"
 
 
 class LaunchCount:
     """The launches of one body of an entry whose wrapper counts all of them
-    (the prefill body's of paged_attention_kernel and linear_attention_kernel)."""
+    (the prefill body's of paged_attention_kernel, linear_attention_kernel,
+    paged_attention_quant_kernel and linear_attention_quant_kernel)."""
 
     def __init__(self):
         self.launches = 0
@@ -222,33 +222,49 @@ class LaunchCount:
 
 paged_attention_prefill = LaunchCount()
 linear_attention_prefill = LaunchCount()
+paged_attention_quant_prefill = LaunchCount()
+linear_attention_quant_prefill = LaunchCount()
+
+
+def _hi_lo(x) -> tuple:
+    """(hi, lo) f32 of x as the kernels' bf16 pairs: hi = bf16(x), lo =
+    bf16(x - hi)."""
+    xf = x.float()
+    hi = xf.to(torch.bfloat16).float()
+    return hi, (xf - hi).to(torch.bfloat16).float()
 
 
 def attention_prefill_plain(q, k, v, visible, scale: float = 1.0, logit_softcap: float = 0.0,
                             sinks=None) -> torch.Tensor:
     """(B, S, Hq, D) f32: the prefill body's arithmetic in plain torch. q
-    (B, S, Hq, D) f32; k, v (B, T, Hk, D), each sequence's keys in order
-    (bf16 values); visible (B, S, T) bool. As the kernel, the walk goes by q
-    blocks of PREFILL_ROWS (token, head-in-group) rows (min(G, PREFILL_ROWS)
-    heads, PREFILL_ROWS // that tokens; here every head of a token at once,
-    which computes the same rows) and, in each, by PREFILL_TILE-key tiles
-    from the first key a row of the block sees to the last. q and P enter the
-    products as hi + lo bf16 pairs; scores are scale * (q_hi.k + q_lo.k),
-    then the softcap, then the mask; the online softmax keeps its running max
-    m, sum l (of P in f32) and output in f32, m starting at the head's sink
-    (l at 1) where there are sinks; the output is divided by max(l, 1e-30),
-    so a row that sees no key gives 0."""
+    (B, S, Hq, D) f32; k, v (B, T, Hk, D), each sequence's keys in order:
+    bf16 (the bf16 cache), or f32 (the quantized cache's values, which enter
+    the products as hi + lo bf16 pairs, as the kernel unpacks them); visible
+    (B, S, T) bool. As the kernel, the walk goes by q blocks of PREFILL_ROWS
+    (token, head-in-group) rows (min(G, PREFILL_ROWS) heads, PREFILL_ROWS //
+    that tokens; here every head of a token at once, which computes the same
+    rows) and, in each, by PREFILL_TILE-key tiles from the first key a row of
+    the block sees to the last. q and P enter the products as hi + lo bf16
+    pairs; scores are scale * (q_hi.k_hi + q_lo.k_hi + q_hi.k_lo), the last
+    term for f32 K only (the lo.lo term left out), then the softcap, then the
+    mask; the online softmax keeps its running max m, sum l (of P in f32) and
+    output (P_hi.V_hi + P_lo.V_hi + P_hi.V_lo) in f32, m starting at the
+    head's sink (l at 1) where there are sinks; the output is divided by
+    max(l, 1e-30), so a row that sees no key gives 0."""
     B, S, Hq, D = q.shape
     T, Hk = k.shape[1], k.shape[2]
     G = Hq // Hk
     QT = PREFILL_ROWS // min(G, PREFILL_ROWS)  # tokens a block
-    qf = q.float()
-    q_hi = qf.to(torch.bfloat16).float()
-    q_lo = (qf - q_hi).to(torch.bfloat16).float()
+    q_hi, q_lo = _hi_lo(q)
     # (B, Hk, S * G, D): row (s, g) of kv head hk is q head hk * G + g at token s
     q_hi, q_lo = (t.reshape(B, S, Hk, G, D).permute(0, 2, 1, 3, 4) for t in (q_hi, q_lo))
-    kf = k.float().permute(0, 2, 1, 3)  # (B, Hk, T, D)
-    vf = v.float().permute(0, 2, 1, 3)
+
+    def operand(t) -> tuple:  # (B, Hk, T, D) hi and lo; lo None for bf16 values
+        hi, lo = (t.float(), None) if t.dtype == torch.bfloat16 else _hi_lo(t)
+        return hi.permute(0, 2, 1, 3), None if lo is None else lo.permute(0, 2, 1, 3)
+
+    kf, k_lo = operand(k)
+    vf, v_lo = operand(v)
     if sinks is not None:
         m0 = sinks.float().reshape(1, Hk, 1, G).to(q.device)
     out = torch.zeros(B, Hk, S, G, D, dtype=torch.float32, device=q.device)
@@ -274,7 +290,10 @@ def attention_prefill_plain(q, k, v, visible, scale: float = 1.0, logit_softcap:
         for key0 in range(lo // PREFILL_TILE * PREFILL_TILE, hi + 1, PREFILL_TILE):
             kt = kf[:, :, key0:key0 + PREFILL_TILE]
             vt = vf[:, :, key0:key0 + PREFILL_TILE]
-            sc = (qh @ kt.transpose(-1, -2) + ql @ kt.transpose(-1, -2)) * scale
+            sc = qh @ kt.transpose(-1, -2) + ql @ kt.transpose(-1, -2)
+            if k_lo is not None:
+                sc = sc + qh @ k_lo[:, :, key0:key0 + PREFILL_TILE].transpose(-1, -2)
+            sc = sc * scale
             if logit_softcap > 0.0:
                 sc = torch.tanh(sc / logit_softcap) * logit_softcap
             sc = sc.masked_fill(~mask[..., key0:key0 + PREFILL_TILE], -torch.inf)
@@ -285,7 +304,10 @@ def attention_prefill_plain(q, k, v, visible, scale: float = 1.0, logit_softcap:
             p_hi = p.to(torch.bfloat16).float()
             p_lo = (p - p_hi).to(torch.bfloat16).float()
             l = l * alpha + p.sum(dim=-1)
-            o = o * alpha[..., None] + p_hi @ vt + p_lo @ vt
+            pv = p_hi @ vt + p_lo @ vt
+            if v_lo is not None:
+                pv = pv + p_hi @ v_lo[:, :, key0:key0 + PREFILL_TILE]
+            o = o * alpha[..., None] + pv
             m = m_new
         o = o / torch.clamp(l, min=1e-30)[..., None]
         out[:, :, s0:s1] = o.reshape(B, Hk, s1 - s0, G, D)
@@ -372,6 +394,33 @@ def paged_attention_split_plain(q, k_pages, v_pages, block_tables, q_positions, 
                                  logit_softcap, sinks, rotate=False)
 
 
+def _paged_quant_keys(q, layer_state: dict, block_tables, q_positions, total_lens, k_bits: int,
+                      v_bits: int, compand_a: float, sliding_window: int) -> tuple:
+    """(k, v (B, T, Hk, D) f32 in the rotated basis, visible (B, S, T)) of
+    each sequence's pages of the quantized cache in table order; pages out
+    of range hold no visible key."""
+    B, S, Hq, D = q.shape
+    Hk = state_heads(layer_state, D)
+    P, MP = layer_state["k_q"].shape[0], block_tables.shape[1]
+    ok = (block_tables >= 0) & (block_tables < P)
+    bt = torch.where(ok, block_tables, torch.zeros_like(block_tables)).long()
+    k, v = _rotated_kv({n: t[bt] for n, t in layer_state.items()}, k_bits, v_bits, compand_a, Hk)
+    T = MP * PAGE_SIZE
+    vis = (_causal_visible(q_positions, total_lens, T, q.device, sliding_window)
+           & ok.repeat_interleave(PAGE_SIZE, dim=1)[:, None, :])
+    return k.reshape(B, T, Hk, D), v.reshape(B, T, Hk, D), vis
+
+
+def _linear_quant_keys(q, layer_state: dict, q_positions, total_lens, k_bits: int, v_bits: int,
+                       compand_a: float, rows, sliding_window: int) -> tuple:
+    """(k, v (B, T, Hk, D) f32 in the rotated basis, visible (B, S, T)) of
+    each sequence's row of the linear quantized cache (row b, or rows[b])."""
+    pick = slice(0, q.shape[0]) if rows is None else rows.long()
+    k, v = _rotated_kv({n: t[pick] for n, t in layer_state.items()}, k_bits, v_bits, compand_a,
+                       state_heads(layer_state, q.shape[-1]))
+    return k, v, _causal_visible(q_positions, total_lens, k.shape[1], q.device, sliding_window)
+
+
 def paged_attention_quant_split_plain(q, layer_state: dict, block_tables, q_positions,
                                       total_lens, k_bits: int, v_bits: int,
                                       compand_a: float = 0.0, scale: float = 1.0,
@@ -381,16 +430,9 @@ def paged_attention_quant_split_plain(q, layer_state: dict, block_tables, q_posi
     kernel's split arithmetic (attention_split_plain), cut by
     decode_split_keys at H100_SMS unless split_keys is given; pages out of
     range hold no visible key."""
-    B, S, Hq, D = q.shape
-    Hk = state_heads(layer_state, D)
-    P, MP = layer_state["k_q"].shape[0], block_tables.shape[1]
-    ok = (block_tables >= 0) & (block_tables < P)
-    bt = torch.where(ok, block_tables, torch.zeros_like(block_tables)).long()
-    k, v = _rotated_kv({n: t[bt] for n, t in layer_state.items()}, k_bits, v_bits, compand_a, Hk)
-    T = MP * PAGE_SIZE
-    k, v = k.reshape(B, T, Hk, D), v.reshape(B, T, Hk, D)
-    vis = (_causal_visible(q_positions, total_lens, T, q.device, sliding_window)
-           & ok.repeat_interleave(PAGE_SIZE, dim=1)[:, None, :])
+    k, v, vis = _paged_quant_keys(q, layer_state, block_tables, q_positions, total_lens, k_bits,
+                                  v_bits, compand_a, sliding_window)
+    B, T, Hk = k.shape[:3]
     return attention_split_plain(q, k, v, vis, split_keys or decode_split_keys(T, B, Hk), scale,
                                  logit_softcap, sinks)
 
@@ -403,15 +445,39 @@ def linear_attention_quant_split_plain(q, layer_state: dict, q_positions, total_
     """(B, S, Hq, D) f32 over the linear quantized cache (row b, or rows[b])
     by the decode kernel's split arithmetic, as
     paged_attention_quant_split_plain."""
-    B, S, Hq, D = q.shape
-    Hk = state_heads(layer_state, D)
-    pick = slice(0, B) if rows is None else rows.long()
-    k, v = _rotated_kv({n: t[pick] for n, t in layer_state.items()}, k_bits, v_bits, compand_a,
-                       Hk)
-    T = k.shape[1]
-    vis = _causal_visible(q_positions, total_lens, T, q.device, sliding_window)
+    k, v, vis = _linear_quant_keys(q, layer_state, q_positions, total_lens, k_bits, v_bits,
+                                   compand_a, rows, sliding_window)
+    B, T, Hk = k.shape[:3]
     return attention_split_plain(q, k, v, vis, split_keys or decode_split_keys(T, B, Hk), scale,
                                  logit_softcap, sinks)
+
+
+def paged_attention_quant_prefill_plain(q, layer_state: dict, block_tables, q_positions,
+                                        total_lens, k_bits: int, v_bits: int,
+                                        compand_a: float = 0.0, scale: float = 1.0,
+                                        sliding_window: int = 0, logit_softcap: float = 0.0,
+                                        sinks=None) -> torch.Tensor:
+    """(B, S, Hq, D) f32 over the paged quantized cache by the prefill body's
+    arithmetic: q rotated per 32-channel group (as the wrapper hands it to
+    the kernel), attention_prefill_plain over the rotated values the kernel
+    unpacks (hi + lo bf16 pairs), the output rotated back; pages out of
+    range hold no visible key."""
+    k, v, vis = _paged_quant_keys(q, layer_state, block_tables, q_positions, total_lens, k_bits,
+                                  v_bits, compand_a, sliding_window)
+    return rotate_groups(attention_prefill_plain(rotate_groups(q.float()), k, v, vis, scale,
+                                                 logit_softcap, sinks))
+
+
+def linear_attention_quant_prefill_plain(q, layer_state: dict, q_positions, total_lens,
+                                         k_bits: int, v_bits: int, compand_a: float = 0.0,
+                                         rows=None, scale: float = 1.0, sliding_window: int = 0,
+                                         logit_softcap: float = 0.0, sinks=None) -> torch.Tensor:
+    """(B, S, Hq, D) f32 over the linear quantized cache (row b, or rows[b])
+    by the prefill body's arithmetic, as paged_attention_quant_prefill_plain."""
+    k, v, vis = _linear_quant_keys(q, layer_state, q_positions, total_lens, k_bits, v_bits,
+                                   compand_a, rows, sliding_window)
+    return rotate_groups(attention_prefill_plain(rotate_groups(q.float()), k, v, vis, scale,
+                                                 logit_softcap, sinks))
 
 
 def paged_attention_quant_plain(q, layer_state: dict, block_tables, q_positions, total_lens,
@@ -439,9 +505,10 @@ def paged_attention_quant_kernel(q, layer_state: dict, block_tables, q_positions
     k_bits, v_bits in 2..8; D in {64, 128}, any GQA group. K and V stay in
     their stored, rotated basis. With S * G <= DECODE_ROWS the split-key
     decode kernel runs (splits sized by decode_split_keys for this card) and
-    rotates q and the output itself; a longer chunk takes the tile loop, q
-    rotated per 32-channel group before the launch and the output rotated
-    back after it."""
+    rotates q and the output itself; a longer chunk takes the prefill body of
+    csrc/attention_prefill.cuh (counted by paged_attention_quant_prefill
+    too), q rotated per 32-channel group before the launch and the output
+    rotated back after it."""
     B, S, Hq, D = q.shape
     kq, ks, vq, vs = (layer_state[n] for n in ("k_q", "k_s", "v_q", "v_s"))
     ints = (block_tables, q_positions, total_lens)
@@ -486,7 +553,10 @@ def paged_attention_quant_kernel(q, layer_state: dict, block_tables, q_positions
         split_keys, torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("exl3_paged_attention_quant", err)
     paged_attention_quant_kernel.launches += 1
-    return out if ws is not None else rotate_groups(out)
+    if ws is not None:
+        return out
+    paged_attention_quant_prefill.launches += 1
+    return rotate_groups(out)
 
 
 paged_attention_quant_kernel.launches = 0
@@ -622,7 +692,9 @@ def linear_attention_quant_kernel(q, layer_state: dict, q_positions, total_lens,
     and total_lens (B,) int32; sinks (Hq,) f32 or None; k_bits, v_bits in
     2..8; D in {64, 128}, any GQA group. Decode and verify (S * G <=
     DECODE_ROWS) run the split-key kernel, which rotates q and the output
-    itself; a longer chunk takes the tile loop, as paged_attention_quant_kernel."""
+    itself; a longer chunk takes the prefill body (counted by
+    linear_attention_quant_prefill too), q and the output rotated around it,
+    as paged_attention_quant_kernel."""
     B, S, Hq, D = q.shape
     kq, ks, vq, vs = (layer_state[n] for n in ("k_q", "k_s", "v_q", "v_s"))
     ints = (q_positions, total_lens)
@@ -665,7 +737,10 @@ def linear_attention_quant_kernel(q, layer_state: dict, q_positions, total_lens,
         split_keys, torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("exl3_linear_attention_quant", err)
     linear_attention_quant_kernel.launches += 1
-    return out if ws is not None else rotate_groups(out)
+    if ws is not None:
+        return out
+    linear_attention_quant_prefill.launches += 1
+    return rotate_groups(out)
 
 
 linear_attention_quant_kernel.launches = 0

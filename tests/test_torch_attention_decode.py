@@ -9,7 +9,7 @@ wholly past total_lens or before a sliding window, sinks with a softcap,
 rows that see no key, verify chunks, GQA groups 5 and 7 and named linear
 cache rows. Also the split sizing function on host widths alone,
 merge_stats without sinks and the wrappers' choice between the decode
-kernel and the tile loop, for both storages. The CUDA kernel is held
+kernel and the prefill body, for both storages. The CUDA kernel is held
 against these plain versions on the card by chip_smoke.py."""
 import re
 from pathlib import Path
@@ -233,7 +233,7 @@ _ROWS = [(1, 32, 8, True), (5, 32, 8, True), (4, 64, 8, True), (5, 56, 8, False)
 def test_quant_launch_picks_the_kernel_by_rows(S, Hq, Hk, decode, rotate):
     """For both storages, S * G <= DECODE_ROWS takes the decode kernel: q as
     it is, a workspace of (acc, m, l) for every split, the shared zeroed
-    counters. A taller chunk takes the tile loop with no workspace: q
+    counters. A taller chunk takes the prefill body with no workspace: q
     rotated for the quantized storage, as it is for bf16."""
     q = torch.randn(2, S, Hq, D)
     qk, ws, counters, split = F._decode_launch(q, Hk, 3 * PAGE_SIZE, 132, rotate=rotate)

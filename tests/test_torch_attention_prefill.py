@@ -1,16 +1,17 @@
-"""The bf16 prefill body (csrc/attention_prefill.cuh) on the CPU: its plain
-arithmetic, attention_prefill_plain (q blocks of PREFILL_ROWS rows, 64-key
-tiles in the kernel's order, q and P as hi + lo bf16 pairs, the online
-softmax in f32), through paged_attention_prefill_plain and
+"""The prefill body (csrc/attention_prefill.cuh) over the bf16 cache on the
+CPU: its plain arithmetic, attention_prefill_plain (q blocks of PREFILL_ROWS
+rows, 64-key tiles in the kernel's order, q and P as hi + lo bf16 pairs, the
+online softmax in f32), through paged_attention_prefill_plain and
 linear_attention_prefill_plain, against the JAX package's flash_attention in
 interpret mode over the same numpy inputs: the paged and the linear layout,
 D = 64 and 128, GQA groups 1, 2, 5, 7 and 8, a chunk that starts mid-page,
 three sequences of unequal length, window + softcap + sinks with padded
 rows, a sequence that sees no key, named linear rows with T no multiple of
 64. Also the route each bf16 and quantized entry takes at S * G = 32 and 33
-rows a kv head (decode kernel, prefill body, tile loop), on the wrappers'
-side and in the C entries' dispatch, and the header's widths. The CUDA body
-is held against the plain versions on the card by chip_smoke.py."""
+rows a kv head (decode kernel, prefill body), on the wrappers' side and in
+the C entries' dispatch, and the header's widths. The quantized storage's
+cases are tests/test_torch_attention_prefill_quant.py. The CUDA body is held
+against the plain versions on the card by chip_smoke.py."""
 import re
 from pathlib import Path
 
@@ -24,6 +25,7 @@ torch.set_num_threads(2)
 from exllamav3_tpu.ops.flash_attention import flash_attention as jflash
 from exllamav3_tpu_torch.constants import PAGE_SIZE
 from exllamav3_tpu_torch.ops import flash_attention as F
+from exllamav3_tpu_torch.ops import kv_quant as pq
 
 CSRC = Path(F.__file__).resolve().parent.parent / "csrc"
 
@@ -151,30 +153,36 @@ def test_route_by_rows(S, Hq, Hk, quantized):
     """Up to DECODE_ROWS rows a kv head (S * G = 32 and below) every entry
     over the paged and the linear cache takes the decode kernel, with a
     workspace and the shared counters; one row more takes the prefill body
-    over the bf16 cache and the tile loop over the quantized one, with no
-    workspace."""
+    over either storage, with no workspace, q rotated per 32-channel group
+    for the quantized one."""
     rows = S * (Hq // Hk)
     assert rows in (32, 33)
-    want = "decode" if rows <= 32 else ("tiles" if quantized else "prefill")
-    assert F.attention_route(S, Hq, Hk, quantized) == want
+    want = "decode" if rows <= 32 else "prefill"
+    assert F.attention_route(S, Hq, Hk) == want
     q = torch.randn(1, S, Hq, 64)
-    _, ws, counters, split = F._decode_launch(q, Hk, 2 * PAGE_SIZE, 132, rotate=quantized)
+    qk, ws, counters, split = F._decode_launch(q, Hk, 2 * PAGE_SIZE, 132, rotate=quantized)
     assert (ws is not None) == (want == "decode")
     assert (counters is not None) == (want == "decode") and (split > 0) == (want == "decode")
+    if want == "prefill" and quantized:
+        torch.testing.assert_close(qk, pq.rotate_groups(q), rtol=0, atol=0)
+    else:
+        assert qk is q
 
 
-@pytest.mark.parametrize("source,prefill", [
+@pytest.mark.parametrize("source,bf16", [
     ("paged_attention.cu", True), ("linear_attention.cu", True),
     ("paged_attention_quant.cu", False), ("linear_attention_quant.cu", False)])
-def test_entries_dispatch_on_rows(source, prefill):
+def test_entries_dispatch_on_rows(source, bf16):
     """The C entries choose as attention_route does: decode while S * G <=
-    DECODE_ROWS, else the prefill body (bf16, at both head widths) or the
-    tile loop (quantized)."""
+    DECODE_ROWS, else the prefill body at both head widths, over the
+    entry's storage (Bf16KV or QuantKV); none launches the tile loop."""
     src = (CSRC / source).read_text()
     assert "const bool decode = S * (Hq / Hk) <= DECODE_ROWS;" in src
-    assert len(re.findall(r"launch_prefill<(?:64|128)>\(", src)) == (2 if prefill else 0)
-    assert ("launch_attention<" in src) != prefill
-    assert ('#include "attention_prefill.cuh"' in src) == prefill
+    assert len(re.findall(r"launch_prefill<(?:64|128)>\(", src)) == 2
+    assert "launch_attention<" not in src
+    assert '#include "attention_prefill.cuh"' in src
+    storage = "Bf16KV" if bf16 else "QuantKV"
+    assert len(re.findall(rf"const {storage}<(?:64|128)> kv\{{", src)) == 2
 
 
 def test_prefill_widths_match_the_kernel():

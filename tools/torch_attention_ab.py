@@ -1,5 +1,5 @@
 """Compare two source trees of the PyTorch port, in turns, on one card, by one
-of eighteen runs (`--run`):
+of nineteen runs (`--run`):
 
 - `paged_bf16` (the default): the bf16 paged attention kernel (row 3) at
   decode, batch 8, q positions 299-2047 (contexts 300 to 2048), 32 q / 8 kv
@@ -57,7 +57,14 @@ of eighteen runs (`--run`):
   512 cached (T = 2560), groups 4 and 8;
 - `linear_decode`: `chip_smoke.py --phases build,linear_decode` in the tree:
   the int8 32-layer model's 2048-token prefill over a linear cache, tok/s
-  (best of 3), and its decode-only tok/s at batch 8.
+  (best of 3), and its decode-only tok/s at batch 8;
+- `quant_prefill`: the quantized attention (rows 5 and 7) on chunks of more
+  than 32 rows a kv head, one after the other in each run: prefill S = 2048
+  on 512 cached, 32 q heads of 128 at groups 4 and 8, over a paged (4, 4)
+  merged and a (5, 3) per-head cache and over a linear (4, 4) cache (group
+  4), and the verify chunk of 40 rows (S = 5, batch 8, contexts 300-2048,
+  group 8) over a paged (4, 4) cache, each through its wrapper (q and the
+  output rotated around the kernel), L2-warm as chip_smoke.py times them.
 
     python3 tools/torch_attention_ab.py --trees build/parent,.   # parent, change
     python3 tools/torch_attention_ab.py --run serve_capacity --trees A,B --rounds 3
@@ -74,6 +81,7 @@ of eighteen runs (`--run`):
     python3 tools/torch_attention_ab.py --run paged_prefill --trees build/parent,.
     python3 tools/torch_attention_ab.py --run linear_prefill --trees build/parent,.
     python3 tools/torch_attention_ab.py --run linear_decode --trees build/parent,. --rounds 1
+    python3 tools/torch_attention_ab.py --run quant_prefill --trees build/parent,.
 
 Each tree runs in a process of its own (its own checkout of
 exllamav3_tpu_torch, its own kernel build and checkpoint under <tree>/build/),
@@ -81,8 +89,8 @@ in the order A, B, B, A for every round. A kernel run queues 200 launches
 behind a device spin, five times, over one input set (the trees are compared
 with each other, not with a bound), and gives the median device ms a call
 (CUDA events) and host µs a call (the host clock over the same 200
-enqueues; `intb`, `int4`, `latent`, `int8`, `fused_mlp`, `paged_prefill` and
-`linear_prefill` give both for each route or shape); `ring`, `exl3_gemm`,
+enqueues; `intb`, `int4`, `latent`, `int8`, `fused_mlp`, `paged_prefill`,
+`linear_prefill` and `quant_prefill` give both for each route or shape); `ring`, `exl3_gemm`,
 `intb`, `int4`, `latent`, `int8` and `fused_mlp` cycle through input sets that
 together exceed twice the L2 cache. A serve run also reports the first
 request's TTFT and prefill seconds. Each run's numbers are printed as they come; a run that fails is
@@ -252,6 +260,38 @@ elif sys.argv[1] in ("paged_prefill", "linear_prefill"):
         qpv = torch.as_tensor(total[:, None] - Sv + np.arange(Sv, dtype=np.int32), device=dev)
         fns["verify_s5_g8"] = lambda: fa.paged_attention_kernel(qv, kv4, vv4, bt, qpv, tl,
                                                                 scale=D ** -0.5)
+elif sys.argv[1] == "quant_prefill":
+    from exllamav3_tpu_torch.ops.kv_quant import merged_layout, quantize_kv_stored
+
+    def quant_state(lead, hk, bits):
+        st = {}
+        for nm, b in zip("kv", bits):
+            x = torch.randn((*lead, hk, D), generator=g, device=dev)
+            st[nm + "_q"], st[nm + "_s"] = quantize_kv_stored(x, b, merged_layout(*bits))
+        return st
+    fns = {}
+    S, pre = 2048, 512
+    qpos = torch.arange(pre, pre + S, dtype=torch.int32, device=dev)[None]
+    tot = torch.tensor([pre + S], dtype=torch.int32, device=dev)
+    pages = (pre + S) // PAGE_SIZE + 1
+    tbl = torch.as_tensor(rng.permutation(np.arange(pages))[None].astype(np.int32), device=dev)
+    for bits in ((4, 4), (5, 3)):
+        for hk in (8, 4):
+            qq = torch.randn((1, S, Hq, D), generator=g, device=dev)
+            st = quant_state((pages, PAGE_SIZE), hk, bits)
+            fns[f"paged_{bits[0]}{bits[1]}_g{Hq // hk}"] = (
+                lambda qq=qq, st=st, bits=bits: fa.paged_attention_quant_kernel(
+                    qq, st, tbl, qpos, tot, *bits, scale=D ** -0.5))
+    qq = torch.randn((1, S, Hq, D), generator=g, device=dev)
+    st = quant_state((1, pre + S), 8, (4, 4))
+    fns["linear_44_g4"] = lambda: fa.linear_attention_quant_kernel(qq, st, qpos, tot, 4, 4,
+                                                                   scale=D ** -0.5)
+    Sv, hk = 5, 4  # verify S = 5 at group 8: 40 rows a kv head
+    qv = torch.randn((B, Sv, Hq, D), generator=g, device=dev)
+    sv = quant_state((P, PAGE_SIZE), hk, (4, 4))
+    qpv = torch.as_tensor(total[:, None] - Sv + np.arange(Sv, dtype=np.int32), device=dev)
+    fns["verify_s5_g8"] = lambda: fa.paged_attention_quant_kernel(qv, sv, bt, qpv, tl, 4, 4,
+                                                                  scale=D ** -0.5)
 else:
     from exllamav3_tpu_torch.ops.kv_quant import quantize_kv_stored
     state = {}
@@ -282,7 +322,7 @@ def timed(fn):
 
 
 if sys.argv[1] in ("intb", "int4", "latent", "int8", "fused_mlp", "paged_prefill",
-                   "linear_prefill"):
+                   "linear_prefill", "quant_prefill"):
     res = {}
     for route, f in fns.items():
         res[f"ms_{route}"], res[f"host_us_{route}"] = timed(f)
@@ -303,7 +343,7 @@ LINEAR_PREFILL = re.compile(r"^linear_decode int8: prefill \d+ tokens in [\d.]+ 
 LINEAR_DECODE = re.compile(r"^linear_decode int8: decode batch 8 after .*?: ([\d.]+) tok/s", re.M)
 RUNS = ("paged_bf16", "paged_quant", "serve_capacity", "serve", "ring", "exl3_gemm",
         "serve_gemma", "intb", "serve_packed_int6", "int4", "latent", "serve_mla", "serve_packed",
-        "int8", "fused_mlp", "paged_prefill", "linear_prefill", "linear_decode")
+        "int8", "fused_mlp", "paged_prefill", "linear_prefill", "linear_decode", "quant_prefill")
 
 
 # a serve run's log tag, where it is not the run's name
