@@ -72,10 +72,14 @@ Phases:
             routed as paged_attention_quant), latent_attention and
             latent_attention_quant (absorbed MLA over the latent cache at
             DeepSeek-V2-Lite's 16 heads and DeepSeek-V2/V3's 128: decode,
-            verify, prefill, paged and linear at T = 2056 and 2052; (4),
-            (3) and (4) with the compander; decode takes the split-key
-            kernel of csrc/latent_decode.cuh and verify and prefill the tile
-            loop, by the library's count of the split-key kernel's launches;
+            verify, prefill, paged and linear at T = 2056 and 2052, a
+            linear prefill whose last tile holds 4 keys, a 128-head prefill;
+            (4), (3) and (4) with the compander; decode takes the split-key
+            kernel of csrc/latent_decode.cuh, verify and prefill the
+            pre-pass and the body of csrc/latent_prefill.cuh (warpgroup
+            MMAs; table rows latent_attention_prefill and
+            latent_attention_quant_prefill), by the library's counts of the
+            three kernels' launches;
             a decode case with a sequence of no keys and a split of no keys
             among splits that see keys, held to the split arithmetic in
             plain torch), ring_attention (decode over the
@@ -115,7 +119,8 @@ Phases:
   parity_mla
             a 2-layer DeepSeek-V2-Lite checkpoint at full width (the dense
             layer and one MoE layer with shared experts), the GPU against the
-            CPU on the CPU's routing over a bf16 and a (4)-bit latent cache
+            CPU on the CPU's routing over a bf16 and a (4)-bit latent cache,
+            the prefill on the latent prefill body once a layer
   parity_gemma
             the first 6 layers (5 sliding, 1 global) of a Gemma-3-27B-width
             checkpoint (int8): a 1536-token prompt and 32 greedy decode steps
@@ -177,11 +182,12 @@ Phases:
             same traffic, then one request of 32 tokens over a (4)-bit
             latent cache
   serve_gemma
-            a synthetic Gemma-3-27B checkpoint at full width and all 62 layers
-            (gelu_pytorch_tanh, tied head, vocab 262208) loaded with
-            linear_mode="auto" (int8) over a bf16 paged cache whose 52 sliding
-            layers keep SWA rings (recurrent_slots 9), the same traffic: the
-            ring kernel 52 times and the paged kernel 10 times a decode step
+            a synthetic Gemma-3-27B checkpoint at full width and 12 of its 62
+            layers (GEMMA_SERVE_LAYERS; gelu_pytorch_tanh, tied head, vocab
+            262208) loaded with linear_mode="auto" (int8) over a bf16 paged
+            cache whose 10 sliding layers keep SWA rings (recurrent_slots 9),
+            the same traffic: the ring kernel 10 times and the paged kernel 2
+            times a decode step
   serve_dsv4
             the 2-layer full-width DeepSeek-V4 checkpoint (~13 GB) loaded with
             linear_mode="auto" (int8; bf16 expert stacks) over a bf16 paged
@@ -198,7 +204,7 @@ The second-to-last line is the kernel table as JSON and the last line is
 {"ok": true, "device": {...}}. Any failed phase raises and exits non-zero
 without that line. Needs CUDA; writes its checkpoints under build/chip_smoke/
 (the 16-layer MoE one is ~5 GB, the 27-layer DeepSeek-V2-Lite one ~8 GB,
-the 62-layer Gemma-3-27B one ~15 GB and the 2-layer DeepSeek-V4 one ~13 GB,
+the 12-layer Gemma-3-27B one ~3.5 GB and the 2-layer DeepSeek-V4 one ~13 GB,
 one shard a layer).
 """
 from __future__ import annotations
@@ -327,6 +333,12 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                          "exllamav3_tpu/ops/flash_attention.py:253"),
     "latent_attention_quant": ("exllamav3_tpu_torch/csrc/latent_attention_quant.cu",
                                "exllamav3_tpu/ops/flash_attention.py:253"),
+    # the verify and prefill forms of row 6a (S > 1), launched by the two
+    # entries above: the pre-pass and the body of csrc/latent_prefill.cuh
+    "latent_attention_prefill": ("exllamav3_tpu_torch/csrc/latent_prefill.cuh",
+                                 "exllamav3_tpu/ops/flash_attention.py:253"),
+    "latent_attention_quant_prefill": ("exllamav3_tpu_torch/csrc/latent_prefill.cuh",
+                                       "exllamav3_tpu/ops/flash_attention.py:253"),
     "ring_attention": ("exllamav3_tpu_torch/csrc/ring_attention.cu",
                        "exllamav3_tpu/ops/flash_attention.py:1045"),
     # row 6b, _flash_kernel with return_stats (:273), in DeepSeek-V4's three layouts
@@ -1947,6 +1959,8 @@ def _latent_cases():
     decode = (_CTX[:, None] - 1, _CTX)
     rows8 = np.array([5, 0, 7, 2, 9, 4, 1, 6], np.int32)
     ctx52 = np.minimum(_CTX_T, 2052)
+    tail = ((1752 + np.arange(300, dtype=np.int32))[None], np.array([2052], np.int32))
+    wide = ((1792 + np.arange(256, dtype=np.int32))[None], np.array([2048], np.int32))
     return [
         ("decode B=8 ctx 300-2048, DeepSeek-V2-Lite (16 heads)", 16, 0, 0, *decode, None, True),
         ("verify S=5 B=8 ctx 300-2048", 16, 0, 0,
@@ -1957,6 +1971,9 @@ def _latent_cases():
          _CTX_T, None, False),
         ("linear decode B=8 ctx 300-2052, rows of a 10-row cache, T=2052", 16, 10, 2052,
          ctx52[:, None] - 1, ctx52, rows8, False),
+        ("linear prefill S=300 on 1752 cached, T=2052 (a last tile of 4 keys)", 16, 1, 2052, *tail,
+         None, False),
+        ("prefill S=256 on 1792 cached, DeepSeek-V2/V3 (128 heads)", 128, 0, 0, *wide, None, False),
     ]
 
 
@@ -1985,25 +2002,29 @@ def _sdpa_latent(q, k, qp, tl, scale):
         qt, kk, vv, attn_mask=mask[:, None], scale=scale, enable_gqa=True)
 
 
-def _latent_launches(fn) -> int:
+def _latent_launches(fn) -> tuple:
     """Launches of the latent split-key decode kernel (csrc/latent_decode.cuh)
-    that one call of fn() made, as the kernel library counts them where it
-    launches that kernel (the tile loop is not counted)."""
+    and of the prefill pre-pass and body (csrc/latent_prefill.cuh) that one
+    call of fn() made, as the kernel library counts them where it launches
+    them."""
     from exllamav3_tpu_torch.ops.build import library
 
-    n0 = library().exl3_latent_decode_launches()
+    lib = library()
+    count = lambda: (lib.exl3_latent_decode_launches(), lib.exl3_latent_tiles_launches(),
+                     lib.exl3_latent_prefill_launches())
+    n0 = count()
     fn()
     torch.cuda.synchronize()
-    return library().exl3_latent_decode_launches() - n0
+    return tuple(b - a for a, b in zip(n0, count()))
 
 
 def _latent_route(kind: str, name: str, S: int, fn) -> None:
-    """Decode (S = 1) takes the split-key kernel, longer chunks the tile loop,
-    by the library's count of the split-key kernel's launches."""
+    """Decode (S = 1) takes the split-key kernel, longer chunks the pre-pass
+    and the body of the prefill (and nothing else), by the library's counts."""
     took = _latent_launches(fn)
-    if took != int(S == 1):
-        raise AssertionError(f"{kind} {name}: {took} launches of the latent decode kernel "
-                             f"at S = {S}")
+    if took != (int(S == 1), int(S > 1), int(S > 1)):
+        raise AssertionError(f"{kind} {name}: {took} launches of the latent decode kernel, the "
+                             f"prefill pre-pass and the prefill body at S = {S}")
 
 
 def _latent_gaps(rng, dev, B: int = 8):
@@ -2060,7 +2081,8 @@ def _latent_gap_check(kind: str, dev, q, state: dict, bits: int, a: float, scale
 
 def check_latent_attention(table, dev):
     from exllamav3_tpu_torch.ops.flash_attention import (latent_attention_kernel,
-                                                          latent_attention_plain)
+                                                          latent_attention_plain,
+                                                          latent_attention_prefill_plain)
 
     rng = np.random.default_rng(21)
     scale = 192 ** -0.5
@@ -2074,7 +2096,8 @@ def check_latent_attention(table, dev):
         tl = torch.as_tensor(total, device=dev)
         rw = None if rows is None else torch.as_tensor(rows, device=dev)
         args = dict(block_tables=bt, rows=rw, scale=scale)
-        ref = latent_attention_plain(q, kv, qp, tl, 512, **args)
+        plain_fn = latent_attention_plain if S == 1 else latent_attention_prefill_plain
+        ref = plain_fn(q, kv, qp, tl, 512, **args)
         got = latent_attention_kernel(q, kv, qp, tl, **args)
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
@@ -2086,16 +2109,17 @@ def check_latent_attention(table, dev):
         _latent_route("latent_attention", name, S,
                       lambda: latent_attention_kernel(q, kv, qp, tl, **args))
         ms = time_ms(lambda: latent_attention_kernel(q, kv, qp, tl, **args), 10)
-        plain = time_ms(lambda: latent_attention_plain(q, kv, qp, tl, 512, **args), 2)
+        plain = time_ms(lambda: plain_fn(q, kv, qp, tl, 512, **args), 2)
         k = kv[bt.long()].reshape(B, -1, 576) if bt is not None else (
             kv[:B, :, 0] if rw is None else kv[rw.long(), :, 0])
         lib = time_ms(_sdpa_latent(q, k.reshape(B, -1, 576), qp, tl, scale), 10)
         bnd = bound_ms(*_latent_work(qpos, total, Hq, 1152))
-        log(f"latent_attention {name} (Hq={Hq}, {'paged' if bt is not None else f'linear T={T}'}): "
+        row = "latent_attention" if S == 1 else "latent_attention_prefill"
+        log(f"{row} {name} (Hq={Hq}, {'paged' if bt is not None else f'linear T={T}'}): "
             f"max_abs_err={err:.3e} rel={rel:.2e} kernel_ms={ms:.4f} plain_ms={plain:.4f} "
             f"library_ms(sdpa on the gathered latent)={lib:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]})")
-        table.add("latent_attention", err, ms, plain, bnd, lib, f"{name}: B={B} S={S} Hq={Hq}",
-                  main=main)
+        table.add(row, err, ms, plain, bnd, lib, f"{name}: B={B} S={S} Hq={Hq}",
+                  main=main or name.startswith("prefill S=2048"))
         del q, kv, ref, got, k
     qpos, total, bt, P = _latent_gaps(rng, dev)
     g = torch.Generator(device=dev).manual_seed(25)
@@ -2110,7 +2134,8 @@ def check_latent_attention(table, dev):
 
 def check_latent_attention_quant(table, dev):
     from exllamav3_tpu_torch.ops.flash_attention import (latent_attention_quant_kernel,
-                                                          latent_attention_quant_plain)
+                                                          latent_attention_quant_plain,
+                                                          latent_attention_quant_prefill_plain)
     from exllamav3_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv
 
     rng = np.random.default_rng(23)
@@ -2133,7 +2158,8 @@ def check_latent_attention_quant(table, dev):
         tl = torch.as_tensor(total, device=dev)
         rw = None if rows is None else torch.as_tensor(rows, device=dev)
         args = dict(block_tables=bt, rows=rw, scale=scale)
-        ref = latent_attention_quant_plain(q, state, qp, tl, bits, a, **args)
+        plain_fn = latent_attention_quant_plain if S == 1 else latent_attention_quant_prefill_plain
+        ref = plain_fn(q, state, qp, tl, bits, a, **args)
         got = latent_attention_quant_kernel(q, state, qp, tl, bits, a, **args)
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
@@ -2145,7 +2171,7 @@ def check_latent_attention_quant(table, dev):
         _latent_route("latent_attention_quant", name, S,
                       lambda: latent_attention_quant_kernel(q, state, qp, tl, bits, a, **args))
         ms = time_ms(lambda: latent_attention_quant_kernel(q, state, qp, tl, bits, a, **args), 10)
-        plain = time_ms(lambda: latent_attention_quant_plain(q, state, qp, tl, bits, a, **args), 2)
+        plain = time_ms(lambda: plain_fn(q, state, qp, tl, bits, a, **args), 2)
         # yardstick: SDPA over the gathered latent, dequantized to bf16
         lat = torch.cat([dequantize_kv(state["kv_q"], state["kv_s"], bits, torch.bfloat16, a),
                          state["k_pe"]], dim=-1)[..., 0, :]
@@ -2153,12 +2179,13 @@ def check_latent_attention_quant(table, dev):
             lat[:B] if rw is None else lat[rw.long()])
         lib = time_ms(_sdpa_latent(q, k, qp, tl, scale), 10)
         bnd = bound_ms(*_latent_work(qpos, total, Hq, 64 * bits + 32 + 128))
-        log(f"latent_attention_quant {name} (Hq={Hq}, "
+        row = "latent_attention_quant" if S == 1 else "latent_attention_quant_prefill"
+        log(f"{row} {name} (Hq={Hq}, "
             f"{'paged' if bt is not None else f'linear T={T}'}): max_abs_err={err:.3e} "
             f"rel={rel:.2e} kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms(sdpa on the "
             f"dequantized bf16 latent)={lib:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]})")
-        table.add("latent_attention_quant", err, ms, plain, bnd, lib,
-                  f"{name}: B={B} S={S} Hq={Hq}", main=main)
+        table.add(row, err, ms, plain, bnd, lib, f"{name}: B={B} S={S} Hq={Hq}",
+                  main=main or (name.startswith("prefill S=2048") and bits == 4 and a == 0.0))
         del q, state, ref, got, lat, k
         torch.cuda.empty_cache()
     qpos, total, bt, P = _latent_gaps(rng, dev)
@@ -2574,7 +2601,9 @@ def _wrappers() -> dict:
     """The kernels' wrappers by name; each counts its launches."""
     from exllamav3_tpu_torch.ops.exl3_gemm import exl3_gemm_kernel
     from exllamav3_tpu_torch.ops.flash_attention import (latent_attention_kernel,
+                                                          latent_attention_prefill,
                                                           latent_attention_quant_kernel,
+                                                          latent_attention_quant_prefill,
                                                           linear_attention_kernel,
                                                           linear_attention_prefill,
                                                           linear_attention_quant_kernel,
@@ -2608,6 +2637,9 @@ def _wrappers() -> dict:
             "linear_attention_quant": linear_attention_quant_kernel,
             "latent_attention": latent_attention_kernel,
             "latent_attention_quant": latent_attention_quant_kernel,
+            # of the two latent entries' launches, those of the prefill body
+            "latent_attention_prefill": latent_attention_prefill,
+            "latent_attention_quant_prefill": latent_attention_quant_prefill,
             "ring_attention": ring_attention_kernel,
             "ring_attention_stats": ring_attention_stats_kernel,
             "pool_attention_stats": pool_attention_stats_kernel,
@@ -3152,7 +3184,9 @@ def phase_parity_mla():
     a paged prefill and decode steps over a bf16 latent cache, GPU (kernels)
     against CPU (plain versions), the GPU given the CPU's routing as in
     parity_moe, every position held to TOL_MOE_PATH; then a prefill and a
-    decode step over a (4)-bit latent cache, held to TOL_QUANT_PATH."""
+    decode step over a (4)-bit latent cache, held to TOL_QUANT_PATH. Each
+    prefill runs the latent prefill body once a layer, each decode step the
+    split-key kernel."""
     from exllamav3_tpu_torch.model import Cache, CacheSpec, Config, InferParams, Model
     from exllamav3_tpu_torch.util.params import params_to
 
@@ -3184,9 +3218,14 @@ def phase_parity_mla():
                                                             TOL_QUANT_PATH)):
         caches = {m: Cache(m, CacheSpec(num_pages=4, **spec_kw)) for m in (gpu, cpu)}
         c = f"cache={spec_kw or 'bf16'}"
+        prefill = "latent_attention_quant_prefill" if spec_kw else "latent_attention_prefill"
+        before = _read_counts()
         both(f"paged prefill S={S} {c}", lambda m: m.forward(
             ids[:, :S], caches[m], np.arange(S, dtype=np.int32)[None], np.array([0], np.int32),
             bt), rel_tol)
+        if _read_counts()[prefill] - before[prefill] != 2:
+            raise AssertionError(f"parity {tag} {c}: the prefill did not run the latent prefill "
+                                 "body once a layer")
         before = _read_counts()
         for p in range(S, S + steps):
             both(f"paged decode pos={p} {c}", lambda m: m.forward(
@@ -3209,8 +3248,9 @@ def phase_serve_mla() -> dict:
     """The MLA path: DeepSeek-V2-Lite at full width and all 27 layers,
     linear_mode="auto" (int8 projections and head; bf16 kv_a projection,
     dense MLP and expert stacks), over a bf16 paged latent cache; then one
-    request of 32 tokens over a (4)-bit latent cache."""
-    used = ("int8_matmul", "fused_mlp", "moe_gemm", "latent_attention")
+    request of 32 tokens over a (4)-bit latent cache. Prompts take the latent
+    prefill body, decode steps the split-key kernel."""
+    used = ("int8_matmul", "fused_mlp", "moe_gemm", "latent_attention", "latent_attention_prefill")
     gc.collect()
     torch.cuda.empty_cache()
     ckpt = _mla_checkpoint(V2_LITE["num_layers"])
@@ -3223,29 +3263,32 @@ def phase_serve_mla() -> dict:
     # its depth is cut rather than the bf16 run's
     quant = _serve("serve_mla (4)-bit latent", ckpt, "auto", dict(k_bits=4, v_bits=4), "int8",
                    prompts[:1], trace=False, model=model, new_tokens=32)
-    _require_launches("serve_mla (4)-bit latent", quant, used[:3] + ("latent_attention_quant",))
+    quant_used = used[:3] + ("latent_attention_quant", "latent_attention_quant_prefill")
+    _require_launches("serve_mla (4)-bit latent", quant, quant_used)
     del model
     gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(ckpt)  # ~8 GB that no later phase reads
-    return {**{n: counts[n] for n in used},
-            "latent_attention_quant": quant["latent_attention_quant"]}
+    return {**{n: counts[n] for n in used}, **{n: quant[n] for n in quant_used[3:]}}
 
 
 # -- phases: parity_gemma, serve_gemma ---------------------------------------------
 
 # google/gemma-3-27b-it text_config (conversion/synth.py::gemma3_27b_cfg)
 GEMMA27B = dict(vocab_size=262208, num_layers=62)
-GEMMA_SERVE_LAYERS = 62
+# cut from 62 to 12 (two global layers, 10 sliding) when the latent prefill
+# joined the call and the call neared its 1200 s limit on a slow host: the
+# 62-layer checkpoint's write and serve were its largest share
+GEMMA_SERVE_LAYERS = 12
 
 
 def _gemma_checkpoint(layers: int) -> str:
     """A synthetic Gemma-3 EXL3 checkpoint at Gemma-3-27B width, K=4, one
-    shard a layer: all 62 layers, written once per machine, or a view of its
-    first `layers` layers."""
+    shard a layer: GEMMA_SERVE_LAYERS of its layers, written once per
+    machine, or a view of the first `layers` of them."""
     from exllamav3_tpu_torch.conversion.synth import gemma3_27b_cfg, write_tiny_gemma_exl3
 
-    n = GEMMA27B["num_layers"]
+    n = GEMMA_SERVE_LAYERS
     d = os.path.join(WORK, f"gemma3_27b_{n}layers")
     t0 = time.time()
     if not os.path.exists(os.path.join(d, "config.json")):
@@ -3365,7 +3408,7 @@ def phase_serve_gemma() -> dict:
                     step_launches={"ring_attention": n_sliding,
                                    "paged_attention": cfg.num_hidden_layers - n_sliding})
     _require_launches("serve_gemma", counts, used)
-    shutil.rmtree(os.path.join(WORK, f"gemma3_27b_{GEMMA27B['num_layers']}layers"))  # ~15 GB
+    shutil.rmtree(os.path.join(WORK, f"gemma3_27b_{GEMMA_SERVE_LAYERS}layers"))  # ~3.5 GB
     return {n: counts[n] for n in used}
 
 

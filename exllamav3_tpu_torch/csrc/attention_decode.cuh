@@ -61,9 +61,9 @@
 //     that 8 threads reading 16 bytes of 8 keys meet 8 bank groups. The
 //     quantized unpack then reads shared memory: a thread takes a run of 8
 //     channels of one key, one word a plane (fields_run), maps each field to
-//     the midpoint grid or through the compander with unpack_tile's
-//     arithmetic, and multiplies by the group's scale: the same f32 values
-//     the plain version holds. A bf16 value is the top half of its f32, so
+//     the midpoint grid or through the compander (dequant_run), and
+//     multiplies by the group's scale: the same f32 values the plain version
+//     holds. A bf16 value is the top half of its f32, so
 //     the bf16 score pass converts 8 channels of K exactly with shifts, and
 //     P.V reads V as bf16x2 from the stage itself.
 //   * Merge in the same launch. Each split writes its unnormalised (acc, m,
@@ -326,10 +326,10 @@ __device__ __forceinline__ void fields_run(const uint32_t* w, int c0, uint32_t (
     }
 }
 
-// channels c0 .. c0 + 7 of one head dequantized: unpack_tile's values. The
-// grid value (2f + 1 - N) / N comes from the float whose mantissa holds
-// 2f + 1 (exact, as unpack_tile's integer conversion is), then the
-// compander in the plain version's order, then the group's scale.
+// channels c0 .. c0 + 7 of one head dequantized: the plain version's f32
+// values. The grid value (2f + 1 - N) / N comes from the float whose mantissa
+// holds 2f + 1 (exact, as an integer conversion is), then the compander in
+// the plain version's order, then the group's scale.
 template <int D, int BITS>
 __device__ __forceinline__ void dequant_run(const uint32_t* w, float sc, int c0, float ca, float cb,
                                             float (&x)[8]) {

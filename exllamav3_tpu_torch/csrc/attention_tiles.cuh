@@ -1,17 +1,14 @@
-// The flash-attention tile loop of latent_attention.cu and
-// latent_attention_quant.cu (absorbed MLA: verify and prefill),
-// ring_attention.cu (decode over a sliding-window ring, groups of more than
-// 32 heads), and attention_stats.cu's three DeepSeek-V4 decode entries, which
-// return the unnormalised online-softmax state; and the key layouts (Rows)
-// and storages (KV) that the decode and prefill bodies of
-// attention_decode.cuh and attention_prefill.cuh share with it.
+// The flash-attention tile loop of ring_attention.cu (decode over a
+// sliding-window ring, groups of more than 32 heads) and attention_stats.cu's
+// three DeepSeek-V4 decode entries, which return the unnormalised
+// online-softmax state; and the key layouts (Rows) and storages (KV) that the
+// decode and prefill bodies of attention_decode.cuh, attention_prefill.cuh,
+// latent_decode.cuh and latent_prefill.cuh share with it.
 //
 // The kernel is templated three times over:
 //   * Geo: the block's geometry. HeadDecodeGeo<D> (per-head K/V of D
 //     channels, 16 score rows for one decode token's group of heads, 64-key
-//     tiles, f32 q entering as hi + lo bf16 pairs); the latent one (one
-//     latent K row of 576 channels whose leading 512 are V, bf16 q):
-//     LatentGeo, 32 score rows and 32-key tiles; KvRowDecodeGeo,
+//     tiles, f32 q entering as hi + lo bf16 pairs); KvRowDecodeGeo,
 //     DeepSeek-V4's one 512-wide row that is K and V alike (bf16 q, no rope
 //     tail), 16 rows and 64-key tiles.
 //   * Rows: where a key tile's rows lie. PagedRows looks the page up in the
@@ -29,10 +26,8 @@
 //     64-key tile spans many pages: it is the one policy that GATHERs, each
 //     tile staging the pool row of each of its keys into shared memory
 //     (-1 for a page out of range, which the mask then hides).
-//   * KV: how a tile is stored. Bf16KV copies bf16 rows; LatentKV copies a
-//     bf16 latent row; LatentQuantKV unpacks the packed latent into hi + lo
-//     bf16 pairs and copies the bf16 rope key beside it (its lo term is 0);
-//     RowKV<W> is LatentKV at any row width W (DeepSeek-V4: 512). QuantKV
+//   * KV: how a tile is stored. Bf16KV copies bf16 rows; RowKV<W> copies one
+//     bf16 row of W channels that is K and V alike (DeepSeek-V4: 512). QuantKV
 //     (packed 2..8-bit words with one bf16 scale per 32 channels;
 //     merged-head and per-head storage address head h of a token alike, at
 //     word (token * Hk + h) * D*bits/32) is defined here for the decode and
@@ -54,18 +49,16 @@
 // accumulation; the online softmax keeps its running max, sum and output rows
 // in f32 in shared memory. The TPU kernel multiplies q and P in f32, so each
 // f32 operand enters as two bf16 terms, hi = bf16(x) and lo = bf16(x - hi),
-// one MMA each: the pair holds x to about 2^-16 relative (a bf16 q, as MLA
-// hands it over, needs no lo term). A dequantized latent value (a grid value
-// times a bf16 scale, at most 16 significant bits) is also stored as hi +
-// lo, exactly; a product then takes three MMAs (hi.hi, lo.hi, hi.lo). The
-// row sum adds P in f32. Decode fills few of the rows, and a sequence's keys
-// are walked by one block. The ring entry sends groups of up to 32 heads to
-// attention_decode.cuh, which splits the keys across blocks and merges them;
-// the latent entries send decode (S = 1) to latent_decode.cuh, which splits
-// the keys alike. The paged and linear entries, bf16 and quantized, take
-// attention_decode.cuh and attention_prefill.cuh (128 rows a block on
-// warpgroup MMAs) and not this loop; the ring's wider groups, the latent
-// entries' verify and prefill and the stats entries take it.
+// one MMA each: the pair holds x to about 2^-16 relative (a bf16 q, as
+// DeepSeek-V4 hands it over, needs no lo term). The row sum adds P in f32.
+// Decode fills few of the rows, and a sequence's keys are walked by one
+// block. The ring entry sends groups of up to 32 heads to attention_decode.cuh,
+// which splits the keys across blocks and merges them. The paged and linear
+// entries, bf16 and quantized, take attention_decode.cuh and
+// attention_prefill.cuh (128 rows a block on warpgroup MMAs), the latent
+// entries latent_decode.cuh and latent_prefill.cuh (64 rows a block on
+// warpgroup MMAs), and not this loop; the ring's wider groups and the stats
+// entries take it.
 //
 // Warps: the 4 warps split the R rows into R/16 row groups; with R = 32 two
 // warps (with R = 16 all four) share a row group and split its key subtiles
@@ -107,19 +100,14 @@ struct Geo {
 };
 template <int D>
 using HeadDecodeGeo = Geo<D, D, 16, 64, true, false>;
-// DeepSeek's latent row: kv_lora_rank 512 + qk_rope_head_dim 64
+// DeepSeek's latent row (latent_decode.cuh, latent_prefill.cuh): kv_lora_rank
+// 512 + qk_rope_head_dim 64
 constexpr int LATENT = 512, ROPE = 64;
-using LatentGeo = Geo<LATENT + ROPE, LATENT, 32, 32, false, true>;
 // DeepSeek-V4's shared K = V row (head_dim 512, the rope on its trailing 64)
 constexpr int KV_ROW = 512;
 using KvRowDecodeGeo = Geo<KV_ROW, KV_ROW, 16, 64, false, true>;
 
-// Shared memory of one block. SPLIT: K and V tiles carry a lo term too.
-//   LatentGeo: q 32 x 584 bf16 (37,376), one K tile 32 x 584 bf16 (37,376;
-//     quantized: hi + lo, 74,752; V is its leading 512 columns), scores
-//     32 x 36 f32 (4,608), P hi + lo 2 x 32 x 40 bf16 (5,120), output
-//     32 x 516 f32 (66,048), row state 520: 151,048 bytes bf16, 188,424
-//     quantized, of the 232,448 a block may have.
+// Shared memory of one block.
 //   HeadDecodeGeo<128> over a ring: q hi + lo 2 x 16 x 136 bf16, K and V
 //     64 x 136 bf16 each, scores 16 x 68 f32, P hi + lo 2 x 16 x 72 bf16,
 //     output 16 x 132 f32, row state 264, and the tile's 64 slot positions
@@ -129,7 +117,7 @@ using KvRowDecodeGeo = Geo<KV_ROW, KV_ROW, 16, 64, false, true>;
 //     2 x 16 x 72 bf16 (4,608), output 16 x 516 f32 (33,024), row state 264:
 //     125,448 bytes, plus 256 over a ring (POS) or 512 over a pool (GATHER:
 //     the tile's 64 pool rows as int64).
-template <class G_, bool SPLIT, bool POS = false, bool GATHER = false>
+template <class G_, bool POS = false, bool GATHER = false>
 struct Layout {
     static constexpr int D = G_::D, DV = G_::DV, R = G_::R, TK = G_::TK;
     static constexpr int LDQ = D + 8, LDK = D + 8, LDS = TK + 4, LDP = TK + 8, LDO = DV + 4;
@@ -137,10 +125,8 @@ struct Layout {
     static constexpr int OFF_Q = 0;
     static constexpr int OFF_QL = OFF_Q + R * LDQ * 2;
     static constexpr int OFF_K = OFF_QL + (G_::Q_SPLIT ? R * LDQ * 2 : 0);
-    static constexpr int OFF_KL = OFF_K + KV_TILE;
-    static constexpr int OFF_V = OFF_KL + (SPLIT ? KV_TILE : 0);
-    static constexpr int OFF_VL = OFF_V + (G_::V_FROM_K ? 0 : KV_TILE);
-    static constexpr int OFF_S = OFF_VL + (SPLIT && !G_::V_FROM_K ? KV_TILE : 0);
+    static constexpr int OFF_V = OFF_K + KV_TILE;
+    static constexpr int OFF_S = OFF_V + (G_::V_FROM_K ? 0 : KV_TILE);
     static constexpr int OFF_P = OFF_S + R * LDS * 4;
     static constexpr int OFF_PL = OFF_P + R * LDP * 2;
     static constexpr int OFF_O = OFF_PL + R * LDP * 2;
@@ -270,106 +256,17 @@ __device__ __forceinline__ void copy_rows(const __nv_bfloat16* __restrict__ src,
 
 template <int D>
 struct Bf16KV {
-    static constexpr bool SPLIT = false;
     const __nv_bfloat16* k;
     const __nv_bfloat16* v;
     int Hk;
     // rows tok0 .. tok0+n-1 of head hk into the tiles; rows n.. are zero
     template <int LD, int TKT>
-    __device__ void load(size_t tok0, int n, int hk, __nv_bfloat16* Ks, __nv_bfloat16*,
-                         __nv_bfloat16* Vs, __nv_bfloat16*, int tid) const {
+    __device__ void load(size_t tok0, int n, int hk, __nv_bfloat16* Ks, __nv_bfloat16* Vs,
+                         int tid) const {
         copy_rows<D, LD, TKT>(k, tok0, n, Hk, hk, Ks, tid);
         copy_rows<D, LD, TKT>(v, tok0, n, Hk, hk, Vs, tid);
     }
 };
-
-// Field of channel c (0..D-1) of one head's packed words.
-template <int D, int BITS>
-__device__ __forceinline__ uint32_t field(const uint32_t* __restrict__ w, int c) {
-    if constexpr (BITS == 2 || BITS == 4 || BITS == 8) {
-        // one bit stream per group of 32 channels, BITS words long
-        const int off = (c & 31) * BITS;
-        return (__ldg(w + (c >> 5) * BITS + (off >> 5)) >> (off & 31)) & ((1u << BITS) - 1u);
-    } else {
-        // bit planes, largest first, each packed in lane order: channel
-        // 32*group + w*J + j sits at lane p = j*(G*PB0) + group*PB0 + w, and
-        // plane i keeps lane p in word p % (G*PBi) at field p / (G*PBi)
-        constexpr int G = D / 32;
-        constexpr int PB0 = BITS == 3 ? 2 : 4;
-        constexpr int PB1 = (BITS == 3 || BITS == 5) ? 1 : 2;
-        constexpr int PB2 = BITS == 7 ? 1 : 0;
-        constexpr int J = 32 / PB0;
-        const int i = c & 31, group = c >> 5;
-        const int p = (i % J) * (G * PB0) + group * PB0 + i / J;
-        uint32_t v = (__ldg(w + p % (G * PB0)) >> ((p / (G * PB0)) * PB0)) & ((1u << PB0) - 1u);
-        v |= ((__ldg(w + G * PB0 + p % (G * PB1)) >> ((p / (G * PB1)) * PB1))
-              & ((1u << PB1) - 1u)) << PB0;
-        if constexpr (PB2 > 0)
-            v |= ((__ldg(w + G * (PB0 + PB1) + p % (G * PB2)) >> ((p / (G * PB2)) * PB2))
-                  & ((1u << PB2) - 1u)) << (PB0 + PB1);
-        return v;
-    }
-}
-
-// Unpack n <= TKT keys of one head, starting at token row `tok0` of the
-// storage, into hi and lo bf16 tiles of LD columns; rows n.. are zero. A
-// thread takes 8 consecutive channels of one key: it reads the words that
-// hold them straight from device memory (neighbouring threads read
-// neighbouring words), takes the field of each channel, maps it to the
-// midpoint grid ((2q+1)/N - 1) or through the compander t*(a + (1-a)t^2),
-// and multiplies by the group's scale. Each field goes to its true channel:
-// the JAX kernel's channel permutation served the TPU's repeat-widen unpack
-// and is left out, except that odd widths are stored as bit planes in lane
-// order, which field() follows. K and V stay in their stored, rotated basis.
-template <int D, int LD, int TKT, int BITS>
-__device__ __forceinline__ void unpack_tile(const uint32_t* __restrict__ words,
-                                            const __nv_bfloat16* __restrict__ scales,
-                                            size_t tok0, int n, int Hk, int hk, float ca, float cb,
-                                            __nv_bfloat16* hi_s, __nv_bfloat16* lo_s, int tid) {
-    constexpr int W = D * BITS / 32, G = D / 32, RUNS = D / 8, N = 1 << BITS;
-    for (int e = tid; e < TKT * RUNS; e += THREADS) {
-        const int j = e / RUNS, c0 = (e % RUNS) * 8;
-        __align__(16) __nv_bfloat16 hi[8], lo[8];
-        if (j < n) {
-            const size_t th = (tok0 + j) * Hk + hk;
-            const uint32_t* w = words + th * W;
-            const float sc = __bfloat162float(scales[th * G + (c0 >> 5)]);
-#pragma unroll
-            for (int i = 0; i < 8; ++i) {
-                const int f = (int)field<D, BITS>(w, c0 + i);
-                float t = (float)(2 * f + 1 - N) * (1.0f / N);
-                if (ca > 0.0f)  // t*(a + (1-a)*t*t), in the plain version's order
-                    t = __fmul_rn(t, __fadd_rn(ca, __fmul_rn(__fmul_rn(cb, t), t)));
-                const float x = __fmul_rn(t, sc);
-                hi[i] = __float2bfloat16_rn(x);
-                lo[i] = __float2bfloat16_rn(x - __bfloat162float(hi[i]));
-            }
-        } else {
-#pragma unroll
-            for (int i = 0; i < 8; ++i) hi[i] = lo[i] = __float2bfloat16_rn(0.0f);
-        }
-        *reinterpret_cast<uint4*>(&hi_s[j * LD + c0]) = *reinterpret_cast<const uint4*>(hi);
-        *reinterpret_cast<uint4*>(&lo_s[j * LD + c0]) = *reinterpret_cast<const uint4*>(lo);
-    }
-}
-
-template <int D, int LD, int TKT>
-__device__ __forceinline__ void unpack_any(int bits, const uint32_t* __restrict__ words,
-                                           const __nv_bfloat16* __restrict__ scales, size_t tok0,
-                                           int n, int Hk, int hk, float ca, float cb,
-                                           __nv_bfloat16* hi_s, __nv_bfloat16* lo_s, int tid) {
-#define EXL3_UNPACK(B) unpack_tile<D, LD, TKT, B>(words, scales, tok0, n, Hk, hk, ca, cb, hi_s, lo_s, tid)
-    switch (bits) {  // uniform across the grid
-        case 2: EXL3_UNPACK(2); break;
-        case 3: EXL3_UNPACK(3); break;
-        case 4: EXL3_UNPACK(4); break;
-        case 5: EXL3_UNPACK(5); break;
-        case 6: EXL3_UNPACK(6); break;
-        case 7: EXL3_UNPACK(7); break;
-        default: EXL3_UNPACK(8); break;
-    }
-#undef EXL3_UNPACK
-}
 
 // K and V of D channels as packed 2..8-bit words with one bf16 scale per 32
 // channels, staged and unpacked by attention_decode.cuh and
@@ -384,16 +281,14 @@ struct QuantKV {
     float ca, cb;  // compander a and 1 - a; ca = 0 selects the midpoint grid
 };
 
-// bf16 rows of W channels, one per token, that are K and V alike: MLA's
-// latent rows [c_kv | k_pe] (W = 576, V the leading 512) and DeepSeek-V4's
-// 512-wide rows. V is read from the K tile.
+// bf16 rows of W channels, one per token, that are K and V alike
+// (DeepSeek-V4's 512-wide rows). V is read from the K tile.
 template <int W>
 struct RowKV {
-    static constexpr bool SPLIT = false;
     const __nv_bfloat16* kv;  // (N, T, 1, W)
     template <int LD, int TKT>
     __device__ void load(size_t tok0, int n, int, __nv_bfloat16* Ks, __nv_bfloat16*,
-                         __nv_bfloat16*, __nv_bfloat16*, int tid) const {
+                         int tid) const {
         copy_rows<W, LD, TKT>(kv, tok0, n, 1, 0, Ks, tid);
     }
     // row toks[j] of the storage into tile row j; zero where toks[j] < 0
@@ -409,31 +304,6 @@ struct RowKV {
         }
     }
 };
-using LatentKV = RowKV<LATENT + ROPE>;
-
-// packed latent words (LATENT * bits / 32 a token) with one bf16 scale per 32
-// channels, and the bf16 rope key (ROPE a token) stored apart. The latent
-// unpacks into hi + lo columns [0, LATENT), the rope key copies into hi
-// columns [LATENT, LATENT + ROPE), whose lo columns are 0
-struct LatentQuantKV {
-    static constexpr bool SPLIT = true;
-    const uint32_t* kq;
-    const __nv_bfloat16* ks;
-    const __nv_bfloat16* kpe;
-    int bits;
-    float ca, cb;  // compander a and 1 - a; ca = 0 selects the midpoint grid
-    template <int LD, int TKT>
-    __device__ void load(size_t tok0, int n, int, __nv_bfloat16* Ks, __nv_bfloat16* Kls,
-                         __nv_bfloat16*, __nv_bfloat16*, int tid) const {
-        unpack_any<LATENT, LD, TKT>(bits, kq, ks, tok0, n, 1, 0, ca, cb, Ks, Kls, tid);
-        copy_rows<ROPE, LD, TKT>(kpe, tok0, n, 1, 0, Ks + LATENT, tid);
-        for (int e = tid; e < TKT * (ROPE / 8); e += THREADS) {
-            const int j = e / (ROPE / 8), c = (e % (ROPE / 8)) * 8;
-            *reinterpret_cast<uint4*>(&Kls[j * LD + LATENT + c]) = make_uint4(0u, 0u, 0u, 0u);
-        }
-    }
-};
-
 // -- the kernel ----------------------------------------------------------------------
 
 template <class G_, class Rows, class KV, bool STATS>
@@ -443,7 +313,7 @@ attention_kernel(const void* __restrict__ q, Rows rows, KV kv, const int* __rest
                  float* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
                  int S, int Hq, int Hk, float scale, int window, float softcap) {
     constexpr int D = G_::D, DV = G_::DV, R = G_::R, TK = G_::TK;
-    constexpr bool SPLIT = KV::SPLIT, QS = G_::Q_SPLIT, RING = Rows::POS_FROM_ARRAY;
+    constexpr bool QS = G_::Q_SPLIT, RING = Rows::POS_FROM_ARRAY;
     constexpr bool GATHER = Rows::GATHER;
     constexpr int NWR = R / 16;          // row groups of 16
     constexpr int WPR = WARPS / NWR;     // warps sharing a row group
@@ -451,14 +321,12 @@ attention_kernel(const void* __restrict__ q, Rows rows, KV kv, const int* __rest
     constexpr int KPT = TK / TPR;        // keys a softmax thread
     static_assert(NWR * WPR == WARPS && TPR * R == THREADS && KPT * TPR == TK, "geometry");
     static_assert(D % 16 == 0 && DV % 16 == 0 && TK % 16 == 0 && PAGE % TK == 0, "geometry");
-    using L = Layout<G_, SPLIT, RING, GATHER>;
+    using L = Layout<G_, RING, GATHER>;
     extern __shared__ __align__(128) unsigned char smem[];
     __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_Q);
     __nv_bfloat16* Qls = reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_QL);
     __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_K);
-    __nv_bfloat16* Kls = reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_KL);
     __nv_bfloat16* Vs = G_::V_FROM_K ? Ks : reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_V);
-    __nv_bfloat16* Vls = G_::V_FROM_K ? Kls : reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_VL);
     float* Ss = reinterpret_cast<float*>(smem + L::OFF_S);
     __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_P);
     __nv_bfloat16* Pls = reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_PL);
@@ -559,7 +427,7 @@ attention_kernel(const void* __restrict__ q, Rows rows, KV kv, const int* __rest
             kv.template load_gather<L::LDK, TK>(key_tok, Ks, tid);
         } else {
             // a constant count for full tiles, so that their loads carry no bound check
-            kv.template load<L::LDK, TK>(tok0, Rows::FULL ? TK : n, hk, Ks, Kls, Vs, Vls, tid);
+            kv.template load<L::LDK, TK>(tok0, Rows::FULL ? TK : n, hk, Ks, Vs, tid);
         }
         if constexpr (RING) rows.template stage_pos<TK>(tok0, n, key_pos, tid);
         __syncthreads();
@@ -578,11 +446,6 @@ attention_kernel(const void* __restrict__ q, Rows rows, KV kv, const int* __rest
                 wmma::mma_sync(sc, fa, fb, sc);
                 if constexpr (QS) {
                     wmma::load_matrix_sync(fa, &Qls[rw * L::LDQ + kk], L::LDQ);
-                    wmma::mma_sync(sc, fa, fb, sc);
-                }
-                if constexpr (SPLIT) {
-                    wmma::load_matrix_sync(fb, &Kls[(j * 16) * L::LDK + kk], L::LDK);
-                    wmma::load_matrix_sync(fa, &Qs[rw * L::LDQ + kk], L::LDQ);
                     wmma::mma_sync(sc, fa, fb, sc);
                 }
             }
@@ -658,11 +521,6 @@ attention_kernel(const void* __restrict__ q, Rows rows, KV kv, const int* __rest
                 wmma::mma_sync(o, fa, fb, o);
                 wmma::load_matrix_sync(fa, &Pls[rw * L::LDP + kk], L::LDP);
                 wmma::mma_sync(o, fa, fb, o);
-                if constexpr (SPLIT) {
-                    wmma::load_matrix_sync(fb, &Vls[kk * L::LDK + dcol], L::LDK);
-                    wmma::load_matrix_sync(fa, &Ps[rw * L::LDP + kk], L::LDP);
-                    wmma::mma_sync(o, fa, fb, o);
-                }
             }
             wmma::store_matrix_sync(&Os[rw * L::LDO + dcol], o, L::LDO, wmma::mem_row_major);
         }
@@ -697,7 +555,7 @@ int launch_attention(const void* q, Rows rows, KV kv, const void* qpos, const vo
                      const void* sinks, void* out, int B, int S, int Hq, int Hk, float scale,
                      int window, float softcap, cudaStream_t st, void* m_out = nullptr,
                      void* l_out = nullptr) {
-    constexpr int BYTES = Layout<G_, KV::SPLIT, Rows::POS_FROM_ARRAY, Rows::GATHER>::BYTES;
+    constexpr int BYTES = Layout<G_, Rows::POS_FROM_ARRAY, Rows::GATHER>::BYTES;
     static_assert(BYTES <= 232448, "shared memory of one block");
     if (STATS && (m_out == nullptr || l_out == nullptr)) return (int)cudaErrorInvalidValue;
     static bool attr_set = false;

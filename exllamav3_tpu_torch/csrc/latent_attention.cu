@@ -21,16 +21,21 @@
 // Design:   decode (S = 1) takes the split-key kernel of latent_decode.cuh
 //           (a block holds one token's 16 heads over a split of the keys,
 //           tiles staged by cp.async, scores and P.V on the tensor cores, the
-//           splits merged in the launch). Longer chunks take the tile loop of
-//           attention_tiles.cuh with LatentKV and LatentGeo: 32 (token, head)
-//           rows and 32-key tiles (151,048 bytes), V read from the K tile
+//           splits merged in the launch). Longer chunks (verify, prefill) take
+//           the body of latent_prefill.cuh: a pre-pass lays the keys the
+//           launch can see out as swizzled 32-key tiles in a scratch the
+//           caller hands over; then 64 (token, head) rows a block on
+//           warpgroup MMAs, two warpgroups each owning 256 of V's columns,
+//           the tiles staged by bulk copies four deep, V read from the K tile
 //           already in shared memory; q is bf16, so the scores take one MMA;
 //           P enters as hi + lo bf16 as in the other entries.
-#include "latent_decode.cuh"
+#include "latent_prefill.cuh"
 
 // paged: bt (B, MP), MP, P pages; linear: bt null, rows (B,) or null, N, T.
-// Decode (S = 1) needs ws, counters and split_keys (latent_decode.cuh), the
-// tile loop none of them.
+// Decode (S = 1) needs ws, counters and split_keys (latent_decode.cuh); a
+// longer chunk takes ws as the scratch of its tiles (the pre-pass's: B *
+// ceil(W / 32) * 32 * 576 bf16, W the layout's keys a sequence: MP * 256, or
+// T) and no counters.
 extern "C" int exl3_latent_attention(const void* q, const void* kv, const void* bt,
                                      const void* rows_, const void* qpos, const void* total_lens,
                                      void* out, void* ws, void* counters, int B, int S, int Hq,
@@ -47,9 +52,10 @@ extern "C" int exl3_latent_attention(const void* q, const void* kv, const void* 
                              : launch_latent_decode(q, linear, lkv, qpos, total_lens, out, ws,
                                                     counters, B, Hq, scale, split_keys, T, st);
     }
-    const LatentKV lkv{static_cast<const __nv_bfloat16*>(kv)};
-#define EXL3_LAUNCH(ROWS) launch_attention<LatentGeo>(q, ROWS, lkv, qpos, total_lens, nullptr, out, \
-                                                      B, S, Hq, 1, scale, 0, 0.0f, st)
-    return bt != nullptr ? EXL3_LAUNCH(paged) : EXL3_LAUNCH(linear);
-#undef EXL3_LAUNCH
+    const LatentBf16Src src{static_cast<const __nv_bfloat16*>(kv)};
+    return bt != nullptr
+               ? launch_latent_prefill(q, paged, src, ws, MP * PAGE, qpos, total_lens, out, B, S,
+                                       Hq, scale, st)
+               : launch_latent_prefill(q, linear, src, ws, T, qpos, total_lens, out, B, S, Hq,
+                                       scale, st);
 }

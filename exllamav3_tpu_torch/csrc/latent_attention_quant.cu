@@ -18,25 +18,31 @@
 //           caller rotates it back), with the visibility rule of
 //           latent_attention.cu.
 // Bound:    decode reads each visible token's packed latent, scales and rope
-//           key once (64 * bits + 32 + 128 bytes; bytes over 3.35 TB/s).
+//           key once (64 * bits + 32 + 128 bytes; bytes over 3.35 TB/s); a
+//           long prefill chunk is bound by its 2*(576 + 512) operations per
+//           visible (query head, key) pair at the bf16 tensor-core rate.
 // Design:   decode (S = 1) takes the split-key kernel of latent_decode.cuh
 //           over LatentQuantRows: each split stages its tiles' packed words,
 //           scales and rope keys by bulk copies and unpacks a tile in shared
 //           memory into hi + lo bf16 columns (exact), the rope key beside them
 //           with a lo term of 0; the scores take two MMAs (q against hi and
 //           lo), P times V three; q is rotated as it is loaded and the output
-//           in the merge. Longer chunks take the tile loop of
-//           attention_tiles.cuh with LatentQuantKV and LatentGeo (188,424
-//           bytes a block), the same unpack read from device memory. The JAX
-//           kernel folds its channel permutation and group rotation into q
-//           and the output; here each field goes to its true channel and only
-//           the rotation stays outside.
-#include "latent_decode.cuh"
+//           in the merge. Longer chunks take the body of latent_prefill.cuh:
+//           its pre-pass dequantizes the keys the launch can see into hi + lo
+//           bf16 rows, laid out as swizzled 32-key tiles in a scratch the
+//           caller hands over; the body stages them by bulk copies, two MMAs
+//           a score, three a P.V term. The JAX kernel
+//           folds its channel permutation and group rotation into q and the
+//           output; here each field goes to its true channel and only the
+//           rotation stays outside.
+#include "latent_prefill.cuh"
 
 // compand_a = 0 selects the midpoint grid; compand_b is 1 - compand_a.
 // paged: bt (B, MP), MP, P pages; linear: bt null, rows (B,) or null, N, T.
-// Decode (S = 1) needs ws, counters and split_keys (latent_decode.cuh), the
-// tile loop none of them.
+// Decode (S = 1) needs ws, counters and split_keys (latent_decode.cuh); a
+// longer chunk takes ws as the scratch of its tiles (the pre-pass's: B *
+// ceil(W / 32) * 32 * 1088 bf16, W the layout's keys a sequence: MP * 256, or
+// T) and no counters.
 extern "C" int exl3_latent_attention_quant(
     const void* q, const void* kq, const void* ks, const void* kpe, const void* bt,
     const void* rows_, const void* qpos, const void* total_lens, void* out, void* ws,
@@ -57,9 +63,10 @@ extern "C" int exl3_latent_attention_quant(
                              : launch_latent_decode(q, linear, lkv, qpos, total_lens, out, ws,
                                                     counters, B, Hq, scale, split_keys, T, st);
     }
-    const LatentQuantKV lkv{words, scales, rope, bits, compand_a, compand_b};
-#define EXL3_LAUNCH(ROWS) launch_attention<LatentGeo>(q, ROWS, lkv, qpos, total_lens, nullptr, out, \
-                                                      B, S, Hq, 1, scale, 0, 0.0f, st)
-    return bt != nullptr ? EXL3_LAUNCH(paged) : EXL3_LAUNCH(linear);
-#undef EXL3_LAUNCH
+    const LatentQuantSrc src{words, scales, rope, bits, compand_a, compand_b};
+    return bt != nullptr
+               ? launch_latent_prefill(q, paged, src, ws, MP * PAGE, qpos, total_lens, out, B, S,
+                                       Hq, scale, st)
+               : launch_latent_prefill(q, linear, src, ws, T, qpos, total_lens, out, B, S, Hq,
+                                       scale, st);
 }

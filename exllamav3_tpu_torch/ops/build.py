@@ -29,7 +29,8 @@ SOURCES = ("int8_matmul.cu", "fused_mlp.cu", "paged_attention.cu", "exl3_gemm.cu
            "probe_dma.cu", "probe_trellis.cu", "probe_kv_dequant.cu", "probe_int4.cu")
 HEADERS = ("packed_matmul.cuh", "attention_tiles.cuh", "attention_decode.cuh",
            "async_copy.cuh", "intb_layout.cuh", "int4_layout.cuh", "latent_decode.cuh",
-           "int8_layout.cuh", "int8_staged.cuh", "attention_prefill.cuh")  # included by sources; part of the digest
+           "int8_layout.cuh", "int8_staged.cuh", "attention_prefill.cuh",
+           "latent_prefill.cuh")  # included by sources; part of the digest
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -101,6 +102,10 @@ SIGNATURES = {
     "exl3_fused_mlp_launches": [_I],
     # the latent split-key decode kernel's launches so far (csrc/latent_decode.cuh)
     "exl3_latent_decode_launches": [],
+    # the latent prefill body's launches so far, and those of its pre-pass,
+    # which lays the keys out as the body's tiles (csrc/latent_prefill.cuh)
+    "exl3_latent_prefill_launches": [],
+    "exl3_latent_tiles_launches": [],
 }
 
 _LIB = None

@@ -32,7 +32,10 @@ V the latent itself; bf16, or the latent packed with the rope key in bf16.
 Their decode (S = 1) goes through the split-key kernel of
 csrc/latent_decode.cuh (splits sized by latent_split_keys, merged in the
 launch; its plain split arithmetic: latent_attention_split_plain), verify and
-prefill through the tile loop.
+prefill through csrc/latent_prefill.cuh (a pre-pass lays the keys the
+launch can see out as tiles in a scratch, dequantized over the quantized
+latent; then 64 rows a block on warpgroup MMAs; its plain arithmetic:
+latent_attention_prefill_plain and latent_attention_quant_prefill_plain).
 csrc/ring_attention.cu serves decode (S = 1) over a sliding-window layer's
 ring (`ring_attention`): each sequence's ring row holds W slots of bf16 K/V
 beside the position each slot holds, and the positions decide visibility.
@@ -214,7 +217,9 @@ def attention_route(S: int, Hq: int, Hk: int) -> str:
 class LaunchCount:
     """The launches of one body of an entry whose wrapper counts all of them
     (the prefill body's of paged_attention_kernel, linear_attention_kernel,
-    paged_attention_quant_kernel and linear_attention_quant_kernel)."""
+    paged_attention_quant_kernel and linear_attention_quant_kernel, and the
+    latent prefill body's of latent_attention_kernel and
+    latent_attention_quant_kernel)."""
 
     def __init__(self):
         self.launches = 0
@@ -235,83 +240,88 @@ def _hi_lo(x) -> tuple:
 
 
 def attention_prefill_plain(q, k, v, visible, scale: float = 1.0, logit_softcap: float = 0.0,
-                            sinks=None) -> torch.Tensor:
+                            sinks=None, rows: int = PREFILL_ROWS,
+                            tile: int = PREFILL_TILE) -> torch.Tensor:
     """(B, S, Hq, D) f32: the prefill body's arithmetic in plain torch. q
-    (B, S, Hq, D) f32; k, v (B, T, Hk, D), each sequence's keys in order:
-    bf16 (the bf16 cache), or f32 (the quantized cache's values, which enter
-    the products as hi + lo bf16 pairs, as the kernel unpacks them); visible
-    (B, S, T) bool. As the kernel, the walk goes by q blocks of PREFILL_ROWS
-    (token, head-in-group) rows (min(G, PREFILL_ROWS) heads, PREFILL_ROWS //
-    that tokens; here every head of a token at once, which computes the same
-    rows) and, in each, by PREFILL_TILE-key tiles from the first key a row of
-    the block sees to the last. q and P enter the products as hi + lo bf16
-    pairs; scores are scale * (q_hi.k_hi + q_lo.k_hi + q_hi.k_lo), the last
-    term for f32 K only (the lo.lo term left out), then the softcap, then the
-    mask; the online softmax keeps its running max m, sum l (of P in f32) and
-    output (P_hi.V_hi + P_lo.V_hi + P_hi.V_lo) in f32, m starting at the
-    head's sink (l at 1) where there are sinks; the output is divided by
-    max(l, 1e-30), so a row that sees no key gives 0."""
+    (B, S, Hq, D) f32 (or bf16: its lo term is 0); k (B, T, Hk, D), v
+    (B, T, Hk, Dv), each sequence's keys in order: bf16 (the bf16 cache), or
+    f32 (the quantized cache's values, which enter the products as hi + lo
+    bf16 pairs, as the kernel unpacks them); visible (B, S, T) bool. As the
+    kernel, the walk goes by q blocks of `rows` (token, head-in-group) rows
+    (min(G, rows) heads, rows // that tokens; here every head of a token at
+    once, which computes the same rows) and, in each, by `tile`-key tiles
+    from the first key a row of the block sees to the last (the latent body,
+    csrc/latent_prefill.cuh: 64 rows, 32-key tiles). q and P enter the
+    products as hi + lo bf16 pairs; scores are scale * (q_hi.k_hi + q_lo.k_hi
+    + q_hi.k_lo), the last term for f32 K only (the lo.lo term left out),
+    then the softcap, then the mask; the online softmax keeps its running
+    max m, sum l (of P in f32) and output (P_hi.V_hi + P_lo.V_hi +
+    P_hi.V_lo) in f32, m starting at the head's sink (l at 1) where there
+    are sinks; the output is divided by
+    max(l, 1e-30), so a row that sees no key gives 0. All q blocks walk the
+    tiles together, from the first key any row sees to the last: a tile that
+    no row of a block sees leaves that block's state exactly as it was, so
+    this is each block's own walk."""
     B, S, Hq, D = q.shape
-    T, Hk = k.shape[1], k.shape[2]
+    T, Hk, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = Hq // Hk
-    QT = PREFILL_ROWS // min(G, PREFILL_ROWS)  # tokens a block
-    q_hi, q_lo = _hi_lo(q)
-    # (B, Hk, S * G, D): row (s, g) of kv head hk is q head hk * G + g at token s
-    q_hi, q_lo = (t.reshape(B, S, Hk, G, D).permute(0, 2, 1, 3, 4) for t in (q_hi, q_lo))
+    QT = rows // min(G, rows)  # tokens a block
+    nb = -(-S // QT)
+    pad = nb * QT - S  # tokens of the last block past S: they see no key
 
-    def operand(t) -> tuple:  # (B, Hk, T, D) hi and lo; lo None for bf16 values
+    def blocks(t):  # (B, S, Hq, X) -> (B, Hk, nb, QT * G, X): row (s, g) is q head hk * G + g
+        t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+        return t.reshape(B, nb, QT, Hk, G, -1).permute(0, 3, 1, 2, 4, 5).reshape(
+            B, Hk, nb, QT * G, t.shape[-1])
+
+    q_hi, q_lo = (blocks(t) for t in _hi_lo(q))
+
+    def operand(t) -> tuple:  # (B, Hk, 1, T, D) hi and lo; lo None for bf16 values
         hi, lo = (t.float(), None) if t.dtype == torch.bfloat16 else _hi_lo(t)
-        return hi.permute(0, 2, 1, 3), None if lo is None else lo.permute(0, 2, 1, 3)
+        return tuple(None if x is None else x.permute(0, 2, 1, 3)[:, :, None] for x in (hi, lo))
 
     kf, k_lo = operand(k)
     vf, v_lo = operand(v)
-    if sinks is not None:
-        m0 = sinks.float().reshape(1, Hk, 1, G).to(q.device)
-    out = torch.zeros(B, Hk, S, G, D, dtype=torch.float32, device=q.device)
-    for s0 in range(0, S, QT):
-        s1 = min(S, s0 + QT)
-        n = (s1 - s0) * G
-        vis = visible[:, s0:s1]  # (B, nt, T)
-        seen = vis.any(dim=1).any(dim=0).nonzero()
-        if seen.numel() == 0:
-            continue
-        lo, hi = int(seen.min()), int(seen.max())
-        qh = q_hi[:, :, s0:s1].reshape(B, Hk, n, D)
-        ql = q_lo[:, :, s0:s1].reshape(B, Hk, n, D)
-        # (B, 1, nt * G, T): the mask of row (s, g) is token s's
-        mask = vis[:, None, :, None, :].expand(B, 1, s1 - s0, G, T).reshape(B, 1, n, T)
-        if sinks is None:
-            m = torch.full((B, Hk, n), -torch.inf, device=q.device)
-            l = torch.zeros((B, Hk, n), device=q.device)
-        else:
-            m = m0.expand(B, Hk, s1 - s0, G).reshape(B, Hk, n).clone()
-            l = torch.ones((B, Hk, n), device=q.device)
-        o = torch.zeros((B, Hk, n, D), device=q.device)
-        for key0 in range(lo // PREFILL_TILE * PREFILL_TILE, hi + 1, PREFILL_TILE):
-            kt = kf[:, :, key0:key0 + PREFILL_TILE]
-            vt = vf[:, :, key0:key0 + PREFILL_TILE]
-            sc = qh @ kt.transpose(-1, -2) + ql @ kt.transpose(-1, -2)
-            if k_lo is not None:
-                sc = sc + qh @ k_lo[:, :, key0:key0 + PREFILL_TILE].transpose(-1, -2)
-            sc = sc * scale
-            if logit_softcap > 0.0:
-                sc = torch.tanh(sc / logit_softcap) * logit_softcap
-            sc = sc.masked_fill(~mask[..., key0:key0 + PREFILL_TILE], -torch.inf)
-            m_new = torch.maximum(m, sc.amax(dim=-1))
-            alpha = torch.where(m == -torch.inf, torch.zeros_like(m), torch.exp(m - m_new))
-            base = torch.where(m_new == -torch.inf, torch.zeros_like(m_new), m_new)
-            p = torch.exp(sc - base[..., None])
-            p_hi = p.to(torch.bfloat16).float()
-            p_lo = (p - p_hi).to(torch.bfloat16).float()
-            l = l * alpha + p.sum(dim=-1)
-            pv = p_hi @ vt + p_lo @ vt
-            if v_lo is not None:
-                pv = pv + p_hi @ v_lo[:, :, key0:key0 + PREFILL_TILE]
-            o = o * alpha[..., None] + pv
-            m = m_new
-        o = o / torch.clamp(l, min=1e-30)[..., None]
-        out[:, :, s0:s1] = o.reshape(B, Hk, s1 - s0, G, D)
-    return out.permute(0, 2, 1, 3, 4).reshape(B, S, Hq, D)
+    vis = torch.nn.functional.pad(visible, (0, 0, 0, pad))  # (B, nb * QT, T)
+    # (B, 1, nb, QT * G, T): the mask of row (s, g) is token s's
+    mask = vis.reshape(B, nb, QT, 1, T).expand(B, nb, QT, G, T).reshape(B, 1, nb, QT * G, T)
+    shape = (B, Hk, nb, QT * G)
+    if sinks is None:
+        m = torch.full(shape, -torch.inf, device=q.device)
+        l = torch.zeros(shape, device=q.device)
+    else:
+        m = sinks.float().to(q.device).reshape(1, Hk, 1, 1, G).expand(B, Hk, nb, QT, G)
+        m = m.reshape(shape).clone()
+        l = torch.ones(shape, device=q.device)
+    o = torch.zeros((*shape, Dv), device=q.device)
+    seen = vis.any(dim=1).any(dim=0).nonzero()
+    lo, hi = (int(seen.min()), int(seen.max())) if seen.numel() else (0, -1)
+    for key0 in range(lo // tile * tile, hi + 1, tile):
+        kt = kf[..., key0:key0 + tile, :]
+        vt = vf[..., key0:key0 + tile, :]
+        sc = q_hi @ kt.transpose(-1, -2) + q_lo @ kt.transpose(-1, -2)
+        if k_lo is not None:
+            sc = sc + q_hi @ k_lo[..., key0:key0 + tile, :].transpose(-1, -2)
+        sc = sc * scale
+        if logit_softcap > 0.0:
+            sc = torch.tanh(sc / logit_softcap) * logit_softcap
+        sc = sc.masked_fill(~mask[..., key0:key0 + tile], -torch.inf)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        alpha = torch.where(m == -torch.inf, torch.zeros_like(m), torch.exp(m - m_new))
+        base = torch.where(m_new == -torch.inf, torch.zeros_like(m_new), m_new)
+        p = torch.exp(sc - base[..., None])
+        p_hi = p.to(torch.bfloat16).float()
+        p_lo = (p - p_hi).to(torch.bfloat16).float()
+        l = l * alpha + p.sum(dim=-1)
+        pv = p_hi @ vt + p_lo @ vt
+        if v_lo is not None:
+            pv = pv + p_hi @ v_lo[..., key0:key0 + tile, :]
+        o = o * alpha[..., None] + pv
+        m = m_new
+    o = o / torch.clamp(l, min=1e-30)[..., None]
+    # (B, Hk, nb, QT, G, Dv) -> (B, S, Hq, Dv)
+    o = o.reshape(B, Hk, nb, QT, G, Dv).permute(0, 2, 3, 1, 4, 5).reshape(B, nb * QT, Hq, Dv)
+    return o[:, :S].contiguous()
 
 
 def paged_attention_prefill_plain(q, k_pages, v_pages, block_tables, q_positions, total_lens,
@@ -808,13 +818,27 @@ def latent_split_keys(width: int, B: int, Hq: int, sms: int = H100_SMS) -> int:
     return split
 
 
-def _latent_decode_launch(q, width: int, sms: int) -> tuple:
+# The latent prefill body (csrc/latent_prefill.cuh) serves every chunk of
+# more than one token: a block holds LATENT_PREFILL_ROWS (token, head) rows
+# and walks LATENT_PREFILL_TILE-key tiles. The two widths are the header's own.
+LATENT_PREFILL_ROWS, LATENT_PREFILL_TILE = header_constants(
+    "latent_prefill.cuh", "LP_ROWS", "LP_TK")
+latent_attention_prefill = LaunchCount()
+latent_attention_quant_prefill = LaunchCount()
+
+
+def _latent_launch(q, width: int, sms: int, quant: bool) -> tuple:
     """(workspace, counters, split_keys) of a latent launch: decode (S = 1)
     takes a workspace of (acc, m, l) for each split of latent_split_keys's
-    size and the arrival counters; the tile loop none of them."""
+    size and the arrival counters; a longer chunk takes a scratch for the
+    prefill body's tiles of the keys the launch can see, the layout's width
+    in whole LATENT_PREFILL_TILE-key tiles of bf16 rows: 576 values a key,
+    1088 over the quantized latent (hi and lo)."""
     B, S, Hq, _ = q.shape
     if S != 1:
-        return None, None, 0
+        keys = -(-width // LATENT_PREFILL_TILE) * LATENT_PREFILL_TILE
+        per_key = LATENT + ROPE + (LATENT if quant else 0)
+        return torch.empty(B * keys * per_key, dtype=torch.bfloat16, device=q.device), None, 0
     split_keys = latent_split_keys(width, B, Hq, sms)
     slices = -(-Hq // LATENT_ROWS)
     ws = torch.empty(B * slices * -(-width // split_keys) * LATENT_ROWS * (LATENT + 2),
@@ -822,19 +846,15 @@ def _latent_decode_launch(q, width: int, sms: int) -> tuple:
     return ws, arrival_counters(q.device, B * slices), split_keys
 
 
-def latent_attention_split_plain(q, layer_state: dict, q_positions, total_lens, latent: int,
-                                 k_bits: int = 0, compand_a: float = 0.0, block_tables=None,
-                                 rows=None, scale: float = 1.0,
-                                 split_keys: int | None = None) -> torch.Tensor:
-    """(B, 1, Hq, latent) f32: the latent decode kernel's arithmetic in plain
-    torch (attention_split_plain with V = the leading `latent` channels of each
-    key row), over a latent cache paged (with block_tables; pages out of range
-    hold no visible key) or linear (rows, or rows 0..B-1), {"kv"} bf16 or
-    {"kv_q", "kv_s", "k_pe"} quantized: the latter's q rotated as the kernel
-    takes it (rotate_latent_q), its latent dequantized to f32 in the rotated
-    basis beside the rope key, and the output rotated back. The keys are cut
-    by latent_split_keys at H100_SMS unless split_keys is given."""
-    B, _, Hq, _ = q.shape
+def _latent_keys(q, layer_state: dict, block_tables, rows, k_bits: int, compand_a: float,
+                 latent: int) -> tuple:
+    """(q as the kernels score it, keys (B, T, 1, D), visible-by-layout
+    (B, T) bool or None) of a latent cache, paged (with block_tables; a page
+    out of range holds no visible key) or linear (rows, or rows 0..B-1):
+    {"kv"} bf16 rows as they are and q as it is, or {"kv_q", "kv_s", "k_pe"}
+    quantized: the latent dequantized to f32 in its rotated basis beside the
+    rope key, and q rotated (rotate_latent_q)."""
+    B = q.shape[0]
     quant = "kv_q" in layer_state
     names = ("kv_q", "kv_s", "k_pe") if quant else ("kv",)
     page_ok = None
@@ -843,20 +863,76 @@ def latent_attention_split_plain(q, layer_state: dict, q_positions, total_lens, 
         block_tables = torch.where(ok, block_tables, torch.zeros_like(block_tables))
         page_ok = ok.repeat_interleave(PAGE_SIZE, dim=1)
     parts = [_latent_rows(layer_state[n], B, block_tables, rows) for n in names]
-    if quant:
-        k = torch.cat([dequantize_rotated(parts[0], parts[1], k_bits, compand_a),
-                       parts[2].float()], dim=-1)
-        qq = rotate_latent_q(q, latent).float()
-    else:
-        k, qq = parts[0].float(), q.float()
-    k = k[:, :, 0]  # (B, T, D): one row every head reads
+    if not quant:
+        return q, parts[0], page_ok
+    k = torch.cat([dequantize_rotated(parts[0], parts[1], k_bits, compand_a),
+                   parts[2].float()], dim=-1)
+    return rotate_latent_q(q, latent), k, page_ok
+
+
+def latent_attention_split_plain(q, layer_state: dict, q_positions, total_lens, latent: int,
+                                 k_bits: int = 0, compand_a: float = 0.0, block_tables=None,
+                                 rows=None, scale: float = 1.0,
+                                 split_keys: int | None = None) -> torch.Tensor:
+    """(B, 1, Hq, latent) f32: the latent decode kernel's arithmetic in plain
+    torch (attention_split_plain with V = the leading `latent` channels of each
+    key row), over a latent cache paged or linear (_latent_keys), {"kv"} bf16
+    or {"kv_q", "kv_s", "k_pe"} quantized: the latter's q rotated as the kernel
+    takes it, its latent dequantized to f32 in the rotated basis beside the
+    rope key, and the output rotated back. The keys are cut by
+    latent_split_keys at H100_SMS unless split_keys is given."""
+    B, _, Hq, _ = q.shape
+    qq, k, page_ok = _latent_keys(q, layer_state, block_tables, rows, k_bits, compand_a, latent)
+    k = k[:, :, 0].float()  # (B, T, D): one row every head reads
     T = k.shape[1]
     vis = _causal_visible(q_positions, total_lens, T, q.device)
     if page_ok is not None:
         vis = vis & page_ok[:, None, :]
-    o = attention_split_plain(qq, k, k[..., :latent], vis,
+    o = attention_split_plain(qq.float(), k, k[..., :latent], vis,
                               split_keys or latent_split_keys(T, B, Hq), scale, rotate=False)
-    return rotate_groups(o) if quant else o
+    return rotate_groups(o) if "kv_q" in layer_state else o
+
+
+def _latent_prefill(q, layer_state: dict, q_positions, total_lens, latent: int, k_bits: int,
+                    compand_a: float, block_tables, rows, scale: float) -> torch.Tensor:
+    """The latent prefill body's arithmetic over either cache (_latent_keys):
+    attention_prefill_plain at the body's geometry (LATENT_PREFILL_ROWS rows,
+    LATENT_PREFILL_TILE-key tiles, one kv head), V the leading `latent`
+    channels of each key row; over the quantized latent the output rotated
+    back."""
+    qq, k, page_ok = _latent_keys(q, layer_state, block_tables, rows, k_bits, compand_a, latent)
+    vis = _causal_visible(q_positions, total_lens, k.shape[1], q.device)
+    if page_ok is not None:
+        vis = vis & page_ok[:, None, :]
+    o = attention_prefill_plain(qq, k, k[..., :latent], vis, scale, rows=LATENT_PREFILL_ROWS,
+                                tile=LATENT_PREFILL_TILE)
+    return rotate_groups(o) if "kv_q" in layer_state else o
+
+
+def latent_attention_prefill_plain(q, kv, q_positions, total_lens, latent: int,
+                                   block_tables=None, rows=None,
+                                   scale: float = 1.0) -> torch.Tensor:
+    """(B, S, Hq, latent) f32 over a bf16 latent cache, as
+    latent_attention_plain takes it, by the latent prefill body's arithmetic
+    (csrc/latent_prefill.cuh): q bf16 in one product, P as hi + lo bf16
+    pairs, the online softmax by 32-key tiles over q blocks of 64 rows."""
+    return _latent_prefill(q, {"kv": kv}, q_positions, total_lens, latent, 0, 0.0, block_tables,
+                           rows, scale)
+
+
+def latent_attention_quant_prefill_plain(q, layer_state: dict, q_positions, total_lens,
+                                         k_bits: int, compand_a: float = 0.0,
+                                         block_tables=None, rows=None,
+                                         scale: float = 1.0) -> torch.Tensor:
+    """(B, S, Hq, c) f32 over a quantized latent cache, as
+    latent_attention_quant_plain takes it, by the latent prefill body's
+    arithmetic: q rotated (rotate_latent_q) and bf16, the latent's values in
+    the rotated basis as exact hi + lo bf16 pairs (the rope key's lo 0), the
+    scores q.K hi + q.K lo, P.V as P hi.V hi + P lo.V hi + P hi.V lo (lo.lo
+    left out), and the output rotated back."""
+    c = layer_state["kv_s"].shape[-1] * 32
+    return _latent_prefill(q, layer_state, q_positions, total_lens, c, k_bits, compand_a,
+                           block_tables, rows, scale)
 
 
 def latent_attention_plain(q, kv, q_positions, total_lens, latent: int, block_tables=None,
@@ -901,13 +977,15 @@ def latent_attention_kernel(q, kv, q_positions, total_lens, block_tables=None, r
     (N, T, 1, 576) with rows (B,) int32 or None; q_positions (B, S) and
     total_lens (B,) int32; any Hq. -> (B, S, Hq, 512) f32. Decode (S = 1)
     runs the split-key kernel (splits sized by latent_split_keys for this
-    card), a longer chunk the tile loop."""
+    card), a longer chunk the prefill body of csrc/latent_prefill.cuh (its
+    pre-pass, then the body), whose launches latent_attention_prefill also
+    counts."""
     B, S, Hq, _ = q.shape
     if kv.dtype != torch.bfloat16 or kv.shape[-1] != LATENT + ROPE:
         raise TypeError("latent_attention_kernel: expected a bf16 (., ., 1, 576) latent cache")
     bt, rp, MP, P, N, T = _latent_args("latent_attention_kernel", q, (kv,), block_tables, rows,
                                        q_positions, total_lens)
-    ws, counters, split_keys = _latent_decode_launch(q, MP * PAGE_SIZE or T, device_sms(q.device))
+    ws, counters, split_keys = _latent_launch(q, MP * PAGE_SIZE or T, device_sms(q.device), False)
     out = torch.empty((B, S, Hq, LATENT), dtype=torch.float32, device=q.device)
     err = library().exl3_latent_attention(
         q.data_ptr(), kv.data_ptr(), bt, rp, q_positions.data_ptr(), total_lens.data_ptr(),
@@ -915,6 +993,8 @@ def latent_attention_kernel(q, kv, q_positions, total_lens, block_tables=None, r
         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("exl3_latent_attention", err)
     latent_attention_kernel.launches += 1
+    if S > 1:
+        latent_attention_prefill.launches += 1
     return out
 
 
@@ -956,7 +1036,11 @@ def latent_attention_quant_kernel(q, layer_state: dict, q_positions, total_lens,
     latent_attention_kernel; k_bits in 2..8. Decode (S = 1) runs the
     split-key kernel, which rotates q's latent per 32-channel group (and
     rounds it to bf16) and the output back itself; a longer chunk takes the
-    tile loop, q rotated before the launch and the output after it."""
+    prefill body of csrc/latent_prefill.cuh, whose pre-pass dequantizes the
+    keys the launch can see into a scratch (B x the layout's width x 1088
+    bf16, 71 MB for one sequence of 32K keys; launches counted by
+    latent_attention_quant_prefill too), q rotated before the launch and the
+    output after it."""
     B, S, Hq, _ = q.shape
     kq, ks, kpe = (layer_state[n] for n in ("kv_q", "kv_s", "k_pe"))
     lead = kq.shape[:3]
@@ -969,7 +1053,7 @@ def latent_attention_quant_kernel(q, layer_state: dict, q_positions, total_lens,
     qr = q if S == 1 else rotate_latent_q(q, LATENT)
     bt, rp, MP, P, N, T = _latent_args("latent_attention_quant_kernel", qr, (kq, ks, kpe),
                                        block_tables, rows, q_positions, total_lens)
-    ws, counters, split_keys = _latent_decode_launch(q, MP * PAGE_SIZE or T, device_sms(q.device))
+    ws, counters, split_keys = _latent_launch(q, MP * PAGE_SIZE or T, device_sms(q.device), True)
     out = torch.empty((B, S, Hq, LATENT), dtype=torch.float32, device=q.device)
     err = library().exl3_latent_attention_quant(
         qr.data_ptr(), kq.data_ptr(), ks.data_ptr(), kpe.data_ptr(), bt, rp,
@@ -978,7 +1062,10 @@ def latent_attention_quant_kernel(q, layer_state: dict, q_positions, total_lens,
         float(scale), split_keys, torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("exl3_latent_attention_quant", err)
     latent_attention_quant_kernel.launches += 1
-    return out if S == 1 else rotate_groups(out)
+    if S == 1:
+        return out
+    latent_attention_quant_prefill.launches += 1
+    return rotate_groups(out)
 
 
 latent_attention_quant_kernel.launches = 0

@@ -1,5 +1,5 @@
 """Compare two source trees of the PyTorch port, in turns, on one card, by one
-of nineteen runs (`--run`):
+of twenty runs (`--run`):
 
 - `paged_bf16` (the default): the bf16 paged attention kernel (row 3) at
   decode, batch 8, q positions 299-2047 (contexts 300 to 2048), 32 q / 8 kv
@@ -19,8 +19,9 @@ of nineteen runs (`--run`):
   the shape `chip_smoke.py` reports for the kernel; the rings rotate past L2;
 - `exl3_gemm`: the trellis GEMM (row 9) at m = 8, q/o (4096 x 4096), K = 4,
   3INST, over inputs rotated past L2;
-- `serve_gemma`: `chip_smoke.py --phases build,serve_gemma` (the 62-layer
-  Gemma-3-27B serve over SWA rings), read as `serve_capacity`;
+- `serve_gemma`: `chip_smoke.py --phases build,serve_gemma` (the Gemma-3-27B
+  serve over SWA rings, at the tree's GEMMA_SERVE_LAYERS), read as
+  `serve_capacity`;
 - `intb`: the int-B matmuls, row 13 (bf16) and row 14 (a8), at qkv (4096 x
   6144), B = 6, m = 8, 128 and 2048, over inputs rotated past L2, one after
   the other in each run;
@@ -64,7 +65,13 @@ of nineteen runs (`--run`):
   merged and a (5, 3) per-head cache and over a linear (4, 4) cache (group
   4), and the verify chunk of 40 rows (S = 5, batch 8, contexts 300-2048,
   group 8) over a paged (4, 4) cache, each through its wrapper (q and the
-  output rotated around the kernel), L2-warm as chip_smoke.py times them.
+  output rotated around the kernel), L2-warm as chip_smoke.py times them;
+- `latent_prefill`: the latent (MLA) attention, row 6a-p, on chunks of more
+  than one token at DeepSeek-V2-Lite's 16 heads, one after the other in each
+  run: prefill S = 2048 on 512 cached over a bf16 and a (4)-bit latent
+  cache, paged (a permuted block table) and linear (T = 2560), and the
+  verify chunk (S = 5, batch 8, contexts 300-2048, paged) over both, each
+  through its wrapper, L2-warm as chip_smoke.py times them.
 
     python3 tools/torch_attention_ab.py --trees build/parent,.   # parent, change
     python3 tools/torch_attention_ab.py --run serve_capacity --trees A,B --rounds 3
@@ -82,6 +89,7 @@ of nineteen runs (`--run`):
     python3 tools/torch_attention_ab.py --run linear_prefill --trees build/parent,.
     python3 tools/torch_attention_ab.py --run linear_decode --trees build/parent,. --rounds 1
     python3 tools/torch_attention_ab.py --run quant_prefill --trees build/parent,.
+    python3 tools/torch_attention_ab.py --run latent_prefill --trees build/parent,.
 
 Each tree runs in a process of its own (its own checkout of
 exllamav3_tpu_torch, its own kernel build and checkpoint under <tree>/build/),
@@ -90,7 +98,8 @@ behind a device spin, five times, over one input set (the trees are compared
 with each other, not with a bound), and gives the median device ms a call
 (CUDA events) and host µs a call (the host clock over the same 200
 enqueues; `intb`, `int4`, `latent`, `int8`, `fused_mlp`, `paged_prefill`,
-`linear_prefill` and `quant_prefill` give both for each route or shape); `ring`, `exl3_gemm`,
+`linear_prefill`, `quant_prefill` and `latent_prefill` give both for each route
+or shape); `ring`, `exl3_gemm`,
 `intb`, `int4`, `latent`, `int8` and `fused_mlp` cycle through input sets that
 together exceed twice the L2 cache. A serve run also reports the first
 request's TTFT and prefill seconds. Each run's numbers are printed as they come; a run that fails is
@@ -292,6 +301,36 @@ elif sys.argv[1] == "quant_prefill":
     qpv = torch.as_tensor(total[:, None] - Sv + np.arange(Sv, dtype=np.int32), device=dev)
     fns["verify_s5_g8"] = lambda: fa.paged_attention_quant_kernel(qv, sv, bt, qpv, tl, 4, 4,
                                                                   scale=D ** -0.5)
+elif sys.argv[1] == "latent_prefill":
+    from exllamav3_tpu_torch.ops.kv_quant import quantize_kv
+    Hq, S, pre, scale = 16, 2048, 512, 192 ** -0.5
+
+    def latent(lead):  # a bf16 and a (4)-bit latent cache of the same rows
+        raw = torch.randn((*lead, 1, 576), generator=g, device=dev)
+        kq, ks = quantize_kv(raw[..., :512], 4, 0.0)
+        return raw.to(torch.bfloat16), {"kv_q": kq, "kv_s": ks,
+                                        "k_pe": raw[..., 512:].to(torch.bfloat16).contiguous()}
+    fns = {}
+    qpos = torch.arange(pre, pre + S, dtype=torch.int32, device=dev)[None]
+    tot = torch.tensor([pre + S], dtype=torch.int32, device=dev)
+    qq = (torch.randn((1, S, Hq, 576), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    pages = (pre + S) // PAGE_SIZE + 1
+    tbl = torch.as_tensor(rng.permutation(np.arange(pages))[None].astype(np.int32), device=dev)
+    for layout, lead, where in (("paged", (pages, PAGE_SIZE), dict(block_tables=tbl)),
+                                ("linear", (1, pre + S), {})):
+        kb, k4 = latent(lead)
+        fns[f"{layout}_bf16"] = (lambda kb=kb, where=where: fa.latent_attention_kernel(
+            qq, kb, qpos, tot, scale=scale, **where))
+        fns[f"{layout}_q4"] = (lambda k4=k4, where=where: fa.latent_attention_quant_kernel(
+            qq, k4, qpos, tot, 4, 0.0, scale=scale, **where))
+    Sv = 5  # verify: batch 8, contexts 300-2048
+    qv = (torch.randn((B, Sv, Hq, 576), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    qpv = torch.as_tensor(total[:, None] - Sv + np.arange(Sv, dtype=np.int32), device=dev)
+    vb, v4 = latent((P, PAGE_SIZE))
+    fns["verify_s5_bf16"] = lambda: fa.latent_attention_kernel(qv, vb, qpv, tl, block_tables=bt,
+                                                               scale=scale)
+    fns["verify_s5_q4"] = lambda: fa.latent_attention_quant_kernel(qv, v4, qpv, tl, 4, 0.0,
+                                                                   block_tables=bt, scale=scale)
 else:
     from exllamav3_tpu_torch.ops.kv_quant import quantize_kv_stored
     state = {}
@@ -322,7 +361,7 @@ def timed(fn):
 
 
 if sys.argv[1] in ("intb", "int4", "latent", "int8", "fused_mlp", "paged_prefill",
-                   "linear_prefill", "quant_prefill"):
+                   "linear_prefill", "quant_prefill", "latent_prefill"):
     res = {}
     for route, f in fns.items():
         res[f"ms_{route}"], res[f"host_us_{route}"] = timed(f)
@@ -343,7 +382,8 @@ LINEAR_PREFILL = re.compile(r"^linear_decode int8: prefill \d+ tokens in [\d.]+ 
 LINEAR_DECODE = re.compile(r"^linear_decode int8: decode batch 8 after .*?: ([\d.]+) tok/s", re.M)
 RUNS = ("paged_bf16", "paged_quant", "serve_capacity", "serve", "ring", "exl3_gemm",
         "serve_gemma", "intb", "serve_packed_int6", "int4", "latent", "serve_mla", "serve_packed",
-        "int8", "fused_mlp", "paged_prefill", "linear_prefill", "linear_decode", "quant_prefill")
+        "int8", "fused_mlp", "paged_prefill", "linear_prefill", "linear_decode", "quant_prefill",
+        "latent_prefill")
 
 
 # a serve run's log tag, where it is not the run's name
