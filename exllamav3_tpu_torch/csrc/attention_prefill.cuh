@@ -4,7 +4,9 @@
 // launch for a chunk whose (sequence, kv head) has more than DECODE_ROWS
 // query rows (S * G, G the GQA group): every prompt and every verify chunk
 // past 32 rows. Decode and shorter verify chunks take attention_decode.cuh;
-// the latent, ring and stats entries keep the tile loop of attention_tiles.cuh.
+// the latent entries take latent_decode.cuh and latent_prefill.cuh, the stats
+// entries latent_decode.cuh, the ring's wider groups the tile loop of
+// attention_tiles.cuh.
 //
 // Function: the JAX kernel's _flash_kernel in the paged and the linear
 // layout, with unquantized K/V (Bf16KV) or with k_bits / v_bits > 0 in either

@@ -1,16 +1,13 @@
 // The flash-attention tile loop of ring_attention.cu (decode over a
-// sliding-window ring, groups of more than 32 heads) and attention_stats.cu's
-// three DeepSeek-V4 decode entries, which return the unnormalised
-// online-softmax state; and the key layouts (Rows) and storages (KV) that the
-// decode and prefill bodies of attention_decode.cuh, attention_prefill.cuh,
-// latent_decode.cuh and latent_prefill.cuh share with it.
+// sliding-window ring, groups of more than 32 heads); and the key layouts
+// (Rows) and storages (KV) that the decode and prefill bodies of
+// attention_decode.cuh, attention_prefill.cuh, latent_decode.cuh and
+// latent_prefill.cuh share with it.
 //
 // The kernel is templated three times over:
 //   * Geo: the block's geometry. HeadDecodeGeo<D> (per-head K/V of D
 //     channels, 16 score rows for one decode token's group of heads, 64-key
-//     tiles, f32 q entering as hi + lo bf16 pairs); KvRowDecodeGeo,
-//     DeepSeek-V4's one 512-wide row that is K and V alike (bf16 q, no rope
-//     tail), 16 rows and 64-key tiles.
+//     tiles, f32 q entering as hi + lo bf16 pairs).
 //   * Rows: where a key tile's rows lie. PagedRows looks the page up in the
 //     block table (256-token pages, so a tile never crosses a page and every
 //     tile is full); LinearRows reads slot `key` of row b (or of the row the
@@ -23,42 +20,35 @@
 //     shared memory, the mask tests those, and every slot 0..W-1 is walked.
 //     PoolRows pages a pool through the token block table with `epp`
 //     entries a page (DeepSeek-V4's compressed pools: 256 / 128 = 2), so a
-//     64-key tile spans many pages: it is the one policy that GATHERs, each
-//     tile staging the pool row of each of its keys into shared memory
-//     (-1 for a page out of range, which the mask then hides).
-//   * KV: how a tile is stored. Bf16KV copies bf16 rows; RowKV<W> copies one
-//     bf16 row of W channels that is K and V alike (DeepSeek-V4: 512). QuantKV
-//     (packed 2..8-bit words with one bf16 scale per 32 channels;
-//     merged-head and per-head storage address head h of a token alike, at
-//     word (token * Hk + h) * D*bits/32) is defined here for the decode and
-//     prefill bodies, which stage and unpack it themselves.
-//   * STATS, a flag: the epilogue writes the output unnormalised beside each
-//     row's running max m and sum l (the JAX kernel's return_stats), for a
-//     caller that merges several key sources with one softmax. A row that
-//     sees no key writes (acc, m, l) = (0, -1e30, 0): JAX's NEG_INF start.
+//     tile spans many pages; only latent_decode.cuh takes it. RingRows and
+//     PoolRows are TABLE layouts there: key_row finds each key's storage row,
+//     or -1 where the key is hidden.
+//   * KV: how a tile is stored. Bf16KV copies bf16 rows. QuantKV (packed
+//     2..8-bit words with one bf16 scale per 32 channels; merged-head and
+//     per-head storage address head h of a token alike, at word (token * Hk
+//     + h) * D*bits/32) is defined here for the decode and prefill bodies,
+//     which stage and unpack it themselves.
 //
 // Design: one block per (q block, kv head and head slice, sequence). Its R
 // score rows are (token, head-in-group) pairs: a block takes HB = min(G, R)
 // heads of a group of G and floor(R / HB) tokens, so any group serves; a
-// group wider than R (MLA: all q heads read one latent row, G = 16 for
-// DeepSeek-V2-Lite, 128 for V2 and V3) is cut into ceil(G / R) head slices,
-// one block each. The heads of a block read each K/V tile once. The block
+// group wider than R is cut into ceil(G / R) head slices, one block each. The heads of a block read each K/V tile once. The block
 // finds its own keys (the TPU kernel's scalar prefetch) and walks only the
 // key tiles between the first and last key any of its rows can see (the TPU
 // kernel's per-q-block page bounds). QK^T and PV run as bf16 WMMA with f32
 // accumulation; the online softmax keeps its running max, sum and output rows
 // in f32 in shared memory. The TPU kernel multiplies q and P in f32, so each
 // f32 operand enters as two bf16 terms, hi = bf16(x) and lo = bf16(x - hi),
-// one MMA each: the pair holds x to about 2^-16 relative (a bf16 q, as
-// DeepSeek-V4 hands it over, needs no lo term). The row sum adds P in f32.
+// one MMA each: the pair holds x to about 2^-16 relative. The row sum adds P
+// in f32.
 // Decode fills few of the rows, and a sequence's keys are walked by one
 // block. The ring entry sends groups of up to 32 heads to attention_decode.cuh,
 // which splits the keys across blocks and merges them. The paged and linear
 // entries, bf16 and quantized, take attention_decode.cuh and
 // attention_prefill.cuh (128 rows a block on warpgroup MMAs), the latent
 // entries latent_decode.cuh and latent_prefill.cuh (64 rows a block on
-// warpgroup MMAs), and not this loop; the ring's wider groups and the stats
-// entries take it.
+// warpgroup MMAs), the stats entries latent_decode.cuh, and not this loop;
+// the ring's wider groups take it.
 //
 // Warps: the 4 warps split the R rows into R/16 row groups; with R = 32 two
 // warps (with R = 16 all four) share a row group and split its key subtiles
@@ -82,6 +72,12 @@
 #include <math.h>
 #include <stdint.h>
 
+// The tile loop's launches in this library, counted where they are made (read
+// through exl3_tile_launches; one definition across the sources that include
+// this header).
+inline int tile_launch_count = 0;
+extern "C" __attribute__((weak)) int exl3_tile_launches() { return tile_launch_count; }
+
 namespace {
 
 using namespace nvcuda;
@@ -90,50 +86,39 @@ constexpr int THREADS = 128;  // 4 warps
 constexpr int WARPS = THREADS / 32;
 constexpr int PAGE = 256;
 
-// A block's geometry: K width D, V (and output) width DV, R score rows, TK
-// keys a tile; Q_SPLIT: q is f32 and enters as hi + lo bf16 (else bf16 as it
-// is); V_FROM_K: V is the leading DV channels of the K tile.
-template <int D_, int DV_, int R_, int TK_, bool Q_SPLIT_, bool V_FROM_K_>
+// A block's geometry: K and V width D, R score rows, TK keys a tile; q is f32
+// and enters as hi + lo bf16.
+template <int D_, int R_, int TK_>
 struct Geo {
-    static constexpr int D = D_, DV = DV_, R = R_, TK = TK_;
-    static constexpr bool Q_SPLIT = Q_SPLIT_, V_FROM_K = V_FROM_K_;
+    static constexpr int D = D_, DV = D_, R = R_, TK = TK_;
 };
 template <int D>
-using HeadDecodeGeo = Geo<D, D, 16, 64, true, false>;
+using HeadDecodeGeo = Geo<D, 16, 64>;
 // DeepSeek's latent row (latent_decode.cuh, latent_prefill.cuh): kv_lora_rank
 // 512 + qk_rope_head_dim 64
 constexpr int LATENT = 512, ROPE = 64;
-// DeepSeek-V4's shared K = V row (head_dim 512, the rope on its trailing 64)
-constexpr int KV_ROW = 512;
-using KvRowDecodeGeo = Geo<KV_ROW, KV_ROW, 16, 64, false, true>;
 
 // Shared memory of one block.
 //   HeadDecodeGeo<128> over a ring: q hi + lo 2 x 16 x 136 bf16, K and V
 //     64 x 136 bf16 each, scores 16 x 68 f32, P hi + lo 2 x 16 x 72 bf16,
 //     output 16 x 132 f32, row state 264, and the tile's 64 slot positions
 //     (POS): 61,448 bytes.
-//   KvRowDecodeGeo: q 16 x 520 bf16 (16,640), one K tile 64 x 520 bf16
-//     (66,560; V is the same tile), scores 16 x 68 f32 (4,352), P hi + lo
-//     2 x 16 x 72 bf16 (4,608), output 16 x 516 f32 (33,024), row state 264:
-//     125,448 bytes, plus 256 over a ring (POS) or 512 over a pool (GATHER:
-//     the tile's 64 pool rows as int64).
-template <class G_, bool POS = false, bool GATHER = false>
+template <class G_, bool POS = false>
 struct Layout {
     static constexpr int D = G_::D, DV = G_::DV, R = G_::R, TK = G_::TK;
     static constexpr int LDQ = D + 8, LDK = D + 8, LDS = TK + 4, LDP = TK + 8, LDO = DV + 4;
     static constexpr int KV_TILE = TK * LDK * 2;
     static constexpr int OFF_Q = 0;
     static constexpr int OFF_QL = OFF_Q + R * LDQ * 2;
-    static constexpr int OFF_K = OFF_QL + (G_::Q_SPLIT ? R * LDQ * 2 : 0);
+    static constexpr int OFF_K = OFF_QL + R * LDQ * 2;
     static constexpr int OFF_V = OFF_K + KV_TILE;
-    static constexpr int OFF_S = OFF_V + (G_::V_FROM_K ? 0 : KV_TILE);
+    static constexpr int OFF_S = OFF_V + KV_TILE;
     static constexpr int OFF_P = OFF_S + R * LDS * 4;
     static constexpr int OFF_PL = OFF_P + R * LDP * 2;
     static constexpr int OFF_O = OFF_PL + R * LDP * 2;
     static constexpr int OFF_ROWS = OFF_O + R * LDO * 4;
     static constexpr int OFF_KPOS = OFF_ROWS + R * 4 * 4 + 2 * 4;
-    static constexpr int OFF_TOK = (OFF_KPOS + (POS ? TK * 4 : 0) + 15) / 16 * 16;
-    static constexpr int BYTES = GATHER ? OFF_TOK + TK * 8 : OFF_KPOS + (POS ? TK * 4 : 0);
+    static constexpr int BYTES = OFF_KPOS + (POS ? TK * 4 : 0);
 };
 
 // -- where a tile's rows lie -----------------------------------------------------
@@ -141,7 +126,7 @@ struct Layout {
 struct PagedRows {
     static constexpr bool FULL = true;  // every tile holds TK keys
     static constexpr bool POS_FROM_ARRAY = false;  // key j sits at position j
-    static constexpr bool GATHER = false;  // a tile's rows are one contiguous run
+    static constexpr bool TABLE = false;  // a tile's rows are one contiguous run
     const int* bt;  // (B, MP) block tables
     int MP, P;
     __device__ int key_limit() const { return MP * PAGE; }
@@ -161,7 +146,7 @@ struct PagedRows {
 struct LinearRows {
     static constexpr bool FULL = false;  // the last tile is cut at T
     static constexpr bool POS_FROM_ARRAY = false;
-    static constexpr bool GATHER = false;
+    static constexpr bool TABLE = false;
     const int* rows;  // (B,) cache row of each sequence, or null: row b
     int N, T;         // cache rows; keys per row
     __device__ int key_limit() const { return T; }
@@ -179,7 +164,7 @@ struct LinearRows {
 struct RingRows {
     static constexpr bool FULL = false;  // the last tile is cut at W
     static constexpr bool POS_FROM_ARRAY = true;  // positions from `pos`
-    static constexpr bool GATHER = false;
+    static constexpr bool TABLE = true;  // latent_decode.cuh: key_row
     const int* slots;  // (B,) ring row of each sequence
     const int* pos;    // (N, W) position each slot holds, -1 = never written
     int N, W;          // ring rows; slots a row
@@ -204,37 +189,31 @@ struct RingRows {
         const int row = slots[b];
         return row < 0 || row >= N ? nullptr : pos + (size_t)row * W;
     }
+    // slot `key`'s storage row (row * W + key) where the query at position p
+    // sees its stored position (0 <= pos <= p, and > p - window with a
+    // window), else -1 (and for a ring row out of range)
+    __device__ int key_row(int b, int key, int p, int window) const {
+        const int row = slots[b];
+        if (row < 0 || row >= N) return -1;
+        const int kp = __ldg(pos + (size_t)row * W + key);
+        return kp >= 0 && kp <= p && (window <= 0 || kp > p - window) ? row * W + key : -1;
+    }
 };
 
 // A pool of `epp` entries a page, paged through the token block table: key
 // j of sequence b is entry j % epp of page bt[b, j / epp]. Pages hold fewer
-// entries than a tile, so each row is found on its own (GATHER).
+// entries than a tile, so each row is found on its own (TABLE).
 struct PoolRows {
-    static constexpr bool FULL = false;  // the last tile is cut at MP * epp
     static constexpr bool POS_FROM_ARRAY = false;
-    static constexpr bool GATHER = true;
+    static constexpr bool TABLE = true;
     const int* bt;  // (B, MP) block tables
     int MP, P, epp;
     __device__ int key_limit() const { return MP * epp; }
-    template <int TKT>
-    __device__ bool tile(int, int key0, size_t& tok0, int& n) const {
-        tok0 = 0;
-        n = min(TKT, MP * epp - key0);
-        return true;
-    }
-    // the pool row (page * epp + slot) of each of the tile's n keys into
-    // dst[0, TKT); -1 past n and for a page out of range
-    template <int TKT>
-    __device__ void stage_rows(int b, int key0, int n, long long* dst, int tid) const {
-        for (int j = tid; j < TKT; j += THREADS) {
-            long long row = -1;
-            if (j < n) {
-                const int key = key0 + j;
-                const int page = __ldg(bt + (size_t)b * MP + key / epp);
-                if (page >= 0 && page < P) row = (long long)page * epp + key % epp;
-            }
-            dst[j] = row;
-        }
+    // the pool row (page * epp + slot) of key `key`, or -1 for a page out of
+    // range (the caller bounds key by the sequence's length and position)
+    __device__ int key_row(int b, int key, int, int) const {
+        const int page = __ldg(bt + (size_t)b * MP + key / epp);
+        return page >= 0 && page < P ? page * epp + key % epp : -1;
     }
 };
 
@@ -281,52 +260,28 @@ struct QuantKV {
     float ca, cb;  // compander a and 1 - a; ca = 0 selects the midpoint grid
 };
 
-// bf16 rows of W channels, one per token, that are K and V alike
-// (DeepSeek-V4's 512-wide rows). V is read from the K tile.
-template <int W>
-struct RowKV {
-    const __nv_bfloat16* kv;  // (N, T, 1, W)
-    template <int LD, int TKT>
-    __device__ void load(size_t tok0, int n, int, __nv_bfloat16* Ks, __nv_bfloat16*,
-                         int tid) const {
-        copy_rows<W, LD, TKT>(kv, tok0, n, 1, 0, Ks, tid);
-    }
-    // row toks[j] of the storage into tile row j; zero where toks[j] < 0
-    template <int LD, int TKT>
-    __device__ void load_gather(const long long* toks, __nv_bfloat16* Ks, int tid) const {
-        constexpr int VPR = W / 8;
-        for (int e = tid; e < TKT * VPR; e += THREADS) {
-            const int j = e / VPR, c = (e % VPR) * 8;
-            const long long t = toks[j];
-            uint4 x = make_uint4(0u, 0u, 0u, 0u);
-            if (t >= 0) x = __ldg(reinterpret_cast<const uint4*>(kv + (size_t)t * W + c));
-            *reinterpret_cast<uint4*>(&Ks[j * LD + c]) = x;
-        }
-    }
-};
 // -- the kernel ----------------------------------------------------------------------
 
-template <class G_, class Rows, class KV, bool STATS>
+template <class G_, class Rows, class KV>
 __global__ void __launch_bounds__(THREADS)
 attention_kernel(const void* __restrict__ q, Rows rows, KV kv, const int* __restrict__ qpos,
                  const int* __restrict__ total_lens, const float* __restrict__ sinks,
-                 float* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
-                 int S, int Hq, int Hk, float scale, int window, float softcap) {
+                 float* __restrict__ out, int S, int Hq, int Hk, float scale, int window,
+                 float softcap) {
     constexpr int D = G_::D, DV = G_::DV, R = G_::R, TK = G_::TK;
-    constexpr bool QS = G_::Q_SPLIT, RING = Rows::POS_FROM_ARRAY;
-    constexpr bool GATHER = Rows::GATHER;
+    constexpr bool RING = Rows::POS_FROM_ARRAY;
     constexpr int NWR = R / 16;          // row groups of 16
     constexpr int WPR = WARPS / NWR;     // warps sharing a row group
     constexpr int TPR = THREADS / R;     // softmax threads a row
     constexpr int KPT = TK / TPR;        // keys a softmax thread
     static_assert(NWR * WPR == WARPS && TPR * R == THREADS && KPT * TPR == TK, "geometry");
     static_assert(D % 16 == 0 && DV % 16 == 0 && TK % 16 == 0 && PAGE % TK == 0, "geometry");
-    using L = Layout<G_, RING, GATHER>;
+    using L = Layout<G_, RING>;
     extern __shared__ __align__(128) unsigned char smem[];
     __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_Q);
     __nv_bfloat16* Qls = reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_QL);
     __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_K);
-    __nv_bfloat16* Vs = G_::V_FROM_K ? Ks : reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_V);
+    __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_V);
     float* Ss = reinterpret_cast<float*>(smem + L::OFF_S);
     __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_P);
     __nv_bfloat16* Pls = reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_PL);
@@ -337,7 +292,6 @@ attention_kernel(const void* __restrict__ q, Rows rows, KV kv, const int* __rest
     int* row_pos = reinterpret_cast<int*>(row_alpha + R);
     int* key_range = row_pos + R;
     int* key_pos = reinterpret_cast<int*>(smem + L::OFF_KPOS);  // RING: the tile's positions
-    long long* key_tok = reinterpret_cast<long long*>(smem + L::OFF_TOK);  // GATHER: its rows
 
     const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
     const int b = blockIdx.z;
@@ -372,27 +326,22 @@ attention_kernel(const void* __restrict__ q, Rows rows, KV kv, const int* __rest
         int s, head;
         const bool valid = row_of(r, s, head);
         const size_t off = (((size_t)b * S + s) * Hq + head) * D + c;
-        if constexpr (QS) {  // f32 q rows as hi + lo bf16
-            float x[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-            if (valid) {
-                const float4* src = reinterpret_cast<const float4*>(static_cast<const float*>(q) + off);
-                const float4 a = src[0], b4 = src[1];
-                x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-                x[4] = b4.x; x[5] = b4.y; x[6] = b4.z; x[7] = b4.w;
-            }
-            __align__(16) __nv_bfloat16 hi[8], lo[8];
-#pragma unroll
-            for (int i = 0; i < 8; ++i) {
-                hi[i] = __float2bfloat16_rn(x[i]);
-                lo[i] = __float2bfloat16_rn(x[i] - __bfloat162float(hi[i]));
-            }
-            *reinterpret_cast<uint4*>(&Qs[r * L::LDQ + c]) = *reinterpret_cast<const uint4*>(hi);
-            *reinterpret_cast<uint4*>(&Qls[r * L::LDQ + c]) = *reinterpret_cast<const uint4*>(lo);
-        } else {  // bf16 q rows as they are
-            uint4 x = make_uint4(0u, 0u, 0u, 0u);
-            if (valid) x = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(q) + off);
-            *reinterpret_cast<uint4*>(&Qs[r * L::LDQ + c]) = x;
+        // f32 q rows as hi + lo bf16
+        float x[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        if (valid) {
+            const float4* src = reinterpret_cast<const float4*>(static_cast<const float*>(q) + off);
+            const float4 a = src[0], b4 = src[1];
+            x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+            x[4] = b4.x; x[5] = b4.y; x[6] = b4.z; x[7] = b4.w;
         }
+        __align__(16) __nv_bfloat16 hi[8], lo[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            hi[i] = __float2bfloat16_rn(x[i]);
+            lo[i] = __float2bfloat16_rn(x[i] - __bfloat162float(hi[i]));
+        }
+        *reinterpret_cast<uint4*>(&Qs[r * L::LDQ + c]) = *reinterpret_cast<const uint4*>(hi);
+        *reinterpret_cast<uint4*>(&Qls[r * L::LDQ + c]) = *reinterpret_cast<const uint4*>(lo);
     }
     for (int e = tid; e < R * DV; e += THREADS) Os[(e / DV) * L::LDO + e % DV] = 0.0f;
     __syncthreads();
@@ -421,14 +370,8 @@ attention_kernel(const void* __restrict__ q, Rows rows, KV kv, const int* __rest
         size_t tok0;
         int n;
         if (!rows.template tile<TK>(b, key0, tok0, n)) continue;  // uniform across the block
-        if constexpr (GATHER) {
-            rows.template stage_rows<TK>(b, key0, n, key_tok, tid);
-            __syncthreads();
-            kv.template load_gather<L::LDK, TK>(key_tok, Ks, tid);
-        } else {
-            // a constant count for full tiles, so that their loads carry no bound check
-            kv.template load<L::LDK, TK>(tok0, Rows::FULL ? TK : n, hk, Ks, Vs, tid);
-        }
+        // a constant count for full tiles, so that their loads carry no bound check
+        kv.template load<L::LDK, TK>(tok0, Rows::FULL ? TK : n, hk, Ks, Vs, tid);
         if constexpr (RING) rows.template stage_pos<TK>(tok0, n, key_pos, tid);
         __syncthreads();
 
@@ -444,10 +387,8 @@ attention_kernel(const void* __restrict__ q, Rows rows, KV kv, const int* __rest
                 wmma::load_matrix_sync(fb, &Ks[(j * 16) * L::LDK + kk], L::LDK);
                 wmma::load_matrix_sync(fa, &Qs[rw * L::LDQ + kk], L::LDQ);
                 wmma::mma_sync(sc, fa, fb, sc);
-                if constexpr (QS) {
-                    wmma::load_matrix_sync(fa, &Qls[rw * L::LDQ + kk], L::LDQ);
-                    wmma::mma_sync(sc, fa, fb, sc);
-                }
+                wmma::load_matrix_sync(fa, &Qls[rw * L::LDQ + kk], L::LDQ);
+                wmma::mma_sync(sc, fa, fb, sc);
             }
             wmma::store_matrix_sync(&Ss[rw * L::LDS + j * 16], sc, L::LDS, wmma::mem_row_major);
         }
@@ -469,7 +410,6 @@ attention_kernel(const void* __restrict__ q, Rows rows, KV kv, const int* __rest
                 } else {
                     const int key = key0 + part * KPT + jj;
                     ok = p >= 0 && key < total && key <= p && (window <= 0 || key > p - window);
-                    if constexpr (GATHER) ok = ok && key_tok[part * KPT + jj] >= 0;
                 }
                 s = ok ? s : -INFINITY;
                 srow[jj] = s;
@@ -531,36 +471,21 @@ attention_kernel(const void* __restrict__ q, Rows rows, KV kv, const int* __rest
         const int r = e / DV, c = e % DV;
         int s, head;
         if (row_of(r, s, head)) {
-            const float o = Os[r * L::LDO + c];
-            out[(((size_t)b * S + s) * Hq + head) * DV + c] =
-                STATS ? o : o / fmaxf(row_l[r], 1e-30f);
-        }
-    }
-    if constexpr (STATS) {  // a row that saw no key keeps m = -inf: JAX's NEG_INF start
-        for (int r = tid; r < R; r += THREADS) {
-            int s, head;
-            if (row_of(r, s, head)) {
-                const size_t i = ((size_t)b * S + s) * Hq + head;
-                m_out[i] = row_m[r] == -INFINITY ? -1e30f : row_m[r];
-                l_out[i] = row_l[r];
-            }
+            out[(((size_t)b * S + s) * Hq + head) * DV + c] = Os[r * L::LDO + c] / fmaxf(row_l[r], 1e-30f);
         }
     }
 }
 
-// Launch on `st`; returns cudaGetLastError() as an int. STATS: `out` takes the
-// unnormalised output and m_out, l_out (B, S, Hq) f32 each row's max and sum.
-template <class G_, class Rows, class KV, bool STATS = false>
+// Launch on `st`; returns cudaGetLastError() as an int.
+template <class G_, class Rows, class KV>
 int launch_attention(const void* q, Rows rows, KV kv, const void* qpos, const void* total_lens,
                      const void* sinks, void* out, int B, int S, int Hq, int Hk, float scale,
-                     int window, float softcap, cudaStream_t st, void* m_out = nullptr,
-                     void* l_out = nullptr) {
-    constexpr int BYTES = Layout<G_, Rows::POS_FROM_ARRAY, Rows::GATHER>::BYTES;
+                     int window, float softcap, cudaStream_t st) {
+    constexpr int BYTES = Layout<G_, Rows::POS_FROM_ARRAY>::BYTES;
     static_assert(BYTES <= 232448, "shared memory of one block");
-    if (STATS && (m_out == nullptr || l_out == nullptr)) return (int)cudaErrorInvalidValue;
     static bool attr_set = false;
     if (!attr_set) {
-        cudaFuncSetAttribute(attention_kernel<G_, Rows, KV, STATS>,
+        cudaFuncSetAttribute(attention_kernel<G_, Rows, KV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
         attr_set = true;
     }
@@ -568,11 +493,13 @@ int launch_attention(const void* q, Rows rows, KV kv, const void* qpos, const vo
     const int G = Hq / Hk, HB = G < G_::R ? G : G_::R;
     const int QT = G_::R / HB, NH = (G + HB - 1) / HB;
     dim3 grid((S + QT - 1) / QT, Hk * NH, B);
-    attention_kernel<G_, Rows, KV, STATS><<<grid, THREADS, BYTES, st>>>(
+    attention_kernel<G_, Rows, KV><<<grid, THREADS, BYTES, st>>>(
         q, rows, kv, static_cast<const int*>(qpos), static_cast<const int*>(total_lens),
-        static_cast<const float*>(sinks), static_cast<float*>(out), static_cast<float*>(m_out),
-        static_cast<float*>(l_out), S, Hq, Hk, scale, window, softcap);
-    return (int)cudaGetLastError();
+        static_cast<const float*>(sinks), static_cast<float*>(out), S, Hq, Hk, scale, window,
+        softcap);
+    const int err = (int)cudaGetLastError();
+    if (err == 0) ++tile_launch_count;
+    return err;
 }
 
 }  // namespace

@@ -46,7 +46,7 @@ extern "C" int exl3_latent_attention(const void* q, const void* kv, const void* 
     const PagedRows paged{static_cast<const int*>(bt), MP, P};
     const LinearRows linear{static_cast<const int*>(rows_), N, T};
     if (S == 1) {
-        const LatentBf16Rows lkv{static_cast<const __nv_bfloat16*>(kv)};
+        const LatentBf16Rows<LAT_D> lkv{static_cast<const __nv_bfloat16*>(kv)};
         return bt != nullptr ? launch_latent_decode(q, paged, lkv, qpos, total_lens, out, ws,
                                                     counters, B, Hq, scale, split_keys, MP * PAGE, st)
                              : launch_latent_decode(q, linear, lkv, qpos, total_lens, out, ws,

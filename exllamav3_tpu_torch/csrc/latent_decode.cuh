@@ -1,21 +1,29 @@
-// Decode attention (S = 1) over DeepSeek's latent (MLA) cache, split by keys:
+// Decode attention (S = 1) over one shared K = V row a key, split by keys:
 // the kernel that latent_attention.cu (bf16 rows) and latent_attention_quant.cu
-// (packed latent, bf16 rope key) launch for a decode step. Verify and prefill
-// chunks (S > 1) take the tile loop of attention_tiles.cuh.
+// (packed latent, bf16 rope key) launch for a decode step of DeepSeek's latent
+// (MLA) cache, and that attention_stats.cu's three DeepSeek-V4 entries launch
+// with the STATS epilogue. Verify and prefill chunks (S > 1) of the latent
+// entries take latent_prefill.cuh.
 //
-// Function: the tile loop's in its latent form (the JAX kernel _flash_kernel
-// with `latent`, v_from_k, d_extra): one kv head whose 576-channel row is the
-// latent (512) and the rope key (64); scores scale * q.k over the keys j <
-// total_len, j <= the token's position, j in the layout; V the leading 512
-// channels of each row; a row that sees no key gives 0. Over the quantized
-// storage K and V stay in their stored, rotated basis: q's latent is rotated
-// per 32-channel group (H32 / sqrt(32)) and rounded to bf16 as the block
-// loads it, as the plain version rotates it, and the output rotated back in
-// the merge.
+// Function: the JAX kernel _flash_kernel with one kv head whose D-channel row
+// every q head reads: D = 576 for MLA (`latent`, v_from_k, d_extra: the
+// latent (512) and the rope key (64)), D = 512 for DeepSeek-V4 (return_stats
+// over the sliding ring, the HCA pool and the CSA rows). Scores scale * q.k;
+// V the leading 512 channels of each row. Visibility: key j < total_len, j
+// <= the token's position, j in the layout (paged, linear, pool: a page out
+// of range hides its keys); over a ring, slot j's stored position pos[j]
+// instead, 0 <= pos[j] <= p and, with a window, pos[j] > p - window. A row
+// that sees no key gives 0, or under STATS (acc, m, l) = (0, -1e30, 0);
+// STATS writes acc = sum exp(s - m) v, m and l = sum exp(s - m) unnormalised.
+// Over the quantized storage K and V stay in their stored, rotated basis: q's
+// latent is rotated per 32-channel group (H32 / sqrt(32)) and rounded to
+// bf16 as the block loads it, as the plain version rotates it, and the
+// output rotated back in the merge.
 //
-// Bound: each visible key's row once for all heads (1152 bytes a key in bf16;
-// 64 * bits + 32 + 128 quantized). A latent byte serves 16 to 128 heads times
-// 1088 channels, so the products keep the tensor cores.
+// Bound: each visible key's row once for all heads (1152 bytes a key in bf16
+// MLA, 1024 at DeepSeek-V4; 64 * bits + 32 + 128 quantized), and the output.
+// A row byte serves 16 to 128 heads times ~1088 channels, so the products
+// keep the tensor cores.
 //
 // Design:
 //   * Split keys. Grid (splits, head slices, B): a block holds one token's 16
@@ -24,14 +32,20 @@
 //     grid and the card's SM count, never from the lengths on the device:
 //     ops/flash_attention.py::latent_split_keys). A split that holds no key
 //     the token can see stages nothing and writes the empty record.
+//   * Layouts. Paged and linear rows are consecutive tokens a tile. The ring
+//     and the pool (TABLE) find each key of the split first, one thread a
+//     key: its storage row, or -1 where it is hidden (a slot's stored
+//     position, a page out of range), into a table in shared memory; the
+//     split then walks only the tiles from its first visible key to its last,
+//     copies the visible rows and zeroes the others.
 //   * Staging. Each split's tiles of TK keys are copied into shared memory by
 //     bulk copies (the tensor memory accelerator), STAGES deep, each stage
 //     with a barrier that counts its bytes in: a bf16 key row a copy (into a
-//     row of 584 columns, 73 16-byte units, odd: ldmatrix meets no bank
-//     twice), the quantized storage's words, scales and rope keys of a tile
-//     one copy each (a tile's keys are consecutive tokens). Rows of keys the
-//     token cannot see are set to zero instead, so that P (0) never meets a
-//     NaN of an unwritten cache row. The quantized tile unpacks in shared
+//     row of D + 8 columns, an odd count of 16-byte units: ldmatrix meets no
+//     bank twice), the quantized storage's words, scales and rope keys of a
+//     tile one copy each (a tile's keys are consecutive tokens). Rows of keys
+//     the token cannot see are set to zero instead, so that P (0) never meets
+//     a NaN of an unwritten cache row. The quantized tile unpacks in shared
 //     memory into exact hi + lo bf16 columns (dequant_run: the plain
 //     version's f32 values), the rope key beside them (its lo columns 0).
 //   * Tensor cores. Scores: q (bf16, as the module hands it over) as the A
@@ -49,7 +63,9 @@
 //     acc); the last split of a (sequence, head slice) to arrive (the
 //     release-acquire arrival of async_copy.cuh at a counter it then resets)
 //     weighs the splits that saw keys, adds their acc in split order (two
-//     splits' loads in flight), normalises and writes.
+//     splits' loads in flight), and normalises and writes, or under STATS
+//     writes (acc, m, l) as they stand: m the largest split's, l the weighted
+//     sum. Under STATS a single split writes its own state straight out.
 #pragma once
 
 #include "attention_decode.cuh"
@@ -76,9 +92,9 @@ constexpr int LAT_TK_BF16_SLICES = 32;  // bf16 rows, several head slices
 constexpr int LAT_STAGES_BF16_SLICES = 2;
 constexpr int LAT_TK_QUANT = 32;      // quantized rows
 constexpr int LAT_STAGES_QUANT = 2;
-constexpr int LAT_D = LATENT + ROPE;  // 576 channels a key
-constexpr int LAT_LD = LAT_D + 8;     // bf16 columns of a staged row
-constexpr int LAT_UNITS = LAT_D / 8;  // 16-byte units of a bf16 row
+constexpr int LAT_TABLE_KEYS = 2048;  // keys a split of a TABLE layout (ring, pool) at most
+constexpr int LAT_D = LATENT + ROPE;  // 576 channels a key of the MLA latent cache
+constexpr int KV_ROW = 512;           // DeepSeek-V4's shared K = V row (head_dim, the rope inside)
 constexpr int LAT_REC = LAT_ROWS * LATENT + 2 * LAT_ROWS;  // floats of a split's record
 
 // cp.async of 16 bytes that fills the destination with zeros instead where
@@ -142,25 +158,50 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// bf16 latent rows [c_kv | k_pe]; the staged tile is the K (and V) tile itself
+// bf16 rows of D channels, K and V alike ([c_kv | k_pe] of the MLA latent
+// cache at D = 576; DeepSeek-V4's 512-wide rows); the staged tile is the K (and
+// V) tile itself
+template <int D_>
 struct LatentBf16Rows {
     static constexpr bool QUANT = false;
-    const __nv_bfloat16* kv;  // (., ., 1, 576)
-    __host__ __device__ int stage_bytes(int tk) const { return tk * LAT_LD * 2; }
-    // rows j < je of the tile from token row tok0 into the stage, one bulk copy
-    // a row (1152 bytes into a row of LAT_LD columns), the warps taking turns,
-    // completing on `bar`; rows je.. (keys the token cannot see, or past the
-    // layout) are set to zero by every thread
-    __device__ void issue(size_t tok0, int je, int tk, unsigned char* st, uint64_t* bar,
-                          int tid) const {
-        if (tid == 0) mbar_expect(bar, je * LAT_D * 2);
+    static constexpr int D = D_, LD = D + 8, UNITS = D / 8;  // staged row: LD columns, UNITS copied
+    static_assert(D % 16 == 0 && UNITS % 2 == 0, "an odd count of 16-byte units a staged row");
+    const __nv_bfloat16* kv;  // (., D) rows
+    __host__ __device__ int stage_bytes(int tk) const { return tk * LD * 2; }
+    // the tile's rows into the stage: row j < je from storage row src(j), one
+    // bulk copy a row (D * 2 bytes into a row of LD columns), the warps
+    // taking turns, completing on `bar`; every other row (j >= je, or src(j)
+    // < 0 where GATHER) is set to zero by every thread. GATHER: src may hide
+    // rows below je (the TABLE layouts), and warp 0 counts the copies the
+    // barrier expects
+    template <bool GATHER, class Src>
+    __device__ void issue(Src src, int je, int tk, unsigned char* st, uint64_t* bar, int tid) const {
+        if constexpr (GATHER) {
+            if (tid < 32) {
+                int copies = 0;
+                for (int j0 = 0; j0 < tk; j0 += 32)
+                    copies += __popc(__ballot_sync(0xffffffffu, j0 + tid < je && src(j0 + tid) >= 0));
+                if (tid == 0) mbar_expect(bar, copies * D * 2);
+            }
+        } else if (tid == 0) {
+            mbar_expect(bar, je * D * 2);
+        }
         // row j from lane j % (tk / LAT_WARPS) of warp j / (tk / LAT_WARPS)
         const int rpw = tk / LAT_WARPS, lane = tid % 32, j = tid / 32 * rpw + lane;
-        if (lane < rpw && j < je)
-            bulk_copy(st + j * LAT_LD * 2, kv + (tok0 + j) * LAT_D, LAT_D * 2, bar);
-        for (int e = tid; e < (tk - je) * LAT_UNITS; e += LAT_THREADS)
-            *reinterpret_cast<uint4*>(st + ((je + e / LAT_UNITS) * LAT_LD + e % LAT_UNITS * 8) * 2) =
-                make_uint4(0u, 0u, 0u, 0u);
+        if (lane < rpw && j < je) {
+            const long long r = src(j);
+            if (!GATHER || r >= 0) bulk_copy(st + j * LD * 2, kv + r * D, D * 2, bar);
+        }
+        const int zr = GATHER ? 0 : je;  // the first row that may be zero
+        for (int e = tid; e < (tk - zr) * UNITS; e += LAT_THREADS) {
+            const int row = zr + e / UNITS;
+            if (!GATHER || row >= je || src(row) < 0)
+                *reinterpret_cast<uint4*>(st + (row * LD + e % UNITS * 8) * 2) = make_uint4(0u, 0u, 0u, 0u);
+        }
+        // GATHER zeroes rows inside the split, which a later tile's bulk copy
+        // (the async proxy) may refill in this stage: order the stores before
+        // it (the block barrier that ends each tile follows)
+        if constexpr (GATHER) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     }
 };
 
@@ -169,6 +210,7 @@ struct LatentBf16Rows {
 // key), then the rope keys (64 a key), each stream as it lies in the cache
 struct LatentQuantRows {
     static constexpr bool QUANT = true;
+    static constexpr int D = LAT_D, LD = D + 8, UNITS = D / 8;
     const uint32_t* kq;
     const __nv_bfloat16* ks;
     const __nv_bfloat16* kpe;
@@ -176,10 +218,13 @@ struct LatentQuantRows {
     float ca, cb;  // compander a and 1 - a; ca = 0 selects the midpoint grid
     __host__ __device__ int wld() const { return LATENT * bits / 32; }  // words a key
     __host__ __device__ int stage_bytes(int tk) const { return tk * (wld() * 4 + 32 + ROPE * 2); }
-    // the tile's keys j < je, each stream in one bulk copy (a tile's keys are
-    // consecutive tokens) completing on `bar`; keys je.. are zero
-    __device__ void issue(size_t tok0, int je, int tk, unsigned char* st, uint64_t* bar,
-                          int tid) const {
+    // the tile's keys j < je from storage rows src(0) + j, each stream in one
+    // bulk copy (a tile's keys are consecutive tokens) completing on `bar`;
+    // keys je.. are zero
+    template <bool GATHER, class Src>
+    __device__ void issue(Src src, int je, int tk, unsigned char* st, uint64_t* bar, int tid) const {
+        static_assert(!GATHER, "the quantized latent is paged or linear");
+        const size_t tok0 = src(0);
         const int wb = wld() * 4;  // bytes of a key's words
         unsigned char* sc = st + tk * wb;
         unsigned char* pe = sc + tk * 32;
@@ -198,7 +243,7 @@ struct LatentQuantRows {
             *z = make_uint4(0u, 0u, 0u, 0u);
         }
     }
-    // the staged tile into hi + lo bf16 rows of LAT_LD columns: the latent
+    // the staged tile into hi + lo bf16 rows of LD columns: the latent
     // dequantized, the rope key copied into the hi rows (the lo rows' rope
     // columns stay 0)
     template <int BITS>
@@ -219,13 +264,13 @@ struct LatentQuantRows {
                 l[i] = pack_bf16x2(x[2 * i] - __uint_as_float(h[i] << 16),
                                    x[2 * i + 1] - __uint_as_float(h[i] & 0xFFFF0000u));
             }
-            *reinterpret_cast<uint4*>(hi_s + j * LAT_LD + c0) = make_uint4(h[0], h[1], h[2], h[3]);
-            *reinterpret_cast<uint4*>(lo_s + j * LAT_LD + c0) = make_uint4(l[0], l[1], l[2], l[3]);
+            *reinterpret_cast<uint4*>(hi_s + j * LD + c0) = make_uint4(h[0], h[1], h[2], h[3]);
+            *reinterpret_cast<uint4*>(lo_s + j * LD + c0) = make_uint4(l[0], l[1], l[2], l[3]);
         }
         const uint4* pe = reinterpret_cast<const uint4*>(st + tk * (ldw * 4 + 32));
         for (int e = tid; e < tk * (ROPE / 8); e += LAT_THREADS) {
             const int j = e / (ROPE / 8), c = e % (ROPE / 8);
-            *reinterpret_cast<uint4*>(hi_s + j * LAT_LD + LATENT + c * 8) = pe[e];
+            *reinterpret_cast<uint4*>(hi_s + j * LD + LATENT + c * 8) = pe[e];
         }
     }
     __device__ void unpack(const unsigned char* st, int tk, __nv_bfloat16* hi_s, __nv_bfloat16* lo_s,
@@ -243,36 +288,40 @@ struct LatentQuantRows {
 };
 
 // One block's shared memory, in bytes: the stages; the unpacked K tile, hi
-// and lo (quantized only); q (16 rows of LAT_LD bf16); the partial scores of
-// the LAT_KQ channel quarters (f32, TK + 4 a row); P hi and lo (bf16, TK + 8
-// a row); each row's m, l and alpha, and the merge's flag; each stage's
-// barrier. The merge keeps its weights in the stages.
+// and lo (quantized only); q (16 rows of LD bf16); the partial scores of the
+// LAT_KQ channel quarters (f32, TK + 4 a row); P hi and lo (bf16, TK + 8 a
+// row); each row's m, l and alpha, and the merge's flags; the split's key
+// table (TABLE layouts: LAT_TABLE_KEYS ints); each stage's barrier. The merge
+// keeps its weights in the stages.
 struct LatentLayout {
-    int stage = 0, off_k = 0, off_q = 0, off_s = 0, off_p = 0, off_rows = 0, off_bar = 0, bytes = 0;
-    __host__ __device__ constexpr LatentLayout(int stage_bytes, bool quant, int tk, int stages) {
+    int stage = 0, off_k = 0, off_q = 0, off_s = 0, off_p = 0, off_rows = 0, off_table = 0,
+        off_bar = 0, bytes = 0;
+    __host__ __device__ constexpr LatentLayout(int stage_bytes, bool quant, int ld, bool table,
+                                               int tk, int stages) {
         stage = (stage_bytes + 127) / 128 * 128;
         off_k = stages * stage;
-        off_q = off_k + (quant ? 2 * tk * LAT_LD * 2 : 0);
-        off_s = off_q + LAT_ROWS * LAT_LD * 2;
+        off_q = off_k + (quant ? 2 * tk * ld * 2 : 0);
+        off_s = off_q + LAT_ROWS * ld * 2;
         off_p = off_s + LAT_KQ * LAT_ROWS * (tk + 4) * 4;
         off_rows = off_p + 2 * LAT_ROWS * (tk + 8) * 2;
-        off_bar = off_rows + 4 * LAT_ROWS * 4;
+        off_table = off_rows + 4 * LAT_ROWS * 4;
+        off_bar = off_table + (table ? LAT_TABLE_KEYS * 4 : 0);
         bytes = off_bar + stages * 8;
     }
 };
 
-template <class KV, int TK, int STAGES>
+template <class Rows, class KV, int TK, int STAGES>
 __host__ __device__ LatentLayout latent_layout(const KV& kv) {
-    return LatentLayout(kv.stage_bytes(TK), KV::QUANT, TK, STAGES);
+    return LatentLayout(kv.stage_bytes(TK), KV::QUANT, KV::LD, Rows::TABLE, TK, STAGES);
 }
 
 // the largest layout of a storage (the quantized one at 8 bits) and the blocks
 // an SM it allows, which the launch bounds promise (at most 2)
-template <bool QUANT, int TK, int STAGES>
+template <class Rows, class KV, int TK, int STAGES>
 struct LatentBlocks {
     static constexpr int BYTES =
-        LatentLayout(QUANT ? TK * (LATENT * 8 / 8 + 32 + ROPE * 2) : TK * LAT_LD * 2,
-                     QUANT, TK, STAGES).bytes;
+        LatentLayout(KV::QUANT ? TK * (LATENT * 8 / 8 + 32 + ROPE * 2) : TK * KV::LD * 2,
+                     KV::QUANT, KV::LD, Rows::TABLE, TK, STAGES).bytes;
     static constexpr int FIT = SM_SHARED / (BYTES + BLOCK_RESERVED);
     static constexpr int MIN = FIT < 2 ? FIT : 2;
     static_assert(BYTES <= BLOCK_SHARED_MAX && MIN >= 1, "shared memory of a block");
@@ -280,21 +329,25 @@ struct LatentBlocks {
 
 // Grid (splits, head slices, B). ws: per (sequence, head slice, split)
 // LAT_REC floats, acc (16 x 512) then m (16) and l (16); counters: B * slices
-// ints, 0 between launches.
-template <class Rows, class KV, int TK, int STAGES>
-__global__ void __launch_bounds__(LAT_THREADS, (LatentBlocks<KV::QUANT, TK, STAGES>::MIN))
+// ints, 0 between launches. out (B, Hq, 512) f32: the normalised output, or
+// under STATS acc beside m_out, l_out (B, Hq). total_lens is not read over a
+// ring; window is read over a ring alone.
+template <class Rows, class KV, int TK, int STAGES, bool STATS>
+__global__ void __launch_bounds__(LAT_THREADS, (LatentBlocks<Rows, KV, TK, STAGES>::MIN))
 latent_decode_kernel(const __nv_bfloat16* __restrict__ q, Rows rows, KV kv,
                      const int* __restrict__ qpos, const int* __restrict__ total_lens,
-                     float* __restrict__ out, float* ws, int* counters, int Hq, float scale,
-                     int split_keys) {
-    constexpr bool QUANT = KV::QUANT;
+                     float* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
+                     float* ws, int* counters, int Hq, float scale, int window, int split_keys) {
+    constexpr bool QUANT = KV::QUANT, TABLE = Rows::TABLE;
+    constexpr int D = KV::D, LD = KV::LD, UNITS = KV::UNITS;
     // score pass: warp (kq, kh) takes channel quarter kq and key half kh
-    constexpr int KSTEPS = LAT_D / 16 / LAT_KQ;  // its 16-channel steps
+    constexpr int KSTEPS = D / 16 / LAT_KQ;       // its 16-channel steps
     constexpr int NTW = TK / 16;                  // its 8-key tiles
     constexpr int LDS = TK + 4, LDP = TK + 8;
     constexpr int KPT = TK / 16;                  // softmax: keys a thread, 16 threads a row
-    static_assert(LAT_KQ * 2 == LAT_WARPS && KSTEPS * LAT_KQ * 16 == LAT_D && NTW % 2 == 0 &&
-                      PAGE % TK == 0 && LAT_TILE % TK == 0 && LATENT == LAT_WARPS * 64,
+    static_assert(LAT_KQ * 2 == LAT_WARPS && KSTEPS * LAT_KQ * 16 == D && NTW % 2 == 0 &&
+                      PAGE % TK == 0 && LAT_TILE % TK == 0 && LATENT == LAT_WARPS * 64 &&
+                      D >= LATENT && !(QUANT && (TABLE || STATS)),
                   "geometry");
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
@@ -302,10 +355,10 @@ latent_decode_kernel(const __nv_bfloat16* __restrict__ q, Rows rows, KV kv,
     const int sp = blockIdx.x, slice = blockIdx.y, b = blockIdx.z;
     const int NS = gridDim.x, NH = gridDim.y;
     const int h0 = slice * LAT_ROWS, nh = min(LAT_ROWS, Hq - h0);  // this block's q heads
-    const LatentLayout L = latent_layout<KV, TK, STAGES>(kv);
+    const LatentLayout L = latent_layout<Rows, KV, TK, STAGES>(kv);
     extern __shared__ __align__(128) unsigned char smem[];
     __nv_bfloat16* Khi = reinterpret_cast<__nv_bfloat16*>(smem + L.off_k);  // quantized only
-    __nv_bfloat16* Klo = Khi + TK * LAT_LD;
+    __nv_bfloat16* Klo = Khi + TK * LD;
     __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + L.off_q);
     float* Sp = reinterpret_cast<float*>(smem + L.off_s);
     __nv_bfloat16* Ph = reinterpret_cast<__nv_bfloat16*>(smem + L.off_p);
@@ -313,14 +366,52 @@ latent_decode_kernel(const __nv_bfloat16* __restrict__ q, Rows rows, KV kv,
     float* row_m = reinterpret_cast<float*>(smem + L.off_rows);
     float* row_l = row_m + LAT_ROWS;
     float* row_a = row_l + LAT_ROWS;
-    int* flag = reinterpret_cast<int*>(row_a + LAT_ROWS);
+    int* flag = reinterpret_cast<int*>(row_a + LAT_ROWS);  // [0] the merge's, [1..2] TABLE's key range
+    int* table = reinterpret_cast<int*>(smem + L.off_table);  // TABLE: the split's keys' rows
     uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.off_bar);
 
     // the keys of this split the token can see: [k_first, k_last]
-    const int total = min(total_lens[b], rows.key_limit());
-    const int k_first = sp * split_keys;
-    const int k_last = min(min(qpos[b], total - 1), k_first + split_keys - 1);
+    const int split0 = sp * split_keys, p = qpos[b];
+    int k_first = split0;
+    int k_last = min(split0 + split_keys, rows.key_limit()) - 1;
+    if constexpr (!Rows::POS_FROM_ARRAY) k_last = min(k_last, min(p, total_lens[b] - 1));
+    if constexpr (TABLE) {
+        // each key's storage row (-1: hidden) into the table, and the range
+        // from the first visible key to the last
+        if (tid == 0) {
+            flag[1] = INT32_MAX;
+            flag[2] = -1;
+        }
+        __syncthreads();
+        int lo = INT32_MAX, hi = -1;
+        for (int key = k_first + tid; key <= k_last; key += LAT_THREADS) {
+            const int r = rows.key_row(b, key, p, window);
+            table[key - split0] = r;
+            if (r >= 0) {
+                lo = min(lo, key);
+                hi = max(hi, key);
+            }
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+            lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+            hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+        }
+        if (lane == 0 && hi >= 0) {
+            atomicMin(flag + 1, lo);
+            atomicMax(flag + 2, hi);
+        }
+        __syncthreads();
+        k_first = flag[1];
+        k_last = flag[2];
+    }
     float* rec = ws + ((size_t)(b * NH + slice) * NS + sp) * LAT_REC;
+    // acc[nt]: rows g (e 0, 1) and g + 8 (e 2, 3), channels 64 warp + 8 nt + 2t (+1)
+    float acc[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
 
     if (k_first <= k_last) {
         const int ntiles = (k_last - k_first) / TK + 1;
@@ -329,25 +420,47 @@ latent_decode_kernel(const __nv_bfloat16* __restrict__ q, Rows rows, KV kv,
             asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
         }
         __syncthreads();
+        // tile i: its keys [0, je) of the split's visible range, and whether
+        // it is staged at all (a paged tile's page out of range is skipped,
+        // uniform across the block); TABLE: its rows from the table
+        auto tile = [&](int i, size_t& tok0, int& je) {
+            const int key0 = k_first + i * TK;
+            if constexpr (TABLE) {
+                tok0 = 0;
+                je = min(TK, k_last - key0 + 1);
+                return true;
+            } else {
+                int n;
+                if (!rows.template tile<TK>(b, key0, tok0, n)) return false;
+                je = min(n, k_last - key0 + 1);
+                return true;
+            }
+        };
         auto issue = [&](int i) {  // tile i's rows into stage i % STAGES (none past the last)
             size_t tok0;
-            int n;
-            const int key0 = k_first + i * TK;
-            if (i < ntiles && rows.template tile<TK>(b, key0, tok0, n))
-                kv.issue(tok0, min(n, k_last - key0 + 1), TK, smem + (i % STAGES) * L.stage,
-                         bars + i % STAGES, tid);
+            int je;
+            if (i >= ntiles || !tile(i, tok0, je)) return;
+            unsigned char* st = smem + (i % STAGES) * L.stage;
+            if constexpr (TABLE) {
+                const int* tb = table + (k_first + i * TK - split0);
+                kv.template issue<true>([&](int j) -> long long { return j < je ? tb[j] : -1; }, je,
+                                        TK, st, bars + i % STAGES, tid);
+            } else {
+                kv.template issue<false>([&](int j) -> long long { return (long long)(tok0 + j); },
+                                         je, TK, st, bars + i % STAGES, tid);
+            }
         };
         // q's rows of the slice (rows past Hq zero)
-        for (int e = tid; e < LAT_ROWS * LAT_UNITS; e += LAT_THREADS) {
-            const int r = e / LAT_UNITS, c = e % LAT_UNITS;
-            cp_async_zfill(Qs + r * LAT_LD + c * 8,
-                           q + (r < nh ? ((size_t)b * Hq + h0 + r) * LAT_D + c * 8 : 0), r < nh);
+        for (int e = tid; e < LAT_ROWS * UNITS; e += LAT_THREADS) {
+            const int r = e / UNITS, c = e % UNITS;
+            cp_async_zfill(Qs + r * LD + c * 8,
+                           q + (r < nh ? ((size_t)b * Hq + h0 + r) * D + c * 8 : 0), r < nh);
         }
         cp_async_commit();
         for (int i = 0; i < STAGES - 1; ++i) issue(i);
         if constexpr (QUANT) {
             for (int e = tid; e < TK * (ROPE / 8); e += LAT_THREADS)
-                *reinterpret_cast<uint4*>(Klo + (e / (ROPE / 8)) * LAT_LD + LATENT + (e % (ROPE / 8)) * 8) =
+                *reinterpret_cast<uint4*>(Klo + (e / (ROPE / 8)) * LD + LATENT + (e % (ROPE / 8)) * 8) =
                     make_uint4(0u, 0u, 0u, 0u);
         }
         if (tid < LAT_ROWS) {
@@ -355,12 +468,6 @@ latent_decode_kernel(const __nv_bfloat16* __restrict__ q, Rows rows, KV kv,
             row_l[tid] = 0.0f;
         }
         uint32_t qa[KSTEPS][4];  // q's A fragments of this warp's channel quarter
-        // acc[nt]: rows g (e 0, 1) and g + 8 (e 2, 3), channels 64 warp + 8 nt + 2t (+1)
-        float acc[8][4];
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
 
         cp_async_wait<0>();  // q, then this warp's fragments of it
         __syncthreads();
@@ -373,7 +480,7 @@ latent_decode_kernel(const __nv_bfloat16* __restrict__ q, Rows rows, KV kv,
                 float x[8];
 #pragma unroll
                 for (int k = 0; k < 8; ++k)
-                    x[k] = __bfloat162float(Qs[((u0 + k) / GR) * LAT_LD + ((u0 + k) % GR) * 32 + lane]);
+                    x[k] = __bfloat162float(Qs[((u0 + k) / GR) * LD + ((u0 + k) % GR) * 32 + lane]);
 #pragma unroll
                 for (int m = 1; m < 32; m <<= 1)
 #pragma unroll
@@ -383,24 +490,22 @@ latent_decode_kernel(const __nv_bfloat16* __restrict__ q, Rows rows, KV kv,
                     }
 #pragma unroll
                 for (int k = 0; k < 8; ++k)
-                    Qs[((u0 + k) / GR) * LAT_LD + ((u0 + k) % GR) * 32 + lane] =
+                    Qs[((u0 + k) / GR) * LD + ((u0 + k) % GR) * 32 + lane] =
                         __float2bfloat16_rn(x[k] * RSQRT32);
             }
             __syncthreads();
         }
 #pragma unroll
         for (int ks = 0; ks < KSTEPS; ++ks)
-            ldsm_x4(qa[ks], Qs + (lane & 15) * LAT_LD + (kq * KSTEPS + ks) * 16 + (lane >> 4) * 8);
+            ldsm_x4(qa[ks], Qs + (lane & 15) * LD + (kq * KSTEPS + ks) * 16 + (lane >> 4) * 8);
         unsigned parity = 0;  // bit s: the phase of stage s's barrier to wait for
         for (int i = 0; i < ntiles; ++i) {
             issue(i + STAGES - 1);
-            const int key0 = k_first + i * TK;
             size_t tok0;
-            int n;
-            if (!rows.template tile<TK>(b, key0, tok0, n)) continue;  // uniform across the block
+            int je;  // the tile's keys [0, je) are in the visible range
+            if (!tile(i, tok0, je)) continue;  // uniform across the block
             mbar_wait(bars + i % STAGES, (parity >> (i % STAGES)) & 1u);
             parity ^= 1u << (i % STAGES);
-            const int je = min(n, k_last - key0 + 1);  // the tile's keys [0, je) are visible
             const unsigned char* st = smem + (i % STAGES) * L.stage;
             const __nv_bfloat16* Kt = reinterpret_cast<const __nv_bfloat16*>(st);
             if constexpr (QUANT) {
@@ -424,11 +529,11 @@ latent_decode_kernel(const __nv_bfloat16* __restrict__ q, Rows rows, KV kv,
 #pragma unroll
                     for (int np = 0; np < NTW / 2; ++np) {  // 8-key tiles 2np, 2np + 1
                         uint32_t kb[4];
-                        ldsm_x4(kb, Kt + (krow + 16 * np) * LAT_LD + kcol + ks * 16);
+                        ldsm_x4(kb, Kt + (krow + 16 * np) * LD + kcol + ks * 16);
                         mma_16816(s[2 * np], qa[ks], kb[0], kb[1]);
                         mma_16816(s[2 * np + 1], qa[ks], kb[2], kb[3]);
                         if constexpr (QUANT) {
-                            ldsm_x4(kb, Klo + (krow + 16 * np) * LAT_LD + kcol + ks * 16);
+                            ldsm_x4(kb, Klo + (krow + 16 * np) * LD + kcol + ks * 16);
                             mma_16816(s[2 * np], qa[ks], kb[0], kb[1]);
                             mma_16816(s[2 * np + 1], qa[ks], kb[2], kb[3]);
                         }
@@ -446,6 +551,7 @@ latent_decode_kernel(const __nv_bfloat16* __restrict__ q, Rows rows, KV kv,
             // online softmax: 16 threads a row, KPT keys each; P as hi + lo bf16
             {
                 const int r = tid >> 4, part = tid & 15;
+                const int* tb = table + (k_first + i * TK - split0);  // TABLE only
                 float sv[KPT], mx = -INFINITY;
 #pragma unroll
                 for (int jj = 0; jj < KPT; ++jj) {
@@ -453,7 +559,8 @@ latent_decode_kernel(const __nv_bfloat16* __restrict__ q, Rows rows, KV kv,
                     float v = 0.0f;
 #pragma unroll
                     for (int kp = 0; kp < LAT_KQ; ++kp) v += Sp[(kp * LAT_ROWS + r) * LDS + j];
-                    sv[jj] = j < je ? v * scale : -INFINITY;
+                    const bool seen = j < je && (!TABLE || tb[j] >= 0);
+                    sv[jj] = seen ? v * scale : -INFINITY;
                     mx = fmaxf(mx, sv[jj]);
                 }
 #pragma unroll
@@ -501,13 +608,13 @@ latent_decode_kernel(const __nv_bfloat16* __restrict__ q, Rows rows, KV kv,
                     for (int np = 0; np < 4; ++np) {  // channel tiles 2np, 2np + 1
                         const int c = 64 * warp + 16 * np + (lane >> 4) * 8;
                         uint32_t v[4];
-                        ldsm_x4_trans(v, Kt + vr * LAT_LD + c);
+                        ldsm_x4_trans(v, Kt + vr * LD + c);
                         mma_16816(acc[2 * np], ph, v[0], v[1]);
                         mma_16816(acc[2 * np], pl, v[0], v[1]);
                         mma_16816(acc[2 * np + 1], ph, v[2], v[3]);
                         mma_16816(acc[2 * np + 1], pl, v[2], v[3]);
                         if constexpr (QUANT) {
-                            ldsm_x4_trans(v, Klo + vr * LAT_LD + c);
+                            ldsm_x4_trans(v, Klo + vr * LD + c);
                             mma_16816(acc[2 * np], ph, v[0], v[1]);
                             mma_16816(acc[2 * np + 1], ph, v[2], v[3]);
                         }
@@ -516,21 +623,45 @@ latent_decode_kernel(const __nv_bfloat16* __restrict__ q, Rows rows, KV kv,
             }
             __syncthreads();  // the stage, the unpacked tile, the scores and P are rewritten next
         }
+    } else if (tid < LAT_ROWS) {  // no key: the empty state
+        row_m[tid] = -INFINITY;
+        row_l[tid] = 0.0f;
+    }
 
-        // this split's unnormalised rows, straight from the registers
+    if constexpr (STATS) {
+        if (NS == 1) {  // the split's own state is the result
+            const size_t o0 = (size_t)b * Hq + h0;
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt) {
+                const int c = 64 * warp + 8 * nt + 2 * t;
+                if (g < nh)
+                    *reinterpret_cast<float2*>(out + (o0 + g) * LATENT + c) = make_float2(acc[nt][0], acc[nt][1]);
+                if (g + 8 < nh)
+                    *reinterpret_cast<float2*>(out + (o0 + g + 8) * LATENT + c) =
+                        make_float2(acc[nt][2], acc[nt][3]);
+            }
+            __syncthreads();  // the rows' state, whichever branch set it
+            if (tid < nh) {
+                m_out[o0 + tid] = row_m[tid] == -INFINITY ? STATS_EMPTY_M : row_m[tid];
+                l_out[o0 + tid] = row_l[tid];
+            }
+            return;
+        }
+    }
+    // this split's unnormalised rows, straight from the registers (none for a
+    // split that saw no key)
+    if (k_first <= k_last) {
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt) {
             const int c = 64 * warp + 8 * nt + 2 * t;
             *reinterpret_cast<float2*>(rec + g * LATENT + c) = make_float2(acc[nt][0], acc[nt][1]);
             *reinterpret_cast<float2*>(rec + (g + 8) * LATENT + c) = make_float2(acc[nt][2], acc[nt][3]);
         }
-        if (tid < LAT_ROWS) {
-            rec[LAT_ROWS * LATENT + tid] = row_m[tid] == -INFINITY ? STATS_EMPTY_M : row_m[tid];
-            rec[LAT_ROWS * LATENT + LAT_ROWS + tid] = row_l[tid];
-        }
-    } else if (tid < LAT_ROWS) {  // the empty record: no acc
-        rec[LAT_ROWS * LATENT + tid] = STATS_EMPTY_M;
-        rec[LAT_ROWS * LATENT + LAT_ROWS + tid] = 0.0f;
+    }
+    __syncthreads();  // the rows' state, whichever branch set it
+    if (tid < LAT_ROWS) {
+        rec[LAT_ROWS * LATENT + tid] = row_m[tid] == -INFINITY ? STATS_EMPTY_M : row_m[tid];
+        rec[LAT_ROWS * LATENT + LAT_ROWS + tid] = row_l[tid];
     }
 
     // the last split of this (sequence, head slice) to finish merges
@@ -568,7 +699,15 @@ latent_decode_kernel(const __nv_bfloat16* __restrict__ q, Rows rows, KV kv,
             n_live += saw;
         }
         if (r == 0) live[0] = n_live;
-        row_l[r] = fmaxf(lg, 1e-30f);
+        if constexpr (STATS) {
+            // the largest split's m (STATS_EMPTY_M where no split saw a key)
+            if (r < nh) {
+                m_out[(size_t)b * Hq + h0 + r] = mg;
+                l_out[(size_t)b * Hq + h0 + r] = lg;
+            }
+        } else {
+            row_l[r] = fmaxf(lg, 1e-30f);
+        }
     }
     __syncthreads();
     // the weighted sum of those splits, in split order: a thread takes 8
@@ -638,62 +777,70 @@ latent_decode_kernel(const __nv_bfloat16* __restrict__ q, Rows rows, KV kv,
     for (int i = 0; i < 8; ++i) {
         const int r = r0 + 2 * i;
         if (r >= nh) continue;
-        const float inv = 1.0f / row_l[r];
+        const float inv = STATS ? 1.0f : 1.0f / row_l[r];
         *reinterpret_cast<float4*>(out + ((size_t)b * Hq + h0 + r) * LATENT + 4 * c4) =
             make_float4(o[i].x * inv, o[i].y * inv, o[i].z * inv, o[i].w * inv);
     }
     if (tid == 0) counters[b * NH + slice] = 0;  // ready for the next launch
 }
 
-template <class Rows, class KV, int TK, int STAGES>
+template <class Rows, class KV, int TK, int STAGES, bool STATS>
 int launch_latent_geo(const void* q, Rows rows, KV kv, const void* qpos, const void* total_lens,
-                      void* out, void* ws, void* counters, int B, int Hq, int NS, float scale,
-                      int split_keys, cudaStream_t st) {
+                      void* out, void* m_out, void* l_out, void* ws, void* counters, int B, int Hq,
+                      int NS, float scale, int window, int split_keys, cudaStream_t st) {
     static_assert((LAT_MAX_SPLITS * (2 * LAT_ROWS + 1) + 1) * 4 <=
-                      (KV::QUANT ? TK * (LATENT * 2 / 8 + 32 + ROPE * 2) : TK * LAT_LD * 2),
+                      (KV::QUANT ? TK * (LATENT * 2 / 8 + 32 + ROPE * 2) : TK * KV::LD * 2),
                   "the merge's weights fit in the stages");
-    auto* kernel = latent_decode_kernel<Rows, KV, TK, STAGES>;
+    auto* kernel = latent_decode_kernel<Rows, KV, TK, STAGES, STATS>;
     static bool attr_set = false;
     if (!attr_set) {
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             LatentBlocks<KV::QUANT, TK, STAGES>::BYTES);
+                             LatentBlocks<Rows, KV, TK, STAGES>::BYTES);
         attr_set = true;
     }
     const int NH = (Hq + LAT_ROWS - 1) / LAT_ROWS;
-    kernel<<<dim3(NS, NH, B), LAT_THREADS, latent_layout<KV, TK, STAGES>(kv).bytes, st>>>(
+    kernel<<<dim3(NS, NH, B), LAT_THREADS, latent_layout<Rows, KV, TK, STAGES>(kv).bytes, st>>>(
         static_cast<const __nv_bfloat16*>(q), rows, kv, static_cast<const int*>(qpos),
-        static_cast<const int*>(total_lens), static_cast<float*>(out), static_cast<float*>(ws),
-        static_cast<int*>(counters), Hq, scale, split_keys);
+        static_cast<const int*>(total_lens), static_cast<float*>(out), static_cast<float*>(m_out),
+        static_cast<float*>(l_out), static_cast<float*>(ws), static_cast<int*>(counters), Hq, scale,
+        window, split_keys);
     const int err = (int)cudaGetLastError();
     if (err == 0) ++latent_decode_launch_count;
     return err;
 }
 
 // Launch on `st`; returns cudaGetLastError() as an int. key_limit: the
-// layout's keys a sequence (block table width * 256, or T); split_keys a
-// multiple of LAT_TILE giving at most LAT_MAX_SPLITS splits; ws and counters
-// as latent_decode_kernel takes them. The tile geometry: bf16 rows in
-// 64-key tiles for one head slice (a block an SM), in 32-key tiles for
+// layout's keys a sequence (block table width * 256, or T, or a ring's W, or a
+// pool's block table width * entries a page); split_keys a multiple of
+// LAT_TILE giving at most LAT_MAX_SPLITS splits (at most LAT_TABLE_KEYS keys
+// over a TABLE layout); ws and counters as latent_decode_kernel takes them;
+// STATS: m_out and l_out beside the unnormalised out. The tile geometry: bf16
+// rows in 64-key tiles for one head slice (a block an SM), in 32-key tiles for
 // several (two blocks an SM); quantized rows in 32-key tiles (measured:
 // tools/torch_decode_phases.py --latent, PERF.md).
-template <class Rows, class KV>
+template <class Rows, class KV, bool STATS = false>
 int launch_latent_decode(const void* q, Rows rows, KV kv, const void* qpos, const void* total_lens,
                          void* out, void* ws, void* counters, int B, int Hq, float scale,
-                         int split_keys, int key_limit, cudaStream_t st) {
+                         int split_keys, int key_limit, cudaStream_t st, int window = 0,
+                         void* m_out = nullptr, void* l_out = nullptr) {
     if (Hq < 1 || ws == nullptr || counters == nullptr || split_keys < LAT_TILE ||
-        split_keys % LAT_TILE || key_limit <= 0)
+        split_keys % LAT_TILE || key_limit <= 0 || (Rows::TABLE && split_keys > LAT_TABLE_KEYS) ||
+        (STATS && (m_out == nullptr || l_out == nullptr)))
         return (int)cudaErrorInvalidValue;
     const int NS = (key_limit + split_keys - 1) / split_keys;
     if (NS > LAT_MAX_SPLITS) return (int)cudaErrorInvalidValue;
     if constexpr (KV::QUANT) {
-        return launch_latent_geo<Rows, KV, LAT_TK_QUANT, LAT_STAGES_QUANT>(
-            q, rows, kv, qpos, total_lens, out, ws, counters, B, Hq, NS, scale, split_keys, st);
+        return launch_latent_geo<Rows, KV, LAT_TK_QUANT, LAT_STAGES_QUANT, STATS>(
+            q, rows, kv, qpos, total_lens, out, m_out, l_out, ws, counters, B, Hq, NS, scale, window,
+            split_keys, st);
     } else {
         if (Hq <= LAT_ROWS)
-            return launch_latent_geo<Rows, KV, LAT_TK_BF16, LAT_STAGES_BF16>(
-                q, rows, kv, qpos, total_lens, out, ws, counters, B, Hq, NS, scale, split_keys, st);
-        return launch_latent_geo<Rows, KV, LAT_TK_BF16_SLICES, LAT_STAGES_BF16_SLICES>(
-            q, rows, kv, qpos, total_lens, out, ws, counters, B, Hq, NS, scale, split_keys, st);
+            return launch_latent_geo<Rows, KV, LAT_TK_BF16, LAT_STAGES_BF16, STATS>(
+                q, rows, kv, qpos, total_lens, out, m_out, l_out, ws, counters, B, Hq, NS, scale,
+                window, split_keys, st);
+        return launch_latent_geo<Rows, KV, LAT_TK_BF16_SLICES, LAT_STAGES_BF16_SLICES, STATS>(
+            q, rows, kv, qpos, total_lens, out, m_out, l_out, ws, counters, B, Hq, NS, scale, window,
+            split_keys, st);
     }
 }
 

@@ -47,7 +47,7 @@ SIGNATURES = {
     "exl3_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "exl3_paged_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _F, _I, _P],
-    "exl3_int4_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "exl3_int4_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "exl3_int4_matmul_a8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "exl3_intb_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "exl3_intb_matmul_a8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -62,9 +62,11 @@ SIGNATURES = {
                                     _I, _I, _I, _I, _F, _F, _F, _I, _P],
     "exl3_ring_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                             _I, _F, _I, _P],
-    "exl3_ring_attention_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    "exl3_pool_attention_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "exl3_rows_attention_stats": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "exl3_ring_attention_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                                  _I, _P],
+    "exl3_pool_attention_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                  _I, _P],
+    "exl3_rows_attention_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     # the measurement probes (probes/)
     "exl3_probe_dma": [_P, _P, _P, _I, _I, _I, _P],
     "exl3_probe_trellis": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -89,10 +91,10 @@ SIGNATURES = {
     "exl3_intb_blocks_per_sm": [_I, _I, _I, _I, _I, _I],
     # the int4 library's launches so far by kernel (0 packed_matmul.cuh's
     # products, 1 row quantizers, 2 split-k reduces, 3 staged products), and
-    # the blocks an SM holds of the staged a8 body a product of these widths
-    # launches (csrc/int4_matmul.cu)
+    # the blocks an SM holds of the staged body a product of these widths
+    # launches on either route (csrc/int4_matmul.cu)
     "exl3_int4_launches": [_I],
-    "exl3_int4_blocks_per_sm": [_I, _I, _I, _I],
+    "exl3_int4_blocks_per_sm": [_I, _I, _I, _I, _I],
     # the int8 library's launches so far by kernel (0 staged products, 1 tiled
     # products, 2 split-k reduces), the blocks an SM holds of the staged body a
     # product of these widths launches (csrc/int8_matmul.cu), and the fused
@@ -100,8 +102,11 @@ SIGNATURES = {
     "exl3_int8_launches": [_I],
     "exl3_int8_blocks_per_sm": [_I, _I, _I, _I],
     "exl3_fused_mlp_launches": [_I],
-    # the latent split-key decode kernel's launches so far (csrc/latent_decode.cuh)
+    # the latent split-key decode kernel's launches so far (csrc/latent_decode.cuh:
+    # the latent entries' decode and the three stats entries), and the tile
+    # loop's (csrc/attention_tiles.cuh: the ring's groups of more than 32 heads)
     "exl3_latent_decode_launches": [],
+    "exl3_tile_launches": [],
     # the latent prefill body's launches so far, and those of its pre-pass,
     # which lays the keys out as the body's tiles (csrc/latent_prefill.cuh)
     "exl3_latent_prefill_launches": [],

@@ -54,7 +54,10 @@ csrc/attention_stats.cu's three entries, `ring_attention_stats` (the
 sliding ring), `pool_attention_stats` (a compressed pool of `epp` entries a
 page through the token block table) and `rows_attention_stats` (selected
 entries gathered into rows), each with its plain version, and `merge_stats`,
-the JAX package's epilogue that joins them with the sink logits.
+the JAX package's epilogue that joins them with the sink logits. The three
+launch the latent decode kernel (csrc/latent_decode.cuh) at 512 channels with
+its stats epilogue, its splits sized by latent_split_keys over the layout's
+width; their plain versions with `split_keys` are its split arithmetic.
 """
 from __future__ import annotations
 
@@ -63,7 +66,7 @@ import functools
 import torch
 
 from ..constants import PAGE_SIZE
-from ..util.device import H100_SMS, arrival_counters, device_sms
+from ..util.device import H100_SMS, arrival_counters, device_sms, scratch
 from .attention import attend_dense, attend_paged
 from .build import check_aligned, check_launch, header_constants, library
 from .kv_quant import dequantize_rotated, quant_cache_fetch, rotate_groups, state_heads
@@ -798,23 +801,35 @@ def _latent_dense(q, k, latent: int, q_positions, total_lens, scale: float) -> t
 # LATENT_ROWS heads of one token over a split of the keys, a power of two from
 # LATENT_TILE keys, at most LATENT_MAX_SPLITS splits a (sequence, head slice),
 # so that the grid (splits, head slices, B) holds about LATENT_BLOCKS_PER_SM
-# blocks for each of the card's SMs. The three limits are the header's own.
-LATENT_ROWS, LATENT_TILE, LATENT_MAX_SPLITS = header_constants(
-    "latent_decode.cuh", "LAT_ROWS", "LAT_TILE", "LAT_MAX_SPLITS")
+# blocks for each of the card's SMs. Over the ring and the pool (the TABLE
+# layouts, which find a split's keys into a table in shared memory) a split
+# holds at most LATENT_TABLE_KEYS keys. The limits are the header's own.
+LATENT_ROWS, LATENT_TILE, LATENT_MAX_SPLITS, LATENT_TABLE_KEYS = header_constants(
+    "latent_decode.cuh", "LAT_ROWS", "LAT_TILE", "LAT_MAX_SPLITS", "LAT_TABLE_KEYS")
 LATENT_BLOCKS_PER_SM = 4
 
 
 @functools.lru_cache(maxsize=None)  # a served step asks for a few widths hundreds of times
-def latent_split_keys(width: int, B: int, Hq: int, sms: int = H100_SMS) -> int:
+def latent_split_keys(width: int, B: int, Hq: int, sms: int = H100_SMS,
+                      table: bool = False) -> int:
     """Keys a split of the latent decode kernel covers, from widths the host
     knows: the layout's keys a sequence (the block table's width times 256,
-    or the linear cache's T), the batch, the q heads and the card's SM count.
-    Below a page it divides the page; above, it holds whole pages."""
+    the linear cache's T, a ring's W or a pool's entries), the batch, the q
+    heads and the card's SM count. Below a page it divides the page; above,
+    it holds whole pages. With table (the ring, the pool) at most
+    LATENT_TABLE_KEYS keys, so more splits than the grid asks for where the
+    layout is wide: up to LATENT_MAX_SPLITS * LATENT_TABLE_KEYS keys a
+    sequence, and a ValueError past that."""
     slices = -(-Hq // LATENT_ROWS)
     want = min(LATENT_MAX_SPLITS, max(1, -(-LATENT_BLOCKS_PER_SM * sms // (B * slices))))
     split = LATENT_TILE
     while -(-width // split) > want:
         split *= 2
+    if table and split > LATENT_TABLE_KEYS:
+        split = LATENT_TABLE_KEYS
+        if -(-width // split) > LATENT_MAX_SPLITS:
+            raise ValueError(f"{width} keys a sequence exceed the stats kernel's "
+                             f"{LATENT_MAX_SPLITS} splits of {LATENT_TABLE_KEYS}")
     return split
 
 
@@ -827,23 +842,25 @@ latent_attention_prefill = LaunchCount()
 latent_attention_quant_prefill = LaunchCount()
 
 
-def _latent_launch(q, width: int, sms: int, quant: bool) -> tuple:
+def _latent_launch(q, width: int, sms: int, quant: bool, table: bool = False) -> tuple:
     """(workspace, counters, split_keys) of a latent launch: decode (S = 1)
     takes a workspace of (acc, m, l) for each split of latent_split_keys's
-    size and the arrival counters; a longer chunk takes a scratch for the
+    size (the device's scratch: the launch's last split reads it, nothing
+    after) and the arrival counters; a longer chunk takes a scratch for the
     prefill body's tiles of the keys the launch can see, the layout's width
     in whole LATENT_PREFILL_TILE-key tiles of bf16 rows: 576 values a key,
-    1088 over the quantized latent (hi and lo)."""
+    1088 over the quantized latent (hi and lo). table: the ring's or the
+    pool's split limit (latent_split_keys)."""
     B, S, Hq, _ = q.shape
+    dev = q.device
     if S != 1:
         keys = -(-width // LATENT_PREFILL_TILE) * LATENT_PREFILL_TILE
         per_key = LATENT + ROPE + (LATENT if quant else 0)
-        return torch.empty(B * keys * per_key, dtype=torch.bfloat16, device=q.device), None, 0
-    split_keys = latent_split_keys(width, B, Hq, sms)
+        return torch.empty(B * keys * per_key, dtype=torch.bfloat16, device=dev), None, 0
+    split_keys = latent_split_keys(width, B, Hq, sms, table)
     slices = -(-Hq // LATENT_ROWS)
-    ws = torch.empty(B * slices * -(-width // split_keys) * LATENT_ROWS * (LATENT + 2),
-                     dtype=torch.float32, device=q.device)
-    return ws, arrival_counters(q.device, B * slices), split_keys
+    ws = scratch(dev, B * slices * -(-width // split_keys) * LATENT_ROWS * (LATENT + 2) * 4)
+    return ws, arrival_counters(dev, B * slices), split_keys
 
 
 def _latent_keys(q, layer_state: dict, block_tables, rows, k_bits: int, compand_a: float,
@@ -1201,17 +1218,41 @@ def ring_attention(q, ring_k, ring_v, ring_pos, slots, q_positions, sinks=None,
 # -- return_stats: DeepSeek-V4's decode over one shared K = V row -----------------------
 
 NEG_INF = -1e30  # the JAX kernel's start of m: a row that saw no key
-KV_ROW = 512     # the stats kernels' row: DeepSeek-V4's head_dim
+# the stats kernels' row (DeepSeek-V4's head_dim): the header's own
+KV_ROW = header_constants("latent_decode.cuh", "KV_ROW")[0]
+
+
+def merge_splits(parts) -> tuple:
+    """(acc, m, l) of several key splits' (acc, m, l), as the stats kernel
+    merges them: m the largest split's, each split weighed by exp(m_s - m)
+    (0 for a split that saw no key) and added in split order; a row no split
+    saw gives (0, -1e30, 0)."""
+    mg = parts[0][1]
+    for _, mp, _ in parts[1:]:
+        mg = torch.maximum(mg, mp)
+    acc, l = 0.0, 0.0
+    for ap, mp, lp in parts:
+        c = torch.where(mp <= NEG_INF / 2, torch.zeros_like(mp), torch.exp(mp - mg))
+        acc = acc + ap * c[..., None]
+        l = l + lp * c
+    return acc, mg, l
 
 
 def attend_stats_plain(q, k, visible, scale: float, v=None,
-                       logit_softcap: float = 0.0) -> tuple:
+                       logit_softcap: float = 0.0, split_keys: int | None = None) -> tuple:
     """(acc (B, S, Hq, D), m (B, S, Hq), l (B, S, Hq)) f32 over gathered keys,
     visible (B, S, T) bool: k (B, T, D), one row every head reads, or
     (B, T, Hk, D), q head h reading kv head h // (Hq / Hk); v shaped as k, or
     None when V is K. m is the largest visible score (scale * q.k, then the
     softcap), l = sum exp(s - m), acc = sum exp(s - m) * v; a row that sees
-    no key gives (0, -1e30, 0)."""
+    no key gives (0, -1e30, 0). With split_keys, the stats kernel's
+    arithmetic: the keys cut into splits of that many, each split's (acc, m,
+    l) merged in split order (merge_splits)."""
+    if split_keys is not None:
+        return merge_splits([
+            attend_stats_plain(q, k[:, k0:k0 + split_keys], visible[..., k0:k0 + split_keys], scale,
+                               None if v is None else v[:, k0:k0 + split_keys], logit_softcap)
+            for k0 in range(0, k.shape[1], split_keys)])
     kf = k.float()
     vf = kf if v is None else v.float()
     if kf.dim() == 3:
@@ -1248,11 +1289,18 @@ def merge_stats(parts, sinks=None) -> torch.Tensor:
     return acc / torch.clamp(lg, min=1e-30)[..., None]
 
 
-def _stats_out(q) -> tuple:
+def _stats_launch(q, width: int, table: bool) -> tuple:
+    """(acc, m, l, workspace, counters, split_keys) of a stats launch over a
+    layout of `width` keys a sequence (table: the ring or the pool): the
+    outputs, and the latent decode kernel's workspace, arrival counters and
+    split size (_latent_launch)."""
     B, S, Hq, D = q.shape
-    return (torch.empty((B, S, Hq, D), dtype=torch.float32, device=q.device),
-            torch.empty((B, S, Hq), dtype=torch.float32, device=q.device),
-            torch.empty((B, S, Hq), dtype=torch.float32, device=q.device))
+    dev = q.device
+    ws, counters, split_keys = _latent_launch(q, width, device_sms(dev), False, table)
+    return (torch.empty((B, S, Hq, D), dtype=torch.float32, device=dev),
+            torch.empty((B, S, Hq), dtype=torch.float32, device=dev),
+            torch.empty((B, S, Hq), dtype=torch.float32, device=dev),
+            ws, counters, split_keys)
 
 
 def _stats_check(name: str, q, store, ints: tuple) -> None:
@@ -1273,20 +1321,24 @@ def _stats_check(name: str, q, store, ints: tuple) -> None:
 
 
 def ring_attention_stats_plain(q, ring_kv, ring_pos, slots, q_positions, scale: float = 1.0,
-                               sliding_window: int = 0) -> tuple:
+                               sliding_window: int = 0, split_keys: int | None = None) -> tuple:
     """(acc, m, l) over each sequence's ring row slots[b] of ring_kv (N, W, D),
-    K and V alike, visible by stored position (ring_visible)."""
-    rows = slots.long()
-    pos = ring_pos[rows]
-    return attend_stats_plain(q, ring_kv[rows], ring_visible(pos, q_positions, sliding_window),
-                              scale)
+    K and V alike, visible by stored position (ring_visible); a ring row out
+    of range holds no visible slot. With split_keys, the W slots cut into
+    splits as the kernel cuts them (attend_stats_plain)."""
+    N = ring_pos.shape[0]
+    ok = (slots >= 0) & (slots < N)
+    rows = torch.where(ok, slots, torch.zeros_like(slots)).long()
+    vis = ring_visible(ring_pos[rows], q_positions, sliding_window) & ok[:, None, None]
+    return attend_stats_plain(q, ring_kv[rows], vis, scale, split_keys=split_keys)
 
 
 def ring_attention_stats_kernel(q, ring_kv, ring_pos, slots, q_positions, scale: float = 1.0,
                                 sliding_window: int = 0) -> tuple:
     """Launch exl3_ring_attention_stats (csrc/attention_stats.cu). q (B, 1, Hq,
     512) bf16; ring_kv (N, W, 512) bf16; ring_pos (N, W), slots (B,) and
-    q_positions (B, 1) int32."""
+    q_positions (B, 1) int32. One launch of the latent decode kernel, the W
+    slots cut by latent_split_keys for this card."""
     B, _, Hq, _ = q.shape
     N, W = ring_pos.shape
     _stats_check("ring_attention_stats_kernel", q, ring_kv, (ring_pos, slots, q_positions))
@@ -1294,11 +1346,12 @@ def ring_attention_stats_kernel(q, ring_kv, ring_pos, slots, q_positions, scale:
             or q_positions.shape != (B, 1)):
         raise ValueError(f"ring_attention_stats_kernel: unsupported shapes ring "
                          f"{tuple(ring_kv.shape)}, pos {tuple(ring_pos.shape)}")
-    acc, m, l = _stats_out(q)
+    acc, m, l, ws, counters, split_keys = _stats_launch(q, W, True)
     err = library().exl3_ring_attention_stats(
         q.data_ptr(), ring_kv.data_ptr(), ring_pos.data_ptr(), slots.data_ptr(),
-        q_positions.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), B, Hq, N, W,
-        float(scale), int(sliding_window), torch.cuda.current_stream(q.device).cuda_stream)
+        q_positions.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), ws.data_ptr(),
+        counters.data_ptr(), B, Hq, N, W, float(scale), int(sliding_window), split_keys,
+        torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("exl3_ring_attention_stats", err)
     ring_attention_stats_kernel.launches += 1
     return acc, m, l
@@ -1340,19 +1393,23 @@ def _causal_visible(q_positions, total_lens, T: int, device,
 
 
 def pool_attention_stats_plain(q, pool, block_tables, q_positions, total_lens,
-                               scale: float = 1.0) -> tuple:
+                               scale: float = 1.0, split_keys: int | None = None) -> tuple:
     """(acc, m, l) over a compressed pool (P, epp, D), K and V alike, paged
-    through the token block tables with epp entries a page."""
+    through the token block tables with epp entries a page. With split_keys,
+    the entries cut into splits as the kernel cuts them
+    (attend_stats_plain)."""
     k, ok = _pool_keys(pool, block_tables)
     vis = _causal_visible(q_positions, total_lens, k.shape[1], q.device) & ok[:, None, :]
-    return attend_stats_plain(q, k, vis, scale)
+    return attend_stats_plain(q, k, vis, scale, split_keys=split_keys)
 
 
 def pool_attention_stats_kernel(q, pool, block_tables, q_positions, total_lens,
                                 scale: float = 1.0) -> tuple:
     """Launch exl3_pool_attention_stats (csrc/attention_stats.cu). q (B, 1, Hq,
     512) bf16; pool (P, epp, 512) bf16, any epp; block_tables (B, MP),
-    q_positions (B, 1) and total_lens (B,) int32."""
+    q_positions (B, 1) and total_lens (B,) int32. One launch of the latent
+    decode kernel, the MP * epp entries cut by latent_split_keys for this
+    card."""
     B, _, Hq, _ = q.shape
     _stats_check("pool_attention_stats_kernel", q, pool, (block_tables, q_positions, total_lens))
     P, epp = pool.shape[:2]
@@ -1360,11 +1417,12 @@ def pool_attention_stats_kernel(q, pool, block_tables, q_positions, total_lens,
             or q_positions.shape != (B, 1) or total_lens.shape != (B,)):
         raise ValueError(f"pool_attention_stats_kernel: unsupported shapes pool "
                          f"{tuple(pool.shape)}, tables {tuple(block_tables.shape)}")
-    acc, m, l = _stats_out(q)
+    MP = block_tables.shape[1]
+    acc, m, l, ws, counters, split_keys = _stats_launch(q, MP * epp, True)
     err = library().exl3_pool_attention_stats(
         q.data_ptr(), pool.data_ptr(), block_tables.data_ptr(), q_positions.data_ptr(),
-        total_lens.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), B, Hq,
-        block_tables.shape[1], P, epp, float(scale),
+        total_lens.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), ws.data_ptr(),
+        counters.data_ptr(), B, Hq, MP, P, epp, float(scale), split_keys,
         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("exl3_pool_attention_stats", err)
     pool_attention_stats_kernel.launches += 1
@@ -1383,26 +1441,31 @@ def pool_attention_stats(q, pool, block_tables, q_positions, total_lens,
     return fn(q, pool, block_tables, q_positions, total_lens, scale=scale)
 
 
-def rows_attention_stats_plain(q, kv, q_positions, total_lens, scale: float = 1.0) -> tuple:
-    """(acc, m, l) over each sequence's own rows kv (B, T, D), K and V alike."""
+def rows_attention_stats_plain(q, kv, q_positions, total_lens, scale: float = 1.0,
+                               split_keys: int | None = None) -> tuple:
+    """(acc, m, l) over each sequence's own rows kv (B, T, D), K and V alike.
+    With split_keys, the T rows cut into splits as the kernel cuts them
+    (attend_stats_plain)."""
     vis = _causal_visible(q_positions, total_lens, kv.shape[1], q.device)
-    return attend_stats_plain(q, kv, vis, scale)
+    return attend_stats_plain(q, kv, vis, scale, split_keys=split_keys)
 
 
 def rows_attention_stats_kernel(q, kv, q_positions, total_lens, scale: float = 1.0) -> tuple:
     """Launch exl3_rows_attention_stats (csrc/attention_stats.cu). q (B, 1, Hq,
     512) bf16; kv (B, T, 512) bf16, any T; q_positions (B, 1) and total_lens
-    (B,) int32."""
+    (B,) int32. One launch of the latent decode kernel, the T rows cut by
+    latent_split_keys for this card."""
     B, _, Hq, _ = q.shape
     _stats_check("rows_attention_stats_kernel", q, kv, (q_positions, total_lens))
     if kv.dim() != 3 or kv.shape[0] != B or kv.shape[1] < 1 or q_positions.shape != (B, 1) \
             or total_lens.shape != (B,):
         raise ValueError(f"rows_attention_stats_kernel: unsupported shapes kv {tuple(kv.shape)}")
-    acc, m, l = _stats_out(q)
+    T = kv.shape[1]
+    acc, m, l, ws, counters, split_keys = _stats_launch(q, T, False)
     err = library().exl3_rows_attention_stats(
         q.data_ptr(), kv.data_ptr(), q_positions.data_ptr(), total_lens.data_ptr(),
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(), B, Hq, kv.shape[1], float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), ws.data_ptr(), counters.data_ptr(), B, Hq, T,
+        float(scale), split_keys, torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("exl3_rows_attention_stats", err)
     rows_attention_stats_kernel.launches += 1
     return acc, m, l

@@ -5,8 +5,9 @@
     m <= 16 the staged body of csrc/int8_staged.cuh, int8_matmul_split_plain
     its arithmetic);
   * int4: grouped 4-bit codes, two a byte along k, one bf16 scale per 32 rows
-    and column: 0.5625 bytes a weight (csrc/int4_matmul.cu; its a8 route at
-    m <= 16 a staged body, int4_matmul_a8_split_plain its arithmetic);
+    and column: 0.5625 bytes a weight (csrc/int4_matmul.cu; both routes at
+    m <= 16 over one staged body, int4_matmul_a8_split_plain and
+    int4_matmul_split_plain its arithmetic);
   * int-B (B = 3, 4, 5, 6): 32 // B codes in an int32 word, plane-major along
     k, the same group scales (csrc/intb_matmul.cu). B = 4 in this layout
     holds the conversion-time `.sq` tensors only; the load-time int4 tier
@@ -356,21 +357,45 @@ def intb_matmul_split_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch
     return out * xs if a8 else out
 
 
+def _int4_split_rows(k: int, splits: int, device) -> list:
+    """The weight rows of each split of the staged int4 body, in split order:
+    the steps (INT4_STEP_ROWS packed rows, both planes; the last may be
+    short) cut into `splits` runs as the kernel cuts them."""
+    kh = k // 2
+    out = []
+    for s0, s1 in _intb_split_steps(-(-kh // INT4_STEP_ROWS), splits):
+        r0, r1 = s0 * INT4_STEP_ROWS, min(s1 * INT4_STEP_ROWS, kh)
+        out.append(torch.cat([torch.arange(j * kh + r0, j * kh + r1, device=device)
+                              for j in (0, 1)]))
+    return out
+
+
+def int4_matmul_split_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                            splits: int) -> torch.Tensor:
+    """The staged int4 kernel's arithmetic in plain torch on the bf16 route
+    (m <= 16): each split's partial sums of bf16 x times the weights
+    bf16((nibble - 8) * scale) in f32, the partials added in split order
+    from 0. (m, n) f32."""
+    xf = x.to(torch.bfloat16).float()
+    w = int4_unpack(packed, scales).to(torch.bfloat16).float()
+    out = torch.zeros((x.shape[0], packed.shape[1]), dtype=torch.float32, device=x.device)
+    for rows in _int4_split_rows(x.shape[1], splits, x.device):
+        out = out + xf[:, rows] @ w[rows]
+    return out
+
+
 def int4_matmul_a8_split_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                                splits: int) -> torch.Tensor:
     """The staged int4 a8 kernel's arithmetic in plain torch (m <= 16): the
-    steps (INT4_STEP_ROWS packed rows, both planes; the last may be short)
-    cut into `splits` runs as the kernel cuts them, each run's partial sums in
-    f32 (an exact integer dot per 32-row group times its scale), the partials
-    added in split order from 0, and the row scale last. (m, n) f32."""
+    splits' weight rows as _int4_split_rows cuts them, each run's partial
+    sums in f32 (an exact integer dot per 32-row group times its scale), the
+    partials added in split order from 0, and the row scale last. (m, n)
+    f32."""
     m, k = x.shape
-    kh = k // 2
     codes = _int4_codes(packed)                          # (k, n): plane 0 rows, then plane 1
     xq, xs = quantize_rows(x)
     out = torch.zeros((m, packed.shape[1]), dtype=torch.float32, device=x.device)
-    for s0, s1 in _intb_split_steps(-(-kh // INT4_STEP_ROWS), splits):
-        r0, r1 = s0 * INT4_STEP_ROWS, min(s1 * INT4_STEP_ROWS, kh)
-        rows = torch.cat([torch.arange(j * kh + r0, j * kh + r1, device=x.device) for j in (0, 1)])
+    for rows in _int4_split_rows(k, splits, x.device):
         groups = rows[::INT4_GROUP] // INT4_GROUP
         xg = xq[:, rows].reshape(m, -1, INT4_GROUP).transpose(0, 1)      # (groups, m, 32)
         cg = codes[rows].reshape(-1, INT4_GROUP, codes.shape[1]).to(torch.float32)
@@ -381,20 +406,20 @@ def int4_matmul_a8_split_plain(x: torch.Tensor, packed: torch.Tensor, scales: to
 
 # -- kernel wrappers -----------------------------------------------------------
 
-# the tilings of csrc/packed_matmul.cuh, which the int4 bf16 kernel takes at
-# every m, the int4 a8 kernel above INT4_DECODE_ROWS rows and the int-B
-# kernels above INTB_DECODE_ROWS rows (the staged bodies below those are sized
-# by int4_split_count and intb_split_count below): up to DECODE_ROWS rows a
-# block covers 16 rows and 256 (int4) or 128 (int-B) columns, beyond that 64
-# rows and 128 columns; one step of its k loop is 32 packed rows
+# the tilings of csrc/packed_matmul.cuh, which the int4 kernels take above
+# INT4_DECODE_ROWS rows and the int-B kernels above INTB_DECODE_ROWS rows
+# (the staged bodies below those are sized by int4_split_count and
+# intb_split_count below): up to DECODE_ROWS rows a block covers 16 rows and
+# 256 (int4) or 128 (int-B) columns, beyond that 64 rows and 128 columns; one
+# step of its k loop is 32 packed rows
 DECODE_ROWS = 16
 BLOCKS_PER_SM = 4
 MIN_STEPS = 4
 
 
 def _packed_splits(m: int, n: int, steps: int, nibble: bool, device) -> int:
-    """k splits of a grid of packed_matmul.cuh (the int4 bf16 kernel; the
-    int4 a8 and int-B kernels above 16 rows): enough blocks to fill the card
+    """k splits of a grid of packed_matmul.cuh (the int4 and int-B kernels
+    above 16 rows): enough blocks to fill the card
     at decode sizes, MIN_STEPS steps a split where there are that many, and
     no split left empty."""
     if m <= DECODE_ROWS:
@@ -453,7 +478,7 @@ def intb_split_count(m: int, k: int, n: int, bits: int, a8: bool, sms: int = H10
                               lambda per: _intb_blocks_per_sm(m, bits, a8, per), INTB_MAX_SMEM)
 
 
-# the staged int4 a8 kernel's limits and layout, read from csrc/int4_layout.cuh:
+# the staged int4 kernel's limits and layout, read from csrc/int4_layout.cuh:
 # up to INT4_DECODE_ROWS rows, blocks of INT4_WARPS warps of 32 columns, a k
 # step of INT4_STEP_ROWS packed rows, each warp staging INT4_STAGES steps of
 # its bytes and scales; the launch bounds promise INT4_BLOCKS blocks an SM; a
@@ -461,33 +486,34 @@ def intb_split_count(m: int, k: int, n: int, bits: int, a8: bool, sms: int = H10
 # memory (_int4_smem)
 _INT4_LAYOUT = ("INT4_WARPS", "INT4_STEP_ROWS", "INT4_STAGES", "INT4_BLOCKS", "INT4_DECODE_ROWS",
                 "INT4_MAX_SMEM", "INT4_BYTE_STAGE", "INT4_SCALE_STAGE", "INT4_X_ALIGN",
-                "INT4_X_PAD", "INT4_X_SUMS")
+                "INT4_X_PAD", "INT4_X_PAD_BF16", "INT4_X_SUMS")
 (_INT4_WARPS, INT4_STEP_ROWS, _INT4_STAGES, _INT4_BLOCKS, INT4_DECODE_ROWS, INT4_MAX_SMEM,
- _INT4_BYTE_STAGE, _INT4_SCALE_STAGE, _INT4_X_ALIGN, _INT4_X_PAD, _INT4_X_SUMS) = header_constants(
-    "int4_layout.cuh", *_INT4_LAYOUT)
+ _INT4_BYTE_STAGE, _INT4_SCALE_STAGE, _INT4_X_ALIGN, _INT4_X_PAD, _INT4_X_PAD_BF16,
+ _INT4_X_SUMS) = header_constants("int4_layout.cuh", *_INT4_LAYOUT)
 _INT4_BN = 32 * _INT4_WARPS
 # the last warp of a 32-column tile reads every split's partial sums: at most
 # this many splits keeps its reads within 32 KB at 16 rows
 INT4_MAX_SPLITS = 16
 
 
-def _int4_smem(m: int, per: int) -> int:
-    """Dynamic shared memory of a staged int4 a8 block whose split holds
-    `per` steps, as csrc/int4_layout.cuh's int4_smem_bytes reckons it from the
-    same constants: each warp's stages of bytes and scales, 8 or 16 int8 rows
-    of x over the split's steps of both planes in padded rows, and the row
-    sums of each group. tests/test_torch_int4_split.py holds it to the header,
-    compiled."""
-    x_ld = -(-2 * per * INT4_STEP_ROWS // _INT4_X_ALIGN) * _INT4_X_ALIGN + _INT4_X_PAD
+def _int4_smem(m: int, per: int, a8: bool) -> int:
+    """Dynamic shared memory of a staged int4 block whose split holds `per`
+    steps, as csrc/int4_layout.cuh's int4_smem_bytes reckons it from the
+    same constants: each warp's stages of bytes and scales, 8 or 16 rows of x
+    (int8 on the a8 route, bf16 on the bf16 route) over the split's steps of
+    both planes in padded rows, and on the a8 route the row sums of each
+    group. tests/test_torch_int4_split.py holds it to the header, compiled."""
+    x_ld = (-(-2 * per * INT4_STEP_ROWS * (1 if a8 else 2) // _INT4_X_ALIGN) * _INT4_X_ALIGN
+            + (_INT4_X_PAD if a8 else _INT4_X_PAD_BF16))
     return (_INT4_WARPS * _INT4_STAGES * (_INT4_BYTE_STAGE + _INT4_SCALE_STAGE)
-            + (8 if m <= 8 else 16) * x_ld + 2 * per * 4 * _INT4_X_SUMS)
+            + (8 if m <= 8 else 16) * x_ld + (2 * per * 4 * _INT4_X_SUMS if a8 else 0))
 
 
-def _int4_blocks_per_sm(m: int, per: int) -> int:
-    """Blocks an SM holds of a staged int4 a8 launch: the launch bounds, or
+def _int4_blocks_per_sm(m: int, per: int, a8: bool) -> int:
+    """Blocks an SM holds of a staged int4 launch: the launch bounds, or
     fewer where the shared memory does not fit. chip_smoke.py holds it to the
     card's reading (exl3_int4_blocks_per_sm)."""
-    return min(_INT4_BLOCKS, _SM_SHARED // (_int4_smem(m, per) + _BLOCK_RESERVED))
+    return min(_INT4_BLOCKS, _SM_SHARED // (_int4_smem(m, per, a8) + _BLOCK_RESERVED))
 
 
 def _busiest_sm_splits(steps: int, tiles: int, sms: int, smem, blocks_per_sm,
@@ -519,13 +545,13 @@ def _busiest_sm_splits(steps: int, tiles: int, sms: int, smem, blocks_per_sm,
 
 
 @functools.lru_cache(maxsize=None)  # a served step asks for a few widths hundreds of times
-def int4_split_count(m: int, k: int, n: int, sms: int = H100_SMS) -> int:
-    """k splits of the staged int4 a8 kernel on a card of `sms` SMs (m <=
-    INT4_DECODE_ROWS), by the busiest SM's steps (_busiest_sm_splits), at
-    most INT4_MAX_SPLITS."""
+def int4_split_count(m: int, k: int, n: int, sms: int = H100_SMS, a8: bool = True) -> int:
+    """k splits of the staged int4 kernel on the a8 or the bf16 route on a
+    card of `sms` SMs (m <= INT4_DECODE_ROWS), by the busiest SM's steps
+    (_busiest_sm_splits), at most INT4_MAX_SPLITS."""
     return _busiest_sm_splits(-(-k // 2 // INT4_STEP_ROWS), -(-n // _INT4_BN), sms,
-                              lambda per: _int4_smem(m, per),
-                              lambda per: _int4_blocks_per_sm(m, per), INT4_MAX_SMEM,
+                              lambda per: _int4_smem(m, per, a8),
+                              lambda per: _int4_blocks_per_sm(m, per, a8), INT4_MAX_SMEM,
                               INT4_MAX_SPLITS)
 
 
@@ -615,16 +641,30 @@ def _int4_shapes(name: str, x, packed, scales):
     if k != 2 * kh or k % (2 * INT4_GROUP) or scales.shape != (k // INT4_GROUP, n) or n % 64:
         raise ValueError(f"{name}: shapes x {tuple(x.shape)}, packed {tuple(packed.shape)}, "
                          f"scales {tuple(scales.shape)}: k % 64 == 0 and n % 64 == 0 are needed")
-    return kh // 32
+
+
+def _int4_splits(x, packed, a8: bool) -> tuple:
+    """(splits, the arrival counters' pointer or None) of an int4 product:
+    up to INT4_DECODE_ROWS rows the staged body's, sized by int4_split_count
+    for the route (the shared arrival counters, one a 32-column tile); above,
+    packed_matmul.cuh's tiling with its split-k reduce."""
+    m, k = x.shape
+    n = packed.shape[1]
+    if m <= INT4_DECODE_ROWS:
+        return (int4_split_count(m, k, n, device_sms(x.device), a8),
+                arrival_counters(x.device, n // 32).data_ptr())
+    return _packed_splits(m, n, k // 64, True, x.device), None
 
 
 def int4_matmul_kernel(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """Launch csrc/int4_matmul.cu, bf16 route: x (m, k) bf16, packed (k/2, n)
-    int8, scales (k/32, n) bf16 -> (m, n) f32. Any m >= 1."""
+    int8, scales (k/32, n) bf16 -> (m, n) f32. Any m >= 1; up to
+    INT4_DECODE_ROWS rows one staged product kernel a call
+    (_int4_splits)."""
     _check_packed("int4_matmul_kernel", x, packed, scales, torch.int8, a8=False)
-    steps = _int4_shapes("int4_matmul_kernel", x, packed, scales)
-    splits = _packed_splits(x.shape[0], packed.shape[1], steps, True, x.device)
-    y = _launch_packed("exl3_int4_matmul", x, packed, scales, False, splits, ())
+    _int4_shapes("int4_matmul_kernel", x, packed, scales)
+    splits, counters = _int4_splits(x, packed, False)
+    y = _launch_packed("exl3_int4_matmul", x, packed, scales, False, splits, (), (counters,))
     int4_matmul_kernel.launches += 1
     return y
 
@@ -637,17 +677,10 @@ def int4_matmul_a8_kernel(x: torch.Tensor, packed: torch.Tensor,
     """Launch csrc/int4_matmul.cu, a8 route: x (m, k) f32 or bf16 is quantized
     to int8 rows by the launch's first kernel; -> (m, n) f32. Any m >= 1; up
     to INT4_DECODE_ROWS rows the quantizer and one staged product kernel a
-    call, its splits sized by int4_split_count and added in the launch (the
-    shared arrival counters, one a 32-column tile); above, packed_matmul.cuh's
-    tiling with its split-k reduce."""
+    call (_int4_splits)."""
     _check_packed("int4_matmul_a8_kernel", x, packed, scales, torch.int8, a8=True)
-    steps = _int4_shapes("int4_matmul_a8_kernel", x, packed, scales)
-    m, n = x.shape[0], packed.shape[1]
-    if m <= INT4_DECODE_ROWS:
-        splits = int4_split_count(m, x.shape[1], n, device_sms(x.device))
-        counters = arrival_counters(x.device, n // 32).data_ptr()  # one a warp's columns
-    else:
-        splits, counters = _packed_splits(m, n, steps, True, x.device), None
+    _int4_shapes("int4_matmul_a8_kernel", x, packed, scales)
+    splits, counters = _int4_splits(x, packed, True)
     y = _launch_packed("exl3_int4_matmul_a8", x, packed, scales, True, splits, (), (counters,))
     int4_matmul_a8_kernel.launches += 1
     return y

@@ -1,5 +1,5 @@
 """Compare two source trees of the PyTorch port, in turns, on one card, by one
-of twenty runs (`--run`):
+of twenty-three runs (`--run`):
 
 - `paged_bf16` (the default): the bf16 paged attention kernel (row 3) at
   decode, batch 8, q positions 299-2047 (contexts 300 to 2048), 32 q / 8 kv
@@ -8,9 +8,10 @@ of twenty runs (`--run`):
   same shape over a (4, 4) cache in merged storage, the call the capacity
   path makes 32 times a decode step;
 - `serve_capacity`: `chip_smoke.py --phases build,serve_capacity` in the
-  tree (`fused` linears over a (4, 4) paged cache): decode-only tok/s, device
-  busy ms a traced step, the traced window's idle share and device
-  operations a step, as that phase prints them;
+  tree (`fused` linears over a (4, 4) paged cache): decode-only tok/s, the
+  traced window's ms a step (`step_ms`, the host's clock under the
+  profiler), device busy ms a traced step, the window's idle share and
+  device operations a step, as that phase prints them;
 - `serve`: `chip_smoke.py --phases build,serve`, the int8 main path over the
   bf16 paged cache (row 3 32 times a decode step), read as `serve_capacity`;
 - `ring`: the ring decode kernel (row 8) at Gemma-3-27B decode, batch 8, q
@@ -40,7 +41,12 @@ of twenty runs (`--run`):
   request), read as `serve_capacity`;
 - `serve_packed`: `chip_smoke.py --phases build,serve_packed` (the 32-layer
   int4 a8 serve, then the other packed tiers on 4 layers and the ladder),
-  its traced int4 run read as `serve_capacity`;
+  its traced int4 run read as `serve_capacity` (with EXL3TPU_INT4_A8=0 in the
+  environment and --smoke naming this tree's script, the 32-layer serve runs
+  the int4 bf16 kernel, row 11);
+- `serve_dsv4`: `chip_smoke.py --phases build,serve_dsv4` (the 2-layer
+  full-width DeepSeek-V4 serve, row 6b's three kernels a step), read as
+  `serve_capacity`;
 - `int8`: the int8 matmul, row 1, at the Llama-3.1-8B qkv (4096 x 6144),
   o_proj (4096 x 4096), down (14336 x 4096) and lm_head (4096 x 32768), m = 1,
   8, 16 and 2048, over inputs rotated past L2, one after the other in each
@@ -71,7 +77,17 @@ of twenty runs (`--run`):
   run: prefill S = 2048 on 512 cached over a bf16 and a (4)-bit latent
   cache, paged (a permuted block table) and linear (T = 2560), and the
   verify chunk (S = 5, batch 8, contexts 300-2048, paged) over both, each
-  through its wrapper, L2-warm as chip_smoke.py times them.
+  through its wrapper, L2-warm as chip_smoke.py times them;
+- `int4_bf16`: the int4 matmul's bf16 route, row 11, at the Llama-3.1-8B
+  qkv (4096 x 6144), o_proj (4096 x 4096), gate_up (4096 x 28672), down
+  (14336 x 4096) and lm_head (4096 x 32768), m = 1, 8 and 16, over inputs
+  rotated past L2, one after the other in each run;
+- `stats`: DeepSeek-V4's stats decode attention, row 6b, at chip_smoke.py's
+  shapes (batch 8, 128 heads of 512, q positions 300-2048): the sliding ring
+  (W = 144, window 128, stale slots), the HCA pool (2 entries a page through
+  a shuffled block table) and the CSA rows (512 gathered, 75-512 visible),
+  and the rows at 16 heads, each through its wrapper over inputs rotated
+  past L2.
 
     python3 tools/torch_attention_ab.py --trees build/parent,.   # parent, change
     python3 tools/torch_attention_ab.py --run serve_capacity --trees A,B --rounds 3
@@ -90,6 +106,8 @@ of twenty runs (`--run`):
     python3 tools/torch_attention_ab.py --run linear_decode --trees build/parent,. --rounds 1
     python3 tools/torch_attention_ab.py --run quant_prefill --trees build/parent,.
     python3 tools/torch_attention_ab.py --run latent_prefill --trees build/parent,.
+    python3 tools/torch_attention_ab.py --run int4_bf16 --trees build/parent,.
+    python3 tools/torch_attention_ab.py --run stats --trees build/parent,.
 
 Each tree runs in a process of its own (its own checkout of
 exllamav3_tpu_torch, its own kernel build and checkpoint under <tree>/build/),
@@ -98,10 +116,10 @@ behind a device spin, five times, over one input set (the trees are compared
 with each other, not with a bound), and gives the median device ms a call
 (CUDA events) and host µs a call (the host clock over the same 200
 enqueues; `intb`, `int4`, `latent`, `int8`, `fused_mlp`, `paged_prefill`,
-`linear_prefill`, `quant_prefill` and `latent_prefill` give both for each route
-or shape); `ring`, `exl3_gemm`,
-`intb`, `int4`, `latent`, `int8` and `fused_mlp` cycle through input sets that
-together exceed twice the L2 cache. A serve run also reports the first
+`linear_prefill`, `quant_prefill`, `latent_prefill`, `int4_bf16` and `stats`
+give both for each route or shape); `ring`, `exl3_gemm`, `intb`, `int4`,
+`latent`, `int8`, `fused_mlp`, `int4_bf16` and `stats` cycle through input
+sets that together exceed twice the L2 cache. A serve run also reports the first
 request's TTFT and prefill seconds. Each run's numbers are printed as they come; a run that fails is
 printed with its exit code and left out of the medians. The last line is
 one JSON object with each tree's medians and B / A. A serve run drives each
@@ -331,6 +349,53 @@ elif sys.argv[1] == "latent_prefill":
                                                                scale=scale)
     fns["verify_s5_q4"] = lambda: fa.latent_attention_quant_kernel(qv, v4, qpv, tl, 4, 0.0,
                                                                    block_tables=bt, scale=scale)
+elif sys.argv[1] == "int4_bf16":
+    from exllamav3_tpu_torch.ops import q_matmul as qm
+    fns = {}
+    for m in (1, 8, 16):
+        for k, n, what in ((4096, 6144, "qkv"), (4096, 4096, "o_proj"), (4096, 28672, "gate_up"),
+                           (14336, 4096, "down"), (4096, 32768, "lm_head")):
+            nxt = rotating(lambda i, m=m, k=k, n=n: (
+                torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16),
+                torch.randint(-128, 128, (k // 2, n), generator=g, device=dev,
+                              dtype=torch.int64).to(torch.int8),
+                ((torch.rand((k // 32, n), generator=g, device=dev) + 0.5) * 0.01).to(torch.bfloat16)),
+                m * k * 2 + k // 2 * n + k // 32 * n * 2)
+            fns[f"{what}_m{m}"] = lambda nxt=nxt: qm.int4_matmul_kernel(*nxt())
+elif sys.argv[1] == "stats":
+    Hq, Dr, W, window, hca, csa, K = 128, 512, 144, 128, 128, 4, 512
+    scale = Dr ** -0.5
+    qpos = np.linspace(300, 2048, 8).astype(np.int32)
+    qp = torch.as_tensor(qpos[:, None], device=dev)
+    q = (torch.randn((B, 1, Hq, Dr), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    N, slots = 9, np.array([3, 7, 0, 5, 8, 1, 6, 2], np.int32)
+    pos = np.full((N, W), -1, np.int32)
+    for b, row in enumerate(slots):
+        p = int(qpos[b])
+        for t in range(max(0, p - W + 1), p + 1 + int(rng.integers(0, 4))):
+            pos[row, t % W] = t
+    pos, sl = torch.as_tensor(pos, device=dev), torch.as_tensor(slots, device=dev)
+    ring = rotating(lambda i: torch.randn((N, W, Dr), generator=g, device=dev).to(torch.bfloat16),
+                    N * W * Dr * 2)
+    mpp = int(math.ceil((qpos.max() + 1) / PAGE_SIZE)) + 1
+    Pp = B * mpp + 1
+    btp = torch.as_tensor(rng.permutation(np.arange(1, Pp))[: B * mpp].reshape(B, mpp)
+                          .astype(np.int32), device=dev)
+    pool = rotating(lambda i: torch.randn((Pp, PAGE_SIZE // hca, Dr), generator=g, device=dev)
+                    .to(torch.bfloat16), Pp * (PAGE_SIZE // hca) * Dr * 2)
+    n_pool = (qpos + 1) // hca
+    pq = torch.as_tensor((n_pool - 1)[:, None].astype(np.int32), device=dev)
+    pt = torch.as_tensor(n_pool.astype(np.int32), device=dev)
+    vcount = np.minimum((qpos + 1) // csa, K).astype(np.int32)
+    rq = torch.as_tensor((vcount - 1)[:, None], device=dev)
+    rt = torch.as_tensor(vcount, device=dev)
+    sel = rotating(lambda i: torch.randn((B, K, Dr), generator=g, device=dev).to(torch.bfloat16),
+                   B * K * Dr * 2)
+    q16 = q[:, :, :16].contiguous()
+    fns = {"ring": lambda: fa.ring_attention_stats_kernel(q, ring(), pos, sl, qp, scale, window),
+           "pool": lambda: fa.pool_attention_stats_kernel(q, pool(), btp, pq, pt, scale),
+           "rows": lambda: fa.rows_attention_stats_kernel(q, sel(), rq, rt, scale),
+           "rows_h16": lambda: fa.rows_attention_stats_kernel(q16, sel(), rq, rt, scale)}
 else:
     from exllamav3_tpu_torch.ops.kv_quant import quantize_kv_stored
     state = {}
@@ -361,7 +426,7 @@ def timed(fn):
 
 
 if sys.argv[1] in ("intb", "int4", "latent", "int8", "fused_mlp", "paged_prefill",
-                   "linear_prefill", "quant_prefill", "latent_prefill"):
+                   "linear_prefill", "quant_prefill", "latent_prefill", "int4_bf16", "stats"):
     res = {}
     for route, f in fns.items():
         res[f"ms_{route}"], res[f"host_us_{route}"] = timed(f)
@@ -372,7 +437,7 @@ print(json.dumps(res))
 
 SERVE = (r"^{}: 8 requests finished.*decode-only iterations \d+ tokens in [\d.]+ s "
          r"\(([\d.]+) tok/s\)")  # formatted with the phase's tag
-PROFILE = re.compile(r"^profile: (\d+) decode steps \(batch 8\), window [\d.]+ ms, device busy "
+PROFILE = re.compile(r"^profile: (\d+) decode steps \(batch 8\), window ([\d.]+) ms, device busy "
                      r"([\d.]+) ms \([\d.]+ of the window, idle ([\d.]+)\), ([\d.]+) device ops "
                      r"per step", re.M)
 FIRST = (r"^{}: request prompt=\d+ cached_tokens=\d+ ttft_s=([\d.]+) "
@@ -383,7 +448,7 @@ LINEAR_DECODE = re.compile(r"^linear_decode int8: decode batch 8 after .*?: ([\d
 RUNS = ("paged_bf16", "paged_quant", "serve_capacity", "serve", "ring", "exl3_gemm",
         "serve_gemma", "intb", "serve_packed_int6", "int4", "latent", "serve_mla", "serve_packed",
         "int8", "fused_mlp", "paged_prefill", "linear_prefill", "linear_decode", "quant_prefill",
-        "latent_prefill")
+        "latent_prefill", "int4_bf16", "stats", "serve_dsv4")
 
 
 # a serve run's log tag, where it is not the run's name
@@ -416,10 +481,11 @@ def run(tree: str, what: str, smoke: str | None = None) -> tuple[dict | None, st
         res = {"prefill_tok_s": float(LINEAR_PREFILL.search(out.stdout).group(1)),
                "decode_b8_tok_s": float(LINEAR_DECODE.search(out.stdout).group(1))}
     else:
-        steps, busy, idle, ops = PROFILE.search(out.stdout).groups()
+        steps, window, busy, idle, ops = PROFILE.search(out.stdout).groups()
         ttft, prefill = re.search(FIRST.format(tag), out.stdout, re.M).groups()
         res = {"tok_s": float(re.search(SERVE.format(tag), out.stdout, re.M).group(1)),
-               "busy_ms": float(busy) / int(steps), "idle": float(idle), "ops": float(ops),
+               "step_ms": float(window) / int(steps), "busy_ms": float(busy) / int(steps),
+               "idle": float(idle), "ops": float(ops),
                "first_ttft_s": float(ttft), "first_prefill_s": float(prefill)}
     return res, " ".join(f"{k}={v:.4f}" for k, v in res.items())
 

@@ -1,13 +1,15 @@
 """Where a tile's time goes in the decode kernel
 (exllamav3_tpu_torch/csrc/attention_decode.cuh), on one card, over the
 quantized or the bf16 cache (`--storage`); with --latent in the latent (MLA)
-decode kernel (csrc/latent_decode.cuh, kernel row 6a).
+decode kernel (csrc/latent_decode.cuh, kernel row 6a); with --stats in the
+same kernel's DeepSeek-V4 stats form (row 6b).
 
     python3 tools/torch_decode_phases.py                 # (4, 4) and (5, 3), default splits
     python3 tools/torch_decode_phases.py --splits 64,128,256,512,1024,2048
     python3 tools/torch_decode_phases.py --storage bf16 --splits 64,128,256,512  # bf16 geometries
     python3 tools/torch_decode_phases.py --ring --splits 128,256,512   # the Gemma-3-27B ring alone
     python3 tools/torch_decode_phases.py --latent --splits 64,128,256 --geometries 32x2,32x3,64x2
+    python3 tools/torch_decode_phases.py --stats --splits 64,128,256 --geometries 32x2,64x2
 
 With --latent: a copy of latent_decode.cuh with clock64() timers around the
 phases of its tile loop (the wait for the staged tile, the issue of the next
@@ -20,6 +22,18 @@ and the (4)-bit one: cycles a tile by phase, and at each split size given to
 caches rotated past L2 in each tile geometry given to --geometries (keys a
 tile x stages, bf16 and quantized alike; default the header's), each held
 to chip_smoke.py's TOL_ATTN (2e-4) or TOL_ATTN_Q (3e-4) of the largest output.
+
+With --stats: the same instrumented copy, launched as attention_stats.cu's
+three entries launch it (512-wide rows, the STATS epilogue) at
+chip_smoke.py's DeepSeek-V4 shapes (batch 8, q positions 300-2048) at 128 and
+16 heads, by source: the sliding ring (W = 144, window 128, stale slots), the
+HCA pool (2 entries a page through a shuffled block table) and the CSA rows
+(512 gathered, 75-512 visible). Cycles a tile by phase at latent_split_keys's
+split (the ring and the pool's `issue` includes nothing of their key table,
+which a block fills before its first tile: "start to loop"), then at each
+split given to --splits the uninstrumented kernel's time over inputs rotated
+past L2 in each geometry of --geometries, each of acc, m and l held to
+TOL_ATTN of the plain version's largest magnitude.
 
 Writes a copy of the header into build/decode_phases/ with clock64() timers
 around the phases of the tile loop (the wait for the staged tile, the issue
@@ -269,7 +283,7 @@ LATENT_ENTRY = r'''
 extern "C" int latent_bf16(const void* q, const void* kv, const void* bt, const void* qpos,
     const void* tl, void* out, void* ws, void* counters, int B, int Hq, int MP, int P, int N,
     int T, float scale, int split_keys, void* stream) {
-    const LatentBf16Rows lkv{(const __nv_bfloat16*)kv};
+    const LatentBf16Rows<LAT_D> lkv{(const __nv_bfloat16*)kv};
     cudaStream_t st = (cudaStream_t)stream;
     if (bt != nullptr)
         return launch_latent_decode(q, PagedRows{(const int*)bt, MP, P}, lkv, qpos, tl, out, ws,
@@ -288,6 +302,28 @@ extern "C" int latent_quant(const void* q, const void* kq, const void* ks, const
                                     counters, B, Hq, scale, split_keys, MP * PAGE, st);
     return launch_latent_decode(q, LinearRows{nullptr, N, T}, lkv, qpos, tl, out, ws, counters,
                                 B, Hq, scale, split_keys, T, st);
+}
+// the stats form at 512 channels, as attention_stats.cu launches it: source 0
+// the ring (rows: pos, slots; N, W), 1 the pool (rows: block tables; MP, P,
+// epp), 2 the CSA rows (T)
+extern "C" int stats_launch(int source, const void* q, const void* kv, const void* rows_a,
+    const void* rows_b, const void* qpos, const void* tl, void* out, void* m, void* l, void* ws,
+    void* counters, int B, int Hq, int n0, int n1, int n2, float scale, int window, int split_keys,
+    void* stream) {
+    using R = LatentBf16Rows<KV_ROW>;
+    const R rkv{(const __nv_bfloat16*)kv};
+    cudaStream_t st = (cudaStream_t)stream;
+    if (source == 0)
+        return launch_latent_decode<RingRows, R, true>(
+            q, RingRows{(const int*)rows_b, (const int*)rows_a, n0, n1}, rkv, qpos, nullptr, out,
+            ws, counters, B, Hq, scale, split_keys, n1, st, window, m, l);
+    if (source == 1)
+        return launch_latent_decode<PoolRows, R, true>(
+            q, PoolRows{(const int*)rows_a, n0, n1, n2}, rkv, qpos, tl, out, ws, counters, B, Hq,
+            scale, split_keys, n0 * n2, st, 0, m, l);
+    return launch_latent_decode<LinearRows, R, true>(
+        q, LinearRows{nullptr, B, n0}, rkv, qpos, tl, out, ws, counters, B, Hq, scale, split_keys,
+        n0, st, 0, m, l);
 }
 '''
 
@@ -343,6 +379,7 @@ def latent_build(csrc: Path, geometries: list) -> tuple:
         lib = ctypes.CDLL(str(out / sub / "lib.so"))
         lib.latent_bf16.argtypes = [P] * 8 + [I] * 6 + [F, I, P]
         lib.latent_quant.argtypes = [P] * 10 + [I] * 7 + [F, I, P]
+        lib.stats_launch.argtypes = [I] + [P] * 11 + [I] * 5 + [F, I, I, P]
         libs.append(lib)
         for line in (r.stdout + r.stderr).splitlines():
             if "Used" in line and "registers" in line:
@@ -466,6 +503,125 @@ def latent_main(csrc: Path, splits: list, geometries: list) -> None:
                     if not rel <= tol:
                         raise SystemExit(f"{said}: rel err {rel:.2e} > {tol}")
             del state, nxt
+            torch.cuda.empty_cache()
+
+
+def stats_main(csrc: Path, splits: list, geometries: list) -> None:
+    """The stats form at chip_smoke.py's DeepSeek-V4 decode shapes, by source
+    and at 128 and 16 heads: cycles a tile by phase (the header's geometry,
+    latent_split_keys's split), then each split and geometry's time."""
+    from exllamav3_tpu_torch.constants import PAGE_SIZE
+    from exllamav3_tpu_torch.ops import flash_attention as fa
+    from exllamav3_tpu_torch.util.timing import rotating, time_ms
+
+    header = (csrc / "latent_decode.cuh").read_text()
+    # the header's two bf16 geometries: one head slice, several
+    own = [tuple(int(v) for v in re.findall(rf"^constexpr int LAT_(?:TK|STAGES)_{geo} = (\d+);",
+                                            header, re.M)) for geo in ("BF16", "BF16_SLICES")]
+    geometries = geometries or sorted(set(own))
+    phases_dll, libs = latent_build(csrc, geometries)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(32)
+    rng = np.random.default_rng(31)
+    B, D, W, window, K = 8, fa.KV_ROW, 144, 128, 512
+    scale = D ** -0.5
+    qpos = np.linspace(300, 2048, 8).astype(np.int32)
+    qp = torch.as_tensor(qpos[:, None], device=dev)
+    N, slots = 9, np.array([3, 7, 0, 5, 8, 1, 6, 2], np.int32)
+    pos = np.full((N, W), -1, np.int32)
+    for b, row in enumerate(slots):
+        for t in range(max(0, int(qpos[b]) - W + 1), int(qpos[b]) + 1 + int(rng.integers(0, 4))):
+            pos[row, t % W] = t
+    pos, sl = torch.as_tensor(pos, device=dev), torch.as_tensor(slots, device=dev)
+    MP = int(math.ceil((qpos.max() + 1) / PAGE_SIZE)) + 1
+    P, epp = B * MP + 1, PAGE_SIZE // 128
+    bt = torch.as_tensor(rng.permutation(np.arange(1, P))[: B * MP].reshape(B, MP)
+                         .astype(np.int32), device=dev)
+    n_pool = (qpos + 1) // 128
+    pq = torch.as_tensor((n_pool - 1)[:, None].astype(np.int32), device=dev)
+    pt = torch.as_tensor(n_pool.astype(np.int32), device=dev)
+    vcount = np.minimum((qpos + 1) // 4, K).astype(np.int32)
+    rq = torch.as_tensor((vcount - 1)[:, None], device=dev)
+    rt = torch.as_tensor(vcount, device=dev)
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    sources = (  # (name, width, make the storage, the launch's rows and lengths, plain)
+        ("ring", W, lambda: torch.randn((N, W, D), generator=g, device=dev).to(torch.bfloat16),
+         (pos, sl, qp, None, N, W, 0),
+         lambda q, kv: fa.ring_attention_stats_plain(q, kv, pos, sl, qp, scale, window)),
+        ("pool", MP * epp,
+         lambda: torch.randn((P, epp, D), generator=g, device=dev).to(torch.bfloat16),
+         (bt, None, pq, pt, MP, P, epp),
+         lambda q, kv: fa.pool_attention_stats_plain(q, kv, bt, pq, pt, scale)),
+        ("rows", K, lambda: torch.randn((B, K, D), generator=g, device=dev).to(torch.bfloat16),
+         (None, None, rq, rt, K, 0, 0),
+         lambda q, kv: fa.rows_attention_stats_plain(q, kv, rq, rt, scale)))
+    for Hq in (128, 16):
+        q = (torch.randn((B, 1, Hq, D), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+        slices = -(-Hq // 16)
+        counters = torch.zeros(B * slices, dtype=torch.int32, device=dev)
+        acc = torch.empty((B, 1, Hq, D), device=dev)
+        m, l = torch.empty((B, 1, Hq), device=dev), torch.empty((B, 1, Hq), device=dev)
+        for source, (name, width, make, rows, plain) in enumerate(sources):
+            kv = make()
+            ref = plain(q, kv)
+            nxt = rotating(lambda i: kv if i == 0 else make(), kv.numel() * 2)
+            ra, rb, qq, tt, n0, n1, n2 = rows
+
+            def call(lib, kvs, split, ws):
+                err = lib.stats_launch(source, q.data_ptr(), kvs.data_ptr(),
+                                       None if ra is None else ra.data_ptr(),
+                                       None if rb is None else rb.data_ptr(), qq.data_ptr(),
+                                       None if tt is None else tt.data_ptr(), acc.data_ptr(),
+                                       m.data_ptr(), l.data_ptr(), ws.data_ptr(),
+                                       counters.data_ptr(), B, Hq, n0, n1, n2, scale, window,
+                                       split, stream())
+                if err:
+                    raise RuntimeError(f"launch failed: {err}")
+
+            def rel_err():
+                return max(float((x - y).abs().max() / y.abs().max()) for x, y in zip((acc, m, l), ref))
+
+            own_split = fa.latent_split_keys(width, B, Hq, fa.device_sms(dev), name != "rows")
+            for split in splits or [own_split]:
+                ns = -(-width // split)
+                if ns > fa.LATENT_MAX_SPLITS or (name != "rows" and split > fa.LATENT_TABLE_KEYS):
+                    continue
+                ws = torch.empty(B * slices * ns * 16 * 514, device=dev)
+                said = f"stats {name} B=8 Hq={Hq} width {width}, split {split} ({ns} splits)"
+                if split == own_split or not splits:
+                    phases_dll.phases_clear()
+                    call(phases_dll, kv, split, ws)
+                    torch.cuda.synchronize()
+                    rel = rel_err()
+                    buf = np.zeros(ns * slices * B * LATENT_SLOTS, np.uint64)
+                    if phases_dll.phases_read(buf.ctypes.data, ns * slices * B, LATENT_SLOTS):
+                        raise RuntimeError("reading the timers failed")
+                    buf = buf.reshape(-1, LATENT_SLOTS).astype(np.float64)
+                    live = buf[:, 6] > 0
+                    tiles = max(buf[:, 6].sum(), 1)
+                    per_tile = ", ".join(f"{nm} {buf[:, k].sum() / tiles:.0f}"
+                                         for k, nm in enumerate(LATENT_PHASES))
+                    merged = buf[buf[:, 10] > 0]
+                    merge = (f"the merge after the arrival {(merged[:, 10] - merged[:, 9]).mean():.0f}"
+                             f" ({len(merged)} merges)" if len(merged) else "one split: no merge")
+                    print(f"{said}, the header's geometry: instrumented, rel err {rel:.2e}; "
+                          f"{int(buf[:, 6].sum())} tiles in {int(live.sum())} blocks that see keys; "
+                          f"cycles a tile: {per_tile}; a block's tile loop: mean "
+                          f"{buf[live, 7].mean():.0f}, longest {buf[live, 7].max():.0f}; start to "
+                          f"loop {buf[live, 8].mean():.0f}; {merge}", flush=True)
+                    if not rel <= TOL["bf16"]:
+                        raise SystemExit(f"{said}: rel err {rel:.2e} > {TOL['bf16']}")
+                for tk, stages, lib in libs:
+                    call(lib, kv, split, ws)
+                    torch.cuda.synchronize()
+                    rel = rel_err()
+                    ms = time_ms(lambda: call(lib, nxt(), split, ws), 50)
+                    warm = time_ms(lambda: call(lib, kv, split, ws), 50)
+                    print(f"{said}, {tk} keys a tile in {stages} stages: {ms:.4f} ms over "
+                          f"rotated inputs (L2-warm {warm:.4f}), rel err {rel:.2e}", flush=True)
+                    if not rel <= TOL["bf16"]:
+                        raise SystemExit(f"{said}: rel err {rel:.2e} > {TOL['bf16']}")
+            del kv, nxt
             torch.cuda.empty_cache()
 
 
@@ -710,18 +866,20 @@ def main():
                     help="directory of the headers to build (another tree's csrc/)")
     ap.add_argument("--latent", action="store_true",
                     help="the latent (MLA) decode kernel, csrc/latent_decode.cuh")
+    ap.add_argument("--stats", action="store_true",
+                    help="the same kernel's DeepSeek-V4 stats form (ring, pool, rows)")
     ap.add_argument("--geometries", default="",
-                    help="with --latent: keys a tile x stages to time, e.g. 32x2,32x3,64x2")
+                    help="with --latent or --stats: keys a tile x stages to time, e.g. 32x2,64x2")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs CUDA")
-    if args.latent:
+    if args.latent or args.stats:
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
         geometries = [tuple(int(v) for v in gs.split("x")) for gs in args.geometries.split(",") if gs]
-        return latent_main(Path(args.csrc),
-                           [int(v) for v in args.splits.split(",")] if args.splits else [],
-                           geometries)
+        return (stats_main if args.stats else latent_main)(
+            Path(args.csrc), [int(v) for v in args.splits.split(",")] if args.splits else [],
+            geometries)
     from exllamav3_tpu_torch.ops.build import library
     from exllamav3_tpu_torch.ops.flash_attention import (decode_split_keys, device_sms,
                                                           linear_attention_quant_plain)

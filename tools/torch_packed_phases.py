@@ -1,6 +1,7 @@
 """Where a block's time goes in the int-B matmuls
 (exllamav3_tpu_torch/csrc/intb_matmul.cu, kernel rows 13 and 14), or with
---int4 in the int4 a8 matmul (csrc/int4_matmul.cu, kernel row 12), or with
+--int4 in the int4 a8 matmul (csrc/int4_matmul.cu, kernel row 12; with
+--bf16 its bf16 route, row 11), or with
 --int8 / --mlp in the staged int8 body (csrc/int8_staged.cuh) of the int8
 matmul (row 1) / the fused MLP's two phases (row 2), on one card.
 
@@ -9,6 +10,7 @@ matmul (row 1) / the fused MLP's two phases (row 2), on one card.
     python3 tools/torch_packed_phases.py --splits 4,6,8,13     # and the staged body's time by split count
     python3 tools/torch_packed_phases.py --stages 2 --blocks 4 # 2 stages a warp, launch bounds of 4 blocks an SM
     python3 tools/torch_packed_phases.py --int4 --splits 2,4,8,16   # row 12 alike (--tree, --stages, --blocks too)
+    python3 tools/torch_packed_phases.py --int4 --bf16 --splits 4,8,16   # row 11 alike (--tree build/parent: packed_matmul.cuh's body)
     python3 tools/torch_packed_phases.py --int8 --splits 4,8,12,16  # row 1 at m = 8 (--stages, --blocks too)
     python3 tools/torch_packed_phases.py --mlp --splits 2,4,8        # row 2's phases, with and without PDL
 
@@ -20,7 +22,9 @@ the unpatched copy beside it), and runs both routes, bf16 (row 13) and a8
 6144, o_proj 4096 x 4096, gate_up 4096 x 28672, down 14336 x 4096, lm_head
 4096 x 32768), qkv also at B = 3. With --int4: int4_matmul.cu, the a8 route
 (row 12) alone, over the same five shapes (byte pairs; a staged step is 128
-packed rows, 4 scale groups of both planes). Thread 0 of each block sums its
+packed rows, 4 scale groups of both planes); with --int4 --bf16 its bf16 route
+(row 11) alone (`extract` then counts the nibbles made into bf16 weights, two
+FMAs a pair, beside the byte transposes). Thread 0 of each block sums its
 cycles by phase over the block's k steps:
 
 - `stage`: the next step's copies. In the body of packed_matmul.cuh (the
@@ -292,23 +296,43 @@ INT4_PATCHES = NEW_PATCHES[:3] + [
      "            ph[2] += clock64() - t_x;\n"),
     ("                const int gi = (j * per + i) * 4 + u;\n",
      "                const int gi = (j * per + i) * 4 + u;\n                const long long t_pl = clock64();\n"),
-    ("                    sx[rt] = *reinterpret_cast<const int2*>(Sx + gi * (INT4_X_SUMS / 4) + 8 * rt + 2 * t);\n"
-     "                }\n",
-     "                    sx[rt] = *reinterpret_cast<const int2*>(Sx + gi * (INT4_X_SUMS / 4) + 8 * rt + 2 * t);\n"
-     "                }\n"
-     "                touch(sink, sv.x ^ sv.y ^ xb[0].x ^ xb[0].y ^ (unsigned)(sx[0].x ^ sx[0].y));\n"
-     "                const long long t_m = clock64();\n                ph[1] += t_m - t_pl;\n"),
-    ("sc[2 * tt + 1], acc[rt][tt][3]);\n                    }\n                }\n",
-     "sc[2 * tt + 1], acc[rt][tt][3]);\n                    }\n                }\n"
-     "                touch(sink, __float_as_uint(acc[0][0][0]) ^ __float_as_uint(acc[0][1][0]));\n"
-     "                ph[3] += clock64() - t_m;\n"),
+    # a8: scales, x and its row sums, consumed; then the plane's masks, MMAs and FMAs
+    ("                        sx[rt] = *reinterpret_cast<const int2*>(Sx + gi * (INT4_X_SUMS / 4) + 8 * rt + 2 * t);\n"
+     "                    }\n",
+     "                        sx[rt] = *reinterpret_cast<const int2*>(Sx + gi * (INT4_X_SUMS / 4) + 8 * rt + 2 * t);\n"
+     "                    }\n"
+     "                    touch(sink, sv.x ^ sv.y ^ xb[0].x ^ xb[0].y ^ (unsigned)(sx[0].x ^ sx[0].y));\n"
+     "                    const long long t_m = clock64();\n                    ph[1] += t_m - t_pl;\n"),
+    ("sc[2 * tt + 1], acc[rt][tt][3]);\n                        }\n                    }\n",
+     "sc[2 * tt + 1], acc[rt][tt][3]);\n                        }\n                    }\n"
+     "                    touch(sink, __float_as_uint(acc[0][0][0]) ^ __float_as_uint(acc[0][1][0]));\n"
+     "                    ph[3] += clock64() - t_m;\n"),
+    # bf16: scales and x, consumed; then each half's weights; their MMAs
+    ("                        xb[rt] = *reinterpret_cast<const uint4*>(Xs + (8 * rt + g) * xld + gi * 64 + 16 * t);\n",
+     "                        xb[rt] = *reinterpret_cast<const uint4*>(Xs + (8 * rt + g) * xld + gi * 64 + 16 * t);\n"
+     "                    touch(sink, sv.x ^ sv.y ^ xb[0].x ^ xb[0].y ^ xb[0].z ^ xb[0].w);\n"
+     "                    ph[1] += clock64() - t_pl;\n"),
+    ("                    for (int h = 0; h < 2; ++h) {  // packed rows 8t + 4h .. 8t + 4h + 3\n",
+     "                    for (int h = 0; h < 2; ++h) {  // packed rows 8t + 4h .. 8t + 4h + 3\n"
+     "                        long long t_e = clock64();\n"),
+    ("                                                   weights2(v[c0], 1, s2[c0]), weights2(v[c1], 1, s2[c1])};\n",
+     "                                                   weights2(v[c0], 1, s2[c0]), weights2(v[c1], 1, s2[c1])};\n"
+     "                            touch(sink, a[0] ^ a[1] ^ a[2] ^ a[3]);\n"
+     "                            const long long t_mm = clock64();\n                            ph[2] += t_mm - t_e;\n"),
+    ("                                packed::mma_bf16(acc[rt][tt], a, b);\n                            }\n",
+     "                                packed::mma_bf16(acc[rt][tt], a, b);\n                            }\n"
+     "                            touch(sink, __float_as_uint(acc[0][tt][0]));\n"
+     "                            t_e = clock64();\n                            ph[3] += t_e - t_mm;\n"),
 ] + NEW_PATCHES[-4:]
-# what --int4 times: int4_matmul.cu's a8 route over the 8B shapes (bits None)
+# what --int4 times: int4_matmul.cu's a8 (or with --bf16 its bf16) route over
+# the 8B shapes (bits None)
 INT4_SHAPES = [(k, n, what, None) for k, n, what, bits in SHAPES if bits == 6]
 
 
-def _version(src: str, int4: bool = False) -> str:
-    staged = "int4_decode_kernel" if int4 else "intb_decode_kernel"
+def _version(src: str, int4: bool = False, bf16: bool = False) -> str:
+    """The body the tree's entry takes up to 16 rows: the int4 bf16 route's
+    staged body since it is launched as launch_staged<false>."""
+    staged = ("launch_staged<false>" if bf16 else "int4_decode_kernel") if int4 else "intb_decode_kernel"
     return "staged" if staged in src else "packed_matmul.cuh"
 
 
@@ -320,19 +344,22 @@ def _patch(text: str, patches) -> str:
     return text
 
 
-def build(tree: Path, stages: int | None, blocks: int | None, int4: bool = False):
+def build(tree: Path, stages: int | None, blocks: int | None, int4: bool = False,
+          bf16: bool = False):
     """(kernel version, the instrumented copy, the unpatched one, the
     unpatched one without programmatic dependent launch or None); `stages`,
     `blocks`: the staged body's INTB_STAGES and INTB_BLOCKS (INT4_STAGES and
-    INT4_BLOCKS with `int4`) in every copy, if given."""
+    INT4_BLOCKS with `int4`) in every copy, if given; `bf16`: the int4 bf16
+    route's body."""
     from exllamav3_tpu_torch.ops.build import NVCC_FLAGS, nvcc_path
 
     csrc = tree / "exllamav3_tpu_torch" / "csrc"
     name, layout_name, pre = (("int4_matmul.cu", "int4_layout.cuh", "INT4") if int4 else
                               ("intb_matmul.cu", "intb_layout.cuh", "INTB"))
     src = (csrc / name).read_text()
-    version = _version(src, int4)
-    out = ROOT / "build" / "packed_phases" / (tree.resolve().name + ("_int4" if int4 else ""))
+    version = _version(src, int4, bf16)
+    out = ROOT / "build" / "packed_phases" / (tree.resolve().name + ("_int4" if int4 else "")
+                                              + ("_bf16" if bf16 else ""))
     for sub in ("phases", "plain", "nopdl"):
         (out / sub).mkdir(parents=True, exist_ok=True)
     if version == "staged":
@@ -684,12 +711,14 @@ def main():
                          "sizing follows), instead of the source's")
     ap.add_argument("--int4", action="store_true",
                     help="the int4 a8 matmul (row 12, int4_matmul.cu) instead of the int-B ones")
+    ap.add_argument("--bf16", action="store_true",
+                    help="with --int4: the int4 matmul's bf16 route (row 11)")
     ap.add_argument("--int8", action="store_true",
                     help="the int8 matmul's staged body (row 1, int8_matmul.cu)")
     ap.add_argument("--mlp", action="store_true",
                     help="the fused MLP's two phases of the staged int8 body (row 2, fused_mlp.cu)")
     args = ap.parse_args()
-    int4 = args.int4
+    int4, bf16 = args.int4, args.int4 and args.bf16
     if not torch.cuda.is_available():
         raise SystemExit("needs CUDA")
     tree = Path(args.tree).resolve()
@@ -702,7 +731,7 @@ def main():
     from exllamav3_tpu_torch.ops.build import SIGNATURES
     from exllamav3_tpu_torch.util.timing import rotating, time_ms
 
-    version, dll, plain, nopdl = build(tree, args.stages, args.blocks, int4)
+    version, dll, plain, nopdl = build(tree, args.stages, args.blocks, int4, bf16)
     if version == "staged" and int4:
         qm._INT4_STAGES = args.stages or qm._INT4_STAGES
         qm._INT4_BLOCKS = args.blocks or qm._INT4_BLOCKS
@@ -712,7 +741,8 @@ def main():
         qm._INTB_BLOCKS = args.blocks or qm._INTB_BLOCKS
         qm.intb_split_count.cache_clear()
     P, I = ctypes.c_void_p, ctypes.c_int
-    entries = ("exl3_int4_matmul_a8",) if int4 else ("exl3_intb_matmul", "exl3_intb_matmul_a8")
+    entries = (("exl3_int4_matmul" if bf16 else "exl3_int4_matmul_a8",) if int4
+               else ("exl3_intb_matmul", "exl3_intb_matmul_a8"))
     for lib in (dll, plain, nopdl):
         if lib is not None:
             for fn in entries:
@@ -765,7 +795,9 @@ def main():
             head = [x.data_ptr(), w.data_ptr(), s.data_ptr(), y.data_ptr(), ws.data_ptr()]
             if counters is not None:
                 head.append(counters.data_ptr())
-            if int4:
+            if int4 and not a8:
+                err = lib.exl3_int4_matmul(*head, M, k, n, splits, stream())
+            elif int4:
                 err = lib.exl3_int4_matmul_a8(*head, xq.data_ptr(), xs.data_ptr(), 1, M, k, n,
                                               splits, stream())
             elif a8:
@@ -790,18 +822,20 @@ def main():
         if splits > steps:
             return False
         if int4:
-            return qm._int4_smem(M, -(-steps // splits)) <= qm.INT4_MAX_SMEM
+            return qm._int4_smem(M, -(-steps // splits), a8) <= qm.INT4_MAX_SMEM
         return qm._intb_smem(M, bits, a8, -(-steps // splits)) <= qm.INTB_MAX_SMEM
 
     def plain_of(a8):
         if int4:
-            return lambda x, w, s, bits: qm.int4_matmul_a8_plain(x, w, s)
+            plain4 = qm.int4_matmul_a8_plain if a8 else qm.int4_matmul_plain
+            return lambda x, w, s, bits: plain4(x, w, s)
         return qm.intb_matmul_a8_plain if a8 else qm.intb_matmul_plain
 
     def sizing(k, n, bits, a8):
+        if int4 and version == "staged":
+            return qm.int4_split_count(M, k, n, sms, a8)
         if int4:
-            return (qm.int4_split_count(M, k, n, sms) if version == "staged"
-                    else qm._packed_splits(M, n, k // 64, True, dev))
+            return qm._packed_splits(M, n, k // 64, True, dev)
         W, kp, _ = qm.intb_geometry(k, bits)
         if version == "staged":
             return qm.intb_split_count(M, k, n, bits, a8, torch.cuda.get_device_properties(dev)
@@ -812,8 +846,8 @@ def main():
         make, nb = inputs(k, n, bits)
         x, w, s = make(0)
         steps = steps_of(k, bits)
-        for a8 in (True,) if int4 else (False, True):
-            route = "int4 a8" if int4 else "a8" if a8 else "bf16"
+        for a8 in ((not bf16,) if int4 else (False, True)):
+            route = ("int4 bf16" if bf16 else "int4 a8") if int4 else "a8" if a8 else "bf16"
             ref = plain_of(a8)(x, w, s, bits)
             splits = sizing(k, n, bits, a8)
             call, y, ws, xq, xs = caller(k, n, bits, a8, splits)
@@ -876,7 +910,7 @@ def main():
         make, nb = inputs(k, n, bits)
         nxt = rotating(make, nb)
         x, w, s = nxt()
-        for a8 in (True,) if int4 else (False, True):
+        for a8 in ((not bf16,) if int4 else (False, True)):
             ref = plain_of(a8)(x, w, s, bits)
             for splits in (int(v) for v in args.splits.split(",")):
                 if not fits(k, bits, a8, splits):
@@ -886,7 +920,7 @@ def main():
                 torch.cuda.synchronize()
                 rel = float((y - ref).abs().max() / ref.abs().max())
                 ms = time_ms(lambda: call(plain, *nxt()), 20)
-                tag = "int4 a8" if int4 else f"{'a8' if a8 else 'bf16'}"
+                tag = ("int4 bf16" if bf16 else "int4 a8") if int4 else f"{'a8' if a8 else 'bf16'}"
                 print(f"{tag} m={M} {what} ({k}x{n})" + ("" if int4 else f" B={bits}")
                       + f" at {splits} splits: {ms:.4f} ms over rotated inputs; rel err {rel:.2e}",
                       flush=True)
