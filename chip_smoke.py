@@ -138,7 +138,16 @@ Phases:
             with linear_mode="auto" (int8 on an 80 GB card) over a bf16 cache
             and served by the continuous-batching generator: 8 greedy
             requests, 512-1536 token prompts sharing a 512-token prefix, 128
-            new tokens each
+            new tokens each, through its default route (decode bursts of 8,
+            each (batch, pages) bucket's step a captured CUDA graph), the
+            launches held to the decode steps run times a batch-1 step's plus
+            the prefill chunks'; then replayed against eager steps at the
+            same shapes from one cache state (bit-identical logits and
+            tokens), eager, replayed and JAX-table-width replayed ms a step,
+            and the same requests through the eager single-step route
+            (decode_burst=1, no graphs): greedy tokens equal up to a step
+            where its top-2 logit gap is under 2e-2; both routes' decode
+            tok/s, TTFT and busy ms, idle share and device operations a token
   serve_capacity
             the same checkpoint and requests with linear_mode="fused" (every
             linear decodes its trellis in the GEMM kernel) over a quantized
@@ -198,7 +207,14 @@ Phases:
 
 Each serve phase sets every kernel's launch count to 0 before its run and
 reads it after: the kernels of its path must all have launched and the
-others not at all.
+others not at all. Every serve phase runs the generator's default decode
+bursts: captured CUDA graphs for the Llama family, Gemma, the MoE families
+and DeepSeek V2 / V3 (these up to the batch bucket of 8 rows; wider
+batches run eagerly at their exact rows, on the selected-expert kernel up
+to 15), eager bursts for DeepSeek-V4; a replay adds what its capture
+counted to each wrapper's count (ops/launches.py), and in `serve` the
+device trace of a window of replays shows each kernel as often as the
+counts say.
 
 The second-to-last line is the kernel table as JSON and the last line is
 {"ok": true, "device": {...}}. Any failed phase raises and exits non-zero
@@ -224,6 +240,7 @@ import time
 import numpy as np
 import torch
 
+from exllamav3_tpu_torch.ops.launches import counts_since, read_counts, set_counts
 from exllamav3_tpu_torch.util.timing import HBM_BYTES_PER_S, rotating, time_ms
 
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core rate
@@ -2638,17 +2655,24 @@ def parity_moe():
 
 # -- phase: serve ------------------------------------------------------------------
 
-def profile_decode(step, steps: int, what: str) -> None:
+def profile_decode(step, steps: int, what: str) -> dict | None:
     """Trace `steps` calls of step() (a generator iteration or a model step)
     with torch.profiler and print the device's busy share of the window,
-    kernels per step and the kernels that take the most device time."""
+    kernels per step and the kernels that take the most device time. Where
+    step() returns a generator iteration's events, also per token (a burst
+    iteration yields up to decode_burst tokens a job). Returns the window's
+    figures and how often each device kernel ran in it (`names`), None if
+    the trace held no device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    tokens = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            step()
+            res = step()
+            if isinstance(res, list):
+                tokens += sum(1 for r in res if r["stage"] == "streaming")
         torch.cuda.synchronize()
     events = prof.events()
     dev = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
@@ -2669,74 +2693,32 @@ def profile_decode(step, steps: int, what: str) -> None:
             cur_e = max(cur_e, e0)
     busy += cur_e - cur_s
     window = t1 - t0
+    per_token = (f", {tokens} tokens: {window / tokens / 1e3:.4f} ms of window, "
+                 f"{busy / tokens / 1e3:.4f} ms busy and {len(dev) / tokens:.1f} device ops "
+                 f"a token" if tokens else "")
     log(f"profile: {steps} {what}, window {window / 1e3:.3f} ms, "
         f"device busy {busy / 1e3:.3f} ms ({busy / window:.4f} of the window, idle "
-        f"{1 - busy / window:.4f}), {len(dev) / steps:.1f} device ops per step")
+        f"{1 - busy / window:.4f}), {len(dev) / steps:.1f} device ops per step{per_token}")
     total = sum(by_name.values())
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"profile:   {t / total:.4f} of device time  {t / steps / 1e3:.4f} ms/step  {name[:90]}")
-
-
-def _wrappers() -> dict:
-    """The kernels' wrappers by name; each counts its launches."""
-    from exllamav3_tpu_torch.ops.exl3_gemm import exl3_gemm_kernel
-    from exllamav3_tpu_torch.ops.flash_attention import (latent_attention_kernel,
-                                                          latent_attention_prefill,
-                                                          latent_attention_quant_kernel,
-                                                          latent_attention_quant_prefill,
-                                                          linear_attention_kernel,
-                                                          linear_attention_prefill,
-                                                          linear_attention_quant_kernel,
-                                                          linear_attention_quant_prefill,
-                                                          paged_attention_kernel,
-                                                          paged_attention_prefill,
-                                                          paged_attention_quant_kernel,
-                                                          paged_attention_quant_prefill,
-                                                          pool_attention_stats_kernel,
-                                                          ring_attention_kernel,
-                                                          ring_attention_stats_kernel,
-                                                          rows_attention_stats_kernel)
-    from exllamav3_tpu_torch.ops.fused_mlp import fused_mlp_int8_kernel
-    from exllamav3_tpu_torch.ops.moe_gemm import selected_expert_mlp_kernel
-    import exllamav3_tpu_torch.ops.q_matmul as qm
-    # rows 15-20, the probes: on no served path, so every serve phase holds them at 0
-    from exllamav3_tpu_torch.probes import (a8_ablate, a8_diag_proto, dequant_probe, dma_floor,
-                                            fused_ablate, int4_sweep)
-
-    return {"int8_matmul": qm.int8_matmul_kernel, "fused_mlp": fused_mlp_int8_kernel,
-            "paged_attention": paged_attention_kernel, "exl3_gemm": exl3_gemm_kernel,
-            "paged_attention_quant": paged_attention_quant_kernel,
-            **{name: getattr(qm, name + "_kernel") for name in PACKED},
-            "moe_gemm": selected_expert_mlp_kernel,
-            "linear_attention": linear_attention_kernel,
-            # of the four entries' launches, those of the prefill body
-            "paged_attention_prefill": paged_attention_prefill,
-            "linear_attention_prefill": linear_attention_prefill,
-            "paged_attention_quant_prefill": paged_attention_quant_prefill,
-            "linear_attention_quant_prefill": linear_attention_quant_prefill,
-            "linear_attention_quant": linear_attention_quant_kernel,
-            "latent_attention": latent_attention_kernel,
-            "latent_attention_quant": latent_attention_quant_kernel,
-            # of the two latent entries' launches, those of the prefill body
-            "latent_attention_prefill": latent_attention_prefill,
-            "latent_attention_quant_prefill": latent_attention_quant_prefill,
-            "ring_attention": ring_attention_kernel,
-            "ring_attention_stats": ring_attention_stats_kernel,
-            "pool_attention_stats": pool_attention_stats_kernel,
-            "rows_attention_stats": rows_attention_stats_kernel,
-            "fused_ablate": fused_ablate.fused_ablate_kernel,
-            "dequant_probe": dequant_probe.dequant_probe_kernel,
-            "int4_sweep": int4_sweep.int4_sweep_kernel, "a8_ablate": a8_ablate.a8_ablate_kernel,
-            "a8_diag_proto": a8_diag_proto.a8_diag_kernel, "dma_floor": dma_floor.dma_floor_kernel}
+    names: dict = {}
+    for _, _, name in dev:
+        names[name] = names.get(name, 0) + 1
+    return {"window_ms": window / 1e3, "busy_ms": busy / 1e3, "idle": 1 - busy / window,
+            "ops": len(dev), "tokens": tokens, "names": names}
 
 
 def _reset_counts():
-    for fn in _wrappers().values():
-        fn.launches = 0
+    """Every kernel's Python-side launch count to 0 (ops/launches.py: a
+    replayed decode graph adds what its capture counted). The kernel
+    library's C-side counts (exl3_decode_launches and the like) miss
+    replays: the kernel checks read them around eager calls only."""
+    set_counts({})
 
 
 def _read_counts() -> dict:
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    return read_counts()
 
 
 @contextlib.contextmanager
@@ -2747,8 +2729,7 @@ def uncounted():
     try:
         yield
     finally:
-        for name, fn in _wrappers().items():
-            fn.launches = saved[name]
+        set_counts(saved)
 
 
 @contextlib.contextmanager
@@ -2964,14 +2945,22 @@ def _load_model(tag: str, ckpt: str, linear_mode: str, expect_mode: str):
 
 def _serve(tag: str, ckpt: str, linear_mode: str, spec_kw: dict, expect_mode: str,
            prompts: list, trace: bool = True, step_launches: dict | None = None,
-           model=None, new_tokens: int = 128) -> dict:
+           model=None, new_tokens: int = 128, gen_kw: dict | None = None,
+           out: dict | None = None, check_accounting: bool = False) -> dict:
     """Load the checkpoint `ckpt` in `linear_mode` (or take `model`, loaded
     from it already), serve `prompts` (`new_tokens` greedy tokens each; the first
     arrives alone, the rest once it decodes) over a paged cache made with
-    `spec_kw`, and check the outcome. A cache with SWA rings (spec_kw
-    swa_ring) reuses no prefix pages and reports its rings' bytes.
-    `step_launches` names launch counts one batch-1 decode step must show.
-    Returns the kernels' launch counts over the measured run."""
+    `spec_kw`, and check the outcome. The generator takes its defaults (decode
+    bursts of 8, captured as CUDA graphs where the model declares graph
+    decode) unless `gen_kw` says otherwise; its decode route, steps and
+    graphs are printed. A cache with SWA rings (spec_kw swa_ring) reuses no
+    prefix pages and reports its rings' bytes. `step_launches` names launch
+    counts one batch-1 decode step must show; with `check_accounting` the
+    run's counts must equal that step's times the decode steps run (eager
+    and replayed) plus the prefill chunks' own. `out`, where given, receives
+    each request's tokens and TTFT, the decode-only rate and the traced
+    window's figures. Returns the kernels' launch counts over the measured
+    run."""
     from exllamav3_tpu_torch.generator import Generator, GreedySampler, Job
     from exllamav3_tpu_torch.model import Cache, CacheSpec
 
@@ -3002,9 +2991,27 @@ def _serve(tag: str, ckpt: str, linear_mode: str, spec_kw: dict, expect_mode: st
             f"bytes ({nbytes(rings) / 2**30:.2f} GiB) for {rings[0]['pos'].shape[0]} state slots; "
             f"paged cache bytes a token {per_token:.0f} with the rings, "
             f"{per_token * len(cache.state) / len(paged):.0f} without")
-    gen = Generator(model, cache, max_batch_size=8, max_chunk_size=2048, seed=0)
+    gen = Generator(model, cache, max_batch_size=8, max_chunk_size=2048, seed=0, **(gen_kw or {}))
+    prefill_counts: dict = {}
+    prefill_job = gen._prefill_job
+
+    def counted_prefill(*a):  # the prefill chunks' launches, apart from the decode steps'
+        before = _read_counts()
+        n = prefill_job(*a)
+        for name, c in counts_since(before).items():
+            prefill_counts[name] = prefill_counts.get(name, 0) + c
+        return n
+    gen._prefill_job = counted_prefill
     jobs, finished, decode_tokens, decode_s, wall, counts = _drive(tag, gen, prompts, V,
                                                                    new_tokens)
+    gen._prefill_job = prefill_job
+    dec = gen.decoder
+    decode_steps = dec.steps
+    log(f"{tag}: decode route {'captured CUDA graphs' if dec.capture else 'eager'}, bursts of "
+        f"up to {gen.decode_burst} steps ({gen.prefill_burst} while a prompt is prefilled), "
+        f"{decode_steps} decode steps for {new_tokens * len(jobs)} tokens; buckets (B, pages) "
+        f"{sorted(dec.buckets)}; {dec.graphs_captured} graphs captured in {dec.capture_s:.3f} s, "
+        f"their pool {dec.pool_bytes} bytes ({dec.pool_bytes / 2**20:.1f} MiB)")
     total_new = new_tokens * len(jobs)
     reused = sum(finished[j.identifier]["cached_tokens"] for j in jobs)
     # cross-path check: the first generated token of request 0 lies in the
@@ -3067,16 +3074,33 @@ def _serve(tag: str, ckpt: str, linear_mode: str, spec_kw: dict, expect_mode: st
     log(f"{tag}: launches per batch-1 decode step " + json.dumps(step))
     if step_launches and any(step[n] != c for n, c in step_launches.items()):
         raise AssertionError(f"{tag}: a decode step launched {step}, expected {step_launches}")
+    if check_accounting:
+        want = {n: step[n] * decode_steps + prefill_counts.get(n, 0) for n in counts}
+        log(f"{tag}: launches by replay accounting: {decode_steps} decode steps x the batch-1 "
+            f"step's, plus the prefill chunks' {json.dumps(prefill_counts)}")
+        if want != counts:
+            raise AssertionError(f"{tag}: the run launched {counts}, the steps account for {want}")
     del c1
+    window = None
     if trace:
-        # a traced window of decode steps over the same prompts (prefixes
-        # now cached), after and apart from the measured run
-        gen.enqueue([Job(p, max_new_tokens=16, sampler=GreedySampler()) for p in prompts])
+        # a traced window of decode iterations over the same prompts
+        # (prefixes now cached), after and apart from the measured run: 4
+        # iterations, each a burst of up to decode_burst steps
+        gen.enqueue([Job(p, max_new_tokens=64, sampler=GreedySampler()) for p in prompts])
         while gen.pending or any(j.status == "prefill" for j in gen.active):
             gen.iterate()
-        profile_decode(gen.iterate, 4, f"decode steps (batch {len(gen.active)})")
+        before = _read_counts()
+        window = profile_decode(gen.iterate, 4, f"decode steps (batch {len(gen.active)})")
+        if check_accounting:
+            _traced_launches(tag, counts_since(before), window)
         while gen.num_remaining_jobs():
             gen.iterate()
+    if out is not None:
+        out.update(tokens=[finished[j.identifier]["new_tokens"] for j in jobs],
+                   ids=[j.identifier for j in jobs],
+                   ttft=[finished[j.identifier]["ttft_s"] for j in jobs],
+                   decode_tok_s=decode_tokens / max(decode_s, 1e-9), steps=decode_steps,
+                   capture=dec.capture, window=window)
     if first not in top5:
         raise AssertionError(f"{tag}: generator's first token disagrees with the reference forward")
     if len(jobs) > 1 and (reused <= 0) != bool(rings):
@@ -3088,6 +3112,32 @@ def _serve(tag: str, ckpt: str, linear_mode: str, spec_kw: dict, expect_mode: st
     return counts
 
 
+# the device kernel that each wrapper of the serve path launches once a call
+# at decode shapes, as the profiler names it (csrc/int8_staged.cuh: epilogue
+# 0 SCALED, 1 GATE_UP; the fused MLP's down projection is the SCALED body
+# launched with WAIT true, its gate_up the GATE_UP body)
+TRACE_KERNELS = {"int8_matmul": re.compile(r"\bint8_decode_kernel<\d, 0, false>"),
+                 "fused_mlp": re.compile(r"\bint8_decode_kernel<\d, 1, false>"),
+                 "paged_attention": re.compile(r"::decode_kernel<.*PagedRows")}
+
+
+def _traced_launches(tag: str, accounted: dict, window: dict | None):
+    """The launches that the wrappers' counts (replays add what their
+    capture counted) give the traced window, held against the kernels that
+    the device trace of the same window shows: a replay must have launched
+    what it is credited with."""
+    if window is None:
+        log(f"{tag}: the trace holds no device kernel: launches in the replays not measured")
+        return
+    seen = {name: sum(n for k, n in window["names"].items() if pat.search(k))
+            for name, pat in TRACE_KERNELS.items()}
+    log(f"{tag}: traced window's launches by the wrappers' counts {json.dumps(accounted)}, "
+        f"in the device trace {json.dumps(seen)}")
+    if set(accounted) - set(TRACE_KERNELS) or any(seen[n] != accounted.get(n, 0) for n in seen):
+        raise AssertionError(f"{tag}: the device trace shows {seen} launches, the counts "
+                             f"{accounted}")
+
+
 def _require_launches(tag: str, counts: dict, used: tuple):
     """Every kernel in `used` launched in the run, and no other kernel."""
     if min(counts[n] for n in used) <= 0:
@@ -3096,11 +3146,148 @@ def _require_launches(tag: str, counts: dict, used: tuple):
         raise AssertionError(f"{tag}: a kernel of another path launched: {counts}")
 
 
+JAX_PAGES_BUCKETS = (4, 16, 64, 256, 1024, 4096)  # the JAX generator's table widths
+
+
+def _graph_against_eager(model, prompts: list, steps: int = 64):
+    """The captured decode step against the eager one at the same bucketed
+    shapes (batch 8, the table's power of two of pages), from the same cache
+    state and counts: one step (the warm-up before the capture, a replay and
+    an eager step) and an 8-step burst must give bit-identical logits and
+    tokens. Then the time a step of `steps` eager steps, and of `steps`
+    replays at the table's power of two of pages and at the JAX package's
+    wider table (whose split-key decode sizes its splits for more keys),
+    the two widths in turns."""
+    from exllamav3_tpu_torch.generator import Generator, GreedySampler, Job
+    from exllamav3_tpu_torch.generator import decode_graph as dg
+    from exllamav3_tpu_torch.model import Cache, CacheSpec
+
+    gen = Generator(model, Cache(model, CacheSpec(num_pages=72)), max_batch_size=8,
+                    max_chunk_size=2048, seed=0)
+    jobs = [Job(p, max_new_tokens=4 * steps, sampler=GreedySampler()) for p in prompts]
+    gen.enqueue(jobs)
+    while any(j.status != "running" for j in jobs):
+        gen.iterate()
+    if not gen._grow_window(jobs, steps):
+        raise AssertionError("serve graph: no pages for the timed steps")
+    args = ([j.new_tokens[-1] if j.new_tokens else j.input_ids[-1] for j in jobs],
+            [j.seq_len - 1 for j in jobs], [j.pages for j in jobs],
+            [gen.job_slots[j] for j in jobs], [j.sampler for j in jobs])
+    counts0 = gen.token_counts.clone()
+
+    def make(capture: bool):  # the eager step padded as the captured one
+        return dg.DecodeGraph(model, gen.cache, gen.token_counts, gen.rng, 8, steps,
+                              capture=capture, keep_logits=True, pad=True)
+
+    def run(step, n):
+        gen.token_counts.copy_(counts0)
+        toks = step.run(*args, n)
+        return toks, step.last.logits.clone()
+
+    graph, eager = make(True), make(False)
+    warm = run(graph, 1)  # the eager warm-up, then the capture
+    replay = run(graph, 1)
+    plain = run(eager, 1)
+    burst_g, burst_e = run(graph, 8), run(eager, 8)
+    B, MP = graph.last.B, graph.last.MP
+    same = all(np.array_equal(a[0], b[0]) and torch.equal(a[1], b[1])
+               for a, b in ((replay, plain), (warm, plain), (burst_g, burst_e)))
+    log(f"serve graph: batch {B}, {MP} + 1 table columns: replayed and eager steps from one "
+        f"cache state give bit-identical logits and tokens: {same} (one step: the warm-up, a "
+        f"replay, an eager step; an 8-step burst each)")
+    if not same:
+        raise AssertionError("serve graph: a replayed step differs from the eager one")
+
+    def timed(step) -> tuple[float, float]:
+        gen.token_counts.copy_(counts0)
+        torch.cuda.synchronize()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        t0.record()
+        step.run(*args, steps)
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / steps, (time.perf_counter() - h0) * 1e3 / steps
+
+    @contextlib.contextmanager
+    def jax_tables():  # the JAX generator's table buckets in place of powers of two
+        pow2 = dg.pages_bucket
+        dg.pages_bucket = lambda n: next(b for b in JAX_PAGES_BUCKETS if n <= b)
+        try:
+            yield
+        finally:
+            dg.pages_bucket = pow2
+
+    wide = make(True)
+    with jax_tables():
+        run(wide, 1)
+    MPj = wide.last.MP
+    ms = {"eager": timed(eager)}
+    turns: dict = {"replay": [], "replay, JAX table": []}
+    for _ in range(2):  # the two table widths in turns, A B B A twice
+        for name in ("replay", "replay, JAX table", "replay, JAX table", "replay"):
+            if name == "replay":
+                turns[name].append(timed(graph))
+            else:
+                with jax_tables():
+                    turns[name].append(timed(wide))
+    for name, runs in turns.items():
+        ms[name] = tuple(sorted(r[i] for r in runs)[len(runs) // 2] for i in (0, 1))
+    log(f"serve graph: ms a step over {steps} steps (device events; host clock), replays the "
+        f"upper median of 4 in turns: "
+        + ", ".join(f"{k} {a:.4f} ({h:.4f})" for k, (a, h) in ms.items())
+        + f"; replays at {MP} + 1 columns " + " ".join(f"{r[0]:.4f}" for r in turns["replay"])
+        + f", at {MPj} + 1 " + " ".join(f"{r[0]:.4f}" for r in turns["replay, JAX table"])
+        + f"; the capture {graph.capture_s:.3f} s, its pool {graph.pool_bytes} bytes")
+    gen.token_counts.copy_(counts0)
+    del gen, graph, eager, wide
+    _free()
+    return ms
+
+
 def phase_serve() -> dict:
-    """The int8 path: linear_mode="auto" on an 80 GB card, bf16 cache."""
-    counts = _serve("serve", _checkpoint(32), "auto", {}, "int8", _serve_prompts())
+    """The int8 path: linear_mode="auto" on an 80 GB card, bf16 cache,
+    through the generator's default route (decode bursts of 8 over captured
+    CUDA graphs), its launches held to the decode steps' and the prefill
+    chunks'. With the checkpoint loaded once: the captured step against the
+    eager one (_graph_against_eager), then the same requests through the
+    eager single-step route (decode_burst=1, no graphs), whose greedy tokens
+    must equal the graph route's up to a step where its top-2 logit gap is
+    under GAP_LIMIT; both routes' decode rate, TTFT and traced figures per
+    token are printed."""
+    model = _load_model("serve", _checkpoint(32), "auto", "int8")
+    prompts = _serve_prompts()
     used = ("int8_matmul", "fused_mlp", "paged_attention", "paged_attention_prefill")
+    graph: dict = {}
+    counts = _serve("serve", None, "auto", {}, "int8", prompts, model=model, out=graph,
+                    check_accounting=True)
     _require_launches("serve", counts, used)
+    if not graph["capture"]:
+        raise AssertionError("serve: the Llama path did not capture its decode step")
+    _graph_against_eager(model, prompts)
+    eager: dict = {}
+    with record_gaps() as gaps:
+        _serve("serve eager", None, "auto", {}, "int8", prompts, model=model, out=eager,
+               gen_kw=dict(decode_burst=1, decode_graphs=False))
+    for i, (got, ref) in enumerate(zip(graph["tokens"], eager["tokens"])):
+        same = next((n for n, (a, b) in enumerate(zip(got, ref)) if a != b), len(got))
+        gap = gaps[eager["ids"][i]][same] if same < len(got) else None
+        log(f"serve: request {i}: the graph route agrees with the eager route for {same} of "
+            f"{len(got)} tokens" + ("" if gap is None else f", then parts where the eager "
+                                    f"run's top-2 gap is {gap:.4e} of the logits' range"))
+        if gap is not None and not gap < GAP_LIMIT:
+            raise AssertionError(f"serve: request {i} parts from the eager route at token "
+                                 f"{same}, where the top-2 gap is {gap} of the range")
+    for name, r in (("graph route (bursts of 8)", graph), ("eager route (single steps)", eager)):
+        w = r["window"] or {}
+        per_token = (f"; traced window: {w['busy_ms'] / w['tokens']:.4f} ms busy, idle share "
+                     f"{w['idle']:.4f}, {w['ops'] / w['tokens']:.1f} device ops a token"
+                     if w.get("tokens") else "; traced window: not measured")
+        log(f"serve {name}: decode-only {r['decode_tok_s']:.2f} tok/s over {r['steps']} decode "
+            f"steps, TTFT first request {r['ttft'][0]:.4f} s, others "
+            f"{min(r['ttft'][1:]):.4f}-{max(r['ttft'][1:]):.4f} s{per_token}")
+    del model
+    _free()
     return {n: counts[n] for n in used}
 
 
@@ -3237,10 +3424,45 @@ def phase_serve_moe() -> dict:
     torch.cuda.empty_cache()
     log(f"serve_moe: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before the load")
     ckpt = _moe_checkpoint(MOE_SERVE_LAYERS)
-    counts = _serve("serve_moe", ckpt, "auto", {}, "int8", _serve_prompts(QWEN3_30B["vocab_size"]))
+    model = _load_model("serve_moe", ckpt, "auto", "int8")
+    counts = _serve("serve_moe", ckpt, "auto", {}, "int8", _serve_prompts(QWEN3_30B["vocab_size"]),
+                    model=model)
     _require_launches("serve_moe", counts, used)
+    _wide_moe_step(model)
+    del model
+    _free()
     shutil.rmtree(ckpt)  # ~7.5 GB that no later phase reads
     return {n: counts[n] for n in used}
+
+
+def _wide_moe_step(model, rows: int = 12, steps: int = 2):
+    """A burst of `rows` rows through the generator's decoder at its
+    default max_batch_size, whose bucket (16) lies above the model's
+    graph_decode_rows (15): it runs eagerly at its exact rows, and every MoE
+    layer launches the selected-expert kernel (moe_gemm) each step, not the
+    grouped path."""
+    from exllamav3_tpu_torch.generator import Generator, GreedySampler
+    from exllamav3_tpu_torch.model import Cache, CacheSpec
+    from exllamav3_tpu_torch.modules.block_sparse_mlp import BlockSparseMLP
+
+    gen = Generator(model, Cache(model, CacheSpec(num_pages=rows + 1)), seed=0)
+    dec = gen.decoder
+    _reset_counts()
+    toks = dec.run(list(range(5, 5 + rows)), [0] * rows, [[1 + i] for i in range(rows)],
+                   list(range(rows)), [GreedySampler()] * rows, steps)
+    got = _read_counts()
+    _reset_counts()
+    layers = sum(isinstance(m, BlockSparseMLP) for top in model.modules for m in top.walk())
+    log(f"serve_moe: {rows} rows, {steps} steps through the decoder (max_batch_size "
+        f"{gen.max_batch_size}, graphs up to {dec.max_rows} rows): batch {dec.last.B}, "
+        f"{dec.graphs_captured} graphs; moe_gemm {got['moe_gemm']} launches for {layers} layers")
+    if not (dec.capture and dec.last.B == rows and dec.graphs_captured == 0
+            and got["moe_gemm"] == layers * steps and toks.shape == (steps, rows)
+            and ((toks >= 0) & (toks < model.config.vocab_size)).all()):
+        raise AssertionError(f"serve_moe: a {rows}-row decode step left the selected-expert "
+                             f"route: {got}")
+    del gen
+
 
 
 def _mla_checkpoint(layers: int) -> str:
@@ -3789,28 +4011,32 @@ def _draft_checkpoint() -> str:
 
 @contextlib.contextmanager
 def record_gaps():
-    """Inside, each plain decode step records, for every job it samples a
-    token for, the gap between the two largest logits it samples from over
-    their range, by job identifier, one entry per token in output order."""
+    """Inside, each decode step records, for every job it samples a token
+    for, the gap between the two largest logits it samples from over their
+    range, by job identifier, one entry per token in output order. It reads
+    each step's logits on the host, so it serves the eager single-step route
+    only (decode_burst=1, decode_graphs=False): a step's rows are its jobs in
+    order, then the padded rows, whose gaps are dropped."""
+    import exllamav3_tpu_torch.generator.decode_graph as dg_mod
     import exllamav3_tpu_torch.generator.generator as gen_mod
 
     gaps: dict = {}
     rows: list = []
-    sample, receive = gen_mod.batch_sample, gen_mod.Generator._receive_token
+    sample, receive = dg_mod.batch_sample, gen_mod.Generator._receive_token
 
     def sample_gaps(logits, *a, **kw):
         top2 = torch.topk(logits, 2, dim=-1).values
-        rows.extend(((top2[:, 0] - top2[:, 1]) / (logits.amax(-1) - logits.amin(-1))).tolist())
+        rows[:] = ((top2[:, 0] - top2[:, 1]) / (logits.amax(-1) - logits.amin(-1))).tolist()
         return sample(logits, *a, **kw)
 
     def receive_gap(self, job, tok, results):
         gaps.setdefault(job.identifier, []).append(rows.pop(0))
         return receive(self, job, tok, results)
-    gen_mod.batch_sample, gen_mod.Generator._receive_token = sample_gaps, receive_gap
+    dg_mod.batch_sample, gen_mod.Generator._receive_token = sample_gaps, receive_gap
     try:
         yield gaps
     finally:
-        gen_mod.batch_sample, gen_mod.Generator._receive_token = sample, receive
+        dg_mod.batch_sample, gen_mod.Generator._receive_token = sample, receive
 
 
 def _spec_run(tag: str, target, draft, prompts: list, plain: list, gaps: list,
@@ -3876,7 +4102,7 @@ def phase_serve_spec() -> dict:
         raise AssertionError("serve_spec: the draft's tied head is not its embedding")
     prompts = _serve_prompts()
     gen = Generator(target, Cache(target, CacheSpec(num_pages=72)), max_batch_size=8,
-                    max_chunk_size=2048, seed=0)
+                    max_chunk_size=2048, seed=0, decode_burst=1, decode_graphs=False)
     with record_gaps() as gaps:
         jobs, finished, dec_tok, dec_s, wall, counts = _drive("serve_spec plain", gen, prompts,
                                                               LLAMA8B["vocab_size"])
@@ -3884,8 +4110,8 @@ def phase_serve_spec() -> dict:
     gap_rows = [gaps[j.identifier] for j in jobs]
     log(f"serve_spec plain: {len(jobs) * 128} tokens in {wall:.3f} s "
         f"({len(jobs) * 128 / wall:.2f} tok/s overall), decode-only iterations {dec_tok} tokens "
-        f"in {dec_s:.3f} s ({dec_tok / max(dec_s, 1e-9):.2f} tok/s; each step also takes the "
-        f"top-2 gap of its logits)")
+        f"in {dec_s:.3f} s ({dec_tok / max(dec_s, 1e-9):.2f} tok/s; eager single steps, each "
+        f"also takes the top-2 gap of its logits)")
     _require_launches("serve_spec plain", counts, ("int8_matmul", "fused_mlp", "paged_attention",
                                                    "paged_attention_prefill"))
     del gen

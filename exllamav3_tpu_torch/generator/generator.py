@@ -7,9 +7,28 @@ step for every running job. Complete pages register by content hash so a
 later prompt with the same prefix reuses them. Every active job owns a slot
 row in the per-slot token counts that feed the repetition penalties.
 
-PyTorch runs eagerly, so the JAX package's shape buckets (which only limit
-recompiles) are gone: a step runs exactly the rows and tokens it has. Each
-block table carries one extra column pointing at scratch page 0. The cache
+Decode runs in bursts, as the JAX package's does: up to decode_burst steps
+(default 8, EXL3TPU_DECODE_BURST) run one after another on the device, each
+feeding its sampled ids to the next, and the host reads the (n, B) ids once
+(decode_graph.py). `_burst_n` caps a burst at prefill_burst (default 4,
+EXL3TPU_PREFILL_BURST) while a prompt is being prefilled, and at the next
+power of two of the smallest remaining budget while jobs wait for a slot. A
+burst first takes pages for every position it writes, all or none: under
+page pressure it gives them back and runs one step. A job that stops inside
+a burst (stop token, max_new_tokens) keeps its row stepping on the device;
+the host drops the tokens after its end and takes their counts back out of
+`token_counts`, so a burst's output and counts equal single steps'. The JAX
+package takes single steps where a job needs the host between steps
+(filters, banned strings, healing, return_logits); the port has none of
+those, so `_burst_n` never does. On the card a step of up to the model's
+`graph_decode_rows` rows in its batch bucket (any batch for the Llama
+family and Gemma; 15 for the MoE families and DeepSeek V1 / V2 / V3, so
+batches of up to 8 rows; none for DeepSeek-V4, whose attention reads the
+device on the host) runs as a captured CUDA graph, padded to the JAX
+package's batch buckets and a block table of a power of two of pages, one
+graph a shape; every other step (the CPU's, a wider batch's,
+decode_graphs=False) runs eagerly at its exact rows. Each block table carries one extra column pointing at scratch page 0.
+The cache
 may be quantized (CacheSpec.k_bits / v_bits / compand_a): `Model.forward`
 reads the widths from the cache's spec at every step, and prefix reuse works
 on page numbers, whatever arrays a layer's state holds.
@@ -43,9 +62,10 @@ speculative decoding over such a model raises.
 Not ported yet: MTP and DFlash drafting, filters (and with them the filtered
 half of the speculative verify), CFG, token healing, banned and stop
 strings, requeue (and the host stash of a requeued job's ring), the CPU page
-cache, defragmentation, decode bursts, speculative rewind of recurrent
-state, sequence parallelism, multihost and the tokenizer: this generator
-takes and returns token ids.
+cache, defragmentation, speculative rewind of recurrent state, sequence
+parallelism, multihost and the tokenizer: this generator takes and returns
+token ids. Prefill chunks and the speculative verify and draft steps run
+eagerly.
 """
 from __future__ import annotations
 
@@ -56,7 +76,8 @@ import torch
 
 from ..constants import PAGE_SIZE
 from ..model.cache import Cache, CacheSpec
-from .batch_sampler import BatchSamplerParams, batch_sample
+from ..util.env import env_int
+from .decode_graph import DecodeGraph
 from .job import Job
 from .ngram import SuffixAutomaton
 from .pagetable import PageTable, _page_hash
@@ -67,7 +88,8 @@ DRAFT_CHUNK = 128  # tokens a draft-cache catch-up forward takes at most
 class Generator:
     def __init__(self, model, cache, max_batch_size: int = 32, max_chunk_size: int = 2048,
                  seed: int = 0, draft_model=None, draft_cache=None, num_draft_tokens: int = 4,
-                 use_ngram_draft: bool = False):
+                 use_ngram_draft: bool = False, decode_burst: int = 8,
+                 decode_graphs: bool = True):
         if cache.spec.layout != "paged":
             raise ValueError("Generator requires a paged cache")
         if draft_model is not None and any(draft_model.caps.get(c)
@@ -105,6 +127,18 @@ class Generator:
                                         dtype=torch.int32, device=self.device)
         self.rng = torch.Generator(device=self.device)
         self.rng.manual_seed(seed)
+        # decode bursts: up to decode_burst steps a host round trip, at most
+        # prefill_burst while a prompt is being prefilled (as the JAX
+        # package: an argument and EXL3TPU_DECODE_BURST, EXL3TPU_PREFILL_BURST)
+        self.decode_burst = max(1, env_int("EXL3TPU_DECODE_BURST", decode_burst))
+        self.prefill_burst = max(1, env_int("EXL3TPU_PREFILL_BURST", 4))
+        # captured on the card at up to the model's graph_decode_rows rows;
+        # eager elsewhere, and where decode_graphs is False
+        rows = model.graph_decode_rows
+        self.decoder = DecodeGraph(
+            model, cache, self.token_counts, self.rng, max_batch_size, self.decode_burst,
+            capture=decode_graphs and self.device.type == "cuda" and rows != 0,
+            state_slots=self.has_recurrent, max_rows=rows)
         # speculative decoding: the draft model's linear cache holds one row
         # per job slot, as long as the JAX package makes it
         self.draft_model = draft_model
@@ -284,25 +318,72 @@ class Generator:
                 job.pages.append(newp)
                 job.page_hashes.append(None)
 
+    def _burst_n(self, jobs: list) -> int:
+        """Steps of this iteration's decode burst (the JAX package's
+        _burst_n): decode_burst, at most prefill_burst while a prompt is
+        being prefilled, and while jobs wait for a slot at most the next
+        power of two of the smallest remaining budget, so that a job which
+        ends inside the burst frees its slot soon. The JAX package's
+        _needs_single_step (filters, banned strings, return_logits, pending
+        healing) is always false here: the port has none of them."""
+        n = self.decode_burst
+        if n <= 1:
+            return 1
+        if any(j.status == "prefill" for j in self.active):
+            n = min(n, self.prefill_burst)
+        if self.pending:
+            rem = min(j.max_new_tokens - len(j.new_tokens) for j in jobs)
+            if rem < n:
+                n = min(n, 1 << max(rem - 1, 0).bit_length())
+        return n
+
+    def _grow_window(self, jobs: list, extra: int) -> bool:
+        """Pages for `extra` positions past each job's next one, all or none:
+        if the page table runs out, the pages taken here go back and the
+        result is False."""
+        grown: list = []
+        for job in jobs:
+            while (job.seq_len + extra + PAGE_SIZE - 1) // PAGE_SIZE > len(job.pages):
+                newp = self.pagetable.extend_sequence()
+                if newp is None:
+                    for j in reversed(grown):
+                        self.pagetable.release_sequence([j.pages.pop()])
+                        j.page_hashes.pop()
+                    return False
+                job.pages.append(newp)
+                job.page_hashes.append(None)
+                grown.append(job)
+        return True
+
     def _decode_batch(self, jobs: list, results: list):
+        n = self._burst_n(jobs)
         self._grow_pages(jobs, 0, results)
         if not jobs:
             return
-        B = len(jobs)
-        ids = np.array([[j.new_tokens[-1] if j.new_tokens else j.input_ids[-1]] for j in jobs],
-                       np.int64)
-        seqlens = np.array([j.seq_len - 1 for j in jobs], np.int32)
-        slots = torch.tensor([self.job_slots[j] for j in jobs], device=self.device)
-        logits = self.model.forward(ids, self.cache, seqlens[:, None], seqlens,
-                                    self._block_tables([j.pages for j in jobs]),
-                                    state_slots=self._state_slots(jobs))
-        sp = BatchSamplerParams.from_samplers([j.sampler for j in jobs]).as_device(self.device)
-        toks = batch_sample(logits[:, -1], sp, self.token_counts[slots], self.rng)
-        self.token_counts.index_put_((slots, toks),
-                                     torch.ones(B, dtype=torch.int32, device=self.device),
-                                     accumulate=True)
-        for job, tok in zip(jobs, toks.tolist()):
-            self._receive_token(job, tok, results)
+        # a burst writes positions seq_len - 1 .. seq_len + n - 2 of every row;
+        # under page pressure one step, rather than finishing jobs for pages
+        # they may not use
+        if n > 1 and not self._grow_window(jobs, n - 1):
+            n = 1
+        slots = [self.job_slots[j] for j in jobs]
+        toks = self.decoder.run([j.new_tokens[-1] if j.new_tokens else j.input_ids[-1]
+                                 for j in jobs], [j.seq_len - 1 for j in jobs],
+                                [j.pages for j in jobs], slots, [j.sampler for j in jobs], n)
+        # tokens in step order, so that a page registers only once a forward
+        # wrote its last slot; a job that ended at an earlier step of the
+        # burst drops the rest, and their counts come back out
+        dropped: list = []
+        for s in range(n):
+            for i, job in enumerate(jobs):
+                if job.status == "running":
+                    self._receive_token(job, int(toks[s, i]), results)
+                else:
+                    dropped.append((slots[i], int(toks[s, i])))
+        if dropped:
+            rows, cols = (torch.tensor(x, device=self.device) for x in zip(*dropped))
+            self.token_counts.index_put_(
+                (rows, cols), torch.full((len(dropped),), -1, dtype=torch.int32,
+                                         device=self.device), accumulate=True)
 
     # -- speculative decoding -------------------------------------------------------
 

@@ -4,7 +4,8 @@
 `forward` is the step over a cache of either layout (the JAX package's
 step_fn: "paged" through block tables, "dense" over a linear cache) and
 `forward_simple` the cacheless full forward. PyTorch runs eagerly, so there
-is no per-shape compile cache.
+is no per-shape compile cache; the generator captures its decode step
+(generator/decode_graph.py) at up to `graph_decode_rows` rows.
 """
 from __future__ import annotations
 
@@ -67,6 +68,9 @@ def select_linear_mode(config, hbm_bytes: int | None, reserve_frac: float = 0.20
 
 
 def _as_tensor(a, device, dtype=torch.int32) -> torch.Tensor | None:
+    """`a` as a tensor on `device`: a tensor already there in `dtype` is
+    returned as it is, with no copy (a captured decode step hands its static
+    tensors through); numpy input is copied over."""
     if a is None:
         return None
     if isinstance(a, torch.Tensor):
@@ -81,6 +85,14 @@ class Model:
         self.modules: list[Module] = []
         self.params: dict | None = None
         self.caps: dict = {}  # capabilities an architecture declares (JAX: dflash_draft, mtp_draft)
+
+    @property
+    def graph_decode_rows(self) -> int | None:
+        """The most rows of a decode step that the generator may capture as a
+        CUDA graph: the least that any module allows (Module.graph_decode_rows;
+        None: any, 0: none)."""
+        return min((m.graph_decode_rows for top in self.modules for m in top.walk()
+                    if m.graph_decode_rows is not None), default=None)
 
     @property
     def root(self) -> Module:

@@ -46,6 +46,10 @@ from .module import ForwardCtx, Module
 from ..ops.moe_gemm import _pick_bi, selected_expert_mlp, silu_mul
 from ..util.env import moe_backend
 
+# the fewest rows that take the grouped path, whose group sizes come to the
+# host (graph_decode_rows)
+GROUPED_MIN_ROWS = 16
+
 
 def top_k(x: torch.Tensor, k: int):
     """(values, indices) of the k largest entries of the last axis; equal
@@ -216,7 +220,7 @@ class BlockSparseMLP(Module):
             weights = self.route_hash(logits, p["tid2eid"][ctx.input_ids.reshape(-1).long()])
         else:
             weights = self.route(logits, params[self.router.key].get("e_bias"))
-        if T * self.top_k * 2 < T * self.num_experts and T >= 16:
+        if T * self.top_k * 2 < T * self.num_experts and T >= GROUPED_MIN_ROWS:
             out = self._grouped_experts(xt, weights, p)
         elif self._use_selected_kernel(T):
             out = self._selected_experts(xt, weights, p)
@@ -226,6 +230,12 @@ class BlockSparseMLP(Module):
             out = out + self.shared_experts.forward(xt, params, ctx).to(torch.float32)
         out = out.reshape(*shape[:-1], h)
         return out.to(self.out_dtype or x.dtype)
+
+    @property
+    def graph_decode_rows(self) -> int | None:
+        """Below GROUPED_MIN_ROWS where the grouped path can be taken: its
+        group sizes come to the host."""
+        return GROUPED_MIN_ROWS - 1 if self.top_k * 2 < self.num_experts else None
 
     def _use_selected_kernel(self, T: int) -> bool:
         return (moe_backend() != "dense" and T <= 16

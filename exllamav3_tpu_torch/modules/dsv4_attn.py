@@ -150,6 +150,10 @@ class DSV4Attention(Module):
     # the compressor state advances destructively: stable slots, no prefix
     # reuse, no speculative rewind
     is_recurrent = True
+    # a decode step picks the compressed entries it keeps with a nonzero
+    # (`keep.nonzero` in _attend_dense), which reads the device on the host: no
+    # captured decode step
+    graph_decode_rows = 0
 
     def __init__(self, config, key: str, layer_idx: int, layer_type: str, hidden_size: int,
                  num_q_heads: int, head_dim: int, rope_head_dim: int, q_lora_rank: int,

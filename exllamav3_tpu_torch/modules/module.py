@@ -38,6 +38,11 @@ class ForwardCtx:
 
 
 class Module:
+    # the most rows a decode step may have for this module to read nothing
+    # of the device on the host in it, so that the step can be captured as a
+    # CUDA graph (None: any; 0: none)
+    graph_decode_rows: int | None = None
+
     def __init__(self, config, key: str):
         self.config = config
         self.key = key

@@ -2,7 +2,10 @@
 only when asked for. There is no silent fallback. Also what the kernels'
 launch sizing reads of a card (its SM count), the arrival counters that
 the kernels which merge their splits in the launch share, and the scratch
-buffer of the kernels whose workspace lives only within their launches."""
+buffer of the kernels whose workspace lives only within their launches.
+A captured CUDA graph keeps the addresses of those two buffers, so it holds
+them (`workspace_buffers`) for as long as it lives: a later call that grows
+a buffer replaces it in the table here and leaves the held one alive."""
 from __future__ import annotations
 
 import functools
@@ -65,3 +68,12 @@ def scratch(device, nbytes: int) -> torch.Tensor:
         buf = torch.empty(max(nbytes, 1 << 20), dtype=torch.uint8, device=device)
         _SCRATCH[device] = buf
     return buf
+
+
+def workspace_buffers() -> list:
+    """The arrival counters and the scratch buffers that calls use now, on
+    every device. A captured graph that launched kernels over them keeps
+    this list: when a later call grows either, the table here takes a new
+    buffer and the graph's old one stays alive, so a replay never writes
+    into memory that was handed to another tensor."""
+    return list(_COUNTERS.values()) + list(_SCRATCH.values())

@@ -150,20 +150,25 @@ def test_repetition_penalty_statistics():
         assert 0.5 * np.abs(emp - expect).sum() < 0.02
 
 
+@pytest.mark.parametrize("decode_burst", [1, 8])
 @pytest.mark.parametrize("a_new,reused", [(1, 0), (2, 256)])
-def test_prefix_reuse_waits_for_the_written_slot(tmp_path, a_new, reused):
+def test_prefix_reuse_waits_for_the_written_slot(tmp_path, a_new, reused, decode_burst):
     """Job A (255 prompt tokens) completes page 0 with its first decoded
     token, whose K/V only the next forward writes. With one new token A ends
     there, so page 0 must not be offered for reuse; with two, a forward wrote
     it and job B (A's 256 tokens and 40 more) reuses it. Either way B's 8
-    greedy tokens equal B's tokens on a fresh generator, exactly."""
+    greedy tokens equal B's tokens on a fresh generator, exactly. In a burst
+    the tokens are taken in step order, so the same holds: A's row steps on
+    past its end, but a page registers only once a step wrote its last
+    slot."""
     d = write_tiny_llama_exl3(str(tmp_path / "m"), seed=11)
     pm = Model.from_config(Config.from_directory(d, infer_params=InferParams(linear_mode="bf16")),
                            device="cpu")
     pm.load()
 
     def gen():
-        return Generator(pm, Cache(pm, CacheSpec(num_pages=8)), max_batch_size=4)
+        return Generator(pm, Cache(pm, CacheSpec(num_pages=8)), max_batch_size=4,
+                         decode_burst=decode_burst)
 
     def run(g, ids, n):
         job = Job(ids, max_new_tokens=n, sampler=GreedySampler())

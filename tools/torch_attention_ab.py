@@ -11,7 +11,10 @@ of twenty-three runs (`--run`):
   tree (`fused` linears over a (4, 4) paged cache): decode-only tok/s, the
   traced window's ms a step (`step_ms`, the host's clock under the
   profiler), device busy ms a traced step, the window's idle share and
-  device operations a step, as that phase prints them;
+  device operations a step, as that phase prints them, and busy ms and
+  device operations a token (`busy_ms_token`, `ops_token`: a traced
+  iteration yields a burst of up to 8 tokens a job where the tree's
+  generator bursts, 1 where it does not);
 - `serve`: `chip_smoke.py --phases build,serve`, the int8 main path over the
   bf16 paged cache (row 3 32 times a decode step), read as `serve_capacity`;
 - `ring`: the ring decode kernel (row 8) at Gemma-3-27B decode, batch 8, q
@@ -439,7 +442,7 @@ SERVE = (r"^{}: 8 requests finished.*decode-only iterations \d+ tokens in [\d.]+
          r"\(([\d.]+) tok/s\)")  # formatted with the phase's tag
 PROFILE = re.compile(r"^profile: (\d+) decode steps \(batch 8\), window ([\d.]+) ms, device busy "
                      r"([\d.]+) ms \([\d.]+ of the window, idle ([\d.]+)\), ([\d.]+) device ops "
-                     r"per step", re.M)
+                     r"per step(?:, (\d+) tokens:)?", re.M)  # a tree without bursts: 8 tokens a step
 FIRST = (r"^{}: request prompt=\d+ cached_tokens=\d+ ttft_s=([\d.]+) "
          r"prefill_s=([\d.]+)")  # the first request's line, formatted with the phase's tag
 LINEAR_PREFILL = re.compile(r"^linear_decode int8: prefill \d+ tokens in [\d.]+ ms \(best of 3\): "
@@ -481,11 +484,14 @@ def run(tree: str, what: str, smoke: str | None = None) -> tuple[dict | None, st
         res = {"prefill_tok_s": float(LINEAR_PREFILL.search(out.stdout).group(1)),
                "decode_b8_tok_s": float(LINEAR_DECODE.search(out.stdout).group(1))}
     else:
-        steps, window, busy, idle, ops = PROFILE.search(out.stdout).groups()
+        steps, window, busy, idle, ops, tokens = PROFILE.search(out.stdout).groups()
+        tokens = int(tokens) if tokens else 8 * int(steps)
         ttft, prefill = re.search(FIRST.format(tag), out.stdout, re.M).groups()
         res = {"tok_s": float(re.search(SERVE.format(tag), out.stdout, re.M).group(1)),
                "step_ms": float(window) / int(steps), "busy_ms": float(busy) / int(steps),
                "idle": float(idle), "ops": float(ops),
+               "busy_ms_token": float(busy) / tokens,
+               "ops_token": float(ops) * int(steps) / tokens,
                "first_ttft_s": float(ttft), "first_prefill_s": float(prefill)}
     return res, " ".join(f"{k}={v:.4f}" for k, v in res.items())
 
